@@ -1,0 +1,1 @@
+"""apps of the PyTorch port (counterpart of sdr_pmr446_tpu.apps)."""

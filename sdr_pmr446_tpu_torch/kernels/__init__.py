@@ -1,0 +1,1 @@
+"""kernels of the PyTorch port (counterpart of sdr_pmr446_tpu.kernels)."""

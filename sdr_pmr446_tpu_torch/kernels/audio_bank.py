@@ -1,0 +1,230 @@
+"""K2: the audio filter bank + lp DC blocker + CTCSS DFT, CUDA kernel and plain version.
+
+Replaces the TPU kernel
+sdr_pmr446_tpu/kernels/audio_bank.py::PallasAudioBank.apply_dc_ctcss
+(body ``_body_dc_ctcss``, tables ``_ctcss_dft_consts`` / ``_kernel_matrix``).
+For all 16 channels of one block of discriminator output it computes
+
+  audio = gain * (deemph * [LP] * HP377)(demod)
+  lp    = (delta_188 - HP)(demod), then the one-pole DC blocker on lp
+
+with the cascaded FIRs composed in float64 on the host (``_kernel_columns``,
+re-derived here because the JAX module imports jax).  For the channel the
+FSM selected in each sub-chunk k (``sel[k]``, from fsm_phase_a) it also
+forms the 38 CTCSS tone sums over global block positions p = k*ns + i:
+
+  raw_mem[k, t] = sum_{i < ns}    lpdc[sel[k], p] e^{-j w_t p}
+  raw_pre[k, t] = sum_{i <= b[k]} lpdc[sel[k], p] e^{-j w_t p}
+
+which scanner/fsm.raw_sums_to_ctcss turns into window sums.  w_t p reaches
+thousands of radians, where an f32 sin loses digits; both versions reduce
+the phase exactly in integers instead (every CTCSS tone is a whole number
+of 0.1 Hz, so w_t p = 2 pi ((10 f_t p) mod 125000) / 125000).
+
+Carried state: the last H (512, or 640 for lowpass + fir_deemph) demod
+samples per channel and the lp DC blocker's (x[-1], y[-1]) per channel.
+
+The CUDA version (csrc/audio_bank.cu) runs five launches: the composed FIR
+pair over a shared-memory window of [hist | demod], the chunk-local lp DC
+response, the chunk-carry scan, the CTCSS sums (one block per (k, tone),
+DC fix-up fused into the load) and the state tail.  Intermediates in
+device memory: lp and its chunk-local DC response (2 x 4 B per channel
+sample).  What bounds it: the FIRs are ~800 MACs per channel sample
+(~1.6 GFLOP per K=40 block) — compute, and small for the card; the CTCSS
+pass is 38 sincos per selected-channel sample.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from sdr_pmr446_tpu import config as C
+from sdr_pmr446_tpu.taps import design as D
+from sdr_pmr446_tpu_torch.kernels import build
+from sdr_pmr446_tpu_torch.kernels.duo import DC_L, dc_powers, scan_constants
+from sdr_pmr446_tpu_torch.ops import fir, iir
+
+NCH = C.NUM_CHANNELS
+LANES = 128
+#: longest composed FIR the CUDA kernel's shared-memory window takes
+#: (csrc/audio_bank.cu MAX_TAPS)
+MAX_TAPS = 640
+#: CTCSS phase period in units of 0.1 Hz * sample: 10 * audio rate
+PHASE_PERIOD = 10 * C.AUDIO_SAMPLERATE
+_P = 1.0 - C.DC_BLOCK_ALPHA
+_G = (1.0 + _P) / 2.0
+
+#: kernel launches of the CUDA version (one per call); the plain version
+#: never counts
+LAUNCHES = 0
+
+
+class AudioOut(NamedTuple):
+    hist: torch.Tensor      # f32 [16, H]
+    dc_x: torch.Tensor      # f32 [16]  lp x[-1]
+    dc_y: torch.Tensor      # f32 [16]  lp DC blocker y[-1]
+    audio: torch.Tensor     # f32 [16, F]
+    raw_pre: torch.Tensor   # c64 [K, 38]
+    raw_mem: torch.Tensor   # c64 [K, 38]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_columns(lowpass: bool, fir_deemph: bool):
+    """(audio_fir, lp_fir) float64 composed kernels (bit-equal to the JAX
+    package's, test-enforced)."""
+    hp = D.ctcss_hp_taps()
+    de = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
+    audio = np.convolve(de, hp)
+    if lowpass:
+        audio = np.convolve(D.audio_lp_taps(), audio)
+    lp = -hp.copy()
+    lp[C.CTCSS_DELAY] += 1.0            # delta_188 - hp
+    return audio, lp
+
+
+def hist_len(lowpass: bool, fir_deemph: bool) -> int:
+    """Per-channel demod history: 512, or 640 when the composed audio FIR
+    outgrows it (the JAX audio bank's rule)."""
+    audio, _ = _kernel_columns(lowpass, fir_deemph)
+    return max(4, -(-(audio.shape[0] + 1) // LANES)) * LANES
+
+
+def tone_units() -> np.ndarray:
+    """int32 [38]: each CTCSS tone in units of 0.1 Hz (exact)."""
+    f10 = np.rint(np.asarray(C.CTCSS_FREQS) * 10.0)
+    assert np.allclose(f10, np.asarray(C.CTCSS_FREQS) * 10.0, rtol=0,
+                       atol=1e-9)
+    return f10.astype(np.int32)
+
+
+def ctcss_sums_plain(lpdc: torch.Tensor, b_arr: torch.Tensor,
+                     sel: torch.Tensor, ns: int, f10: torch.Tensor):
+    """(raw_pre, raw_mem) c64 [K, 38] of the selected channels (plain)."""
+    nch, f = lpdc.shape
+    k = f // ns
+    dev = lpdc.device
+    n = torch.arange(f, device=dev, dtype=torch.int64)
+    r = (f10.long()[:, None] * n[None, :]) % PHASE_PERIOD      # [38, F]
+    ang = r.to(torch.float64) * (2.0 * math.pi / PHASE_PERIOD)
+    cos_t = torch.cos(ang).to(torch.float32).reshape(-1, k, ns)
+    sin_t = torch.sin(ang).to(torch.float32).reshape(-1, k, ns)
+    ks = torch.arange(k, device=dev)
+    x = lpdc.reshape(nch, k, ns)[sel.long(), ks]                # [K, ns]
+    pre = torch.arange(ns, device=dev)[None, :] <= b_arr[:, None]
+    xp = torch.where(pre, x, torch.zeros_like(x))
+
+    def sums(v):
+        re = torch.einsum("ki,tki->kt", v, cos_t)
+        im = -torch.einsum("ki,tki->kt", v, sin_t)
+        return torch.complex(re, im)
+
+    return sums(xp), sums(x)
+
+
+class AudioBank(nn.Module):
+    """K2.  ``module(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)`` ->
+    AudioOut: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors.  ``gain`` is a 0-d f32 tensor (read on device, never on the
+    host); b_arr, sel are i32 [K] from the FSM schedule."""
+
+    def __init__(self, lowpass: bool = False, fir_deemph: bool = False,
+                 device="cpu"):
+        super().__init__()
+        audio, lp = _kernel_columns(lowpass, fir_deemph)
+        self.hist = hist_len(lowpass, fir_deemph)
+        assert max(audio.shape[0], lp.shape[0]) <= min(MAX_TAPS, self.hist)
+        self.register_buffer("taps_audio", torch.as_tensor(
+            audio.astype(np.float32), device=device))
+        self.register_buffer("taps_lp", torch.as_tensor(
+            lp.astype(np.float32), device=device))
+        self.register_buffer("pj", torch.as_tensor(dc_powers(), device=device))
+        self.register_buffer("f10", torch.as_tensor(tone_units(),
+                                                    device=device))
+
+    def forward(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
+                ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
+        if demod.device.type == "cuda":
+            return self.kernel(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)
+        if demod.device.type == "cpu":
+            return self.plain(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)
+        raise ValueError(f"no audio bank for device {demod.device}")
+
+    @staticmethod
+    def _k(demod, ns):
+        f = demod.shape[-1]
+        if demod.dim() != 2 or demod.shape[0] != NCH or f % ns:
+            raise ValueError(f"demod must be [16, K*{ns}], got "
+                             f"{tuple(demod.shape)}")
+        return f, f // ns
+
+    # ------------------------------------------------------------ plain
+    def plain(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
+              ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
+        """The same function in plain PyTorch ops (any device)."""
+        f, _ = self._k(demod, ns)
+        h = hist.shape[-1]
+        la, ll = self.taps_audio.shape[0], self.taps_lp.shape[0]
+        _, audio = fir.fir_apply(hist[:, h - (la - 1):], demod,
+                                 self.taps_audio)
+        _, lp = fir.fir_apply(hist[:, h - (ll - 1):], demod, self.taps_lp)
+        (ndx, ndy), lpdc = iir.dc_blocker_apply((dc_x, dc_y), lp,
+                                                C.DC_BLOCK_ALPHA)
+        raw_pre, raw_mem = ctcss_sums_plain(lpdc, b_arr, sel, ns, self.f10)
+        new_hist = torch.cat([hist, demod], dim=-1)[:, f:].contiguous()
+        return AudioOut(new_hist, ndx.contiguous(), ndy.contiguous(),
+                        audio * gain, raw_pre, raw_mem)
+
+    # ------------------------------------------------------------- cuda
+    def kernel(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
+             ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
+        """Launch csrc/audio_bank.cu on the current stream."""
+        global LAUNCHES
+        f, k = self._k(demod, ns)
+        dev = demod.device
+        h = self.hist
+        build.require(demod, "demod", torch.float32, (NCH, f), dev)
+        build.require(hist, "hist", torch.float32, (NCH, h), dev)
+        build.require(dc_x, "dc_x", torch.float32, (NCH,), dev)
+        build.require(dc_y, "dc_y", torch.float32, (NCH,), dev)
+        build.require(gain, "gain", torch.float32, (), dev)
+        build.require(b_arr, "b_arr", torch.int32, (k,), dev)
+        build.require(sel, "sel", torch.int32, (k,), dev)
+        for name in ("taps_audio", "taps_lp", "pj"):
+            build.require(getattr(self, name), name, torch.float32, None, dev)
+        build.require(self.f10, "f10", torch.int32, None, dev)
+        chunks = -(-f // DC_L)
+        p_l, p_seg, seg = scan_constants(chunks)
+        f32 = dict(dtype=torch.float32, device=dev)
+        c64 = dict(dtype=torch.complex64, device=dev)
+        lp = torch.empty((NCH, f), **f32)
+        lplocal = torch.empty((NCH, f), **f32)
+        yend = torch.empty((NCH, chunks), **f32)
+        carry = torch.empty((NCH, chunks), **f32)
+        out = AudioOut(torch.empty((NCH, h), **f32), torch.empty(NCH, **f32),
+                       torch.empty(NCH, **f32), torch.empty((NCH, f), **f32),
+                       torch.empty((k, C.CTCSS_NUM_FREQS), **c64),
+                       torch.empty((k, C.CTCSS_NUM_FREQS), **c64))
+        lib = build.library()
+        code = lib.audio_bank_run(
+            demod.data_ptr(), f, hist.data_ptr(), h,
+            dc_x.data_ptr(), dc_y.data_ptr(), gain.data_ptr(),
+            b_arr.data_ptr(), sel.data_ptr(), k, ns,
+            self.taps_audio.data_ptr(), self.taps_audio.shape[0],
+            self.taps_lp.data_ptr(), self.taps_lp.shape[0],
+            self.pj.data_ptr(), _P, _G, p_l, p_seg, seg,
+            self.f10.data_ptr(),
+            lp.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
+            carry.data_ptr(),
+            out.audio.data_ptr(), out.hist.data_ptr(), out.dc_x.data_ptr(),
+            out.dc_y.data_ptr(), out.raw_pre.data_ptr(),
+            out.raw_mem.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(code, "audio_bank_run")
+        LAUNCHES += 1
+        return out

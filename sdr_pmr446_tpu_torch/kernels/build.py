@@ -1,0 +1,150 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The kernels have a plain C interface and are compiled by ``nvcc`` into one
+shared library, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/libsdr_kernels_<hash>.so csrc/*.cu
+
+The library name carries a hash of the sources and flags, so a changed
+source rebuilds at first use and an unchanged one is reused.  The build
+goes to ``sdr_pmr446_tpu_torch/_build/`` (git-ignored); it needs the CUDA
+toolkit and nothing else, and runs only when a CUDA tensor reaches a
+kernel wrapper — importing this module builds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                           "-fPIC", "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
+_LL = ctypes.c_longlong
+
+#: C entry points and their argument types (pointers and the stream as
+#: c_void_p, so ctypes never truncates a 64-bit address)
+SIGNATURES = {
+    "duo_run": [
+        _I, _P, _LL,                      # fmt, wire, n_samples
+        _P, _P, _P, _I, _P, _P, _P,       # dc_x, dc_y, fhist, H, phist, parity, prev
+        _P, _P, _P, _P,                   # kc, ck_re, ck_im, pj
+        _D, _D, _D, _D, _I, _F, _F,       # p, g, pL, pSeg, seg, inv_cu8, dscale
+        _I, _I,                           # K, ns
+        _P, _P, _P, _P, _P,               # ylocal, yend, carry, band, chan
+        _P, _P, _P, _P, _P, _P, _P,       # outputs
+        _P,                               # stream
+    ],
+    "audio_bank_run": [
+        _P, _I, _P, _I,                   # demod, F, hist, H
+        _P, _P, _P, _P, _P, _I, _I,       # dc_x, dc_y, gain, b_arr, sel, K, ns
+        _P, _I, _P, _I,                   # audio taps, La, lp taps, Ll
+        _P, _D, _D, _D, _D, _I, _P,       # pj, p, g, pL, pSeg, seg, f10
+        _P, _P, _P, _P,                   # lp, lplocal, yend, carry
+        _P, _P, _P, _P, _P, _P,           # outputs
+        _P,                               # stream
+    ],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the hashed library unless it already exists.
+
+    Returns the library path.  The compile writes to a temporary name and
+    renames it into place, so concurrent builders never load a partial file.
+    """
+    lib = BUILD_DIR / f"libsdr_kernels_{source_hash()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = ([nvcc_path()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+           + ["-o", tmp] + [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))])
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib)
+    if verbose:
+        print(f"built {lib} in {time.perf_counter() - t0:.1f} s\n{res.stderr}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call), argtypes set."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sdr_error_string.argtypes = [ctypes.c_int]
+    lib.sdr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def require(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` on ``device``
+    (and of ``shape`` unless that is None) — checked before any pointer
+    reaches a kernel."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = library().sdr_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (counterpart of sdr_pmr446_tpu.ops)."""

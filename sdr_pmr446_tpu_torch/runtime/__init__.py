@@ -1,0 +1,1 @@
+"""runtime of the PyTorch port (counterpart of sdr_pmr446_tpu.runtime)."""

@@ -1,0 +1,114 @@
+"""Carried streaming state of the scanner chain (PyTorch).
+
+Counterpart of sdr_pmr446_tpu/runtime/state.py.  ``ScannerState`` has the
+JAX field names, shapes and dtypes of the kernel engine's state
+(``ScannerChain(use_pallas=True).init_state()`` for the same input format
+and flags), so a JAX state converted to numpy loads into the port and back
+unchanged, and the npz checkpoint format is the same file format.  The
+four FIR histories of the JAX op path (hp/delay/deemph/audio-lp) stay zero
+here, as they do on the JAX kernel engine.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from sdr_pmr446_tpu import config as C
+
+
+class ScannerState(NamedTuple):
+    # front end (input rate)
+    dc_x: torch.Tensor          # c64 []     IQ DC blocker x[-1]
+    dc_y: torch.Tensor          # c64 []     IQ DC blocker y[-1]
+    resamp_hist: torch.Tensor   # c64 [384|512] DC-blocked front history
+    # band rate (200 kHz)
+    pfb_hist: torch.Tensor      # c64 [400]  channelizer history
+    frame_parity: torch.Tensor  # i32 []     global PFB frame count mod 2
+    # channel rate (12.5 kHz), per channel
+    demod_prev: torch.Tensor    # c64 [16]   discriminator previous sample
+    hp_hist: torch.Tensor       # f32 [16, 376]   (op path only: zero)
+    delay_hist: torch.Tensor    # f32 [16, 188]   (op path only: zero)
+    lp_dc_x: torch.Tensor       # f32 [16]   CTCSS-branch DC blocker
+    lp_dc_y: torch.Tensor       # f32 [16]
+    deemph_hist: torch.Tensor   # f32 [16, deemph_taps-1] (op path: zero)
+    audio_lp_hist: torch.Tensor  # f32 [16, 102]  (op path only: zero)
+    audio_hist: torch.Tensor    # f32 [16, 512|640] raw-demod history
+    # control (squelch FSM)
+    fsm_state: torch.Tensor     # i32 []     0=scanning 1=tuned
+    active_chan: torch.Tensor   # i32 []     -1..15
+    rssi: torch.Tensor          # f32 []     last relative RSSI
+    # CTCSS detector
+    ct_count: torch.Tensor      # i32 []     samples into the 2441-window
+    ct_carry: torch.Tensor      # c64 [38]   partial windowed-DFT sums
+    ct_detected: torch.Tensor   # bool []
+    ct_max_idx: torch.Tensor    # i32 []
+    ct_freq: torch.Tensor       # f32 []     displayed CTCSS frequency
+    wf_hist: torch.Tensor       # c64 [0]    waterfall history (not ported)
+    wf_cnt: torch.Tensor        # i32 []
+
+
+def init_scanner_state(resamp_hist_len: int, pfb_hist_len: int,
+                       deemph_hist_len: int, audio_hist_len: int,
+                       device) -> ScannerState:
+    nch = C.NUM_CHANNELS
+    c64 = dict(dtype=torch.complex64, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return ScannerState(
+        dc_x=torch.zeros((), **c64),
+        dc_y=torch.zeros((), **c64),
+        resamp_hist=torch.zeros(resamp_hist_len, **c64),
+        pfb_hist=torch.zeros(pfb_hist_len, **c64),
+        frame_parity=torch.zeros((), **i32),
+        demod_prev=torch.zeros(nch, **c64),
+        hp_hist=torch.zeros((nch, C.HP_AUDIO_FILT_TAPS - 1), **f32),
+        delay_hist=torch.zeros((nch, C.CTCSS_DELAY), **f32),
+        lp_dc_x=torch.zeros(nch, **f32),
+        lp_dc_y=torch.zeros(nch, **f32),
+        deemph_hist=torch.zeros((nch, deemph_hist_len), **f32),
+        audio_lp_hist=torch.zeros((nch, C.LP_AUDIO_FILT_TAPS - 1), **f32),
+        audio_hist=torch.zeros((nch, audio_hist_len), **f32),
+        fsm_state=torch.zeros((), **i32),
+        active_chan=torch.full((), -1, **i32),
+        rssi=torch.zeros((), **f32),
+        ct_count=torch.zeros((), **i32),
+        ct_carry=torch.zeros(C.CTCSS_NUM_FREQS, **c64),
+        ct_detected=torch.zeros((), dtype=torch.bool, device=device),
+        ct_max_idx=torch.zeros((), **i32),
+        ct_freq=torch.full((), -1.0, **f32),
+        wf_hist=torch.zeros(0, **c64),
+        wf_cnt=torch.zeros((), **i32),
+    )
+
+
+def state_to_numpy(state: ScannerState) -> list[np.ndarray]:
+    """The state's fields as numpy arrays, in field order."""
+    return [v.detach().cpu().numpy() for v in state]
+
+
+def state_from_numpy(values, device) -> ScannerState:
+    """Build a state from numpy arrays in field order (a JAX state's
+    ``[np.asarray(v) for v in state]`` loads unchanged)."""
+    values = list(values)
+    if len(values) != len(ScannerState._fields):
+        raise ValueError(f"expected {len(ScannerState._fields)} fields, "
+                         f"got {len(values)}")
+    return ScannerState(*(torch.as_tensor(np.array(v, copy=True),
+                                          device=device) for v in values))
+
+
+def save_state(path: str, block_index: int, state: ScannerState) -> None:
+    """Checkpoint (block index, state) as .npz in the JAX package's format
+    (keys ``block_index`` and ``s0`` .. ``s22`` in field order)."""
+    arrs = {f"s{i}": v for i, v in enumerate(state_to_numpy(state))}
+    np.savez(path, block_index=np.int64(block_index), **arrs)
+
+
+def load_state(path: str, device) -> tuple[int, ScannerState]:
+    """Read a checkpoint written by ``save_state`` here or in the JAX package."""
+    with np.load(path) as z:
+        vals = [z[f"s{i}"] for i in range(len(ScannerState._fields))]
+        return int(z["block_index"]), state_from_numpy(vals, device)

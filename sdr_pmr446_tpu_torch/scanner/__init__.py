@@ -1,0 +1,1 @@
+"""scanner of the PyTorch port (counterpart of sdr_pmr446_tpu.scanner)."""

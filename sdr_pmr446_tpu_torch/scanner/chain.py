@@ -1,0 +1,168 @@
+"""The 16-channel PMR446 scanner block step on the kernel engine (PyTorch).
+
+Counterpart of sdr_pmr446_tpu/scanner/chain.py::ScannerChain._step_impl on
+its recorded default engine (``use_pallas=True``, waterfall off):
+
+    (state, wire bytes [K * SUBCHUNK_IN samples], params) -> (state', StepOutputs)
+
+  1. wire in (raw capture bytes, torch.uint8);
+  2. K1 (kernels/duo.py): decode, DC blocker, resampler, PFB,
+     discriminator, per-sub-chunk |y| sums -> RSSI;
+  3. FSM phase A: the squelch schedule from RSSI alone;
+  4. K2 (kernels/audio_bank.py): audio FIR bank, lp DC blocker and the
+     selected channel's CTCSS tone sums;
+  5. FSM phase C: CTCSS detection and events;
+  6. per-sub-chunk selection of the active channel's audio.
+
+Every stage runs over all 16 channels; nothing reads the device from the
+host, so a step is asynchronous end to end.  The JAX group path needs
+K % 8 == 0 (chain.py:136-138); the port serves every K.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from sdr_pmr446_tpu import config as C
+from sdr_pmr446_tpu.taps import design as D
+from sdr_pmr446_tpu_torch import precision
+from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
+from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
+from sdr_pmr446_tpu_torch.ops import decode
+from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums
+from sdr_pmr446_tpu_torch.runtime.state import ScannerState, init_scanner_state
+from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_phase_a,
+                                              fsm_phase_c, raw_sums_to_ctcss)
+
+NCH = C.NUM_CHANNELS
+
+
+class RuntimeParams(NamedTuple):
+    """Runtime knobs, as tensors on the chain's device."""
+    squelch_level: torch.Tensor   # f32 []
+    audio_gain: torch.Tensor      # f32 []
+    channel_mask: torch.Tensor    # bool [16]
+    lock_max: torch.Tensor        # bool []
+
+
+def make_runtime_params(args: C.ScannerArgs, device) -> RuntimeParams:
+    mask = [bool((args.channel_mask >> i) & 1) for i in range(NCH)]
+    return RuntimeParams(
+        squelch_level=torch.tensor(args.squelch_level, dtype=torch.float32,
+                                   device=device),
+        audio_gain=torch.tensor(args.audio_gain, dtype=torch.float32,
+                                device=device),
+        channel_mask=torch.tensor(mask, dtype=torch.bool, device=device),
+        lock_max=torch.tensor(args.lock_mode == "max", device=device),
+    )
+
+
+class StepOutputs(NamedTuple):
+    audio: torch.Tensor          # f32 [K, ns] active channel audio
+    audio_valid: torch.Tensor    # bool [K]
+    active_chan: torch.Tensor    # i32 [K]
+    rel_rssi: torch.Tensor       # f32 [K]
+    rssi_db: torch.Tensor        # f32 [K, 16]
+    ev_tuned: torch.Tensor       # bool [K]
+    ev_detuned: torch.Tensor     # bool [K]
+    ev_changed: torch.Tensor     # bool [K]
+    ev_prev_chan: torch.Tensor   # i32 [K]
+    ev_new_chan: torch.Tensor    # i32 [K]
+    ct_detected: torch.Tensor    # bool [K]
+    ct_max_idx: torch.Tensor     # i32 [K]
+    ct_freq: torch.Tensor        # f32 [K]
+    ev_ct_acquired: torch.Tensor  # bool [K]
+    ev_ct_changed: torch.Tensor   # bool [K]
+    ev_ct_lost: torch.Tensor      # bool [K]
+    waterfall: torch.Tensor      # f32 [K, 0] (the waterfall is not ported)
+
+
+class ScannerChain(nn.Module):
+    """The scanner block step for one geometry, wire format and device.
+
+    The kernels run for CUDA devices; on the CPU every kernel wrapper takes
+    its plain PyTorch version."""
+
+    def __init__(self, block: C.BlockConfig | None = None,
+                 lowpass: bool = False, fir_deemph: bool = False,
+                 input_format: str = "cu8", device="cpu"):
+        super().__init__()
+        precision.check()
+        self.block = block or C.BlockConfig()
+        self.input_format = decode.wire_format(input_format)
+        self.device = torch.device(device)
+        self.duo = ScannerDuo(self.input_format, device=self.device)
+        self.audio_bank = AudioBank(lowpass, fir_deemph, device=self.device)
+        deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
+        self.deemph_hist_len = deemph.shape[0] - 1
+
+    def init_state(self) -> ScannerState:
+        return init_scanner_state(self.duo.front_hist_len,
+                                  self.duo.pfb.hist_len,
+                                  self.deemph_hist_len, self.audio_bank.hist,
+                                  self.device)
+
+    @property
+    def step_arg_len(self) -> int:
+        """Wire bytes per step."""
+        return self.block.input_len * decode.BYTES_PER_SAMPLE[
+            self.input_format]
+
+    def step(self, state: ScannerState, wire: torch.Tensor,
+             params: RuntimeParams):
+        """One block step; ``wire`` is uint8 [step_arg_len] on the device."""
+        k = self.block.subchunks_per_step
+        ns = C.SUBCHUNK_AUDIO
+        if wire.shape != (self.step_arg_len,):
+            raise ValueError(f"wire has shape {tuple(wire.shape)}, expected "
+                             f"({self.step_arg_len},)")
+        d = self.duo(wire, state.dc_x, state.dc_y, state.resamp_hist,
+                     state.pfb_hist, state.frame_parity, state.demod_prev, ns)
+        rssi_db = rssi_from_sums(d.mag_sums, ns)
+
+        carry_in = FsmCarry(state.fsm_state, state.active_chan, state.rssi,
+                            state.ct_count, state.ct_carry, state.ct_detected,
+                            state.ct_max_idx, state.ct_freq)
+        sched = fsm_phase_a(carry_in, rssi_db, params.channel_mask,
+                            params.squelch_level, params.lock_max, ns)
+        sel_k = torch.clamp(sched.act2, 0, NCH - 1).to(torch.int32)
+        a = self.audio_bank(state.audio_hist, state.lp_dc_x, state.lp_dc_y,
+                            d.demod, params.audio_gain, sched.b_arr, sel_k,
+                            ns)
+        s_pre, s_suf = raw_sums_to_ctcss(sched, a.raw_pre, a.raw_mem, ns)
+        carry_out, fo = fsm_phase_c(carry_in, sched, s_pre, s_suf)
+
+        sel = torch.clamp(fo.active_chan, 0, NCH - 1).long()
+        audio_sel = a.audio.reshape(NCH, k, ns)[
+            sel, torch.arange(k, device=sel.device)]
+        new_state = state._replace(
+            dc_x=d.dc_x, dc_y=d.dc_y, resamp_hist=d.front_hist,
+            pfb_hist=d.pfb_hist, frame_parity=d.parity, demod_prev=d.prev,
+            lp_dc_x=a.dc_x, lp_dc_y=a.dc_y, audio_hist=a.hist,
+            fsm_state=carry_out.fsm_state,
+            active_chan=carry_out.active_chan, rssi=carry_out.rssi,
+            ct_count=carry_out.ct_count, ct_carry=carry_out.ct_carry,
+            ct_detected=carry_out.ct_detected,
+            ct_max_idx=carry_out.ct_max_idx, ct_freq=carry_out.ct_freq)
+        outputs = StepOutputs(
+            audio=audio_sel, audio_valid=fo.active_chan >= 0,
+            active_chan=fo.active_chan, rel_rssi=fo.rel_rssi,
+            rssi_db=rssi_db, ev_tuned=fo.ev_tuned, ev_detuned=fo.ev_detuned,
+            ev_changed=fo.ev_changed, ev_prev_chan=fo.ev_prev_chan,
+            ev_new_chan=fo.ev_new_chan, ct_detected=fo.ct_detected,
+            ct_max_idx=fo.ct_max_idx, ct_freq=fo.ct_freq,
+            ev_ct_acquired=fo.ev_ct_acquired,
+            ev_ct_changed=fo.ev_ct_changed, ev_ct_lost=fo.ev_ct_lost,
+            waterfall=torch.zeros((k, 0), dtype=torch.float32,
+                                  device=rssi_db.device))
+        return new_state, outputs
+
+
+def outputs_to_numpy(out: StepOutputs) -> dict:
+    """Every output field as a numpy array, copied to the host (this waits
+    for the step that produced them)."""
+    return {f: np.asarray(v.detach().cpu()) for f, v in zip(out._fields, out)}

@@ -1,0 +1,253 @@
+"""The port's K1 (duo) and K2 (audio bank) vs the JAX Pallas kernels.
+
+On the CPU the wrappers take their plain PyTorch versions; these are held to
+the JAX kernels run in interpret mode on the same numpy inputs.  The
+``cuda`` tests hold each CUDA kernel to its plain version on the card and
+skip here.  JAX is imported inside the tests that compare with it, so the
+``cuda`` tests also run where JAX is not installed:
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sdr_pmr446_tpu import config as C
+from sdr_pmr446_tpu.io import synth
+from sdr_pmr446_tpu_torch.kernels import audio_bank, build, duo
+from sdr_pmr446_tpu_torch.ops import decode
+
+torch.set_num_threads(2)
+
+NS = C.SUBCHUNK_AUDIO
+JAX_FMT = {"cu8": "cu8", "cs16": "cs16"}
+
+
+def occupied_band(n, step):
+    """All 16 channels carry NBFM, so no channel demodulates pure noise
+    (whose discriminator output sits on the atan2 branch cut)."""
+    return sum(synth.make_scanner_iq(
+        n, channel=ch, amplitude=0.6 if ch == 5 else 0.2,
+        tone_hz=300.0 + 97 * ch, ctcss_code=12 if ch == 5 else None,
+        seed=16 * step + ch, start_sample=step * n) for ch in range(1, 17)) / 2
+
+
+def cplx(rng, *shape, scale):
+    return np.asarray(scale * (rng.standard_normal(shape)
+                               + 1j * rng.standard_normal(shape)),
+                      np.complex64)
+
+
+def rel_err(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
+
+
+@pytest.mark.parametrize("fmt", ["cu8", "cs16"])
+def test_duo_plain_matches_jax_kernel(fmt):
+    """Two streamed K=8 steps from a non-zero carried state: carries and
+    |y| sums to f32 rounding, demod to 1e-4 (native atan2 against the JAX
+    kernel's atan2 polynomial)."""
+    import jax.numpy as jnp
+    from sdr_pmr446_tpu.kernels.duo import PallasScannerDuo
+    from sdr_pmr446_tpu.ops import decode as jdecode
+    k = 8
+    rng = np.random.default_rng(11)
+    jd = PallasScannerDuo(JAX_FMT[fmt], interpret=True)
+    td = duo.ScannerDuo(fmt)
+    assert td.front_hist_len == jd.front_hist_len
+    state = [cplx(rng, scale=0.1), cplx(rng, scale=0.01),
+             cplx(rng, td.front_hist_len, scale=0.01),
+             cplx(rng, 400, scale=0.1), np.int32(1), cplx(rng, 16, scale=0.1)]
+    jst = [jnp.asarray(v) for v in state]
+    tst = [torch.from_numpy(np.array(v)) for v in state]
+    n = k * C.SUBCHUNK_IN
+    launches = duo.LAUNCHES
+    for step in range(2):
+        words = jdecode.pack_iq(occupied_band(n, step), JAX_FMT[fmt])
+        jo = [np.asarray(v) for v in jd.apply(
+            *jst, jnp.asarray(words).reshape(-1, 128), NS)]
+        to = td(torch.from_numpy(decode.quantize_iq(
+            occupied_band(n, step), fmt).copy()), *tst, ns=NS)
+        np.testing.assert_array_equal(to.dc_x.numpy(), jo[0])
+        for got, want in ((to.dc_y, jo[1]), (to.front_hist, jo[2]),
+                          (to.pfb_hist, jo[5]), (to.prev, jo[7])):
+            assert rel_err(got.numpy(), want) < 1e-5
+        assert int(to.parity) == int(jo[6])
+        np.testing.assert_allclose(to.mag_sums.numpy(), jo[4], rtol=1e-5)
+        assert np.max(np.abs(to.demod.numpy() - jo[3].reshape(16, -1))) < 1e-4
+        jst = [jnp.asarray(jo[i]) for i in (0, 1, 2, 5, 6, 7)]
+        tst = [to.dc_x, to.dc_y, to.front_hist, to.pfb_hist, to.parity,
+               to.prev]
+    assert duo.LAUNCHES == launches          # the plain version never counts
+
+
+def test_audio_bank_plain_matches_jax_kernel():
+    """Two streamed K=8 steps over the schedule edge cases of
+    tests/test_kernels.py:277-279 (b = ns-1, b >= ns, b = 0, mid-window):
+    audio and carries to f32 rounding, tone sums to 3e-5 of their peak."""
+    import jax.numpy as jnp
+    from sdr_pmr446_tpu.kernels.audio_bank import PallasAudioBank
+    rng = np.random.default_rng(7)
+    k = 8
+    f = k * NS
+    jb = PallasAudioBank(interpret=True)
+    tb = audio_bank.AudioBank()
+    assert tb.hist == jb.hist
+    hist = (0.1 * rng.standard_normal((16, jb.hist))).astype(np.float32)
+    dcx = (0.01 * rng.standard_normal(16)).astype(np.float32)
+    dcy = (0.01 * rng.standard_normal(16)).astype(np.float32)
+    jst = [jnp.asarray(v) for v in (hist, dcx, dcy)]
+    tst = [torch.from_numpy(v) for v in (hist, dcx, dcy)]
+    n_win = C.CTCSS_BLOCK_SIZE
+    b_np = np.array([n_win - 1, NS - 1, n_win - 1 - NS, 500, 2440, 0, NS,
+                     900], np.int32)
+    sel_np = np.array([3, 3, 7, 0, 15, 2, 2, 9], np.int32)
+    launches = audio_bank.LAUNCHES
+    for step in range(2):
+        demod = (0.3 * rng.standard_normal((16, f))).astype(np.float32)
+        b = np.roll(b_np, step)
+        sel = np.roll(sel_np, step)
+        jo = [np.asarray(v) for v in jb.apply_dc_ctcss(
+            *jst, jnp.asarray(demod), jnp.float32(4.0), jnp.asarray(b),
+            jnp.asarray(sel), out_len=f, ns=NS)]
+        to = tb(*tst, torch.from_numpy(demod), torch.tensor(4.0),
+                torch.from_numpy(b), torch.from_numpy(sel), NS)
+        np.testing.assert_array_equal(to.hist.numpy(), jo[0])
+        # f32 rounding of ~400-tap sums taken in another order: ~10 ulp of
+        # the peak (the gain-4 audio peaks near 2.4), so 1e-6 of the peak
+        peak = np.max(np.abs(jo[3][:, :f]))
+        np.testing.assert_allclose(to.audio.numpy(), jo[3][:, :f], rtol=0,
+                                   atol=1e-6 * peak)
+        np.testing.assert_allclose(to.dc_x.numpy(), jo[1], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(to.dc_y.numpy(), jo[2], rtol=0, atol=1e-6)
+        scale = np.max(np.abs(jo[5])) + 1e-6
+        for got, want in ((to.raw_pre, jo[4]), (to.raw_mem, jo[5])):
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=3e-5 * scale)
+        jst = [jnp.asarray(v) for v in jo[:3]]
+        tst = [to.hist, to.dc_x, to.dc_y]
+    assert audio_bank.LAUNCHES == launches
+
+
+def test_wrappers_reject_bad_inputs():
+    """Checks on dtype, shape, device and contiguity run before any pointer
+    reaches a kernel; an unknown device never falls back."""
+    dev = torch.device("cpu")
+    t = torch.zeros(4, dtype=torch.float32)
+    build.require(t, "t", torch.float32, (4,), dev)
+    with pytest.raises(ValueError, match="dtype"):
+        build.require(t, "t", torch.int32, (4,), dev)
+    with pytest.raises(ValueError, match="shape"):
+        build.require(t, "t", torch.float32, (5,), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        build.require(torch.zeros(4, 2)[:, 0], "t", torch.float32, (4,), dev)
+    with pytest.raises(ValueError, match="on meta"):
+        build.require(t.to("meta"), "t", torch.float32, (4,), dev)
+    d = duo.ScannerDuo("cu8")
+    with pytest.raises(ValueError, match="multiple of 2048"):
+        d.geometry(torch.zeros(2 * 1000, dtype=torch.uint8), NS)
+    with pytest.raises(ValueError, match="no duo implementation"):
+        d(torch.zeros(2 * C.SUBCHUNK_IN, dtype=torch.uint8, device="meta"),
+          *[None] * 6)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,k", [("cu8", 40), ("cs16", 10), ("cs8", 3),
+                                   ("cf32", 3)])
+def test_duo_kernel_matches_plain_on_card(fmt, k):
+    """The CUDA kernel vs its plain version: demod SNR > 100 dB (the JAX
+    kernel gate), |y| sums rtol 1e-5, carries to 5e-5 of their peak."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(k)
+    d = duo.ScannerDuo(fmt, device=dev)
+    wire = torch.as_tensor(decode.quantize_iq(
+        occupied_band(k * C.SUBCHUNK_IN, 0), fmt), device=dev)
+    state = [torch.as_tensor(v, device=dev) for v in (
+        cplx(rng, scale=0.1), cplx(rng, scale=0.01),
+        cplx(rng, d.front_hist_len, scale=0.01), cplx(rng, 400, scale=0.1),
+        np.int32(1), cplx(rng, 16, scale=0.1))]
+    launches = duo.LAUNCHES
+    ref = d.plain(wire, *state, ns=NS)
+    got = d(wire, *state, ns=NS)
+    torch.cuda.synchronize(dev)
+    assert duo.LAUNCHES == launches + 1
+    want, err = ref.demod.cpu().double(), (got.demod - ref.demod).cpu().double()
+    assert 10 * torch.log10((want ** 2).sum() / (err ** 2).sum()) > 100.0
+    np.testing.assert_allclose(got.mag_sums.cpu().numpy(),
+                               ref.mag_sums.cpu().numpy(), rtol=1e-5)
+    for name in ("dc_x", "dc_y", "front_hist", "pfb_hist", "prev"):
+        assert rel_err(getattr(got, name).cpu().numpy(),
+                       getattr(ref, name).cpu().numpy()) < 5e-5, name
+    assert int(got.parity) == int(ref.parity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowpass,fir_deemph", [(False, False), (True, True)])
+def test_audio_bank_kernel_matches_plain_on_card(lowpass, fir_deemph):
+    """The CUDA kernel vs its plain version: audio atol 1e-5, tone sums to
+    3e-5 of their peak, history exact, DC carries to 5e-5 of their peak."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(5)
+    k = 10
+    bank = audio_bank.AudioBank(lowpass, fir_deemph, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hist = torch.as_tensor(0.1 * rng.standard_normal((16, bank.hist)), **f32)
+    dcx = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
+    dcy = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
+    demod = torch.as_tensor(0.2 * rng.standard_normal((16, k * NS)), **f32)
+    b = torch.as_tensor([2440, NS - 1, 0, 700, 2000, NS, 1, 1300, 5, 1224],
+                        dtype=torch.int32, device=dev)
+    sel = torch.as_tensor(rng.integers(0, 16, k), dtype=torch.int32,
+                          device=dev)
+    gain = torch.tensor(4.0, **f32)
+    launches = audio_bank.LAUNCHES
+    ref = bank.plain(hist, dcx, dcy, demod, gain, b, sel, NS)
+    got = bank(hist, dcx, dcy, demod, gain, b, sel, NS)
+    torch.cuda.synchronize(dev)
+    assert audio_bank.LAUNCHES == launches + 1
+    np.testing.assert_allclose(got.audio.cpu().numpy(),
+                               ref.audio.cpu().numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.hist.cpu().numpy(),
+                                  ref.hist.cpu().numpy())
+    scale = ref.raw_mem.abs().max().item()
+    for name in ("raw_pre", "raw_mem"):
+        np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
+                                   getattr(ref, name).cpu().numpy(), rtol=0,
+                                   atol=3e-5 * scale)
+    for name in ("dc_x", "dc_y"):
+        assert rel_err(getattr(got, name).cpu().numpy(),
+                       getattr(ref, name).cpu().numpy()) < 5e-5, name
+
+
+@pytest.mark.cuda
+def test_chain_step_makes_no_host_reads_on_card():
+    """A warmed-up chain step on the card runs under
+    torch.cuda.set_sync_debug_mode("error"): no op of the step (FSM
+    included) reads the device from the host, so steps queue
+    asynchronously."""
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    dev = _cuda_or_skip()
+    k = 10
+    chain = ScannerChain(C.BlockConfig(k), input_format="cu8", device=dev)
+    params = make_runtime_params(C.ScannerArgs(lock_mode="max"), dev)
+    wires = [torch.as_tensor(decode.quantize_iq(
+        occupied_band(k * C.SUBCHUNK_IN, step), "cu8"), device=dev)
+        for step in range(2)]
+    state, _ = chain.step(chain.init_state(), wires[0], params)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, out = chain.step(state, wires[1], params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(dev)
+    assert out.active_chan.shape == (k,)
