@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA scanner (sdr_pmr446_tpu_torch) on one GPU.
+"""Smoke run of the PyTorch + CUDA port (sdr_pmr446_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
 
@@ -14,16 +14,35 @@ on its own lines; any failure raises and ends the run:
      the card, at K = 40 (cu8) and K = 10 (cs16), with their times;
   3. the scanner through ScannerDriver on a synthetic cu8 capture at K = 10
      (~3 s): active-channel trace exact and audio SNR > 40 dB against the
-     float64 reference oracle (sdr_pmr446_tpu.oracle), tune and CTCSS
-     events present;
+     float64 reference oracle (the port's copy, oracle/chain.py), tune and
+     CTCSS events present;
   4. the scanner at the bench geometry K = 40 for four distinct blocks:
      throughput, decisions equal to the port's CPU run (plain versions),
      one step with host reads made errors (set_sync_debug_mode), and one
      step under torch.profiler (device busy share, device time by part);
-  5. the kernels' launch counts over the runs of phases 3 and 4.
+  5. the kernels' launch counts over the runs of phases 3 and 4;
+  6. K4 (the dsd_in / single mono chain) against its plain version on the
+     card in both modes, two consecutive blocks each at K = 16 (cu8), 15
+     (cs16, an odd number of group rows) and 10 (cu8, the app's K), with
+     its times;
+  7. dsd_in end to end through its CLI (apps/dsd_in.main, --device cuda)
+     on a synthetic cu8 FM capture at the app's K = 10: SNR > 50 dB
+     against the float64 DsdInOracle, within 1 LSB of the port's CPU run,
+     and K4's launch count over that run;
+  8. the single-channel chain end to end, channel 5 at K = 16: audio SNR
+     > 100 dB against the CPU run, 1 kHz tone SNR > 35 dB, K4's launch
+     count over that run;
+  9. each chain at K = 16 cu8 over four distinct blocks: throughput, one
+     step with host reads made errors, and one step under torch.profiler
+     (device busy share, device time by part and by device function).
 
-The last two lines of standard output are the kernel table
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+Each path (the scanner in phases 3-4, dsd_in in 7, single in 8) runs with
+the launch counts set to 0 just before it and read just after.  Each
+kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
+H100 SXM's HBM3 rate and f32 rate outside the tensor cores).  The last two
+lines of standard output are the kernel table ``{"kernels": [...]}`` and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -46,6 +65,14 @@ TOL_CARRY_REL = 5e-5           # carried state, relative to its peak: f32
 #                                346/416-tap sums taken in another order
 TOL_AUDIO_ATOL = 1e-5          # audio
 TOL_TONE_REL = 3e-5            # CTCSS tone sums, relative to their peak
+TOL_PCM_LSB = 1                # dsd PCM after the int16 truncation: a value
+#                                near a whole number may truncate either way
+TOL_DSD_ORACLE_DB = 50.0       # dsd_in vs the float64 oracle (tests/test_dsd_in.py:33-56)
+TOL_TONE_DB = 35.0             # single-channel 1 kHz tone (tests/test_misc.py:80-97)
+PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+ATAN2_OPS = 20                 # operations counted for one atan2f / sincos
+FFT16_OPS = 5 * 16 * 4         # one 16-point complex FFT (5 N log2 N)
 
 
 def log(msg: str) -> None:
@@ -92,7 +119,7 @@ def cuda_timer(fn, args_list) -> float:
 def occupied_band(n: int) -> np.ndarray:
     """All 16 channels carrying NBFM tones (no discriminator branch cuts
     from noise-only channels), channel 5 with CTCSS 12."""
-    from sdr_pmr446_tpu.io import synth
+    from sdr_pmr446_tpu_torch.io import synth
     return sum(synth.make_scanner_iq(
         n, channel=ch, amplitude=0.6 if ch == 5 else 0.2,
         tone_hz=300.0 + 97 * ch, ctcss_code=12 if ch == 5 else None,
@@ -114,10 +141,73 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def front_work(n: int, bps: int, hist: int):
+    """(bytes, f32 operations) of the shared front end for n samples: the
+    wire and the carried history read, the DC blocker (4 per plane and
+    sample) and the 346-tap resampler (2 planes, multiply-add = 2)."""
+    nb = n * 25 // 128
+    nbytes = n * bps + 2 * 8 * hist + 4 * (25 * 346 + 64)
+    return nbytes, 8 * n + nb * 346 * 4
+
+
+def duo_work(n: int, bps: int, k: int, f: int, hist: int):
+    """K1: the front end; per frame the 16-branch polyphase filterbank (416
+    real taps on complex samples, 4 operations a tap), the mixer on its 16
+    branch outputs (a complex product each) and one 16-point FFT; per
+    channel sample the discriminator (a complex product and an atan2) and
+    the |y| sums; demod [16, F] and |y| sums [K, 16] written."""
+    nbytes, ops = front_work(n, bps, hist)
+    nbytes += 16 * f * 4 + k * 16 * 4 + 2 * 8 * 400 + 2 * 416 * 16 * 4
+    ops += f * (416 * 4 + 16 * 6 + FFT16_OPS)
+    ops += f * 16 * (6 + ATAN2_OPS + 1 + ATAN2_OPS)
+    return nbytes, ops
+
+
+def audio_bank_work(k: int, f: int, hist: int, la: int, ll: int):
+    """K2: the audio and lp FIRs over 16 channels, the lp DC blocker and
+    the selected channel's 38 CTCSS sums (a sincos and a complex
+    multiply-add each); demod and audio [16, F], history and sums."""
+    nbytes = (2 * 16 * f * 4 + 2 * 16 * hist * 4 + 2 * k * 38 * 8
+              + 4 * (la + ll))
+    ops = 16 * f * ((la + ll) * 2 + 4) + k * NS * 38 * (ATAN2_OPS + 4)
+    return nbytes, ops
+
+
+def mono_work(mono, n: int, bps: int):
+    """K4: the front end, the single chain's mixer (a complex product a
+    band sample), the 16x decimator (real taps on 2 planes), the
+    discriminator and the post-FIR (96/25 upsampler, 43 taps an output, or
+    the 408-tap audio FIR)."""
+    nb = n * 25 // 128
+    f, g = nb // 16, nb // 400
+    nbytes, ops = front_work(n, bps, mono.front.hist_len)
+    taps = mono.decim.P
+    single = mono.mode == "single"
+    ops += f * taps * 4 + f * (6 + ATAN2_OPS + 1)
+    if single:
+        ops += nb * 6 + f * mono.post_taps.shape[0] * 2
+        nbytes += f * 4
+    else:
+        ops += g * 96 * mono.post_taps.shape[1] * 2
+        nbytes += g * 96 * 4
+    nbytes += (2 * 8 * mono.hb * 400 + 2 * 4 * mono.dh * 25
+               + 4 * (taps + mono.post_taps.numel()))
+    return nbytes, ops
+
+
 def phase_kernels(dev, fmt: str, k: int, timer, reps: int = REPS):
     """K1 and K2 vs their plain versions on ``dev``; returns the K1/K2 rows."""
     import torch
-    from sdr_pmr446_tpu import config as C
+    from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
     from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
     from sdr_pmr446_tpu_torch.ops import decode
@@ -191,25 +281,255 @@ def phase_kernels(dev, fmt: str, k: int, timer, reps: int = REPS):
     }
     log(f"  times K={k} {fmt} (median of {len(wires)}, ms): " + ", ".join(
         f"{key} {val:.3f}" for key, val in times.items()))
+    f = k * NS
     return [
         {"name": "duo", "route": "cuda",
          "source": "sdr_pmr446_tpu_torch/csrc/duo.cu",
          "replaces": "sdr_pmr446_tpu/kernels/duo.py:374",
          "max_abs_err": max_err(ref.demod, got.demod),
-         "ms": times["duo"], "plain_ms": times["duo_plain"]},
+         "ms": times["duo"], "plain_ms": times["duo_plain"],
+         **bound(*duo_work(n, decode.BYTES_PER_SAMPLE[fmt], k, f,
+                           duo.front_hist_len)),
+         "library_ms": None},
         {"name": "audio_bank", "route": "cuda",
          "source": "sdr_pmr446_tpu_torch/csrc/audio_bank.cu",
          "replaces": "sdr_pmr446_tpu/kernels/audio_bank.py:545",
          "max_abs_err": a_err,
-         "ms": times["bank"], "plain_ms": times["bank_plain"]},
+         "ms": times["bank"], "plain_ms": times["bank_plain"],
+         **bound(*audio_bank_work(k, f, bank.hist,
+                                  bank.taps_audio.shape[0],
+                                  bank.taps_lp.shape[0])),
+         "library_ms": None},
     ]
+
+
+def fm_capture(n: int, start: int = 0) -> np.ndarray:
+    """Samples [start, start + n) of the dsd_in fixture of
+    tests/test_dsd_in.py:25-30: a 1 kHz tone at 2 kHz deviation, 300 Hz off
+    the centre."""
+    from sdr_pmr446_tpu_torch import config as C
+    idx = np.arange(start + n)
+    msg = 0.5 * np.sin(2 * np.pi * 1000.0 * idx / C.SDR_SAMPLERATE)
+    return 0.9 * np.exp(2j * np.pi * (2000.0 * np.cumsum(msg) + 300.0 * idx)
+                        / C.SDR_SAMPLERATE)[start:]
+
+
+def mono_signal(mode: str, n: int, step: int) -> np.ndarray:
+    """Block ``step`` of each chain's capture: the FM tone for dsd, channel
+    5 with a 1 kHz tone for single."""
+    from sdr_pmr446_tpu_torch.io import synth
+    if mode == "dsd":
+        return fm_capture(n, step * n)
+    return synth.make_scanner_iq(n, channel=5, seed=step,
+                                 start_sample=step * n)
+
+
+def random_mono_state(mono, rng, dev):
+    """A carried state with every field non-zero (single: mixer phase 7)."""
+    import torch
+    c = lambda *s: torch.as_tensor(np.asarray(
+        rng.standard_normal(s) + 1j * rng.standard_normal(s), np.complex64),
+        device=dev)
+    st = [0.1 * c(), 0.01 * c(), 0.01 * c(mono.front.hist_len),
+          0.1 * c(mono.hb * 400), 0.5 * c(),
+          torch.as_tensor(0.1 * rng.standard_normal(mono.dh * 25),
+                          dtype=torch.float32, device=dev)]
+    n0 = (torch.tensor(7, dtype=torch.int32, device=dev)
+          if mono.mode == "single" else None)
+    return st, n0
+
+
+def phase_mono(dev, fmt: str, k: int, timer, reps: int = REPS):
+    """K4 vs its plain version in both modes over two consecutive blocks;
+    returns the two K4 rows (times: median of ``reps`` fresh inputs)."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels.chan_tail import MonoChain
+    from sdr_pmr446_tpu_torch.ops import decode
+    n = k * C.SUBCHUNK_IN
+    rows = []
+    for mode in ("dsd", "single"):
+        mono = MonoChain(mode, fmt, channel=5,
+                         audio_gain=C.SDR_DEFAULT_AUDIO_GAIN, device=dev)
+        rng = np.random.default_rng(k)
+        ref, n0_ref = random_mono_state(mono, rng, dev)
+        got, n0_got = list(ref), n0_ref
+        errs = []
+        for step in range(2):
+            wire = torch.as_tensor(decode.quantize_iq(
+                mono_signal(mode, n, step), fmt), device=dev)
+            r = mono.plain(wire, *ref, n0=n0_ref)
+            g = mono.kernel(wire, *got, n0=n0_got)
+            torch.cuda.synchronize(dev)
+            errs.append(max_err(r.out, g.out))
+            if mode == "dsd":
+                lsb = int((g.out.to(torch.int16).int()
+                           - r.out.to(torch.int16).int()).abs().max())
+                what = f"PCM max {lsb} LSB (f32 max|err| {errs[-1]:.3g})"
+                check(lsb <= TOL_PCM_LSB, f"K4 dsd {fmt} K={k} PCM")
+            else:
+                snr = snr_db(as_np(r.out), as_np(g.out))
+                what = f"audio SNR {snr:.1f} dB, max|err| {errs[-1]:.3g}"
+                check(snr > TOL_SNR_DB, f"K4 single {fmt} K={k} audio SNR")
+            carries = []
+            for name in ("dc_x", "dc_y", "front_hist", "band_hist",
+                         "sig_prev", "demod_hist"):
+                rel = max_err(getattr(r, name), getattr(g, name)) / max(
+                    peak(getattr(r, name)), 1e-30)
+                carries.append(rel)
+                check(rel < TOL_CARRY_REL, f"K4 {mode} carry {name}")
+            if mode == "single":
+                check(int(r.n0) == int(g.n0), "K4 single mixer phase")
+            log(f"  K4 {mode} {fmt} K={k} block {step}: {what}; carries "
+                f"rel <= {max(carries):.3g}")
+            ref, n0_ref = list(r[:6]), r.n0
+            got, n0_got = list(g[:6]), g.n0
+
+        base = mono_signal(mode, n, 0)
+        wires = [torch.as_tensor(decode.quantize_iq(
+            base * np.exp(0.37j * s), fmt), device=dev) for s in range(reps)]
+        state, n0 = random_mono_state(mono, rng, dev)
+        inputs = [(w, *state) for w in wires]
+        plain = lambda *a: mono.plain(*a, n0=n0)
+        kernel = lambda *a: mono.kernel(*a, n0=n0)
+        plain(*inputs[0])
+        kernel(*inputs[0])
+        t_plain = timer(plain, inputs)
+        t_kernel = timer(kernel, inputs)
+        b = bound(*mono_work(mono, n, decode.BYTES_PER_SAMPLE[fmt]))
+        log(f"  K4 {mode} {fmt} K={k} times (median of {reps}, ms): kernel "
+            f"{t_kernel:.3f}, plain {t_plain:.3f}, bound {b['bound_ms']:.4f} "
+            f"({b['bound_by']})")
+        rows.append({"name": f"mono_{mode}", "route": "cuda",
+                     "source": "sdr_pmr446_tpu_torch/csrc/chan_tail.cu",
+                     "replaces": "sdr_pmr446_tpu/kernels/chan_tail.py:600",
+                     "max_abs_err": max(errs), "ms": t_kernel,
+                     "plain_ms": t_plain, **b, "library_ms": None})
+    return rows
+
+
+def phase_dsd_app(dev, k: int, n_blocks: int):
+    """dsd_in through its CLI on the card vs the float64 oracle and the
+    port's CPU run; returns the blocks it ran."""
+    import os
+    import tempfile
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.apps import dsd_in as app
+    from sdr_pmr446_tpu_torch.io import synth
+    from sdr_pmr446_tpu_torch.oracle.chain import DsdInOracle
+    from sdr_pmr446_tpu_torch.ops import decode
+    n = n_blocks * k * C.SUBCHUNK_IN
+    raw = decode.quantize_iq(fm_capture(n), "cu8")
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "cap.cu8")
+        raw.tofile(cap)
+        outs = {}
+        for device in (str(dev), "cpu"):
+            path = os.path.join(tmp, f"{device.replace(':', '_')}.raw")
+            t0 = time.perf_counter()
+            rc = app.main(["--input", cap, "--output", path,
+                           "--subchunks-per-step", str(k), "--device", device])
+            check(rc == 0, f"dsd_in --device {device} exit {rc}")
+            log(f"  dsd_in --device {device}: {time.perf_counter() - t0:.2f} s")
+            outs[device] = np.fromfile(path, dtype="<i2").astype(np.float64)
+    got, cpu = outs[str(dev)], outs["cpu"]
+    host_iq = ((raw.astype(np.float64) - 127.5) / 127.5).view(np.complex128)
+    ref = DsdInOracle().process(host_iq)
+    check(len(got) == len(cpu) == len(ref) == n * 3 // 64, "dsd_in length")
+    snr = snr_db(ref, got)
+    lsb = float(np.max(np.abs(got - cpu)))
+    tone = synth.tone_snr_db(got[12000:] / 32767.0, 1000.0, fs=48000.0)
+    log(f"  dsd_in K={k}, {n_blocks} blocks: SNR vs oracle {snr:.1f} dB, "
+        f"max |card - CPU| {lsb:.0f} LSB, 1 kHz tone SNR {tone:.1f} dB")
+    check(snr > TOL_DSD_ORACLE_DB, "dsd_in SNR vs oracle")
+    check(lsb <= TOL_PCM_LSB, "dsd_in card vs CPU")
+    return n_blocks
+
+
+def chain_blocks(mode: str, k: int, n_blocks: int, fmt: str = "cu8"):
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.ops import decode
+    n = k * C.SUBCHUNK_IN
+    return [decode.quantize_iq(mono_signal(mode, n, i), fmt)
+            for i in range(n_blocks)]
+
+
+def make_chain(mode: str, k: int, device):
+    from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdInChain
+    from sdr_pmr446_tpu_torch.scanner.single import SingleChannelChain
+    if mode == "dsd":
+        return DsdInChain(k, input_format="cu8", device=device)
+    return SingleChannelChain(5, k, input_format="cu8", device=device)
+
+
+def run_chain(chain, blocks):
+    import torch
+    st = chain.init_state()
+    outs = []
+    for blk in blocks:
+        st, o = chain.step(st, torch.from_numpy(blk).to(chain.device))
+        outs.append(o)
+    return np.concatenate([as_np(o) for o in outs])
+
+
+def phase_single(dev, k: int, n_blocks: int):
+    """The single-channel chain on the card vs its CPU run; returns the
+    blocks it ran."""
+    from sdr_pmr446_tpu_torch.io import synth
+    blocks = chain_blocks("single", k, n_blocks)
+    got = run_chain(make_chain("single", k, dev), blocks)
+    cpu = run_chain(make_chain("single", k, "cpu"), blocks)
+    snr = snr_db(cpu, got)
+    tone = synth.tone_snr_db(got[4000:], 1000.0)
+    log(f"  single channel 5, K={k}, {n_blocks} blocks: audio SNR vs CPU "
+        f"{snr:.1f} dB, 1 kHz tone SNR {tone:.1f} dB")
+    check(snr > TOL_SNR_DB, "single audio SNR vs CPU")
+    check(tone > TOL_TONE_DB, "single tone SNR")
+    return n_blocks
+
+
+def phase_chain_throughput(dev, mode: str, k: int, n_blocks: int, sync):
+    """Msamples/s of one chain over distinct blocks (host clock, ending in
+    a synchronize; the wire upload and the output drain inside), then one
+    step under set_sync_debug_mode("error")."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    blocks = chain_blocks(mode, k, n_blocks + 1)
+    chain = make_chain(mode, k, dev)
+    st, _ = chain.step(chain.init_state(),
+                       torch.from_numpy(blocks[0]).to(dev))
+    sync()
+    t0 = time.perf_counter()
+    outs = []
+    for blk in blocks[1:]:
+        st, o = chain.step(st, torch.from_numpy(blk).to(dev))
+        outs.append(o.cpu())
+    sync()
+    sec = time.perf_counter() - t0
+    n_samp = n_blocks * k * C.SUBCHUNK_IN
+    msps = n_samp / sec / 1e6
+    rt = n_samp / C.SDR_SAMPLERATE / sec
+    log(f"  {mode} K={k}, {n_blocks} blocks ({n_samp / C.SDR_SAMPLERATE:.2f}"
+        f" s of radio): {sec * 1e3:.1f} ms, {msps:.1f} Msamples/s, "
+        f"{rt:.1f}x real time")
+    wire = torch.from_numpy(blocks[1]).to(dev)
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, _ = chain.step(st, wire)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    log(f"  {mode} K={k} step under set_sync_debug_mode('error'): no host "
+        f"reads")
+    return {"msamples_per_s": msps, "realtime_x": rt, "seconds": sec}
 
 
 def phase_oracle(dev, k: int, n_sub: int):
     """The driver on a synthetic cu8 capture vs the float64 oracle."""
-    from sdr_pmr446_tpu import config as C
-    from sdr_pmr446_tpu.io import synth
-    from sdr_pmr446_tpu.oracle.chain import ScannerOracle
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import synth
+    from sdr_pmr446_tpu_torch.oracle.chain import ScannerOracle
     from sdr_pmr446_tpu_torch.ops import decode
     from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver, wire_blocks
     iq = synth.make_scanner_iq(n_sub * C.SUBCHUNK_IN, channel=5, ctcss_code=12)
@@ -237,8 +557,8 @@ def phase_oracle(dev, k: int, n_sub: int):
 def bench_blocks(k: int, n_blocks: int) -> list:
     """Distinct cu8 blocks: channel 5 + CTCSS 12, again with other noise,
     silence, channel 9 + CTCSS 3, ..."""
-    from sdr_pmr446_tpu import config as C
-    from sdr_pmr446_tpu.io import synth
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import synth
     from sdr_pmr446_tpu_torch.ops import decode
     n = k * C.SUBCHUNK_IN
     plan = [(5, 12), (5, 12), None, (9, 3)]
@@ -257,7 +577,7 @@ def bench_blocks(k: int, n_blocks: int) -> list:
 
 def phase_bench(dev, k: int, n_blocks: int, sync):
     """The driver at the bench geometry: throughput and CPU equality."""
-    from sdr_pmr446_tpu import config as C
+    from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
     blocks = bench_blocks(k, n_blocks)
     warm = ScannerDriver(subchunks_per_step=k, input_format="cu8", device=dev)
@@ -293,22 +613,31 @@ def phase_bench(dev, k: int, n_blocks: int, sync):
         f"{np.max(np.abs(res.rssi_trace - ref.rssi_trace)):.3g} dB; "
         f"undetected tone-index mismatches "
         f"{int(np.sum(res.ct_max_idx != ref.ct_max_idx))}")
-    return drv.block_index, {"msamples_per_s": msps, "realtime_x": rt,
-                             "seconds": sec}
+    return drv.block_index, {"scanner": {"msamples_per_s": msps,
+                                         "realtime_x": rt, "seconds": sec}}
 
 
-def device_group(name: str) -> str:
+#: the parts of a scanner step, by the name prefixes of their device events
+SCANNER_PARTS = (("K1 duo", ("duo_", "fe_")), ("K2 audio bank", ("ab_",)),
+                 ("DC carry scan (K1 and K2)", ("dc_carry",)),
+                 ("copies", ("Memcpy", "Memset")))
+#: the parts of a dsd_in / single step
+CHAIN_PARTS = (("K4 mono chain (7 kernels)", ("fe_", "dc_carry", "mono_")),
+               ("copies", ("Memcpy", "Memset")))
+
+
+def kernel_name(name: str) -> str:
+    """A device event's function name, template arguments kept."""
+    return name.removeprefix("void ").split("(")[0]
+
+
+def device_group(name: str, parts) -> str:
     """The part of the step a device event belongs to, by its name."""
-    fn = name.removeprefix("void ").split("(")[0].split("<")[0]
-    if fn.startswith("duo_"):
-        return "K1 duo"
-    if fn.startswith("ab_"):
-        return "K2 audio bank"
-    if fn.startswith("dc_carry"):
-        return "DC carry scan (K1 and K2)"
-    if fn.startswith(("Memcpy", "Memset")):
-        return "copies"
-    return "other (FSM, RSSI, select)"
+    fn = kernel_name(name).split("<")[0]
+    for label, prefixes in parts:
+        if fn.startswith(prefixes):
+            return label
+    return "other"
 
 
 def phase_no_host_reads(dev, k: int, sync):
@@ -316,7 +645,7 @@ def phase_no_host_reads(dev, k: int, sync):
     step (FSM included) makes no host read, so steps queue without
     waiting for the device."""
     import torch
-    from sdr_pmr446_tpu import config as C
+    from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
                                                     make_runtime_params)
     chain = ScannerChain(C.BlockConfig(k), input_format="cu8", device=dev)
@@ -335,25 +664,62 @@ def phase_no_host_reads(dev, k: int, sync):
 
 
 def phase_profile(dev, k: int, sync):
-    """One K-block step under torch.profiler: the device's busy share (the
-    union of its events' intervals) and its time by part of the step
-    (profiling adds host overhead to the wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One scanner K-block step under torch.profiler (profile_step)."""
     from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
     blocks = bench_blocks(k, 2)
     drv = ScannerDriver(subchunks_per_step=k, input_format="cu8", device=dev)
     drv.run(blocks[:1])
     sync()
+    profile_step(lambda: drv.run(blocks[1:]), sync, SCANNER_PARTS,
+                 "other (FSM, RSSI, select)")
+    return 1
+
+
+def phase_profile_chain(dev, mode: str, k: int, sync):
+    """One dsd_in / single K-block step, wire upload and output drain
+    included, under torch.profiler (profile_step)."""
+    import torch
+    blocks = chain_blocks(mode, k, 2)
+    chain = make_chain(mode, k, dev)
+    st, _ = chain.step(chain.init_state(),
+                       torch.from_numpy(blocks[0]).to(dev))
+    sync()
+
+    def step():
+        _, out = chain.step(st, torch.from_numpy(blocks[1]).to(dev))
+        out.cpu()
+    profile_step(step, sync, CHAIN_PARTS, "other (int16 cast, small ops)",
+                 by_kernel=True)
+
+
+def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
+    """``run()`` under torch.profiler: the device's busy share (the union
+    of its events' intervals) and its time by part of the step (profiling
+    adds host overhead to the wall time); with ``by_kernel``, also by
+    device function.
+
+    A small device op and a synchronize come first: the device's first
+    activity in a profiler session is sometimes not recorded (a step's
+    3.2 MB upload went missing so), and only device events that start
+    inside the step's own record_function range are counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        drv.run(blocks[1:])
+        torch.zeros(1, device="cuda").add_(1)
         sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # CUPTI's own "Activity Buffer Request" events are not device work
+        with record_function("chip_smoke step"):
+            t0 = time.perf_counter()
+            run()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    step_start = next(e.time_range.start for e in prof.events()
+                      if e.name == "chip_smoke step")
+    # the range itself shows up on the device too, as a user annotation
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not e.name.startswith("Activity Buffer")]
+           and e.time_range.start >= step_start
+           and e.name != "chip_smoke step"]
     check(len(evs) > 0, "the profiler recorded no device events")
     busy_us, end = 0.0, -float("inf")
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in evs):
@@ -361,7 +727,8 @@ def phase_profile(dev, k: int, sync):
         end = max(end, e)
     groups: dict = {}
     for e in evs:
-        g = groups.setdefault(device_group(e.name), [0.0, 0])
+        label = device_group(e.name, parts)
+        g = groups.setdefault(other if label == "other" else label, [0.0, 0])
         g[0] += e.time_range.elapsed_us()
         g[1] += 1
     log(f"  profiled step: wall {wall_ms:.1f} ms, device busy "
@@ -369,7 +736,13 @@ def phase_profile(dev, k: int, sync):
         f"{len(evs)} device events")
     for name, (us, n) in sorted(groups.items(), key=lambda g: -g[1][0]):
         log(f"    {us / 1e3:8.3f} ms  x{n:<5d} {name}")
-    return 1
+    if by_kernel:
+        fns: dict = {}
+        for e in evs:
+            fns[kernel_name(e.name)] = (fns.get(kernel_name(e.name), 0.0)
+                                        + e.time_range.elapsed_us())
+        for name, us in sorted(fns.items(), key=lambda f: -f[1]):
+            log(f"      {us / 1e3:8.4f} ms  {name}")
 
 
 def main() -> int:
@@ -377,7 +750,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from sdr_pmr446_tpu_torch.kernels import audio_bank, build, duo
+    from sdr_pmr446_tpu_torch.kernels import audio_bank, build, chan_tail, duo
     dev = torch.device("cuda", 0)
     sync = lambda: torch.cuda.synchronize(dev)
 
@@ -414,6 +787,33 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
         check(row["launches"] >= steps, f"{row['name']} launched "
               f"{row['launches']} times for {steps} steps")
+
+    log("phase 6: K4 (mono chain) vs its plain version on the card")
+    mono_rows = phase_mono(dev, "cu8", 16, cuda_timer)
+    phase_mono(dev, "cs16", 15, cuda_timer)
+    phase_mono(dev, "cu8", 10, cuda_timer)
+
+    log("phase 7: dsd_in end to end (apps.dsd_in --device cuda, cu8, K=10)")
+    chan_tail.LAUNCHES = 0
+    dsd_steps = phase_dsd_app(dev, 10, 3)
+    mono_launches = {"mono_dsd": chan_tail.LAUNCHES}
+    log("phase 8: single channel end to end (channel 5, cu8, K=16)")
+    chan_tail.LAUNCHES = 0
+    single_steps = phase_single(dev, 16, 2)
+    mono_launches["mono_single"] = chan_tail.LAUNCHES
+    log(f"  K4 launches: dsd_in {mono_launches['mono_dsd']} for {dsd_steps} "
+        f"steps, single {mono_launches['mono_single']} for {single_steps}")
+    for row, want in zip(mono_rows, (dsd_steps, single_steps)):
+        row["launches"] = mono_launches[row["name"]]
+        check(row["launches"] >= want, f"{row['name']} launched "
+              f"{row['launches']} times for {want} steps")
+    rows += mono_rows
+
+    log("phase 9: each chain at K=16 (cu8), four distinct blocks")
+    for mode in ("dsd", "single"):
+        bench[mode] = phase_chain_throughput(dev, mode, 16, 4, sync)
+        phase_profile_chain(dev, mode, 16, sync)
+    log(smi)
     log(json.dumps({"bench": bench, "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,13 @@
 The JAX package ``sdr_pmr446_tpu`` is the reference; this package mirrors
 its sub-package layout (``ops/``, ``kernels/``, ``scanner/``, ``runtime/``,
 ``apps/``) so each module's counterpart sits at the same path.  It imports
-``torch`` and never ``jax``; from the reference package it uses only the
-JAX-free modules (``config``, ``taps/design``, ``io/*``, ``oracle/*``).
+``torch`` and never ``jax``, and nothing of the reference package: it keeps
+its own copies of the JAX-free modules it needs (``config``,
+``taps/design``, ``io/iq``, ``io/synth``, ``io/wav``, ``oracle/chain``).
+
+Every entry point (``ScannerDriver``, ``ScannerChain``, ``DsdInChain``,
+``SingleChannelChain`` and the CLIs) runs on the CUDA card unless the caller
+passes ``device="cpu"``; with no card the default raises.
 
 The TPU kernels on the scanner's main path are hand-written CUDA C++ for
 Hopper (``csrc/*.cu``, built by ``kernels/build.py``); every kernel wrapper

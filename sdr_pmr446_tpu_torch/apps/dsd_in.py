@@ -1,0 +1,149 @@
+"""dsd_in CLI on the PyTorch port — DSD signal pre-processor (file driven).
+
+Counterpart of sdr_pmr446_tpu/apps/dsd_in.py (the reference's
+src/dsd_in.c:40-48): reads an IQ capture at 1.024 Msps and writes 48 kHz
+s16le mono to stdout (pipe it into ``dsd -i -`` or ``play``) or to a file.
+Flags: -g/--gain, -f/--frequency, --input, --input-format, --output,
+--subchunks-per-step, --device (which alone chooses between the CUDA
+kernel and its plain version) and --device-decode (accepted; the port
+always ships the raw wire bytes to the device and decodes there).
+rtl_tcp:// inputs and --steps-per-dispatch other than 1 are not yet ported
+and exit 2.
+
+    python -m sdr_pmr446_tpu_torch.apps.dsd_in --input cap.cu8 --output - | dsd -i -
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import signal
+import sys
+
+import numpy as np
+import torch
+
+from sdr_pmr446_tpu_torch.io import iq as iq_io
+from sdr_pmr446_tpu_torch.ops import decode
+from sdr_pmr446_tpu_torch.runtime.driver import wire_blocks
+from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdInChain
+
+FORMATS = "cf32 fc32 cs16 sc16 cs8 cu8 rtlsdr".split()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dsd_in", description="dsd_feeder -- DSD signal pre-processor "
+                                   "(PyTorch + CUDA port)")
+    p.add_argument("-g", "--gain", type=float, default=25.0,
+                   help="SDR receiver gain in dB (unused for file sources)")
+    p.add_argument("-f", "--frequency", type=float, default=160.0e6,
+                   help="receive frequency (metadata for file sources)")
+    p.add_argument("--input", type=str, required=True,
+                   help="IQ capture file at 1.024 Msps (cf32/cs16/cs8/cu8)")
+    p.add_argument("--seconds", type=float, default=10.0,
+                   help="live capture duration (rtl_tcp inputs, not yet "
+                        "ported; unused for files)")
+    p.add_argument("--input-format", type=str, default=None, choices=FORMATS)
+    p.add_argument("--output", type=str, default="-",
+                   help="output path for 48 kHz s16le audio ('-' = stdout)")
+    p.add_argument("--subchunks-per-step", type=int, default=10)
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="blocks per dispatch (only 1 is ported)")
+    p.add_argument("--device-decode", action="store_true",
+                   help="accepted for compatibility and does nothing: the "
+                        "port always ships the raw wire bytes to the device "
+                        "and decodes there")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device: 'cuda' runs the CUDA kernel, 'cpu' its "
+                        "plain PyTorch version (default: cuda; without a "
+                        "CUDA device the run exits 1)")
+    return p
+
+
+def _unported(ns) -> list[str]:
+    found = []
+    if ns.input.startswith("rtl_tcp://"):
+        found.append("rtl_tcp:// input")
+    if ns.steps_per_dispatch != 1:
+        found.append("--steps-per-dispatch")
+    return found
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    ns = build_parser().parse_args(argv)
+    unported = _unported(ns)
+    if unported:
+        logging.error("not yet ported to sdr_pmr446_tpu_torch: %s "
+                      "(use python -m sdr_pmr446_tpu.apps.dsd_in)",
+                      ", ".join(unported))
+        return 2
+    try:
+        fmt = decode.wire_format(ns.input_format
+                                 or iq_io.detect_format(ns.input))
+        chain = DsdInChain(ns.subchunks_per_step, input_format=fmt,
+                           device=ns.device)
+    except (ValueError, RuntimeError) as e:
+        logging.error("%s", e)
+        return 1
+    raw = np.fromfile(ns.input, dtype=np.uint8)
+    bps = decode.BYTES_PER_SAMPLE[fmt]
+    raw = raw[:len(raw) // bps * bps]
+    logging.info("read %d IQ samples from %s (%s); device %s",
+                 len(raw) // bps, ns.input, fmt, chain.device)
+    out = sys.stdout.buffer if ns.output == "-" else open(ns.output, "wb")
+    # TERM/QUIT end the loop at the next block boundary with the output
+    # flushed (the reference's signal set, src/sdr_pmr446.c:779-786)
+    stop = {"flag": False}
+
+    def _sig_stop(signum, frame):
+        logging.info("Signal caught, exiting!")
+        stop["flag"] = True
+
+    for name in ("SIGTERM", "SIGQUIT"):
+        if hasattr(signal, name):
+            try:
+                signal.signal(getattr(signal, name), _sig_stop)
+            except (ValueError, OSError):
+                pass
+    state = chain.init_state()
+    pending = None
+
+    def drain(pcm):
+        out.write(pcm.cpu().numpy().astype("<i2").tobytes())
+        out.flush()
+
+    try:
+        # block i+1 is queued on the device before block i's PCM is read
+        for blk in wire_blocks(raw, fmt, chain.step_arg_len):
+            if stop["flag"]:
+                break
+            wire = torch.from_numpy(blk).to(chain.device)
+            state, pcm = chain.step(state, wire)
+            if pending is not None:
+                drain(pending)
+            pending = pcm
+        if pending is not None:
+            drain(pending)
+    except BrokenPipeError:
+        # the downstream consumer (dsd/play) closed its end: exit quietly,
+        # like the reference's ignored SIGPIPE (src/sdr_pmr446.c:190-199)
+        logging.info("downstream pipe closed, exiting")
+        try:
+            fd = os.open(os.devnull, os.O_WRONLY)
+            os.dup2(fd, sys.stdout.fileno())
+            os.close(fd)
+        except OSError:
+            pass
+        return 0
+    finally:
+        if out is not sys.stdout.buffer:
+            out.close()
+    logging.info("Exiting")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,9 +19,9 @@ import sys
 
 import numpy as np
 
-from sdr_pmr446_tpu import config as C
-from sdr_pmr446_tpu.io import iq as iq_io
-from sdr_pmr446_tpu.io import synth, wav
+from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch.io import iq as iq_io
+from sdr_pmr446_tpu_torch.io import synth, wav
 from sdr_pmr446_tpu_torch.ops import decode
 from sdr_pmr446_tpu_torch.runtime.driver import (ENGINES, ScannerDriver,
                                                  wire_blocks)
@@ -61,9 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seconds", type=float, default=5.0,
                    help="synthetic source duration")
     p.add_argument("--subchunks-per-step", type=int, default=10)
-    p.add_argument("--device", type=str, default="cpu",
+    p.add_argument("--device", type=str, default="cuda",
                    help="torch device: 'cuda' runs the CUDA kernels, 'cpu' "
-                        "their plain PyTorch versions (default: cpu)")
+                        "their plain PyTorch versions (default: cuda; "
+                        "without a CUDA device the run exits 1)")
     p.add_argument("--engine", choices=ENGINES, default="auto",
                    help="'cuda' = the hand-written kernels (CUDA device), "
                         "'torch' = their plain versions (CPU); 'auto' "

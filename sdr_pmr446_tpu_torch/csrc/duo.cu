@@ -7,10 +7,9 @@
 //
 // Six launches on the caller's stream, no allocation (the wrapper passes
 // every scratch buffer):
-//   1. duo_dc_local<FMT>: wire decode + zero-state DC response per chunk;
-//   2. dc_carry_kernel: chunk carries (sdr_common.cuh);
-//   3. duo_resample: 25/128 polyphase resampler, one thread per band output,
-//      the DC fix-up fused into its shared-memory window load;
+//   1-3. the front end (front_end.cuh, shared with K4): fe_dc_local<FMT>,
+//      dc_carry_kernel and fe_resample — decode, DC blocker, 25/128
+//      resampler;
 //   4. duo_tail<FMT>: the carried state (front history, PFB history, DC x/y);
 //   5. duo_pfb: 416-tap complex PFB, one thread per (frame, channel), then the
 //      (-1)^(parity + frame) mixer flip;
@@ -18,115 +17,12 @@
 //      channel) |y| sums as a deterministic block reduction.
 // Device memory between launches: the chunk-local DC response [2][n], the
 // band planes [2][nb] and the channel planes [2][16][F].
-#include "sdr_common.cuh"
+#include "front_end.cuh"
 
-#define RES_L 25          // resampler interpolation
-#define RES_M 128         // resampler decimation
-#define RS_P 346          // taps per polyphase row
-#define RS_W 468          // polyphase window (RS_P + max row offset)
-#define RS_FB 16          // band frames (of 25 outputs) per block
-#define RS_WIN (RES_M * (RS_FB - 1) + RS_W)
 #define PFB_TAPS 416
 #define PFB_HIST 400
 #define PFB_FB 16         // channel frames per block
 #define PFB_WIN (NCH * (PFB_FB - 1) + PFB_TAPS)
-
-enum { FMT_CU8 = 0, FMT_CS8 = 1, FMT_CS16 = 2, FMT_CF32 = 3 };
-
-// Sample n of the wire, decoded exactly as ops/decode.py (bit-exact).
-template <int FMT>
-static __device__ __forceinline__ float2 load_iq(const uint8_t* __restrict__ w,
-                                                 long long n, float inv_cu8) {
-  if (FMT == FMT_CU8) {
-    const uchar2 b = reinterpret_cast<const uchar2*>(w)[n];
-    return make_float2(((float)b.x - 127.5f) * inv_cu8,
-                       ((float)b.y - 127.5f) * inv_cu8);
-  } else if (FMT == FMT_CS8) {
-    const char2 b = reinterpret_cast<const char2*>(w)[n];
-    return make_float2((float)b.x * (1.0f / 128.0f),
-                       (float)b.y * (1.0f / 128.0f));
-  } else if (FMT == FMT_CS16) {
-    const short2 s = reinterpret_cast<const short2*>(w)[n];
-    return make_float2((float)s.x * (1.0f / 32768.0f),
-                       (float)s.y * (1.0f / 32768.0f));
-  } else {
-    return reinterpret_cast<const float2*>(w)[n];
-  }
-}
-
-// 1. one thread per DC_L-sample chunk, both planes
-template <int FMT>
-static __global__ void duo_dc_local(const uint8_t* __restrict__ wire,
-                                    long long n, const float* __restrict__ dc_x,
-                                    float inv_cu8, double p, double g,
-                                    float* __restrict__ ylocal,
-                                    float* __restrict__ yend, int chunks) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= chunks) return;
-  const long long n0 = c * DC_L;
-  const long long n1 = min(n0 + DC_L, n);
-  float2 xp = (n0 == 0) ? make_float2(dc_x[0], dc_x[1])
-                        : load_iq<FMT>(wire, n0 - 1, inv_cu8);
-  double yr = 0.0, yi = 0.0;
-  for (long long i = n0; i < n1; ++i) {
-    const float2 x = load_iq<FMT>(wire, i, inv_cu8);
-    yr = p * yr + g * ((double)x.x - (double)xp.x);
-    yi = p * yi + g * ((double)x.y - (double)xp.y);
-    ylocal[i] = (float)yr;
-    ylocal[n + i] = (float)yi;
-    xp = x;
-  }
-  yend[c] = (float)yr;
-  yend[chunks + c] = (float)yi;
-}
-
-// y-space sample e of [front_hist (H) | y (n)], plane-wise
-static __device__ __forceinline__ float2 ye_sample(
-    const float* __restrict__ fhist, int H, const float* __restrict__ ylocal,
-    const float* __restrict__ carry, const float* __restrict__ pj, long long n,
-    int chunks, long long e) {
-  if (e < H) return make_float2(fhist[2 * e], fhist[2 * e + 1]);
-  const long long m = e - H;
-  if (m >= n) return make_float2(0.f, 0.f);
-  return make_float2(dc_fix(ylocal, carry, pj, m),
-                     dc_fix(ylocal + n, carry + chunks, pj, m));
-}
-
-// 3. band[25 f + q] = sum_i kc[q][i] * ye[H - 345 + 128 f + o_q + i]
-static __global__ void duo_resample(const float* __restrict__ ylocal,
-                                    const float* __restrict__ carry,
-                                    const float* __restrict__ pj,
-                                    const float* __restrict__ fhist, int H,
-                                    long long n, int chunks,
-                                    const float* __restrict__ kc,
-                                    float* __restrict__ band, long long nb,
-                                    int frames) {
-  __shared__ float wr[RS_WIN];
-  __shared__ float wi[RS_WIN];
-  const int f0 = blockIdx.x * RS_FB;
-  const long long base = (long long)H - (RS_P - 1) + (long long)RES_M * f0;
-  for (int j = threadIdx.x; j < RS_WIN; j += blockDim.x) {
-    const float2 v = ye_sample(fhist, H, ylocal, carry, pj, n, chunks,
-                               base + j);
-    wr[j] = v.x;
-    wi[j] = v.y;
-  }
-  __syncthreads();
-  const int fl = threadIdx.x / RES_L;
-  const int q = threadIdx.x % RES_L;
-  const int f = f0 + fl;
-  if (fl >= RS_FB || f >= frames) return;
-  const int off = RES_M * fl + (q * RES_M) / RES_L;
-  const float* k = kc + q * RS_P;
-  float ar = 0.f, ai = 0.f;
-  for (int i = 0; i < RS_P; ++i) {
-    const float kv = __ldg(k + i);
-    ar += kv * wr[off + i];
-    ai += kv * wi[off + i];
-  }
-  band[(long long)f * RES_L + q] = ar;
-  band[nb + (long long)f * RES_L + q] = ai;
-}
 
 // 4. new front history (last H of [front_hist | y]), new PFB history (last
 // 400 of [pfb_hist | band]), DC blocker x[-1] and y[-1]
@@ -268,15 +164,10 @@ static int duo_launch(const uint8_t* wire, long long n, const float* dc_x,
   const int res_frames = (int)(n / RES_M);
   const long long nb = (long long)res_frames * RES_L;
   const int frames = (int)(nb / NCH);
-  duo_dc_local<FMT><<<(chunks + 255) / 256, 256, 0, s>>>(
-      wire, n, dc_x, inv_cu8, p, g, ylocal, yend, chunks);
-  SDR_CHECK_LAUNCH();
-  dc_carry_kernel<<<2, CARRY_THREADS, 0, s>>>(yend, carry, dc_y, chunks, pL,
-                                              pSeg, seg);
-  SDR_CHECK_LAUNCH();
-  duo_resample<<<(res_frames + RS_FB - 1) / RS_FB, RES_L * RS_FB, 0, s>>>(
-      ylocal, carry, pj, fhist, H, n, chunks, kc, band, nb, res_frames);
-  SDR_CHECK_LAUNCH();
+  const int fe = front_end_launch<FMT>(wire, n, dc_x, dc_y, fhist, H, kc, pj,
+                                      p, g, pL, pSeg, seg, inv_cu8, ylocal,
+                                      yend, carry, band, s);
+  if (fe != 0) return fe;
   const int tail = H > PFB_HIST ? H : PFB_HIST;
   duo_tail<FMT><<<(tail + 255) / 256, 256, 0, s>>>(
       wire, n, inv_cu8, ylocal, carry, pj, chunks, fhist, H, fhist_out, phist,

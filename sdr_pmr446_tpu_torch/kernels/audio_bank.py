@@ -44,8 +44,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from sdr_pmr446_tpu import config as C
-from sdr_pmr446_tpu.taps import design as D
+from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch.taps import design as D
 from sdr_pmr446_tpu_torch.kernels import build
 from sdr_pmr446_tpu_torch.kernels.duo import DC_L, dc_powers, scan_constants
 from sdr_pmr446_tpu_torch.ops import fir, iir
@@ -134,7 +134,7 @@ class AudioBank(nn.Module):
     host); b_arr, sel are i32 [K] from the FSM schedule."""
 
     def __init__(self, lowpass: bool = False, fir_deemph: bool = False,
-                 device="cpu"):
+                 *, device):
         super().__init__()
         audio, lp = _kernel_columns(lowpass, fir_deemph)
         self.hist = hist_len(lowpass, fir_deemph)

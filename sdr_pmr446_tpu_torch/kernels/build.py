@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface and are compiled by ``nvcc`` into one
-shared library, loaded with ``ctypes``:
+shared library, loaded with ``ctypes``: one ``nvcc -c`` per source, all
+started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libsdr_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -lineinfo -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/libsdr_kernels_<hash>.so *.o
 
 The library name carries a hash of the sources and flags, so a changed
 source rebuilds at first use and an unchanged one is reused.  The build
@@ -31,8 +34,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-lineinfo"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-lineinfo"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +57,16 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P,       # outputs
         _P,                               # stream
     ],
+    "mono_run": [
+        _I, _I, _P, _LL,                  # fmt, mode, wire, n_samples
+        _P, _P, _P, _I, _P, _I,           # dc_x, dc_y, fhist, H, bhist, HB
+        _P, _P, _I, _P,                   # sig_prev, dhist, DH, n0
+        _P, _P, _D, _D, _D, _D, _I, _F,   # kc, pj, p, g, pL, pSeg, seg, inv_cu8
+        _P, _I, _P, _P, _I, _F,           # kd, P, tab, post taps, width, dscale
+        _P, _P, _P, _P, _P, _P,           # ylocal, yend, carry, band, sig, dem
+        _P, _P, _P, _P, _P, _P, _P, _P,   # outputs
+        _P,                               # stream
+    ],
     "audio_bank_run": [
         _P, _I, _P, _I,                   # demod, F, hist, H
         _P, _P, _P, _P, _P, _I, _I,       # dc_x, dc_y, gain, b_arr, sel, K, ns
@@ -70,7 +84,7 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -87,29 +101,50 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _run(procs) -> list[str]:
+    """Wait for every (cmd, Popen), then raise on the first that failed."""
+    done = [(cmd, *proc.communicate(), proc.returncode)
+            for cmd, proc in procs]
+    for cmd, out, err, code in done:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n"
+                               f"{out}\n{err}")
+    return [err for _, _, err, _ in done]
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into the hashed library unless it already exists.
 
-    Returns the library path.  The compile writes to a temporary name and
-    renames it into place, so concurrent builders never load a partial file.
+    Returns the library path.  Every source compiles in its own ``nvcc``
+    process, all at once; the link writes to a temporary name that is renamed
+    into place, so a concurrent build never loads a partial file.
     """
     lib = BUILD_DIR / f"libsdr_kernels_{source_hash()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ([nvcc_path()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-           + ["-o", tmp] + [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))])
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs, procs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = str(Path(tmp_dir) / (src.stem + ".o"))
+            cmd = ([nvcc] + COMPILE_FLAGS
+                   + (["-Xptxas", "-v"] if verbose else [])
+                   + ["-c", str(src), "-o", obj])
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = _run(procs)
+        tmp = str(Path(tmp_dir) / "lib.so")
+        cmd = [nvcc] + LINK_FLAGS + ["-o", tmp] + objs
+        logs += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, lib)
     if verbose:
-        print(f"built {lib} in {time.perf_counter() - t0:.1f} s\n{res.stderr}")
+        print(f"built {lib} in {time.perf_counter() - t0:.1f} s\n"
+              + "".join(logs))
     return lib
 
 

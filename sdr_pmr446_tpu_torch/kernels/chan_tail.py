@@ -1,0 +1,261 @@
+"""K4: the dsd_in / single-channel "mono chain", CUDA kernel and plain version.
+
+Replaces the TPU kernel sdr_pmr446_tpu/kernels/chan_tail.py::PallasMonoChain.apply
+(bodies ``_mono_body_pk2`` / ``_mono_body_cs16`` / ``_mono_body_ilv`` and the
+tail ``_tail_core``).  For one block of wire bytes it computes
+
+  1. the front end K1 has too (kernels/duo.py::FrontEnd): wire decode, the
+     IQ DC blocker and the 25/128 resampler to the 200 kHz band;
+  2. a 16x decimating lowpass to 12.5 kHz: the 477-tap 60 dB filter of
+     scanner/dsd_in.stage2_taps (mode "dsd"), or, after the channel mixer
+     band[i] * e^{-j w (n0 + i)}, the 838-tap 80 dB channel filter of
+     scanner/single.channel_filter_taps (mode "single");
+  3. the NBFM discriminator (kf = 0.5) against the carried previous sample;
+  4. "dsd": the 96/25 polyphase upsampler to 48 kHz, x32767, clipped to
+     [-32768, 32767] (the caller truncates to int16); "single": the 408-tap
+     composed CTCSS-highpass * de-emphasis FIR x audio gain.
+
+Carried state, the JAX mono engine's layout (PallasDsdState /
+PallasSingleState), so a JAX state loads into the port unchanged: dc_x,
+dc_y (c64), front_hist (c64 [512] cu8/cs8, [384] otherwise), band_hist (c64
+[hb * 400]: the last raw band samples, hb = 2 dsd / 3 single), sig_prev
+(c64, the last decimated sample in true, mixed space), demod_hist (f32
+[dh * 25], dh = 2 / 17) and, for "single", n0 (i32, the band index of the
+block's first sample mod 32: the mixer phase).
+
+The JAX kernel folds the mixer into complex decimator taps plus a
+(-1)^(g + u) alternation that is right only when a step has an even number
+of 400-sample group rows (K % 8 == 0).  Here the mixer is applied exactly,
+by index, so every K is served.
+
+The CUDA version (csrc/chan_tail.cu) runs seven launches on the current
+stream: the three front-end launches of K1 (csrc/front_end.cuh), the state
+tail, the decimator (one warp per decimated output; the taps and each
+block's window, mixed once per sample, in shared memory), the
+discriminator and the post-FIR.  The band planes (2.5 MB at K = 16) and
+the decimated signal go through device memory; on the TPU the band never
+left VMEM.  What bounds it on the H100: at K = 16 it does ~0.49 GFLOP
+(dsd) or ~0.53 GFLOP (single), most of it the front end's resampler,
+against a 3.2 MB cu8 read — operations bound, ~7-8 us at the card's f32
+rate (chip_smoke.py counts it).  It runs far above that: seven
+small launches make it latency and launch bound; fusing them and keeping
+the band on chip is later work.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch.kernels import build
+from sdr_pmr446_tpu_torch.kernels.duo import FMT_CODE, FrontEnd, compact_phases
+from sdr_pmr446_tpu_torch.ops import fm
+from sdr_pmr446_tpu_torch.ops.resample import PolyResampler
+from sdr_pmr446_tpu_torch.taps import design as D
+
+GL = 400                      # band samples per JAX group row
+DPS = 25                      # decimated samples per group row
+DEC = 16                      # decimation of the channel filter
+PHASE_PERIOD = 32             # mixer period in band samples (fs / 6.25 kHz)
+MODES = ("dsd", "single")
+#: (history group rows hb, demod history rows dh, outputs per group row)
+GEOMETRY = {"dsd": (2, 2, 96), "single": (3, 17, 25)}
+_SCALE = float(np.float32(1.0 / (2.0 * math.pi * C.FM_KF)))
+
+#: kernel launches of the CUDA version (one per chain step); the plain
+#: version never counts
+LAUNCHES = 0
+
+
+class MonoOut(NamedTuple):
+    dc_x: torch.Tensor        # c64 []
+    dc_y: torch.Tensor        # c64 []
+    front_hist: torch.Tensor  # c64 [H]
+    band_hist: torch.Tensor   # c64 [hb * 400]
+    sig_prev: torch.Tensor    # c64 []
+    demod_hist: torch.Tensor  # f32 [dh * 25]
+    n0: Optional[torch.Tensor]  # i32 [] ("single"), None ("dsd")
+    out: torch.Tensor         # f32 [G * 96] ("dsd") / [G * 25] ("single")
+
+
+def mixer_table(channel: int) -> np.ndarray:
+    """c64 [32]: e^{-j w n} for the channel's offset from the band centre
+    (a multiple of fs/32, so the ramp has period 32: exact by table)."""
+    f_off = (channel - 1) * C.CHANNEL_WIDTH_HZ - 93_750.0
+    omega = 2.0 * np.pi * f_off / C.SDR_RESAMPLERATE
+    return np.exp(-1j * omega * np.arange(PHASE_PERIOD)).astype(np.complex64)
+
+
+def audio_fir_taps(audio_gain: float) -> np.ndarray:
+    """f32 [408]: conv(CTCSS highpass, de-emphasis) x gain, composed in
+    float64 (the JAX kernel's _fir_matrix taps)."""
+    comp = np.convolve(D.ctcss_hp_taps(), D.deemph_fir_equiv())
+    return (np.asarray(comp, np.float64) * float(audio_gain)).astype(
+        np.float32)
+
+
+class MonoChain(nn.Module):
+    """K4 for one mode and wire format.  ``module(wire, dc_x, dc_y,
+    front_hist, band_hist, sig_prev, demod_hist, n0)`` -> MonoOut: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+
+    def __init__(self, mode: str, fmt: str, channel: int | None = None,
+                 audio_gain: float = 1.0, *, device):
+        super().__init__()
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        self.mode = mode
+        self.front = FrontEnd(fmt, device=device)
+        self.fmt = self.front.fmt
+        self.hb, self.dh, self.out_w = GEOMETRY[mode]
+        if mode == "dsd":
+            from sdr_pmr446_tpu_torch.scanner.dsd_in import stage2_taps, up_taps
+            dec_taps = np.asarray(stage2_taps())
+            up = np.asarray(up_taps(), np.float64) * 32767.0
+            self.up = PolyResampler(up, 96, DPS, device)
+            self.register_buffer("post_taps", torch.as_tensor(
+                compact_phases(up, 96, DPS), device=device))
+        else:
+            from sdr_pmr446_tpu_torch.scanner.single import channel_filter_taps
+            if channel is None or not 1 <= channel <= C.NUM_CHANNELS:
+                raise ValueError(f"channel must be 1..{C.NUM_CHANNELS}")
+            dec_taps = np.asarray(channel_filter_taps())
+            self.register_buffer("tab", torch.as_tensor(
+                mixer_table(channel), device=device))
+            self.register_buffer("post_taps", torch.as_tensor(
+                audio_fir_taps(audio_gain), device=device))
+        self.decim = PolyResampler(dec_taps, 1, DEC, device)
+        if self.hb * GL < self.decim.hist_len:
+            raise ValueError("band history shorter than the decimator")
+
+    def init_state(self, device) -> tuple:
+        """Zero (dc_x, dc_y, front_hist, band_hist, sig_prev, demod_hist)."""
+        c64 = dict(dtype=torch.complex64, device=device)
+        return (torch.zeros((), **c64), torch.zeros((), **c64),
+                torch.zeros(self.front.hist_len, **c64),
+                torch.zeros(self.hb * GL, **c64), torch.zeros((), **c64),
+                torch.zeros(self.dh * DPS, dtype=torch.float32,
+                            device=device))
+
+    def geometry(self, wire: torch.Tensor):
+        """(n input samples, band samples nb, decimated samples F, group
+        rows G)."""
+        n = self.front.samples(wire)
+        nb = n * C.RESAMP_L // C.RESAMP_M
+        return n, nb, nb // DEC, nb // GL
+
+    def forward(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
+                demod_hist, n0=None) -> MonoOut:
+        if wire.device.type == "cuda":
+            return self.kernel(wire, dc_x, dc_y, front_hist, band_hist,
+                               sig_prev, demod_hist, n0)
+        if wire.device.type == "cpu":
+            return self.plain(wire, dc_x, dc_y, front_hist, band_hist,
+                              sig_prev, demod_hist, n0)
+        raise ValueError(f"no mono-chain implementation for device "
+                         f"{wire.device}")
+
+    def _check_n0(self, n0):
+        if (n0 is None) != (self.mode == "dsd"):
+            raise ValueError("n0 is the single chain's mixer phase: pass it "
+                             "for mode 'single' only")
+
+    # ------------------------------------------------------------ plain
+    def plain(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
+              demod_hist, n0=None) -> MonoOut:
+        """The same function in plain PyTorch ops, step by step as the JAX
+        op path runs it (any device)."""
+        self._check_n0(n0)
+        _, nb, _, _ = self.geometry(wire)
+        hb = self.hb * GL
+        ndx, ndy, nfh, band = self.front.plain(wire, dc_x, dc_y, front_hist)
+        be = torch.cat([torch.view_as_real(band_hist).T, band], dim=-1)
+        new_bh = torch.complex(be[0, nb:], be[1, nb:])
+        new_n0 = None
+        if self.mode == "single":
+            i = torch.arange(-hb, nb, device=be.device)
+            mixed = (torch.complex(be[0], be[1])
+                     * self.tab[torch.remainder(i + n0, PHASE_PERIOD)])
+            be = torch.view_as_real(mixed).T
+            new_n0 = torch.remainder(n0 + nb, PHASE_PERIOD).to(torch.int32)
+        _, y = self.decim(be[:, :hb], be[:, hb:])
+        new_prev, dem = fm.fm_demod(sig_prev, torch.complex(y[0], y[1]))
+        if self.mode == "dsd":
+            new_dh, out = self.up(demod_hist, dem)
+            out = torch.clamp(out, -32768.0, 32767.0)
+        else:
+            de = torch.cat([demod_hist, dem])
+            nt = self.post_taps.shape[0]
+            out = torch.nn.functional.conv1d(
+                de[de.shape[0] - dem.shape[0] - (nt - 1):].reshape(1, 1, -1),
+                torch.flip(self.post_taps, dims=[0]).reshape(1, 1, -1))
+            out = out.reshape(-1)
+            new_dh = de[dem.shape[0]:]
+        return MonoOut(ndx, ndy, nfh, new_bh.contiguous(), new_prev,
+                       new_dh.contiguous(), new_n0, out.contiguous())
+
+    # ------------------------------------------------------------- cuda
+    def kernel(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
+               demod_hist, n0=None) -> MonoOut:
+        """Launch csrc/chan_tail.cu on the current stream (raises on any
+        fault)."""
+        global LAUNCHES
+        self._check_n0(n0)
+        n, nb, f, g = self.geometry(wire)
+        dev = wire.device
+        h, hb, dh = self.front.hist_len, self.hb * GL, self.dh * DPS
+        single = self.mode == "single"
+        build.require(wire, "wire", torch.uint8, (wire.numel(),), dev)
+        build.require(dc_x, "dc_x", torch.complex64, (), dev)
+        build.require(dc_y, "dc_y", torch.complex64, (), dev)
+        build.require(front_hist, "front_hist", torch.complex64, (h,), dev)
+        build.require(band_hist, "band_hist", torch.complex64, (hb,), dev)
+        build.require(sig_prev, "sig_prev", torch.complex64, (), dev)
+        build.require(demod_hist, "demod_hist", torch.float32, (dh,), dev)
+        build.require(self.decim.weight, "decimator taps", torch.float32,
+                      None, dev)
+        build.require(self.post_taps, "post taps", torch.float32, None, dev)
+        if single:
+            build.require(n0, "n0", torch.int32, (), dev)
+            build.require(self.tab, "mixer table", torch.complex64,
+                          (PHASE_PERIOD,), dev)
+        (ylocal, yend, carry), fe_args = self.front.kernel_args(n, dev)
+        kc, pj, p, gg, p_l, p_seg, seg, inv_cu8 = fe_args
+        f32 = dict(dtype=torch.float32, device=dev)
+        c64 = dict(dtype=torch.complex64, device=dev)
+        band = torch.empty(2 * nb, **f32)
+        sig = torch.empty(2 * f, **f32)
+        dem = torch.empty(f, **f32)
+        out = MonoOut(torch.empty((), **c64), torch.empty((), **c64),
+                      torch.empty(h, **c64), torch.empty(hb, **c64),
+                      torch.empty((), **c64), torch.empty(dh, **f32),
+                      torch.empty((), dtype=torch.int32, device=dev)
+                      if single else None,
+                      torch.empty(g * self.out_w, **f32))
+        ptr = lambda t: t.data_ptr() if t is not None else None
+        post_width = (self.post_taps.shape[1] if self.mode == "dsd"
+                      else self.post_taps.shape[0])
+        code = build.library().mono_run(
+            FMT_CODE[self.fmt], int(single), wire.data_ptr(), n,
+            dc_x.data_ptr(), dc_y.data_ptr(), front_hist.data_ptr(), h,
+            band_hist.data_ptr(), hb, sig_prev.data_ptr(),
+            demod_hist.data_ptr(), dh, ptr(n0),
+            kc, pj, p, gg, p_l, p_seg, seg, inv_cu8,
+            self.decim.weight.data_ptr(), self.decim.P,
+            ptr(self.tab) if single else None,
+            self.post_taps.data_ptr(), post_width, _SCALE,
+            ylocal.data_ptr(), yend.data_ptr(), carry.data_ptr(),
+            band.data_ptr(), sig.data_ptr(), dem.data_ptr(),
+            out.dc_x.data_ptr(), out.dc_y.data_ptr(),
+            out.front_hist.data_ptr(), out.band_hist.data_ptr(),
+            out.sig_prev.data_ptr(), out.demod_hist.data_ptr(),
+            ptr(out.n0), out.out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(code, "mono_run")
+        LAUNCHES += 1
+        return out

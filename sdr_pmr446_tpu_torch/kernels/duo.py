@@ -39,8 +39,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from sdr_pmr446_tpu import config as C
-from sdr_pmr446_tpu.taps import design as D
+from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch.taps import design as D
 from sdr_pmr446_tpu_torch.kernels import build
 from sdr_pmr446_tpu_torch.ops import decode, fm, iir
 from sdr_pmr446_tpu_torch.ops.pfb import PFBChannelizer, make_pfb_kernel
@@ -53,7 +53,7 @@ DC_L = 64
 CARRY_THREADS = 1024
 _P = 1.0 - C.DC_BLOCK_ALPHA
 _G = (1.0 + _P) / 2.0
-_FMT_CODE = {"cu8": 0, "cs8": 1, "cs16": 2, "cf32": 3}
+FMT_CODE = {"cu8": 0, "cs8": 1, "cs16": 2, "cf32": 3}
 
 #: kernel launches of the CUDA version (one per duo call); the plain
 #: version never counts
@@ -90,34 +90,35 @@ def dc_powers() -> np.ndarray:
     return (_P ** (np.arange(DC_L, dtype=np.float64) + 1.0)).astype(np.float32)
 
 
-class ScannerDuo(nn.Module):
-    """K1 for one wire format.  ``module(wire, dc_x, dc_y, front_hist,
-    pfb_hist, parity, prev, ns)`` -> DuoOut: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+def compact_phases(taps, L: int, M: int) -> np.ndarray:
+    """f32 [L, P]: the rows of the polyphase kernel matrix without their zero
+    padding, row p starting at its offset (p * M) // L — the resampler
+    tables of the CUDA kernels (csrc/front_end.cuh, csrc/chan_tail.cu)."""
+    kmat = _kernel_matrix(tuple(np.asarray(taps, np.float64).tolist()), L, M)
+    p_taps = kmat.shape[1] - (L - 1) * M // L
+    return np.stack([kmat[p, (p * M) // L:(p * M) // L + p_taps]
+                     for p in range(L)]).astype(np.float32)
 
-    def __init__(self, fmt: str, device="cpu"):
+
+class FrontEnd(nn.Module):
+    """The front end K1 shares with K4 (kernels/chan_tail.py): wire decode,
+    the IQ DC blocker and the 25/128 resampler to the 200 kHz band.
+
+    ``plain`` is its plain PyTorch version; the CUDA kernels read ``kc``
+    (compact resampler phases) and ``pj`` (DC fix-up powers)."""
+
+    def __init__(self, fmt: str, *, device):
         super().__init__()
         self.fmt = decode.wire_format(fmt)
-        self.front_hist_len = front_hist_len(self.fmt)
+        self.hist_len = front_hist_len(self.fmt)
         taps = D.resampler_taps()
         self.resampler = PolyResampler(taps, C.RESAMP_L, C.RESAMP_M, device)
-        self.pfb = PFBChannelizer(D.pfb_prototype(), device=device)
-        # CUDA tables: the polyphase rows without their zero padding
-        kmat = _kernel_matrix(tuple(taps.tolist()), C.RESAMP_L, C.RESAMP_M)
-        p_taps = self.resampler.P
-        kc = np.stack([kmat[p, (p * C.RESAMP_M) // C.RESAMP_L:
-                            (p * C.RESAMP_M) // C.RESAMP_L + p_taps]
-                       for p in range(C.RESAMP_L)]).astype(np.float32)
-        ck = make_pfb_kernel(D.pfb_prototype())
-        self.register_buffer("kc", torch.as_tensor(kc, device=device))
-        self.register_buffer("ck_re", torch.as_tensor(
-            ck.real.astype(np.float32), device=device))
-        self.register_buffer("ck_im", torch.as_tensor(
-            ck.imag.astype(np.float32), device=device))
+        self.register_buffer("kc", torch.as_tensor(
+            compact_phases(taps, C.RESAMP_L, C.RESAMP_M), device=device))
         self.register_buffer("pj", torch.as_tensor(dc_powers(), device=device))
 
-    def geometry(self, wire: torch.Tensor, ns: int):
-        """(n input samples, band samples, frames F, sub-chunks K)."""
+    def samples(self, wire: torch.Tensor) -> int:
+        """Input samples in ``wire`` (a multiple of INPUT_GRANULE)."""
         bps = decode.BYTES_PER_SAMPLE[self.fmt]
         if wire.dim() != 1 or wire.numel() % bps:
             raise ValueError(f"wire must be 1-D whole {self.fmt} samples")
@@ -125,6 +126,54 @@ class ScannerDuo(nn.Module):
         if n % C.INPUT_GRANULE:
             raise ValueError(f"{n} samples is not a multiple of "
                              f"{C.INPUT_GRANULE}")
+        return n
+
+    def plain(self, wire, dc_x, dc_y, front_hist):
+        """-> (dc_x', dc_y', front_hist', band planes f32 [2, nb])."""
+        xr, xi = decode.decode_planes(wire, self.fmt)
+        (ndx, ndy), y = iir.dc_blocker_apply(
+            (torch.view_as_real(dc_x), torch.view_as_real(dc_y)),
+            torch.stack([xr, xi]), C.DC_BLOCK_ALPHA)
+        fh = torch.view_as_real(front_hist).T                    # [2, H]
+        new_fh, band = self.resampler(fh, y)
+        return (torch.complex(ndx[0], ndx[1]), torch.complex(ndy[0], ndy[1]),
+                torch.complex(new_fh[0], new_fh[1]).contiguous(), band)
+
+    def kernel_args(self, n: int, dev):
+        """The front-end launches' scratch (ylocal, yend, carry) for ``n``
+        input samples, and their C arguments (kc, pj, p, g, pL, pSeg, seg,
+        inv_cu8) as the entry points duo_run and mono_run take them."""
+        chunks = -(-n // DC_L)
+        p_l, p_seg, seg = scan_constants(chunks)
+        f32 = dict(dtype=torch.float32, device=dev)
+        scratch = (torch.empty(2 * n, **f32), torch.empty(2 * chunks, **f32),
+                   torch.empty(2 * chunks, **f32))
+        for name in ("kc", "pj"):
+            build.require(getattr(self, name), name, torch.float32, None, dev)
+        return scratch, (self.kc.data_ptr(), self.pj.data_ptr(), _P, _G, p_l,
+                         p_seg, seg, float(np.float32(1.0 / 127.5)))
+
+
+class ScannerDuo(nn.Module):
+    """K1 for one wire format.  ``module(wire, dc_x, dc_y, front_hist,
+    pfb_hist, parity, prev, ns)`` -> DuoOut: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+
+    def __init__(self, fmt: str, device):
+        super().__init__()
+        self.front = FrontEnd(fmt, device=device)
+        self.fmt = self.front.fmt
+        self.front_hist_len = self.front.hist_len
+        self.pfb = PFBChannelizer(D.pfb_prototype(), device=device)
+        ck = make_pfb_kernel(D.pfb_prototype())
+        self.register_buffer("ck_re", torch.as_tensor(
+            ck.real.astype(np.float32), device=device))
+        self.register_buffer("ck_im", torch.as_tensor(
+            ck.imag.astype(np.float32), device=device))
+
+    def geometry(self, wire: torch.Tensor, ns: int):
+        """(n input samples, band samples, frames F, sub-chunks K)."""
+        n = self.front.samples(wire)
         nb = n * C.RESAMP_L // C.RESAMP_M
         f = nb // NCH
         if f % ns:
@@ -146,21 +195,14 @@ class ScannerDuo(nn.Module):
               ns: int = C.SUBCHUNK_AUDIO) -> DuoOut:
         """The same function in plain PyTorch ops (any device)."""
         _, _, f, k = self.geometry(wire, ns)
-        xr, xi = decode.decode_planes(wire, self.fmt)
-        (ndx, ndy), y = iir.dc_blocker_apply(
-            (torch.view_as_real(dc_x), torch.view_as_real(dc_y)),
-            torch.stack([xr, xi]), C.DC_BLOCK_ALPHA)
-        fh = torch.view_as_real(front_hist).T                    # [2, H]
-        new_fh, band = self.resampler(fh, y)
+        ndx, ndy, new_fh, band = self.front.plain(wire, dc_x, dc_y,
+                                                  front_hist)
         (new_ph, new_parity), chan = self.pfb(
             (pfb_hist, parity), torch.complex(band[0], band[1]))
         new_prev, demod = fm.fm_demod(prev, chan)
         mag = torch.abs(chan).reshape(NCH, k, ns).sum(-1).T
-        return DuoOut(torch.complex(ndx[0], ndx[1]),
-                      torch.complex(ndy[0], ndy[1]),
-                      torch.complex(new_fh[0], new_fh[1]).contiguous(),
-                      demod, mag.contiguous(), new_ph.contiguous(),
-                      new_parity, new_prev.contiguous())
+        return DuoOut(ndx, ndy, new_fh, demod, mag.contiguous(),
+                      new_ph.contiguous(), new_parity, new_prev.contiguous())
 
     # ------------------------------------------------------------- cuda
     def kernel(self, wire, dc_x, dc_y, front_hist, pfb_hist, parity, prev,
@@ -178,15 +220,11 @@ class ScannerDuo(nn.Module):
                       (self.pfb.hist_len,), dev)
         build.require(parity, "parity", torch.int32, (), dev)
         build.require(prev, "prev", torch.complex64, (NCH,), dev)
-        for name in ("kc", "ck_re", "ck_im", "pj"):
+        for name in ("ck_re", "ck_im"):
             build.require(getattr(self, name), name, torch.float32, None, dev)
-        chunks = -(-n // DC_L)
-        p_l, p_seg, seg = scan_constants(chunks)
+        (ylocal, yend, carry), fe_args = self.front.kernel_args(n, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         c64 = dict(dtype=torch.complex64, device=dev)
-        ylocal = torch.empty(2 * n, **f32)
-        yend = torch.empty(2 * chunks, **f32)
-        carry = torch.empty(2 * chunks, **f32)
         band = torch.empty(2 * nb, **f32)
         chan = torch.empty(2 * NCH * f, **f32)
         out = DuoOut(torch.empty((), **c64), torch.empty((), **c64),
@@ -196,14 +234,13 @@ class ScannerDuo(nn.Module):
                      ((parity + f) % 2).to(torch.int32),
                      torch.empty(NCH, **c64))
         lib = build.library()
+        kc, pj, p, g, p_l, p_seg, seg, inv_cu8 = fe_args
         code = lib.duo_run(
-            _FMT_CODE[self.fmt], wire.data_ptr(), n,
+            FMT_CODE[self.fmt], wire.data_ptr(), n,
             dc_x.data_ptr(), dc_y.data_ptr(), front_hist.data_ptr(), h,
             pfb_hist.data_ptr(), parity.data_ptr(), prev.data_ptr(),
-            self.kc.data_ptr(), self.ck_re.data_ptr(), self.ck_im.data_ptr(),
-            self.pj.data_ptr(),
-            _P, _G, p_l, p_seg, seg,
-            float(np.float32(1.0 / 127.5)),
+            kc, self.ck_re.data_ptr(), self.ck_im.data_ptr(), pj,
+            p, g, p_l, p_seg, seg, inv_cu8,
             float(np.float32(1.0 / (2.0 * math.pi * C.FM_KF))), k, ns,
             ylocal.data_ptr(), yend.data_ptr(), carry.data_ptr(),
             band.data_ptr(), chan.data_ptr(),

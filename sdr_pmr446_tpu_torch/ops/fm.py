@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from sdr_pmr446_tpu import config as C
+from sdr_pmr446_tpu_torch import config as C
 
 
 def fm_demod(prev: torch.Tensor, x: torch.Tensor, kf: float = C.FM_KF):

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from sdr_pmr446_tpu import config as C
+from sdr_pmr446_tpu_torch import config as C
 
 
 def make_pfb_kernel(prototype: np.ndarray,
@@ -49,7 +49,7 @@ def frame_signs(parity: torch.Tensor, frames: int) -> torch.Tensor:
 class PFBChannelizer(nn.Module):
     def __init__(self, prototype: np.ndarray,
                  num_channels: int = C.NUM_CHANNELS,
-                 mix_omega: float = C.MIX_OMEGA, device="cpu"):
+                 mix_omega: float = C.MIX_OMEGA, *, device):
         super().__init__()
         self.M = num_channels
         self.n_taps = int(np.asarray(prototype).shape[0])

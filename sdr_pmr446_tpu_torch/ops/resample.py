@@ -47,7 +47,7 @@ class PolyResampler(nn.Module):
     input samples; the filter reads its last ``P - 1`` (``hist_len``), so a
     longer history (the kernel engine's 384/512-sample one) works too."""
 
-    def __init__(self, taps: np.ndarray, L: int, M: int, device="cpu"):
+    def __init__(self, taps: np.ndarray, L: int, M: int, device):
         super().__init__()
         taps = np.asarray(taps, dtype=np.float64)
         self.L, self.M = L, M

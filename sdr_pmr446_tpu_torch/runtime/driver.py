@@ -20,7 +20,8 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
-from sdr_pmr446_tpu import config as C
+from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
                                                 make_runtime_params,
                                                 outputs_to_numpy)
@@ -34,7 +35,7 @@ def resolve_engine(engine: str, device) -> str:
     """'cuda' = the hand-written kernels (CUDA devices only), 'torch' = the
     kernels' plain PyTorch versions (the CPU only); 'auto' follows the
     device."""
-    dev = torch.device(device)
+    dev = devices.resolve(device)
     if engine in (None, "auto"):
         engine = "cuda" if dev.type == "cuda" else "torch"
     if engine not in ENGINES:
@@ -44,9 +45,6 @@ def resolve_engine(engine: str, device) -> str:
     if engine == "torch" and dev.type != "cpu":
         raise ValueError(f"engine 'torch' (the plain versions) runs on the "
                          f"CPU, got {dev}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is "
-                           "available")
     return engine
 
 
@@ -65,7 +63,7 @@ class ScanResult:
 class ScannerDriver:
     def __init__(self, args: Optional[C.ScannerArgs] = None,
                  subchunks_per_step: int = 10, input_format: str = "cu8",
-                 device="cpu", engine: str = "auto"):
+                 device="cuda", engine: str = "auto"):
         self.args = args or C.ScannerArgs()
         if self.args.waterfall > 0:
             raise ValueError("the waterfall is not yet ported to "

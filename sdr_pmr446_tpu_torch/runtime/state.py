@@ -1,4 +1,4 @@
-"""Carried streaming state of the scanner chain (PyTorch).
+"""Carried streaming state of the port's chains (PyTorch).
 
 Counterpart of sdr_pmr446_tpu/runtime/state.py.  ``ScannerState`` has the
 JAX field names, shapes and dtypes of the kernel engine's state
@@ -7,6 +7,11 @@ and flags), so a JAX state converted to numpy loads into the port and back
 unchanged, and the npz checkpoint format is the same file format.  The
 four FIR histories of the JAX op path (hp/delay/deemph/audio-lp) stay zero
 here, as they do on the JAX kernel engine.
+
+The dsd_in and single-channel chains carry the JAX mono engine's layouts
+(scanner/dsd_in.py::DsdState, scanner/single.py::SingleState); their numpy
+conversions below take and give the fields in PallasDsdState /
+PallasSingleState order, so states pass between the packages both ways.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sdr_pmr446_tpu import config as C
+from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdState
+from sdr_pmr446_tpu_torch.scanner.single import SingleState
 
 
 class ScannerState(NamedTuple):
@@ -92,12 +99,7 @@ def state_to_numpy(state: ScannerState) -> list[np.ndarray]:
 def state_from_numpy(values, device) -> ScannerState:
     """Build a state from numpy arrays in field order (a JAX state's
     ``[np.asarray(v) for v in state]`` loads unchanged)."""
-    values = list(values)
-    if len(values) != len(ScannerState._fields):
-        raise ValueError(f"expected {len(ScannerState._fields)} fields, "
-                         f"got {len(values)}")
-    return ScannerState(*(torch.as_tensor(np.array(v, copy=True),
-                                          device=device) for v in values))
+    return _fields_from_numpy(ScannerState, values, device)
 
 
 def save_state(path: str, block_index: int, state: ScannerState) -> None:
@@ -112,3 +114,36 @@ def load_state(path: str, device) -> tuple[int, ScannerState]:
     with np.load(path) as z:
         vals = [z[f"s{i}"] for i in range(len(ScannerState._fields))]
         return int(z["block_index"]), state_from_numpy(vals, device)
+
+
+def _fields_from_numpy(cls, values, device):
+    values = list(values)
+    if len(values) != len(cls._fields):
+        raise ValueError(f"expected {len(cls._fields)} fields, got "
+                         f"{len(values)}")
+    return cls(*(torch.as_tensor(np.array(v, copy=True), device=device)
+                 for v in values))
+
+
+def dsd_state_to_numpy(state) -> list[np.ndarray]:
+    """A DsdInChain state as numpy arrays in the field order of the JAX
+    mono engine's PallasDsdState."""
+    return state_to_numpy(state)
+
+
+def dsd_state_from_numpy(values, device):
+    """A DsdState from numpy arrays in PallasDsdState's field order (a JAX
+    mono-engine state's ``[np.asarray(v) for v in state]`` loads
+    unchanged)."""
+    return _fields_from_numpy(DsdState, values, device)
+
+
+def single_state_to_numpy(state) -> list[np.ndarray]:
+    """A SingleChannelChain state as numpy arrays in the field order of the
+    JAX mono engine's PallasSingleState."""
+    return state_to_numpy(state)
+
+
+def single_state_from_numpy(values, device):
+    """A SingleState from numpy arrays in PallasSingleState's field order."""
+    return _fields_from_numpy(SingleState, values, device)

@@ -27,8 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from sdr_pmr446_tpu import config as C
-from sdr_pmr446_tpu.taps import design as D
+from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch.taps import design as D
+from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
 from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
@@ -84,17 +85,18 @@ class StepOutputs(NamedTuple):
 class ScannerChain(nn.Module):
     """The scanner block step for one geometry, wire format and device.
 
-    The kernels run for CUDA devices; on the CPU every kernel wrapper takes
-    its plain PyTorch version."""
+    The kernels run for CUDA devices (the default); on the CPU, which the
+    caller asks for with ``device="cpu"``, every kernel wrapper takes its
+    plain PyTorch version."""
 
     def __init__(self, block: C.BlockConfig | None = None,
                  lowpass: bool = False, fir_deemph: bool = False,
-                 input_format: str = "cu8", device="cpu"):
+                 input_format: str = "cu8", device="cuda"):
         super().__init__()
         precision.check()
         self.block = block or C.BlockConfig()
         self.input_format = decode.wire_format(input_format)
-        self.device = torch.device(device)
+        self.device = devices.resolve(device)
         self.duo = ScannerDuo(self.input_format, device=self.device)
         self.audio_bank = AudioBank(lowpass, fir_deemph, device=self.device)
         deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sdr_pmr446_tpu import config as C
+from sdr_pmr446_tpu_torch import config as C
 
 
 class FsmCarry(NamedTuple):

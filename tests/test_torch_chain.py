@@ -75,7 +75,8 @@ def assert_same_layout(state, reference):
 
 
 def port_chain(**kw):
-    return ScannerChain(C.BlockConfig(K), input_format="cu8", **kw)
+    return ScannerChain(C.BlockConfig(K), input_format="cu8", device="cpu",
+                        **kw)
 
 
 def test_slice_matches_jax_kernel_engine(jax_run):
@@ -155,7 +156,8 @@ def test_slice_matches_oracle_k10(variant):
     ora = ScannerOracle(args)
     ora.process(host_iq)
     chain = ScannerChain(C.BlockConfig(10), lowpass=args.lowpass,
-                         fir_deemph=args.fir_deemph, input_format="cu8")
+                         fir_deemph=args.fir_deemph, input_format="cu8",
+                         device="cpu")
     params = make_runtime_params(args, "cpu")
     st = chain.init_state()
     outs = []
@@ -207,7 +209,8 @@ def test_driver_event_lines_match_jax(tmp_path):
     jd = JaxDriver(subchunks_per_step=5, input_format="cs16", engine="xla")
     jres = jd.run(iq_io.block_stream(jdecode.pack_bytes(
         raw.view(np.int16), "cs16"), jd.feed_len))
-    td = ScannerDriver(subchunks_per_step=5, input_format="cs16")
+    td = ScannerDriver(subchunks_per_step=5, input_format="cs16",
+                       device="cpu")
     tres = td.run(wire_blocks(raw, "cs16", td.feed_len))
     assert tres.events == jres.events
     assert any(e.startswith("Tuned to channel 5") for e in tres.events)

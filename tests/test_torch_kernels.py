@@ -55,7 +55,7 @@ def test_duo_plain_matches_jax_kernel(fmt):
     k = 8
     rng = np.random.default_rng(11)
     jd = PallasScannerDuo(JAX_FMT[fmt], interpret=True)
-    td = duo.ScannerDuo(fmt)
+    td = duo.ScannerDuo(fmt, device="cpu")
     assert td.front_hist_len == jd.front_hist_len
     state = [cplx(rng, scale=0.1), cplx(rng, scale=0.01),
              cplx(rng, td.front_hist_len, scale=0.01),
@@ -93,7 +93,7 @@ def test_audio_bank_plain_matches_jax_kernel():
     k = 8
     f = k * NS
     jb = PallasAudioBank(interpret=True)
-    tb = audio_bank.AudioBank()
+    tb = audio_bank.AudioBank(device="cpu")
     assert tb.hist == jb.hist
     hist = (0.1 * rng.standard_normal((16, jb.hist))).astype(np.float32)
     dcx = (0.01 * rng.standard_normal(16)).astype(np.float32)
@@ -145,7 +145,7 @@ def test_wrappers_reject_bad_inputs():
         build.require(torch.zeros(4, 2)[:, 0], "t", torch.float32, (4,), dev)
     with pytest.raises(ValueError, match="on meta"):
         build.require(t.to("meta"), "t", torch.float32, (4,), dev)
-    d = duo.ScannerDuo("cu8")
+    d = duo.ScannerDuo("cu8", device="cpu")
     with pytest.raises(ValueError, match="multiple of 2048"):
         d.geometry(torch.zeros(2 * 1000, dtype=torch.uint8), NS)
     with pytest.raises(ValueError, match="no duo implementation"):
@@ -251,3 +251,96 @@ def test_chain_step_makes_no_host_reads_on_card():
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize(dev)
     assert out.active_chan.shape == (k,)
+
+
+def fm_capture(n, start=0, offset_hz=300.0):
+    """The dsd_in fixture of tests/test_dsd_in.py:25-30 (a 1 kHz tone at
+    2 kHz deviation, 300 Hz off the tuned centre), from sample ``start``."""
+    t = (start + np.arange(n)) / C.SDR_SAMPLERATE
+    phase = np.cumsum(0.5 * np.sin(2 * np.pi * 1000.0 * t)) * 2000.0
+    return 0.9 * np.exp(2j * np.pi * (phase + offset_hz * (start + np.arange(n)))
+                        / C.SDR_SAMPLERATE)
+
+
+def mono_input(mode, n, step):
+    if mode == "dsd":
+        return fm_capture(n, start=step * n)
+    return synth.make_scanner_iq(n, channel=5, ctcss_code=12, seed=step,
+                                 start_sample=step * n)
+
+
+def random_mono_state(mono, rng, dev, n0):
+    """A carried state with every field non-zero (and an odd mixer phase)."""
+    st = [torch.as_tensor(v, device=dev) for v in (
+        cplx(rng, scale=0.1), cplx(rng, scale=0.01),
+        cplx(rng, mono.front.hist_len, scale=0.01),
+        cplx(rng, mono.hb * 400, scale=0.1), cplx(rng, scale=0.5),
+        (0.1 * rng.standard_normal(mono.dh * 25)).astype(np.float32))]
+    return st, (torch.tensor(n0, dtype=torch.int32, device=dev)
+                if mono.mode == "single" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dsd", "single"])
+@pytest.mark.parametrize("fmt,k", [("cu8", 16), ("cs16", 15)])
+def test_mono_kernel_matches_plain_on_card(mode, fmt, k):
+    """K4 vs its plain version over two consecutive blocks (the carried
+    state included; K = 15 gives an odd number of group rows): dsd PCM
+    within 1 LSB after the int16 truncation, single audio SNR > 100 dB,
+    carries to 5e-5 of their peak, the mixer phase exact."""
+    from sdr_pmr446_tpu_torch.kernels import chan_tail
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(k)
+    mono = chan_tail.MonoChain(mode, fmt, channel=5, audio_gain=2.0,
+                               device=dev)
+    ref, n0_ref = random_mono_state(mono, rng, dev, 7)
+    got, n0_got = list(ref), n0_ref
+    n = k * C.SUBCHUNK_IN
+    for step in range(2):
+        wire = torch.as_tensor(decode.quantize_iq(
+            mono_input(mode, n, step), fmt), device=dev)
+        launches = chan_tail.LAUNCHES
+        r = mono.plain(wire, *ref, n0=n0_ref)
+        g = mono(wire, *got, n0=n0_got)
+        torch.cuda.synchronize(dev)
+        assert chan_tail.LAUNCHES == launches + 1
+        want, have = r.out.cpu().double(), g.out.cpu().double()
+        if mode == "dsd":
+            d = (g.out.to(torch.int16).int() - r.out.to(torch.int16).int())
+            assert d.abs().max().item() <= 1
+        else:
+            snr = 10 * torch.log10((want ** 2).sum() / ((have - want) ** 2).sum())
+            assert snr > 100.0, f"step {step}: {snr:.1f} dB"
+        for name in ("dc_x", "dc_y", "front_hist", "band_hist", "sig_prev",
+                     "demod_hist"):
+            assert rel_err(getattr(g, name).cpu().numpy(),
+                           getattr(r, name).cpu().numpy()) < 5e-5, name
+        if mode == "single":
+            assert int(g.n0) == int(r.n0)
+        ref, n0_ref = list(r[:6]), r.n0
+        got, n0_got = list(g[:6]), g.n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dsd", "single"])
+def test_mono_chain_step_makes_no_host_reads_on_card(mode):
+    """A warmed-up DsdInChain / SingleChannelChain step on the card runs
+    under torch.cuda.set_sync_debug_mode("error")."""
+    from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdInChain
+    from sdr_pmr446_tpu_torch.scanner.single import SingleChannelChain
+    dev = _cuda_or_skip()
+    k = 10
+    chain = (DsdInChain(k, input_format="cu8", device=dev) if mode == "dsd"
+             else SingleChannelChain(5, k, input_format="cu8", device=dev))
+    wires = [torch.as_tensor(decode.quantize_iq(mono_input(
+        mode, k * C.SUBCHUNK_IN, step), "cu8"), device=dev)
+        for step in range(2)]
+    state, _ = chain.step(chain.init_state(), wires[0])
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, out = chain.step(state, wires[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(dev)
+    assert out.shape == (chain.output_len,)

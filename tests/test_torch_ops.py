@@ -68,7 +68,7 @@ def test_constant_builders_bit_equal():
     np.testing.assert_array_equal(pfb.make_pfb_kernel(D.pfb_prototype()),
                                   jpfb.make_pfb_kernel(D.pfb_prototype()))
     np.testing.assert_array_equal(
-        pfb.PFBChannelizer(D.pfb_prototype()).weight.numpy(),
+        pfb.PFBChannelizer(D.pfb_prototype(), device="cpu").weight.numpy(),
         jpfb.PFBChannelizer(D.pfb_prototype()).rhs)
     for lowpass in (False, True):
         for fd in (False, True):
@@ -125,7 +125,7 @@ def test_dc_blocker_matches_jax(t):
 def test_resampler_matches_jax():
     rng = np.random.default_rng(2)
     jr = jresample.PolyResampler(D.resampler_taps(), 25, 128)
-    tr = resample.PolyResampler(D.resampler_taps(), 25, 128)
+    tr = resample.PolyResampler(D.resampler_taps(), 25, 128, "cpu")
     hist = cplx(rng, jr.hist_len)
     x = cplx(rng, 128 * 40)
     jh, jy = jr.apply(jnp.asarray(hist), jnp.asarray(x))
@@ -143,7 +143,7 @@ def test_resampler_matches_jax():
 def test_pfb_parity_across_steps_matches_jax():
     rng = np.random.default_rng(3)
     jp = jpfb.PFBChannelizer(D.pfb_prototype())
-    tp = pfb.PFBChannelizer(D.pfb_prototype())
+    tp = pfb.PFBChannelizer(D.pfb_prototype(), device="cpu")
     jst = (jnp.asarray(cplx(rng, 400)), jnp.int32(1))
     tst = (torch.from_numpy(np.array(jst[0])),
            torch.tensor(1, dtype=torch.int32))
