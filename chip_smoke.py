@@ -34,20 +34,31 @@ on its own lines; any failure raises and ends the run:
      count over that run;
   9. each chain at K = 16 cu8 over four distinct blocks: throughput, one
      step with host reads made errors, and one step under torch.profiler
-     (device busy share, device time by part and by device function).
+     (device busy share, device time by part and by device function);
+ 10. the waterfall: K3 against its plain version on the card, on K1's band
+     of two consecutive cu8 blocks from a random history and counter, at
+     K = 40 with w = 80, 120, 840 and at K = 10 with w = 64, with its times
+     beside torch.stft's (the library yardstick, never called by the port);
+     the scanner with -w 120 through ScannerDriver at K = 10 over 3 steps,
+     each row within 1e-2 dB of the float64 asgramcf oracle fed the
+     oracle's band, decisions equal to the same run with the waterfall off;
+     then BASELINE config 4 at full width (K = 40, cu8, -w 80) over four
+     distinct blocks: throughput in turns with the waterfall-off run, one
+     step with host reads made errors, one step under torch.profiler.
 
-Each path (the scanner in phases 3-4, dsd_in in 7, single in 8) runs with
-the launch counts set to 0 just before it and read just after.  Each
-kernel's bound is the larger of its bytes (inputs read once, outputs
-written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
-H100 SXM's HBM3 rate and f32 rate outside the tensor cores).  The last two
-lines of standard output are the kernel table ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.
+Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
+scanner in 10) runs with the launch counts set to 0 just before it and read
+just after.  Each kernel's bound is the larger of its bytes (inputs read
+once, outputs written once) over 3.35 TB/s and its f32 operations over 67
+TFLOP/s (the H100 SXM's HBM3 rate and f32 rate outside the tensor cores).
+The last two lines of standard output are the kernel table
+``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -69,6 +80,8 @@ TOL_PCM_LSB = 1                # dsd PCM after the int16 truncation: a value
 #                                near a whole number may truncate either way
 TOL_DSD_ORACLE_DB = 50.0       # dsd_in vs the float64 oracle (tests/test_dsd_in.py:33-56)
 TOL_TONE_DB = 35.0             # single-channel 1 kHz tone (tests/test_misc.py:80-97)
+TOL_WF_DB = 2e-3               # K3 rows vs its plain version (tests/test_scanner.py:341-378)
+TOL_WF_ORACLE_DB = 1e-2        # -w rows vs the float64 oracle (tests/test_driver_apps.py:140-173)
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 ATAN2_OPS = 20                 # operations counted for one atan2f / sincos
@@ -620,6 +633,7 @@ def phase_bench(dev, k: int, n_blocks: int, sync):
 #: the parts of a scanner step, by the name prefixes of their device events
 SCANNER_PARTS = (("K1 duo", ("duo_", "fe_")), ("K2 audio bank", ("ab_",)),
                  ("DC carry scan (K1 and K2)", ("dc_carry",)),
+                 ("K3 waterfall", ("wf_",)),
                  ("copies", ("Memcpy", "Memset")))
 #: the parts of a dsd_in / single step
 CHAIN_PARTS = (("K4 mono chain (7 kernels)", ("fe_", "dc_carry", "mono_")),
@@ -640,16 +654,17 @@ def device_group(name: str, parts) -> str:
     return "other"
 
 
-def phase_no_host_reads(dev, k: int, sync):
+def phase_no_host_reads(dev, k: int, sync, waterfall: int = 0):
     """One warmed-up chain step under set_sync_debug_mode("error"): the
-    step (FSM included) makes no host read, so steps queue without
-    waiting for the device."""
+    step (FSM and waterfall included) makes no host read, so steps queue
+    without waiting for the device."""
     import torch
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
                                                     make_runtime_params)
-    chain = ScannerChain(C.BlockConfig(k), input_format="cu8", device=dev)
-    params = make_runtime_params(C.ScannerArgs(), dev)
+    chain = ScannerChain(C.BlockConfig(k), input_format="cu8", device=dev,
+                         waterfall=waterfall)
+    params = make_runtime_params(C.ScannerArgs(waterfall=waterfall), dev)
     wires = [torch.as_tensor(b, device=dev) for b in bench_blocks(k, 2)]
     state, _ = chain.step(chain.init_state(), wires[0], params)
     sync()
@@ -659,19 +674,22 @@ def phase_no_host_reads(dev, k: int, sync):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     sync()
-    log(f"  K={k} step under set_sync_debug_mode('error'): no host reads")
+    log(f"  K={k} -w {waterfall} step under set_sync_debug_mode('error'): "
+        f"no host reads")
     return 2
 
 
-def phase_profile(dev, k: int, sync):
+def phase_profile(dev, k: int, sync, waterfall: int = 0):
     """One scanner K-block step under torch.profiler (profile_step)."""
+    from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
     blocks = bench_blocks(k, 2)
-    drv = ScannerDriver(subchunks_per_step=k, input_format="cu8", device=dev)
+    drv = ScannerDriver(C.ScannerArgs(waterfall=waterfall),
+                        subchunks_per_step=k, input_format="cu8", device=dev)
     drv.run(blocks[:1])
     sync()
     profile_step(lambda: drv.run(blocks[1:]), sync, SCANNER_PARTS,
-                 "other (FSM, RSSI, select)")
+                 "other (FSM, RSSI, select)", by_kernel=waterfall > 0)
     return 1
 
 
@@ -690,6 +708,206 @@ def phase_profile_chain(dev, mode: str, k: int, sync):
         out.cpu()
     profile_step(step, sync, CHAIN_PARTS, "other (int16 cast, small ops)",
                  by_kernel=True)
+
+
+def wf_work(k: int, w: int, hops: int):
+    """K3: the band planes and the history read, the rows and the new
+    history written; as an FFT, 5 w log2(w) operations a hop, plus the
+    window (a real by complex product, 2 a sample) and |S|^2 (3 a bin)."""
+    nb, wl = k * 19600, w // 2
+    nbytes = 8 * nb + 2 * 8 * wl + 4 * k * w + 8
+    return nbytes, hops * (5 * w * math.log2(w) + 2 * wl + 3 * w)
+
+
+def stft_rows(dev, w: int, k: int, cnt: int):
+    """The library yardstick: torch.stft (cuFFT) over the same hops, then
+    |S|^2 and the per-row sums.  Returns (inputs(hist, band) -> x, the
+    timed call(x) -> row sums [k, w], the hops' row counts [k])."""
+    import torch
+    wl, delay, nb = w // 2, w // 4, k * 19600
+    u0 = delay - cnt
+    hops = (nb - u0) // delay + 1
+    u = u0 + delay * torch.arange(hops, device=dev)
+    row = (u - 1) // 19600
+    counts = torch.bincount(row, minlength=k).float()
+    win = torch.hamming_window(wl, periodic=True, dtype=torch.float64,
+                               device=dev)
+    win = (win / win.sum()).float()
+
+    def inputs(hist, band):
+        # torch.stft centres a w/2 window in each w-sample frame: frame i
+        # starts w/4 before hop i's window, xe[u0 + i w/4 .. + w/2)
+        xe = torch.cat([torch.zeros(delay, dtype=torch.complex64, device=dev),
+                        hist[hist.shape[0] - wl:],
+                        torch.complex(band[0], band[1]),
+                        torch.zeros(w, dtype=torch.complex64, device=dev)])
+        return xe[u0:u0 + (hops - 1) * delay + w].contiguous()
+
+    def call(x):
+        spec = torch.stft(x, n_fft=w, hop_length=delay, win_length=wl,
+                          window=win, center=False, return_complex=True)
+        p = spec.real ** 2 + spec.imag ** 2                 # [w, hops]
+        return torch.zeros(k, w, device=dev).index_add_(0, row, p.T)
+    return inputs, call, counts, hops
+
+
+def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
+    """K3 vs its plain version on K1's band of two consecutive cu8 blocks,
+    from a random history (the PFB history's tail for w <= 800, else a
+    carried wf_hist) and counter; then the times of the kernel, the plain
+    version and torch.stft on ``reps`` fresh inputs.  Returns its row."""
+    import torch
+    from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
+    from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
+    from sdr_pmr446_tpu_torch.ops import spectrogram
+    rng = np.random.default_rng(w + k)
+    duo = ScannerDuo("cu8", device=dev)
+    wf = Waterfall(w, device=dev)
+    wl = w // 2
+    dstate = random_duo_state(duo, rng, dev)
+    cnt0 = int(rng.integers(1, w // 4))
+    cnt = torch.tensor(cnt0, dtype=torch.int32, device=dev)
+    own = torch.as_tensor(np.asarray(0.1 * (rng.standard_normal(wl) + 1j
+                                            * rng.standard_normal(wl)),
+                                     np.complex64), device=dev)
+    ref_h = got_h = own
+    ref_c = got_c = cnt
+    errs = []
+    for step, blk in enumerate(bench_blocks(k, 2)):
+        d = duo.kernel(torch.as_tensor(blk, device=dev), *dstate, ns=NS)
+        hist_r, hist_g = ((dstate[3], dstate[3]) if wl <= 400
+                          else (ref_h, got_h))
+        r = wf.plain(d.band, hist_r, ref_c)
+        g = wf.kernel(d.band, hist_g, got_c)
+        torch.cuda.synchronize(dev)
+        errs.append(max_err(r.rows, g.rows))
+        h_rel = max_err(r.hist, g.hist) / max(peak(r.hist), 1e-30)
+        log(f"  K3 w={w} K={k} block {step}: rows max|err| {errs[-1]:.3g} dB, "
+            f"hist rel {h_rel:.3g}, cnt {int(r.cnt)} / {int(g.cnt)}")
+        check(errs[-1] < TOL_WF_DB, f"K3 w={w} K={k} rows")
+        check(h_rel < TOL_CARRY_REL, f"K3 w={w} K={k} history")
+        check(int(r.cnt) == int(g.cnt), f"K3 w={w} K={k} counter")
+        check(bool(torch.isfinite(g.rows).all()), f"K3 w={w} rows finite")
+        dstate = (d.dc_x, d.dc_y, d.front_hist, d.pfb_hist, d.parity, d.prev)
+        ref_h, ref_c, got_h, got_c = r.hist, r.cnt, g.hist, g.cnt
+
+    # timing: block 0's band turned by another phase for each run
+    d = duo.kernel(torch.as_tensor(bench_blocks(k, 1)[0], device=dev),
+                   *random_duo_state(duo, rng, dev), ns=NS)
+    hist = d.pfb_hist if wl <= 400 else own
+    bands = []
+    for s_ in range(reps):
+        c, si = math.cos(0.37 * s_), math.sin(0.37 * s_)
+        bands.append(torch.stack([c * d.band[0] - si * d.band[1],
+                                  si * d.band[0] + c * d.band[1]]))
+    inputs = [(b, hist, cnt) for b in bands]
+    wf.kernel(*inputs[0])
+    wf.plain(*inputs[0])
+    t_kernel = timer(wf.kernel, inputs)
+    t_plain = timer(wf.plain, inputs)
+    prep, call, counts, hops = stft_rows(dev, w, k, cnt0)
+    xs = [(prep(hist, b),) for b in bands]
+    lib_sums = call(*xs[0])
+    t_lib = timer(call, xs)
+    lib_rows = spectrogram.rows_from_psd_sums(lib_sums, w, counts=counts)
+    lib_err = max_err(lib_rows, wf.kernel(*inputs[0]).rows)
+    check(lib_err < TOL_WF_ORACLE_DB, f"K3 w={w}: torch.stft rows differ "
+          f"by {lib_err:.3g} dB")
+    b = bound(*wf_work(k, w, hops))
+    log(f"  K3 w={w} K={k} ({hops} hops) times (median of {reps}, ms): "
+        f"kernel {t_kernel:.4f}, plain {t_plain:.4f}, torch.stft "
+        f"{t_lib:.4f}, bound {b['bound_ms']:.5f} ({b['bound_by']}); "
+        f"torch.stft rows within {lib_err:.3g} dB of the kernel's")
+    return {"name": f"waterfall_w{w}_k{k}", "route": "cuda",
+            "source": "sdr_pmr446_tpu_torch/csrc/waterfall.cu",
+            "replaces": "sdr_pmr446_tpu/kernels/duo.py:101",
+            "max_abs_err": max(errs), "ms": t_kernel, "plain_ms": t_plain,
+            **b, "library_ms": t_lib}
+
+
+def phase_waterfall_oracle(dev, k: int, n_sub: int, w: int):
+    """The driver with -w on a synthetic cu8 capture: every row within
+    1e-2 dB of the float64 asgramcf oracle fed the oracle's band, the
+    decisions equal to the same run with the waterfall off.  Returns the
+    steps it ran with the waterfall on and in all."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import synth
+    from sdr_pmr446_tpu_torch.kernels import waterfall
+    from sdr_pmr446_tpu_torch.oracle.chain import (AsgramStream,
+                                                   PolyResamplerStream,
+                                                   dc_blocker_stream)
+    from sdr_pmr446_tpu_torch.ops import decode
+    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver, wire_blocks
+    from sdr_pmr446_tpu_torch.taps import design as D
+    iq = synth.make_scanner_iq(n_sub * C.SUBCHUNK_IN, channel=5, ctcss_code=12)
+    raw = decode.quantize_iq(iq, "cu8")
+    off = ScannerDriver(subchunks_per_step=k, input_format="cu8", device=dev)
+    ref = off.run(wire_blocks(raw, "cu8", off.feed_len))
+    before = waterfall.LAUNCHES
+    drv = ScannerDriver(C.ScannerArgs(waterfall=w), subchunks_per_step=k,
+                        input_format="cu8", device=dev)
+    res = drv.run(wire_blocks(raw, "cu8", drv.feed_len))
+    launches = waterfall.LAUNCHES - before
+    host_iq = ((raw.astype(np.float64) - 127.5) / 127.5).view(np.complex128)
+    band = PolyResamplerStream(D.resampler_taps(), C.RESAMP_L,
+                               C.RESAMP_M).process(
+        dc_blocker_stream().process(host_iq))
+    asg = AsgramStream(w)
+    check(res.waterfall.shape == (n_sub, w), f"rows {res.waterfall.shape}")
+    err = 0.0
+    for r in range(n_sub):
+        asg.write(band[r * C.SUBCHUNK_RESAMP:(r + 1) * C.SUBCHUNK_RESAMP])
+        err = max(err, float(np.max(np.abs(res.waterfall[r] - asg.execute()))))
+    log(f"  -w {w}, {n_sub} sub-chunks at K={k} ({drv.block_index} steps, "
+        f"hop counter {int(drv.state.wf_cnt)} after them): rows within "
+        f"{err:.3g} dB of the oracle; K3 launched {launches} times")
+    check(err < TOL_WF_ORACLE_DB, "-w rows vs the oracle")
+    check(launches == drv.block_index, "K3 launches vs steps")
+    for name in ("active_trace", "ct_detected", "ct_max_idx"):
+        check(np.array_equal(getattr(res, name), getattr(ref, name)),
+              f"-w {w} {name} vs the waterfall-off run")
+    check(res.events == ref.events, "-w events vs the waterfall-off run")
+    check(ref.waterfall is None, "waterfall-off rows")
+    log(f"  decisions and events == the waterfall-off run: {res.events}")
+    return drv.block_index, drv.block_index + off.block_index
+
+
+def phase_bench_waterfall(dev, k: int, n_blocks: int, w: int, sync):
+    """BASELINE config 4 at full width: the driver with -w over distinct
+    blocks, in turns with the waterfall-off run (off, on, on, off).
+    Returns the steps with the waterfall on, in all, and the throughputs."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
+    blocks = bench_blocks(k, n_blocks)
+    args = {0: C.ScannerArgs(), w: C.ScannerArgs(waterfall=w)}
+    for ww in (0, w):
+        ScannerDriver(args[ww], subchunks_per_step=k, input_format="cu8",
+                      device=dev).run(blocks[:1])
+    sync()
+    n_samp = n_blocks * k * C.SUBCHUNK_IN
+    out, steps, results = {0: [], w: []}, {0: 0, w: 0}, {}
+    for ww in (0, w, w, 0):
+        drv = ScannerDriver(args[ww], subchunks_per_step=k,
+                            input_format="cu8", device=dev)
+        t0 = time.perf_counter()
+        results[ww] = drv.run(blocks)
+        sync()
+        sec = time.perf_counter() - t0
+        out[ww].append(n_samp / sec / 1e6)
+        steps[ww] += drv.block_index
+        log(f"  K={k} -w {ww}, {n_blocks} blocks: {sec * 1e3:.1f} ms, "
+            f"{out[ww][-1]:.1f} Msamples/s, "
+            f"{n_samp / C.SDR_SAMPLERATE / sec:.1f}x real time")
+    on, off = results[w], results[0]
+    check(on.waterfall.shape == (n_blocks * k, w)
+          and bool(np.isfinite(on.waterfall).all()), "config 4 rows")
+    for name in ("active_trace", "ct_detected"):
+        check(np.array_equal(getattr(on, name), getattr(off, name)),
+              f"config 4 {name} vs the waterfall-off run")
+    check(on.events == off.events, "config 4 events")
+    return steps[w], steps[w] + steps[0], {
+        f"scanner_w{w}": {"msamples_per_s": out[w]},
+        "scanner_w0_same_call": {"msamples_per_s": out[0]}}
 
 
 def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
@@ -750,7 +968,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from sdr_pmr446_tpu_torch.kernels import audio_bank, build, chan_tail, duo
+    from sdr_pmr446_tpu_torch.kernels import (audio_bank, build, chan_tail,
+                                              duo, waterfall)
     dev = torch.device("cuda", 0)
     sync = lambda: torch.cuda.synchronize(dev)
 
@@ -813,6 +1032,30 @@ def main() -> int:
     for mode in ("dsd", "single"):
         bench[mode] = phase_chain_throughput(dev, mode, 16, 4, sync)
         phase_profile_chain(dev, mode, 16, sync)
+
+    log("phase 10: the waterfall (K3) on the card")
+    wf_rows = [waterfall_case(dev, k, w, cuda_timer)
+               for k, w in ((40, 80), (40, 120), (40, 840), (10, 64))]
+    duo.LAUNCHES = audio_bank.LAUNCHES = waterfall.LAUNCHES = 0
+    log("  the scanner with -w 120 vs the oracle (ScannerDriver, cu8, K=10)")
+    wf_steps, steps = phase_waterfall_oracle(dev, 10, 30, 120)
+    log("  BASELINE config 4: the scanner with -w 80 at K=40 (cu8)")
+    on, total, wf_bench = phase_bench_waterfall(dev, 40, 4, 80, sync)
+    rest = (phase_no_host_reads(dev, 40, sync, waterfall=80)
+            + phase_profile(dev, 40, sync, waterfall=80))
+    wf_steps += on + rest
+    steps += total + rest
+    bench.update(wf_bench)
+    wf_launches = {"duo": duo.LAUNCHES, "audio_bank": audio_bank.LAUNCHES,
+                   "waterfall": waterfall.LAUNCHES}
+    log(f"  launches over the -w path ({wf_steps} steps with the waterfall "
+        f"on, {steps} in all): {wf_launches}")
+    check(wf_launches["waterfall"] >= wf_steps, "K3 launches on the -w path")
+    for name in ("duo", "audio_bank"):
+        check(wf_launches[name] >= steps, f"{name} launches on the -w path")
+    for row in wf_rows:
+        row["launches"] = wf_launches["waterfall"]
+    rows += wf_rows
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))
     print(json.dumps({"kernels": rows}))

@@ -1,14 +1,17 @@
 """sdr_pmr446 CLI on the PyTorch port — PMR446 band scanner (file/synthetic).
 
 Counterpart of sdr_pmr446_tpu/apps/sdr_pmr446.py with the flags of the
-ported slice: -g/--gain, -s/--squelch, -l/--lowpass, -m/--mask,
--a/--audio-gain, -p/--lock-mode, --fir-deemph, --input, --input-format,
---output (WAV), --seconds, --subchunks-per-step, --device and --engine.
-Flags of parts not yet ported (-w, -b, --faithful, --steps-per-dispatch,
---checkpoint*, --resume, rtl_tcp:// inputs, --output live) exit with a
-"not yet ported" error instead of being ignored.
+ported slice: -g/--gain, -s/--squelch, -w/--waterfall, -l/--lowpass,
+-m/--mask, -a/--audio-gain, -p/--lock-mode, --fir-deemph, --input,
+--input-format, --output (WAV), --seconds, --subchunks-per-step and
+--device (cuda: the kernels, cpu: their plain versions).  With -w W each
+sub-chunk prints its ASCII waterfall line and the channel footer (the
+reference's terminal UI) on stdout.  Flags of parts not yet ported (-b,
+--faithful, --steps-per-dispatch, --checkpoint*, --resume, rtl_tcp://
+inputs, --output live) exit with a "not yet ported" error instead of being
+ignored.
 
-    python -m sdr_pmr446_tpu_torch.apps.sdr_pmr446 --input cap.cu8 --device cuda
+    python -m sdr_pmr446_tpu_torch.apps.sdr_pmr446 --input cap.cu8 -w 120
 """
 
 from __future__ import annotations
@@ -22,9 +25,9 @@ import numpy as np
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.io import iq as iq_io
 from sdr_pmr446_tpu_torch.io import synth, wav
-from sdr_pmr446_tpu_torch.ops import decode
-from sdr_pmr446_tpu_torch.runtime.driver import (ENGINES, ScannerDriver,
-                                                 wire_blocks)
+from sdr_pmr446_tpu_torch.ops import decode, spectrogram
+from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver, wire_blocks
+from sdr_pmr446_tpu_torch.ui import waterfall as wf_ui
 
 FORMATS = "cf32 fc32 cs16 sc16 cs8 cu8 rtlsdr".split()
 
@@ -40,6 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=C.SDR_DEFAULT_SQUELCH_LEVEL,
                    help="relative squelch level in dB "
                         f"(default: {C.SDR_DEFAULT_SQUELCH_LEVEL})")
+    p.add_argument("-w", "--waterfall", type=int, default=0,
+                   help="ASCII waterfall width: a multiple of 4, >= 8 "
+                        "(0 = off)")
     p.add_argument("-l", "--lowpass", action="store_true",
                    help="turn on 4.5kHz lowpass audio filter")
     p.add_argument("-m", "--mask", type=str, default="",
@@ -65,12 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: 'cuda' runs the CUDA kernels, 'cpu' "
                         "their plain PyTorch versions (default: cuda; "
                         "without a CUDA device the run exits 1)")
-    p.add_argument("--engine", choices=ENGINES, default="auto",
-                   help="'cuda' = the hand-written kernels (CUDA device), "
-                        "'torch' = their plain versions (CPU); 'auto' "
-                        "follows --device")
     # parts of the JAX app that this package does not have yet
-    p.add_argument("-w", "--waterfall", type=int, default=0)
     p.add_argument("-b", "--audio-api", type=str, default=None)
     p.add_argument("--faithful", action="store_true")
     p.add_argument("--steps-per-dispatch", type=int, default=1)
@@ -84,8 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _unported(ns) -> list[str]:
     """Flags given that the port does not implement yet."""
     found = []
-    if ns.waterfall:
-        found.append("-w/--waterfall")
     if ns.audio_api is not None:
         found.append("-b/--audio-api")
     if ns.faithful:
@@ -124,10 +123,15 @@ def main(argv=None) -> int:
     if mask == 0:
         logging.error("No channels enabled in channel mask !")
         return 1
+    try:
+        spectrogram.validate_width(ns.waterfall)
+    except ValueError as e:
+        logging.error("%s", e)
+        return 1
     args = C.ScannerArgs(
         gain=ns.gain, audio_gain=ns.audio_gain, squelch_level=ns.squelch,
-        lowpass=ns.lowpass, channel_mask=mask, lock_mode=ns.lock_mode,
-        fir_deemph=ns.fir_deemph)
+        waterfall=ns.waterfall, lowpass=ns.lowpass, channel_mask=mask,
+        lock_mode=ns.lock_mode, fir_deemph=ns.fir_deemph)
     log = logging.getLogger("sdr_pmr446")
     log.info("gain: %5.2f dB, audio_gain: %5.2f, relative squelch level: "
              "%5.2f dB, waterfall: %d", args.gain, args.audio_gain,
@@ -151,14 +155,24 @@ def main(argv=None) -> int:
             synth.make_scanner_iq(n, channel=5, ctcss_code=12), fmt)
         log.info("using synthetic NBFM demo signal on channel 5, CTCSS 12")
 
+    def on_subchunk(sub, o):
+        print(wf_ui.render_waterfall_line(o["waterfall"],
+                                          float(o["rel_rssi"])))
+        print(wf_ui.render_footer(
+            args.waterfall, args.channel_mask, int(o["active_chan"]),
+            bool(o["ct_detected"]), int(o["ct_max_idx"]) + 1,
+            float(o["ct_freq"])), end="\r")
+        sys.stdout.flush()
+
     try:
-        driver = ScannerDriver(args, subchunks_per_step=ns.subchunks_per_step,
-                               input_format=fmt, device=ns.device,
-                               engine=ns.engine)
+        driver = ScannerDriver(
+            args, subchunks_per_step=ns.subchunks_per_step, input_format=fmt,
+            device=ns.device,
+            on_subchunk=on_subchunk if args.waterfall > 0 else None)
     except (ValueError, RuntimeError) as e:
         logging.error("%s", e)
         return 1
-    log.info("device: %s, engine: %s", driver.device, driver.engine)
+    log.info("device: %s", driver.device)
     result = driver.run(wire_blocks(raw, fmt, driver.feed_len))
     wav.write_wav(ns.output, result.audio, C.AUDIO_SAMPLERATE)
     log.info("wrote %d audio samples (%.2f s) to %s", len(result.audio),

@@ -76,6 +76,12 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,           # outputs
         _P,                               # stream
     ],
+    "wf_run": [
+        _P, _LL, _P, _I, _P, _P,          # band, nb, hist, hist_len, cnt, tab
+        _I, _I, _I, _I, _I,               # w, K, sub, slab_hops, slabs
+        _P, _P, _P, _P,                   # part, rows, hist_out, cnt_out
+        _P,                               # stream
+    ],
 }
 
 

@@ -22,7 +22,9 @@ decode + chunk-local DC response, the chunk-carry scan, resampler (with
 the DC fix-up fused into its shared-memory window load), state tail, PFB,
 and discriminator + |y| sums.  Intermediates that reach device memory:
 the chunk-local DC response (8 B/input sample), the band planes and the
-channel planes (~1.6 B/input sample each).  What bounds it on the H100:
+channel planes (~1.6 B/input sample each).  The band planes are also an
+output (``DuoOut.band``), the waterfall's input (K3, kernels/waterfall.py).
+What bounds it on the H100:
 the resampler (346 MACs x 2 planes per band sample, ~135 FLOP per input
 sample) and the PFB (416 complex MACs per channel sample, ~130 FLOP per
 input sample) are compute at ~0.3 GFLOP per K=40 block, tiny against the
@@ -69,6 +71,7 @@ class DuoOut(NamedTuple):
     pfb_hist: torch.Tensor    # c64 [400]
     parity: torch.Tensor      # i32 []
     prev: torch.Tensor        # c64 [16]
+    band: torch.Tensor        # f32 [2, nb]  band planes (K3's input)
 
 
 def front_hist_len(fmt: str) -> int:
@@ -202,7 +205,8 @@ class ScannerDuo(nn.Module):
         new_prev, demod = fm.fm_demod(prev, chan)
         mag = torch.abs(chan).reshape(NCH, k, ns).sum(-1).T
         return DuoOut(ndx, ndy, new_fh, demod, mag.contiguous(),
-                      new_ph.contiguous(), new_parity, new_prev.contiguous())
+                      new_ph.contiguous(), new_parity, new_prev.contiguous(),
+                      band)
 
     # ------------------------------------------------------------- cuda
     def kernel(self, wire, dc_x, dc_y, front_hist, pfb_hist, parity, prev,
@@ -225,14 +229,14 @@ class ScannerDuo(nn.Module):
         (ylocal, yend, carry), fe_args = self.front.kernel_args(n, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         c64 = dict(dtype=torch.complex64, device=dev)
-        band = torch.empty(2 * nb, **f32)
+        band = torch.empty((2, nb), **f32)
         chan = torch.empty(2 * NCH * f, **f32)
         out = DuoOut(torch.empty((), **c64), torch.empty((), **c64),
                      torch.empty(h, **c64), torch.empty((NCH, f), **f32),
                      torch.empty((k, NCH), **f32),
                      torch.empty(self.pfb.hist_len, **c64),
                      ((parity + f) % 2).to(torch.int32),
-                     torch.empty(NCH, **c64))
+                     torch.empty(NCH, **c64), band)
         lib = build.library()
         kc, pj, p, g, p_l, p_seg, seg, inv_cu8 = fe_args
         code = lib.duo_run(

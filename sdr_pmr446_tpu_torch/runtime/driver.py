@@ -4,7 +4,10 @@ Counterpart of sdr_pmr446_tpu/runtime/driver.py (ScannerDriver.run /
 _drain / _event_lines): feeds fixed-size blocks of raw capture bytes to the
 scanner step, drains the per-sub-chunk outputs, renders the reference-format
 log lines for tune/detune/change/CTCSS events (src/sdr_pmr446.c:838-862,
-614-626) and accumulates the active channel's audio.
+614-626), accumulates the active channel's audio and, with the waterfall
+on, its rows.  While the waterfall is on the event lines are returned but
+not logged (the terminal shows the waterfall instead), and ``on_subchunk``
+is called with each sub-chunk's outputs, as in the JAX driver.
 
 The step is asynchronous on a CUDA device, so block i+1 is dispatched
 before block i's outputs are read back: the host-side drain overlaps the
@@ -15,38 +18,17 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from sdr_pmr446_tpu_torch import config as C
-from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
                                                 make_runtime_params,
                                                 outputs_to_numpy)
 
 log = logging.getLogger("sdr_pmr446")
-
-ENGINES = ("auto", "cuda", "torch")
-
-
-def resolve_engine(engine: str, device) -> str:
-    """'cuda' = the hand-written kernels (CUDA devices only), 'torch' = the
-    kernels' plain PyTorch versions (the CPU only); 'auto' follows the
-    device."""
-    dev = devices.resolve(device)
-    if engine in (None, "auto"):
-        engine = "cuda" if dev.type == "cuda" else "torch"
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}")
-    if engine == "cuda" and dev.type != "cuda":
-        raise ValueError(f"engine 'cuda' needs a CUDA device, got {dev}")
-    if engine == "torch" and dev.type != "cpu":
-        raise ValueError(f"engine 'torch' (the plain versions) runs on the "
-                         f"CPU, got {dev}")
-    return engine
-
 
 @dataclasses.dataclass
 class ScanResult:
@@ -58,22 +40,23 @@ class ScanResult:
     ct_detected: np.ndarray      # [n_subchunks]
     ct_max_idx: np.ndarray       # [n_subchunks]
     events: List[str]            # formatted log lines
+    waterfall: Optional[np.ndarray]  # [n_subchunks, W] dB rows or None
 
 
 class ScannerDriver:
+    """``device`` alone chooses the implementation: a CUDA device runs the
+    hand-written kernels, the CPU their plain versions (device.resolve)."""
+
     def __init__(self, args: Optional[C.ScannerArgs] = None,
                  subchunks_per_step: int = 10, input_format: str = "cu8",
-                 device="cuda", engine: str = "auto"):
+                 device="cuda", on_subchunk: Optional[Callable] = None):
         self.args = args or C.ScannerArgs()
-        if self.args.waterfall > 0:
-            raise ValueError("the waterfall is not yet ported to "
-                             "sdr_pmr446_tpu_torch")
-        self.engine = resolve_engine(engine, device)
-        self.device = torch.device(device)
         self.chain = ScannerChain(
             C.BlockConfig(subchunks_per_step), lowpass=self.args.lowpass,
             fir_deemph=self.args.fir_deemph, input_format=input_format,
-            device=self.device)
+            device=device, waterfall=self.args.waterfall)
+        self.device = self.chain.device
+        self.on_subchunk = on_subchunk
         self.params = make_runtime_params(self.args, self.device)
         self.state = self.chain.init_state()
         self.block_index = 0
@@ -87,7 +70,7 @@ class ScannerDriver:
     def run(self, blocks: Iterable[np.ndarray]) -> ScanResult:
         """Scan blocks of raw wire bytes (each ``feed_len`` bytes)."""
         acc = dict(audio=[], audio_sub=[], active=[], rssi=[], rel=[],
-                   det=[], idx=[], events=[])
+                   det=[], idx=[], events=[], wf=[])
         pending = None
         for blk in blocks:
             raw = np.ascontiguousarray(blk).view(np.uint8).reshape(-1)
@@ -109,7 +92,8 @@ class ScannerDriver:
             rel_rssi=cat(acc["rel"], 0, np.float32),
             ct_detected=cat(acc["det"], 0, bool),
             ct_max_idx=cat(acc["idx"], 0, np.int32),
-            events=acc["events"])
+            events=acc["events"],
+            waterfall=np.concatenate(acc["wf"]) if acc["wf"] else None)
 
     def _drain(self, out, acc) -> None:
         o = outputs_to_numpy(out)
@@ -117,15 +101,20 @@ class ScannerDriver:
         for i in range(k):
             for m in self._event_lines(o, i):
                 acc["events"].append(m)
-                log.info(m)
+                if self.args.waterfall <= 0:
+                    log.info(m)
             if o["audio_valid"][i]:
                 acc["audio"].append(o["audio"][i])
                 acc["audio_sub"].append(self.subchunk + i)
+            if self.on_subchunk is not None:
+                self.on_subchunk(self.subchunk + i, {f: o[f][i] for f in o})
         acc["active"].append(o["active_chan"])
         acc["rssi"].append(o["rssi_db"])
         acc["rel"].append(o["rel_rssi"])
         acc["det"].append(o["ct_detected"])
         acc["idx"].append(o["ct_max_idx"])
+        if self.args.waterfall > 0:
+            acc["wf"].append(o["waterfall"])
         self.subchunk += k
 
     @staticmethod

@@ -6,7 +6,9 @@ JAX field names, shapes and dtypes of the kernel engine's state
 and flags), so a JAX state converted to numpy loads into the port and back
 unchanged, and the npz checkpoint format is the same file format.  The
 four FIR histories of the JAX op path (hp/delay/deemph/audio-lp) stay zero
-here, as they do on the JAX kernel engine.
+here, as they do on the JAX kernel engine.  With the waterfall on,
+``wf_hist`` is c64 [w//2] as in the JAX state, and the port writes it and
+``wf_cnt`` every step, so a JAX XLA-path engine resumes from a port state.
 
 The dsd_in and single-channel chains carry the JAX mono engine's layouts
 (scanner/dsd_in.py::DsdState, scanner/single.py::SingleState); their numpy
@@ -53,13 +55,14 @@ class ScannerState(NamedTuple):
     ct_detected: torch.Tensor   # bool []
     ct_max_idx: torch.Tensor    # i32 []
     ct_freq: torch.Tensor       # f32 []     displayed CTCSS frequency
-    wf_hist: torch.Tensor       # c64 [0]    waterfall history (not ported)
-    wf_cnt: torch.Tensor        # i32 []
+    wf_hist: torch.Tensor       # c64 [w//2] waterfall band history ([0]
+    #                             when the waterfall is off)
+    wf_cnt: torch.Tensor        # i32 []     waterfall in-hop sample counter
 
 
 def init_scanner_state(resamp_hist_len: int, pfb_hist_len: int,
                        deemph_hist_len: int, audio_hist_len: int,
-                       device) -> ScannerState:
+                       device, waterfall: int = 0) -> ScannerState:
     nch = C.NUM_CHANNELS
     c64 = dict(dtype=torch.complex64, device=device)
     f32 = dict(dtype=torch.float32, device=device)
@@ -86,7 +89,8 @@ def init_scanner_state(resamp_hist_len: int, pfb_hist_len: int,
         ct_detected=torch.zeros((), dtype=torch.bool, device=device),
         ct_max_idx=torch.zeros((), **i32),
         ct_freq=torch.full((), -1.0, **f32),
-        wf_hist=torch.zeros(0, **c64),
+        # waterfall <= 0 means "off" everywhere (the chain guards on > 0)
+        wf_hist=torch.zeros(max(waterfall, 0) // 2, **c64),
         wf_cnt=torch.zeros((), **i32),
     )
 

@@ -1,7 +1,7 @@
 """The 16-channel PMR446 scanner block step on the kernel engine (PyTorch).
 
 Counterpart of sdr_pmr446_tpu/scanner/chain.py::ScannerChain._step_impl on
-its recorded default engine (``use_pallas=True``, waterfall off):
+its recorded default engine (``use_pallas=True``):
 
     (state, wire bytes [K * SUBCHUNK_IN samples], params) -> (state', StepOutputs)
 
@@ -12,11 +12,22 @@ its recorded default engine (``use_pallas=True``, waterfall off):
   4. K2 (kernels/audio_bank.py): audio FIR bank, lp DC blocker and the
      selected channel's CTCSS tone sums;
   5. FSM phase C: CTCSS detection and events;
-  6. per-sub-chunk selection of the active channel's audio.
+  6. per-sub-chunk selection of the active channel's audio;
+  7. with the waterfall on (``waterfall=w``): K3 (kernels/waterfall.py) on
+     K1's band planes -> one dB row of w bins per sub-chunk.
 
 Every stage runs over all 16 channels; nothing reads the device from the
 host, so a step is asynchronous end to end.  The JAX group path needs
-K % 8 == 0 (chain.py:136-138); the port serves every K.
+K % 8 == 0 (chain.py:136-138) and its in-kernel waterfall only some widths
+and K (spectrogram.kernel_wf_supported); the port serves every K and every
+width that spectrogram.validate_width accepts.
+
+The waterfall's window history is the w/2 band samples before the block.
+For w <= 800 it is read from the tail of the incoming ``pfb_hist`` (the
+last 400 band samples), which every JAX engine carries exactly, while the
+JAX in-kernel engine leaves ``wf_hist`` stale; wider windows read the
+carried ``wf_hist``.  Every step writes ``wf_hist`` and ``wf_cnt``, so a
+JAX XLA-path engine resumes from a port state exactly.
 """
 
 from __future__ import annotations
@@ -33,7 +44,8 @@ from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
 from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
-from sdr_pmr446_tpu_torch.ops import decode
+from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
+from sdr_pmr446_tpu_torch.ops import decode, spectrogram
 from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums
 from sdr_pmr446_tpu_torch.runtime.state import ScannerState, init_scanner_state
 from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_phase_a,
@@ -79,7 +91,7 @@ class StepOutputs(NamedTuple):
     ev_ct_acquired: torch.Tensor  # bool [K]
     ev_ct_changed: torch.Tensor   # bool [K]
     ev_ct_lost: torch.Tensor      # bool [K]
-    waterfall: torch.Tensor      # f32 [K, 0] (the waterfall is not ported)
+    waterfall: torch.Tensor      # f32 [K, W] dB rows, W = 0 when off
 
 
 class ScannerChain(nn.Module):
@@ -91,14 +103,19 @@ class ScannerChain(nn.Module):
 
     def __init__(self, block: C.BlockConfig | None = None,
                  lowpass: bool = False, fir_deemph: bool = False,
-                 input_format: str = "cu8", device="cuda"):
+                 input_format: str = "cu8", device="cuda",
+                 waterfall: int = 0):
         super().__init__()
         precision.check()
+        spectrogram.validate_width(waterfall)
         self.block = block or C.BlockConfig()
         self.input_format = decode.wire_format(input_format)
         self.device = devices.resolve(device)
+        self.waterfall = max(waterfall, 0)
         self.duo = ScannerDuo(self.input_format, device=self.device)
         self.audio_bank = AudioBank(lowpass, fir_deemph, device=self.device)
+        self.wf = (Waterfall(self.waterfall, device=self.device)
+                   if self.waterfall else None)
         deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
         self.deemph_hist_len = deemph.shape[0] - 1
 
@@ -106,7 +123,7 @@ class ScannerChain(nn.Module):
         return init_scanner_state(self.duo.front_hist_len,
                                   self.duo.pfb.hist_len,
                                   self.deemph_hist_len, self.audio_bank.hist,
-                                  self.device)
+                                  self.device, waterfall=self.waterfall)
 
     @property
     def step_arg_len(self) -> int:
@@ -141,6 +158,16 @@ class ScannerChain(nn.Module):
         sel = torch.clamp(fo.active_chan, 0, NCH - 1).long()
         audio_sel = a.audio.reshape(NCH, k, ns)[
             sel, torch.arange(k, device=sel.device)]
+
+        # 7. waterfall rows from K1's band planes
+        wf_hist, wf_cnt = state.wf_hist, state.wf_cnt
+        if self.wf is not None:
+            hist = (state.pfb_hist if self.wf.wl <= state.pfb_hist.shape[0]
+                    else state.wf_hist)
+            wf_hist, wf_cnt, wf = self.wf(d.band, hist, state.wf_cnt)
+        else:
+            wf = torch.zeros((k, 0), dtype=torch.float32,
+                             device=rssi_db.device)
         new_state = state._replace(
             dc_x=d.dc_x, dc_y=d.dc_y, resamp_hist=d.front_hist,
             pfb_hist=d.pfb_hist, frame_parity=d.parity, demod_prev=d.prev,
@@ -149,7 +176,8 @@ class ScannerChain(nn.Module):
             active_chan=carry_out.active_chan, rssi=carry_out.rssi,
             ct_count=carry_out.ct_count, ct_carry=carry_out.ct_carry,
             ct_detected=carry_out.ct_detected,
-            ct_max_idx=carry_out.ct_max_idx, ct_freq=carry_out.ct_freq)
+            ct_max_idx=carry_out.ct_max_idx, ct_freq=carry_out.ct_freq,
+            wf_hist=wf_hist, wf_cnt=wf_cnt)
         outputs = StepOutputs(
             audio=audio_sel, audio_valid=fo.active_chan >= 0,
             active_chan=fo.active_chan, rel_rssi=fo.rel_rssi,
@@ -159,8 +187,7 @@ class ScannerChain(nn.Module):
             ct_max_idx=fo.ct_max_idx, ct_freq=fo.ct_freq,
             ev_ct_acquired=fo.ev_ct_acquired,
             ev_ct_changed=fo.ev_ct_changed, ev_ct_lost=fo.ev_ct_lost,
-            waterfall=torch.zeros((k, 0), dtype=torch.float32,
-                                  device=rssi_db.device))
+            waterfall=wf)
         return new_state, outputs
 
 

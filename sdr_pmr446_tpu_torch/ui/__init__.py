@@ -1,0 +1,1 @@
+"""Host-side UI of the PyTorch port (counterpart of sdr_pmr446_tpu.ui)."""

@@ -1,8 +1,8 @@
 """The port's copies of the JAX-free modules equal their originals.
 
 The port imports nothing of the JAX package; it keeps its own copies of
-``config``, ``taps/design``, ``io/iq``, ``io/synth``, ``io/wav`` and
-``oracle/chain``.  Each case here holds one piece of a copy bit-equal to the
+``config``, ``taps/design``, ``io/iq``, ``io/synth``, ``io/wav``,
+``oracle/chain`` and ``ui/waterfall``.  Each case here holds one piece of a copy bit-equal to the
 original (one parametrised test, a case per piece), so a copy that drifts
 fails.
 """
@@ -33,7 +33,8 @@ def modules(pkg: str) -> SimpleNamespace:
     mod = lambda name: importlib.import_module(f"{pkg}.{name}")
     return SimpleNamespace(C=mod("config"), D=mod("taps.design"),
                            iq=mod("io.iq"), synth=mod("io.synth"),
-                           wav=mod("io.wav"), oracle=mod("oracle.chain"))
+                           wav=mod("io.wav"), oracle=mod("oracle.chain"),
+                           wf=mod("ui.waterfall"))
 
 
 PORT, JAX = modules("sdr_pmr446_tpu_torch"), modules("sdr_pmr446_tpu")
@@ -149,10 +150,21 @@ def chain_taps(m, tmp):
                                          single.channel_filter_taps()))
 
 
+def waterfall_ui(m, tmp):
+    """The ASCII waterfall line and the channel footer."""
+    rng = np.random.default_rng(4)
+    row = rng.uniform(-60.0, 0.0, 64).astype(np.float32)
+    return (m.wf.CHARSET, m.wf.DB_REF, m.wf.DB_DIV, m.wf.render_row(row),
+            m.wf.render_waterfall_line(row, 12.5),
+            m.wf.render_footer(64, 0xFFFB, 4, True, 12, 100.0),
+            m.wf.render_footer(120, 0xFFFF, -1, False, 1, 67.0),
+            m.wf.render_footer(80, 0x00FF, 9, False, 3, 71.9))
+
+
 CASES = {f.__name__: f for f in (config_constants, config_dataclasses,
                                  config_channel_mask, design_names, synth,
                                  iq_files, wav_file, scanner_oracle,
-                                 dsd_oracle, chain_taps)}
+                                 dsd_oracle, chain_taps, waterfall_ui)}
 CASES.update({f"design_{name}": (lambda fn: lambda m, tmp: fn(m.D))(fn)
               for name, fn in DESIGNS.items()})
 
