@@ -626,8 +626,8 @@ def phase_bench(dev, k: int, n_blocks: int, sync):
         f"{np.max(np.abs(res.rssi_trace - ref.rssi_trace)):.3g} dB; "
         f"undetected tone-index mismatches "
         f"{int(np.sum(res.ct_max_idx != ref.ct_max_idx))}")
-    return drv.block_index, {"scanner": {"msamples_per_s": msps,
-                                         "realtime_x": rt, "seconds": sec}}
+    return warm.block_index + drv.block_index, {"scanner": {
+        "msamples_per_s": msps, "realtime_x": rt, "seconds": sec}}
 
 
 #: the parts of a scanner step, by the name prefixes of their device events
@@ -657,7 +657,7 @@ def device_group(name: str, parts) -> str:
 def phase_no_host_reads(dev, k: int, sync, waterfall: int = 0):
     """One warmed-up chain step under set_sync_debug_mode("error"): the
     step (FSM and waterfall included) makes no host read, so steps queue
-    without waiting for the device."""
+    without waiting for the device.  Returns the steps it ran (2)."""
     import torch
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
@@ -680,7 +680,8 @@ def phase_no_host_reads(dev, k: int, sync, waterfall: int = 0):
 
 
 def phase_profile(dev, k: int, sync, waterfall: int = 0):
-    """One scanner K-block step under torch.profiler (profile_step)."""
+    """One scanner K-block step under torch.profiler (profile_step), after
+    a warm-up step; returns the steps it ran (2)."""
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
     blocks = bench_blocks(k, 2)
@@ -690,7 +691,7 @@ def phase_profile(dev, k: int, sync, waterfall: int = 0):
     sync()
     profile_step(lambda: drv.run(blocks[1:]), sync, SCANNER_PARTS,
                  "other (FSM, RSSI, select)", by_kernel=waterfall > 0)
-    return 1
+    return drv.block_index
 
 
 def phase_profile_chain(dev, mode: str, k: int, sync):
@@ -828,8 +829,8 @@ def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
 def phase_waterfall_oracle(dev, k: int, n_sub: int, w: int):
     """The driver with -w on a synthetic cu8 capture: every row within
     1e-2 dB of the float64 asgramcf oracle fed the oracle's band, the
-    decisions equal to the same run with the waterfall off.  Returns the
-    steps it ran with the waterfall on and in all."""
+    decisions equal to the same run with the waterfall off, and K3
+    launched once a step of the -w run."""
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.io import synth
     from sdr_pmr446_tpu_torch.kernels import waterfall
@@ -869,23 +870,26 @@ def phase_waterfall_oracle(dev, k: int, n_sub: int, w: int):
     check(res.events == ref.events, "-w events vs the waterfall-off run")
     check(ref.waterfall is None, "waterfall-off rows")
     log(f"  decisions and events == the waterfall-off run: {res.events}")
-    return drv.block_index, drv.block_index + off.block_index
 
 
 def phase_bench_waterfall(dev, k: int, n_blocks: int, w: int, sync):
     """BASELINE config 4 at full width: the driver with -w over distinct
     blocks, in turns with the waterfall-off run (off, on, on, off).
-    Returns the steps with the waterfall on, in all, and the throughputs."""
+    Returns the steps it ran with the waterfall on and off (warm-ups
+    included) and the throughputs."""
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
     blocks = bench_blocks(k, n_blocks)
     args = {0: C.ScannerArgs(), w: C.ScannerArgs(waterfall=w)}
+    steps = {0: 0, w: 0}
     for ww in (0, w):
-        ScannerDriver(args[ww], subchunks_per_step=k, input_format="cu8",
-                      device=dev).run(blocks[:1])
+        warm = ScannerDriver(args[ww], subchunks_per_step=k,
+                             input_format="cu8", device=dev)
+        warm.run(blocks[:1])
+        steps[ww] += warm.block_index
     sync()
     n_samp = n_blocks * k * C.SUBCHUNK_IN
-    out, steps, results = {0: [], w: []}, {0: 0, w: 0}, {}
+    out, results = {0: [], w: []}, {}
     for ww in (0, w, w, 0):
         drv = ScannerDriver(args[ww], subchunks_per_step=k,
                             input_format="cu8", device=dev)
@@ -905,7 +909,7 @@ def phase_bench_waterfall(dev, k: int, n_blocks: int, w: int, sync):
         check(np.array_equal(getattr(on, name), getattr(off, name)),
               f"config 4 {name} vs the waterfall-off run")
     check(on.events == off.events, "config 4 events")
-    return steps[w], steps[w] + steps[0], {
+    return steps[w], steps[0], {
         f"scanner_w{w}": {"msamples_per_s": out[w]},
         "scanner_w0_same_call": {"msamples_per_s": out[0]}}
 
@@ -1004,7 +1008,7 @@ def main() -> int:
     log(f"phase 5: launches over {steps} main-path steps: {launches}")
     for row in rows:
         row["launches"] = launches[row["name"]]
-        check(row["launches"] >= steps, f"{row['name']} launched "
+        check(row["launches"] == steps, f"{row['name']} launched "
               f"{row['launches']} times for {steps} steps")
 
     log("phase 6: K4 (mono chain) vs its plain version on the card")
@@ -1024,7 +1028,7 @@ def main() -> int:
         f"steps, single {mono_launches['mono_single']} for {single_steps}")
     for row, want in zip(mono_rows, (dsd_steps, single_steps)):
         row["launches"] = mono_launches[row["name"]]
-        check(row["launches"] >= want, f"{row['name']} launched "
+        check(row["launches"] == want, f"{row['name']} launched "
               f"{row['launches']} times for {want} steps")
     rows += mono_rows
 
@@ -1035,24 +1039,23 @@ def main() -> int:
 
     log("phase 10: the waterfall (K3) on the card")
     wf_rows = [waterfall_case(dev, k, w, cuda_timer)
-               for k, w in ((40, 80), (40, 120), (40, 840), (10, 64))]
-    duo.LAUNCHES = audio_bank.LAUNCHES = waterfall.LAUNCHES = 0
+               for k, w in ((40, 80), (40, 120), (40, 840), (10, 64),
+                            (10, 4096))]
     log("  the scanner with -w 120 vs the oracle (ScannerDriver, cu8, K=10)")
-    wf_steps, steps = phase_waterfall_oracle(dev, 10, 30, 120)
+    phase_waterfall_oracle(dev, 10, 30, 120)
     log("  BASELINE config 4: the scanner with -w 80 at K=40 (cu8)")
-    on, total, wf_bench = phase_bench_waterfall(dev, 40, 4, 80, sync)
-    rest = (phase_no_host_reads(dev, 40, sync, waterfall=80)
-            + phase_profile(dev, 40, sync, waterfall=80))
-    wf_steps += on + rest
-    steps += total + rest
-    bench.update(wf_bench)
+    duo.LAUNCHES = audio_bank.LAUNCHES = waterfall.LAUNCHES = 0
+    on, off, wf_bench = phase_bench_waterfall(dev, 40, 4, 80, sync)
+    on += phase_no_host_reads(dev, 40, sync, waterfall=80)
+    on += phase_profile(dev, 40, sync, waterfall=80)
     wf_launches = {"duo": duo.LAUNCHES, "audio_bank": audio_bank.LAUNCHES,
                    "waterfall": waterfall.LAUNCHES}
-    log(f"  launches over the -w path ({wf_steps} steps with the waterfall "
-        f"on, {steps} in all): {wf_launches}")
-    check(wf_launches["waterfall"] >= wf_steps, "K3 launches on the -w path")
+    bench.update(wf_bench)
+    log(f"  launches over config 4 ({on} steps with the waterfall on, {off} "
+        f"off): {wf_launches}")
+    check(wf_launches["waterfall"] == on, "K3 launches on config 4")
     for name in ("duo", "audio_bank"):
-        check(wf_launches[name] >= steps, f"{name} launches on the -w path")
+        check(wf_launches[name] == on + off, f"{name} launches on config 4")
     for row in wf_rows:
         row["launches"] = wf_launches["waterfall"]
     rows += wf_rows

@@ -27,7 +27,8 @@
 //      counter (cnt + nb) mod (w/4).
 // The counter is read on the device, so a step makes no host read; every
 // width validate_width accepts runs at every K (no shared-memory span, so
-// no width needs a tiled variant).
+// no width needs a tiled variant) as far as the w*w*4-byte table fits in
+// device memory.
 //
 // What bounds it on the H100: the function needs the band read once (8 B a
 // sample) and, as an FFT, 5 w log2(w) operations a hop: bytes first.  The

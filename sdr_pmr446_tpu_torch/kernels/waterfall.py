@@ -16,6 +16,13 @@ counter is read on the device.  The plain version is
 ops/spectrogram.py::asgram_rows_any_p.  What bounds it on the H100 is
 written in the CUDA source: bytes for the function, its own direct-DFT
 operations for this first version.
+
+Size: the window x DFT table lives on the device, w*w*4 bytes (25.6 KB at
+w = 80, 2.8 MB at 840, 67 MB at 4096; the widest width validate_width
+accepts, 78400, would need 24.6 GB), and the direct DFT does w*w/2 complex
+multiply-adds a hop.  Every accepted width runs at every K as far as the
+table fits; chip_smoke.py checks widths 64 to 4096 against the plain
+version.
 """
 
 from __future__ import annotations
@@ -49,19 +56,30 @@ class WfOut(NamedTuple):
 def dft_table(w: int) -> np.ndarray:
     """f32 [w/2, w, 2]: the complex window x DFT table, entry (j, f) =
     win[j] * exp(-2 pi i j f / w) — the content of
-    ops/spectrogram._dft_win_packed(w), rounded once from float64."""
-    k4 = spectrogram._dft_win_packed(w)
+    ops/spectrogram._dft_win_packed(w), computed the same way in float64 and
+    rounded once, but built a slab of rows at a time so that the host holds
+    little more than the table itself (w*w*4 bytes, as on the card)."""
     wl = w // 2
-    return np.ascontiguousarray(np.stack([k4[:wl, :w], k4[:wl, w:]], -1))
+    win = spectrogram._window(w).astype(np.float64)
+    k = np.arange(w)[None, :]
+    tab = np.empty((wl, w, 2), np.float32)
+    step = max(1, (1 << 22) // w)
+    for j0 in range(0, wl, step):
+        j = np.arange(j0, min(wl, j0 + step))[:, None]
+        th = 2.0 * np.pi * j * k / w
+        wj = win[j0:j0 + j.shape[0], None]
+        tab[j0:j0 + j.shape[0], :, 0] = np.cos(th) * wj
+        tab[j0:j0 + j.shape[0], :, 1] = -(np.sin(th) * wj)
+    return tab
 
 
-def slab_geometry(w: int, subchunk: int = C.SUBCHUNK_RESAMP):
+def slab_geometry(w: int):
     """(hops per slab, slabs per row) of the partials launch: a slab gives
     each thread HOPS_PER_THREAD hops, and the slabs cover the most hops a
     row can hold."""
     groups = max(1, THREADS // w)
     slab_hops = groups * HOPS_PER_THREAD
-    max_row_hops = subchunk // (w // 4) + 1
+    max_row_hops = C.SUBCHUNK_RESAMP // (w // 4) + 1
     return slab_hops, -(-max_row_hops // slab_hops)
 
 
@@ -69,24 +87,23 @@ class Waterfall(nn.Module):
     """K3 for one width ``w``: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
 
-    def __init__(self, w: int, device, subchunk: int = C.SUBCHUNK_RESAMP):
+    def __init__(self, w: int, device):
         super().__init__()
-        spectrogram.validate_width(w, subchunk)
+        spectrogram.validate_width(w)
         if w <= 0:
             raise ValueError(f"waterfall width {w}: the waterfall is off")
         self.w = w
         self.wl = spectrogram.hist_len(w)
-        self.subchunk = subchunk
         self.register_buffer("tab", torch.as_tensor(dft_table(w),
                                                     device=device))
 
     def rows_in(self, band: torch.Tensor) -> int:
-        """Sub-chunks K in ``band`` [2, K*subchunk]."""
-        if band.dim() != 2 or band.shape[0] != 2 or \
-                band.shape[1] % self.subchunk:
-            raise ValueError(f"band must be [2, K*{self.subchunk}] planes, "
+        """Sub-chunks K in ``band`` [2, K*19600]."""
+        sub = C.SUBCHUNK_RESAMP
+        if band.dim() != 2 or band.shape[0] != 2 or band.shape[1] % sub:
+            raise ValueError(f"band must be [2, K*{sub}] planes, "
                              f"got {tuple(band.shape)}")
-        return band.shape[1] // self.subchunk
+        return band.shape[1] // sub
 
     def forward(self, band, hist, cnt) -> WfOut:
         if band.device.type == "cuda":
@@ -102,8 +119,7 @@ class Waterfall(nn.Module):
         if hist.dim() != 1 or hist.shape[0] < self.wl:
             raise ValueError(f"hist needs >= {self.wl} samples")
         return WfOut(*spectrogram.asgram_rows_any_p(
-            hist[hist.shape[0] - self.wl:], cnt, band[0], band[1], k, self.w,
-            self.subchunk))
+            hist[hist.shape[0] - self.wl:], cnt, band[0], band[1], k, self.w))
 
     def kernel(self, band, hist, cnt) -> WfOut:
         """Launch csrc/waterfall.cu on the current stream (raises on any
@@ -119,7 +135,7 @@ class Waterfall(nn.Module):
         build.require(cnt, "cnt", torch.int32, (), dev)
         build.require(self.tab, "tab", torch.float32, (self.wl, self.w, 2),
                       dev)
-        slab_hops, slabs = slab_geometry(self.w, self.subchunk)
+        slab_hops, slabs = slab_geometry(self.w)
         part = torch.empty((k, slabs, self.w), dtype=torch.float32,
                            device=dev)
         out = WfOut(torch.empty(self.wl, dtype=torch.complex64, device=dev),
@@ -127,7 +143,7 @@ class Waterfall(nn.Module):
                     torch.empty((k, self.w), dtype=torch.float32, device=dev))
         code = build.library().wf_run(
             band.data_ptr(), nb, hist.data_ptr(), hist.shape[0],
-            cnt.data_ptr(), self.tab.data_ptr(), self.w, k, self.subchunk,
+            cnt.data_ptr(), self.tab.data_ptr(), self.w, k, C.SUBCHUNK_RESAMP,
             slab_hops, slabs, part.data_ptr(), out.rows.data_ptr(),
             out.hist.data_ptr(), out.cnt.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -21,7 +21,8 @@ tests/test_torch_waterfall.py holds them bit-equal to the JAX ones.
 ``kernel_wf_supported`` has no counterpart: the JAX duo kernel computes the
 waterfall in-kernel only at the widths and K its Mosaic selectors allow,
 while the port's K3 (kernels/waterfall.py, csrc/waterfall.cu) serves every
-width that ``validate_width`` accepts, at every K.
+width that ``validate_width`` accepts, at every K, as far as its w*w*4-byte
+window x DFT table fits on the device (kernels/waterfall.py).
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ Every stage runs over all 16 channels; nothing reads the device from the
 host, so a step is asynchronous end to end.  The JAX group path needs
 K % 8 == 0 (chain.py:136-138) and its in-kernel waterfall only some widths
 and K (spectrogram.kernel_wf_supported); the port serves every K and every
-width that spectrogram.validate_width accepts.
+width that spectrogram.validate_width accepts, as far as K3's w*w*4-byte
+table fits on the device.
 
 The waterfall's window history is the w/2 band samples before the block.
 For w <= 800 it is read from the tail of the incoming ``pfb_hist`` (the

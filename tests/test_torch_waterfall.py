@@ -84,6 +84,9 @@ def test_numpy_constants_bit_equal(w):
     assert spectrogram.hist_len(w) == js.hist_len(w)
     tab = kwf.dft_table(w)
     assert tab.shape == (w // 2, w, 2) and tab.dtype == np.float32
+    packed = js._dft_win_packed(w)
+    np.testing.assert_array_equal(tab[..., 0], packed[:w // 2, :w])
+    np.testing.assert_array_equal(tab[..., 1], packed[:w // 2, w:])
 
 
 def test_rows_from_psd_sums_matches_jax():
