@@ -45,18 +45,36 @@ on its own lines; any failure raises and ends the run:
      then BASELINE config 4 at full width (K = 40, cu8, -w 80) over four
      distinct blocks: throughput in turns with the waterfall-off run, one
      step with host reads made errors, one step under torch.profiler.
+ 11. the split-kernel engines: (a) K6 (front end) at K = 40 cu8 and
+     K = 10 cs16, K7 (PFB + discriminator) on K6's band in both |y| forms,
+     K9 (resampler) at K = 40 and 10 with F.conv1d's time beside it (the
+     library yardstick, never called by the port), K5 (channel tail) in
+     both modes on K6's band at K = 16 cu8 and K = 15 cs16, each against
+     its plain version with its times; (b) the scanner's trio
+     (fuse_band=False: K6 -> K7) and fuse_dc=False (plain DC blocker -> K9
+     -> K7) engines against the oracle at K = 10 (decisions also equal to
+     phase 3's run), then at K = 40 in turns with the duo (duo, trio,
+     fuse_dc_off, fuse_dc_off, trio, duo), one step each with host reads
+     made errors, one profiled trio step; (c) dsd_in and single on the
+     two-kernel engine (mono=False: K6 -> K5) at K = 16 against the mono
+     engine on the same bytes, throughput in turns (mono, two, two, mono),
+     a step with host reads made errors, one profiled step.
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
-scanner in 10) runs with the launch counts set to 0 just before it and read
-just after.  Each kernel's bound is the larger of its bytes (inputs read
-once, outputs written once) over 3.35 TB/s and its f32 operations over 67
-TFLOP/s (the H100 SXM's HBM3 rate and f32 rate outside the tensor cores).
+scanner in 10, the engines of 11(b), each two-kernel chain in 11(c)) runs
+with the launch counts set to 0 just before it and read just after.  Each
+kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
+H100 SXM's HBM3 rate and f32 rate outside the tensor cores).  The
+synthetic captures and the scanner oracle's run are made once a run and
+shared by the phases that read them.
 The last two lines of standard output are the kernel table
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -129,6 +147,13 @@ def cuda_timer(fn, args_list) -> float:
     return statistics.median(times)
 
 
+def timed(timer, fn, inputs) -> float:
+    """The median time of fn over inputs, after one warm-up call."""
+    fn(*inputs[0])
+    return timer(fn, inputs)
+
+
+@functools.lru_cache(maxsize=None)
 def occupied_band(n: int) -> np.ndarray:
     """All 16 channels carrying NBFM tones (no discriminator branch cuts
     from noise-only channels), channel 5 with CTCSS 12."""
@@ -139,11 +164,16 @@ def occupied_band(n: int) -> np.ndarray:
         seed=ch) for ch in range(1, 17)) / 2.0
 
 
+def random_c64(rng, dev, *shape, scale=1.0):
+    import torch
+    return torch.as_tensor(np.asarray(scale * (
+        rng.standard_normal(shape) + 1j * rng.standard_normal(shape)),
+        np.complex64), device=dev)
+
+
 def random_duo_state(duo, rng, dev):
     import torch
-    c = lambda *s: torch.as_tensor(np.asarray(
-        rng.standard_normal(s) + 1j * rng.standard_normal(s), np.complex64),
-        device=dev)
+    c = lambda *s: random_c64(rng, dev, *s)
     return (0.1 * c(), 0.01 * c(), 0.01 * c(duo.front_hist_len),
             0.1 * c(duo.pfb.hist_len),
             torch.tensor(1, dtype=torch.int32, device=dev), 0.1 * c(16))
@@ -172,17 +202,25 @@ def front_work(n: int, bps: int, hist: int):
     return nbytes, 8 * n + nb * 346 * 4
 
 
-def duo_work(n: int, bps: int, k: int, f: int, hist: int):
-    """K1: the front end; per frame the 16-branch polyphase filterbank (416
-    real taps on complex samples, 4 operations a tap), the mixer on its 16
-    branch outputs (a complex product each) and one 16-point FFT; per
-    channel sample the discriminator (a complex product and an atan2) and
-    the |y| sums; demod [16, F] and |y| sums [K, 16] written."""
-    nbytes, ops = front_work(n, bps, hist)
-    nbytes += 16 * f * 4 + k * 16 * 4 + 2 * 8 * 400 + 2 * 416 * 16 * 4
-    ops += f * (416 * 4 + 16 * 6 + FFT16_OPS)
+def pfb_work(k: int, f: int, plane: bool = False):
+    """The PFB part of K1, which is K7: per frame the 16-branch polyphase
+    filterbank (416 real taps on complex samples, 4 operations a tap), the
+    mixer on its 16 branch outputs (a complex product each) and one
+    16-point FFT; per channel sample the discriminator (a complex product
+    and an atan2) and |y|; demod [16, F] and the |y| sums [K, 16] (or the
+    plane [16, F]) written, the history and the taps read."""
+    nbytes = (16 * f * 4 + (16 * f * 4 if plane else k * 16 * 4)
+              + 2 * 8 * 400 + 2 * 416 * 16 * 4)
+    ops = f * (416 * 4 + 16 * 6 + FFT16_OPS)
     ops += f * 16 * (6 + ATAN2_OPS + 1 + ATAN2_OPS)
     return nbytes, ops
+
+
+def duo_work(n: int, bps: int, k: int, f: int, hist: int):
+    """K1: the front end, then the PFB part (pfb_work)."""
+    nbytes, ops = front_work(n, bps, hist)
+    pb, po = pfb_work(k, f)
+    return nbytes + pb, ops + po
 
 
 def audio_bank_work(k: int, f: int, hist: int, la: int, ll: int):
@@ -195,26 +233,38 @@ def audio_bank_work(k: int, f: int, hist: int, la: int, ll: int):
     return nbytes, ops
 
 
-def mono_work(mono, n: int, bps: int):
-    """K4: the front end, the single chain's mixer (a complex product a
-    band sample), the 16x decimator (real taps on 2 planes), the
+def tail_work(tail, nb: int):
+    """The tail of K4, which is K5: the single chain's mixer (a complex
+    product a band sample), the 16x decimator (real taps on 2 planes), the
     discriminator and the post-FIR (96/25 upsampler, 43 taps an output, or
-    the 408-tap audio FIR)."""
-    nb = n * 25 // 128
+    the 408-tap audio FIR); the histories and taps read, the output
+    written."""
     f, g = nb // 16, nb // 400
-    nbytes, ops = front_work(n, bps, mono.front.hist_len)
-    taps = mono.decim.P
-    single = mono.mode == "single"
-    ops += f * taps * 4 + f * (6 + ATAN2_OPS + 1)
-    if single:
-        ops += nb * 6 + f * mono.post_taps.shape[0] * 2
-        nbytes += f * 4
+    taps = tail.decim.P
+    ops = f * taps * 4 + f * (6 + ATAN2_OPS + 1)
+    if tail.mode == "single":
+        ops += nb * 6 + f * tail.post_taps.shape[0] * 2
+        nbytes = f * 4
     else:
-        ops += g * 96 * mono.post_taps.shape[1] * 2
-        nbytes += g * 96 * 4
-    nbytes += (2 * 8 * mono.hb * 400 + 2 * 4 * mono.dh * 25
-               + 4 * (taps + mono.post_taps.numel()))
+        ops += g * 96 * tail.post_taps.shape[1] * 2
+        nbytes = g * 96 * 4
+    nbytes += (2 * 8 * tail.hb * 400 + 2 * 4 * tail.dh * 25
+               + 4 * (taps + tail.post_taps.numel()))
     return nbytes, ops
+
+
+def mono_work(mono, n: int, bps: int):
+    """K4: the front end, then the tail (tail_work)."""
+    nbytes, ops = front_work(n, bps, mono.front.hist_len)
+    tb, to = tail_work(mono.tail, n * 25 // 128)
+    return nbytes + tb, ops + to
+
+
+def resample_work(n: int):
+    """K9: the input planes and the history read, the band written, the
+    346-tap resampler on 2 planes (multiply-add = 2)."""
+    nb = n * 25 // 128
+    return 8 * n + 2 * 8 * 345 + 8 * nb + 4 * 25 * 346, nb * 346 * 4
 
 
 def phase_kernels(dev, fmt: str, k: int, timer, reps: int = REPS):
@@ -281,16 +331,13 @@ def phase_kernels(dev, fmt: str, k: int, timer, reps: int = REPS):
         log(f"    carry {name}: rel err {rel:.3g}")
         check(rel < TOL_CARRY_REL, f"K2 carry {name}")
 
-    def t(fn, inputs):
-        fn(*inputs[0])                                  # warm-up
-        return timer(fn, inputs)
     duo_in = [(w,) + state for w in wires]
     bank_in = [(hist, dcx, dcy, dm, gain, b_arr, sel, NS) for dm in demods]
     times = {
-        "duo_plain": t(lambda *a: duo.plain(*a, ns=NS), duo_in),
-        "duo": t(lambda *a: duo.kernel(*a, ns=NS), duo_in),
-        "bank": t(bank.kernel, bank_in),
-        "bank_plain": t(bank.plain, bank_in),
+        "duo_plain": timed(timer, lambda *a: duo.plain(*a, ns=NS), duo_in),
+        "duo": timed(timer, lambda *a: duo.kernel(*a, ns=NS), duo_in),
+        "bank": timed(timer, bank.kernel, bank_in),
+        "bank_plain": timed(timer, bank.plain, bank_in),
     }
     log(f"  times K={k} {fmt} (median of {len(wires)}, ms): " + ", ".join(
         f"{key} {val:.3f}" for key, val in times.items()))
@@ -327,6 +374,7 @@ def fm_capture(n: int, start: int = 0) -> np.ndarray:
                         / C.SDR_SAMPLERATE)[start:]
 
 
+@functools.lru_cache(maxsize=None)
 def mono_signal(mode: str, n: int, step: int) -> np.ndarray:
     """Block ``step`` of each chain's capture: the FM tone for dsd, channel
     5 with a 1 kHz tone for single."""
@@ -340,9 +388,7 @@ def mono_signal(mode: str, n: int, step: int) -> np.ndarray:
 def random_mono_state(mono, rng, dev):
     """A carried state with every field non-zero (single: mixer phase 7)."""
     import torch
-    c = lambda *s: torch.as_tensor(np.asarray(
-        rng.standard_normal(s) + 1j * rng.standard_normal(s), np.complex64),
-        device=dev)
+    c = lambda *s: random_c64(rng, dev, *s)
     st = [0.1 * c(), 0.01 * c(), 0.01 * c(mono.front.hist_len),
           0.1 * c(mono.hb * 400), 0.5 * c(),
           torch.as_tensor(0.1 * rng.standard_normal(mono.dh * 25),
@@ -467,12 +513,13 @@ def chain_blocks(mode: str, k: int, n_blocks: int, fmt: str = "cu8"):
             for i in range(n_blocks)]
 
 
-def make_chain(mode: str, k: int, device):
+def make_chain(mode: str, k: int, device, mono: bool = True):
     from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdInChain
     from sdr_pmr446_tpu_torch.scanner.single import SingleChannelChain
     if mode == "dsd":
-        return DsdInChain(k, input_format="cu8", device=device)
-    return SingleChannelChain(5, k, input_format="cu8", device=device)
+        return DsdInChain(k, input_format="cu8", device=device, mono=mono)
+    return SingleChannelChain(5, k, input_format="cu8", device=device,
+                              mono=mono)
 
 
 def run_chain(chain, blocks):
@@ -501,14 +548,16 @@ def phase_single(dev, k: int, n_blocks: int):
     return n_blocks
 
 
-def phase_chain_throughput(dev, mode: str, k: int, n_blocks: int, sync):
+def phase_chain_throughput(dev, mode: str, k: int, n_blocks: int, sync,
+                           mono: bool = True):
     """Msamples/s of one chain over distinct blocks (host clock, ending in
     a synchronize; the wire upload and the output drain inside), then one
-    step under set_sync_debug_mode("error")."""
+    step under set_sync_debug_mode("error").  ``mono=False``: the
+    two-kernel engine.  Runs n_blocks + 2 steps."""
     import torch
     from sdr_pmr446_tpu_torch import config as C
     blocks = chain_blocks(mode, k, n_blocks + 1)
-    chain = make_chain(mode, k, dev)
+    chain = make_chain(mode, k, dev, mono)
     st, _ = chain.step(chain.init_state(),
                        torch.from_numpy(blocks[0]).to(dev))
     sync()
@@ -522,9 +571,10 @@ def phase_chain_throughput(dev, mode: str, k: int, n_blocks: int, sync):
     n_samp = n_blocks * k * C.SUBCHUNK_IN
     msps = n_samp / sec / 1e6
     rt = n_samp / C.SDR_SAMPLERATE / sec
-    log(f"  {mode} K={k}, {n_blocks} blocks ({n_samp / C.SDR_SAMPLERATE:.2f}"
-        f" s of radio): {sec * 1e3:.1f} ms, {msps:.1f} Msamples/s, "
-        f"{rt:.1f}x real time")
+    engine = "" if mono else " (two-kernel)"
+    log(f"  {mode}{engine} K={k}, {n_blocks} blocks "
+        f"({n_samp / C.SDR_SAMPLERATE:.2f} s of radio): {sec * 1e3:.1f} ms, "
+        f"{msps:.1f} Msamples/s, {rt:.1f}x real time")
     wire = torch.from_numpy(blocks[1]).to(dev)
     sync()
     torch.cuda.set_sync_debug_mode("error")
@@ -533,59 +583,71 @@ def phase_chain_throughput(dev, mode: str, k: int, n_blocks: int, sync):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     sync()
-    log(f"  {mode} K={k} step under set_sync_debug_mode('error'): no host "
-        f"reads")
+    log(f"  {mode}{engine} K={k} step under set_sync_debug_mode('error'): "
+        f"no host reads")
     return {"msamples_per_s": msps, "realtime_x": rt, "seconds": sec}
 
 
-def phase_oracle(dev, k: int, n_sub: int):
-    """The driver on a synthetic cu8 capture vs the float64 oracle."""
+@functools.lru_cache(maxsize=None)
+def oracle_capture(n_sub: int):
+    """A synthetic cu8 capture of ``n_sub`` sub-chunks (channel 5, CTCSS
+    12) and the float64 oracle's active-channel trace and audio on it."""
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.io import synth
     from sdr_pmr446_tpu_torch.oracle.chain import ScannerOracle
     from sdr_pmr446_tpu_torch.ops import decode
-    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver, wire_blocks
     iq = synth.make_scanner_iq(n_sub * C.SUBCHUNK_IN, channel=5, ctcss_code=12)
     raw = decode.quantize_iq(iq, "cu8")
     host_iq = ((raw.astype(np.float64) - 127.5) / 127.5).view(np.complex128)
     ora = ScannerOracle()
     ora.process(host_iq)
-    drv = ScannerDriver(subchunks_per_step=k, input_format="cu8", device=dev)
+    return raw, np.asarray(ora.active_trace), np.stack(ora.audio)
+
+
+def phase_oracle(dev, k: int, n_sub: int, **switches):
+    """The driver on a synthetic cu8 capture vs the float64 oracle, on the
+    engine the chain switches choose.  Returns the steps and the result."""
+    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver, wire_blocks
+    raw, trace, audio = oracle_capture(n_sub)
+    drv = ScannerDriver(subchunks_per_step=k, input_format="cu8", device=dev,
+                        **switches)
     res = drv.run(wire_blocks(raw, "cu8", drv.feed_len))
-    check(np.array_equal(res.active_trace, np.asarray(ora.active_trace)),
-          f"active trace {res.active_trace} vs oracle {ora.active_trace}")
+    check(np.array_equal(res.active_trace, trace),
+          f"active trace {res.active_trace} vs oracle {trace}")
     got = res.audio.reshape(-1, NS)[2:].ravel()
-    want = np.stack(ora.audio)[2:].ravel()
+    want = audio[2:].ravel()
     snr = snr_db(want, got)
-    log(f"  {n_sub} sub-chunks at K={k}: active trace == oracle, audio SNR "
-        f"{snr:.1f} dB; events: {res.events}")
+    log(f"  {n_sub} sub-chunks at K={k} {switches or ''}: active trace == "
+        f"oracle, audio SNR {snr:.1f} dB; events: {res.events}")
     check(snr > 40.0, "audio SNR vs oracle")
     check(any(e.startswith("Tuned to channel 5") for e in res.events),
           "tune event")
     check(any(e.startswith("Acquired CTCSS code: 12") for e in res.events),
           "CTCSS event")
-    return drv.block_index
+    return drv.block_index, res
+
+
+@functools.lru_cache(maxsize=None)
+def bench_block(k: int, i: int) -> np.ndarray:
+    """Block ``i`` of bench_blocks."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import synth
+    from sdr_pmr446_tpu_torch.ops import decode
+    n = k * C.SUBCHUNK_IN
+    p = [(5, 12), (5, 12), None, (9, 3)][i % 4]
+    if p is None:
+        rng = np.random.default_rng(100 + i)
+        iq = 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    else:
+        iq = synth.make_scanner_iq(n, channel=p[0], ctcss_code=p[1],
+                                   seed=100 + i, start_sample=i * n)
+    return decode.quantize_iq(iq, "cu8")
 
 
 def bench_blocks(k: int, n_blocks: int) -> list:
     """Distinct cu8 blocks: channel 5 + CTCSS 12, again with other noise,
     silence, channel 9 + CTCSS 3, ..."""
-    from sdr_pmr446_tpu_torch import config as C
-    from sdr_pmr446_tpu_torch.io import synth
-    from sdr_pmr446_tpu_torch.ops import decode
-    n = k * C.SUBCHUNK_IN
-    plan = [(5, 12), (5, 12), None, (9, 3)]
-    out = []
-    for i in range(n_blocks):
-        p = plan[i % len(plan)]
-        if p is None:
-            rng = np.random.default_rng(100 + i)
-            iq = 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
-        else:
-            iq = synth.make_scanner_iq(n, channel=p[0], ctcss_code=p[1],
-                                       seed=100 + i, start_sample=i * n)
-        out.append(decode.quantize_iq(iq, "cu8"))
-    return out
+    return [bench_block(k, i) for i in range(n_blocks)]
 
 
 def phase_bench(dev, k: int, n_blocks: int, sync):
@@ -631,13 +693,23 @@ def phase_bench(dev, k: int, n_blocks: int, sync):
 
 
 #: the parts of a scanner step, by the name prefixes of their device events
-SCANNER_PARTS = (("K1 duo", ("duo_", "fe_")), ("K2 audio bank", ("ab_",)),
+SCANNER_PARTS = (("K1 duo", ("duo_", "fe_", "pfb_")),
+                 ("K2 audio bank", ("ab_",)),
                  ("DC carry scan (K1 and K2)", ("dc_carry",)),
                  ("K3 waterfall", ("wf_",)),
                  ("copies", ("Memcpy", "Memset")))
+#: the parts of a trio scanner step (fuse_band=False or fuse_dc=False)
+TRIO_PARTS = (("K6 front end", ("fe_",)), ("K9 resampler", ("rs_",)),
+              ("K7 PFB demod", ("pfb_",)), ("K2 audio bank", ("ab_",)),
+              ("DC carry scan (K6 and K2)", ("dc_carry",)),
+              ("copies", ("Memcpy", "Memset")))
 #: the parts of a dsd_in / single step
 CHAIN_PARTS = (("K4 mono chain (7 kernels)", ("fe_", "dc_carry", "mono_")),
                ("copies", ("Memcpy", "Memset")))
+#: ... and of one on the two-kernel engine
+TWO_KERNEL_PARTS = (("K6 front end (4 kernels)", ("fe_", "dc_carry")),
+                    ("K5 chan tail (4 kernels)", ("tail_", "mono_")),
+                    ("copies", ("Memcpy", "Memset")))
 
 
 def kernel_name(name: str) -> str:
@@ -654,7 +726,8 @@ def device_group(name: str, parts) -> str:
     return "other"
 
 
-def phase_no_host_reads(dev, k: int, sync, waterfall: int = 0):
+def phase_no_host_reads(dev, k: int, sync, waterfall: int = 0,
+                        **switches):
     """One warmed-up chain step under set_sync_debug_mode("error"): the
     step (FSM and waterfall included) makes no host read, so steps queue
     without waiting for the device.  Returns the steps it ran (2)."""
@@ -663,7 +736,7 @@ def phase_no_host_reads(dev, k: int, sync, waterfall: int = 0):
     from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
                                                     make_runtime_params)
     chain = ScannerChain(C.BlockConfig(k), input_format="cu8", device=dev,
-                         waterfall=waterfall)
+                         waterfall=waterfall, **switches)
     params = make_runtime_params(C.ScannerArgs(waterfall=waterfall), dev)
     wires = [torch.as_tensor(b, device=dev) for b in bench_blocks(k, 2)]
     state, _ = chain.step(chain.init_state(), wires[0], params)
@@ -674,32 +747,36 @@ def phase_no_host_reads(dev, k: int, sync, waterfall: int = 0):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     sync()
-    log(f"  K={k} -w {waterfall} step under set_sync_debug_mode('error'): "
-        f"no host reads")
+    log(f"  K={k} -w {waterfall} {switches or ''} step under "
+        f"set_sync_debug_mode('error'): no host reads")
     return 2
 
 
-def phase_profile(dev, k: int, sync, waterfall: int = 0):
+def phase_profile(dev, k: int, sync, waterfall: int = 0,
+                  parts=None, **switches):
     """One scanner K-block step under torch.profiler (profile_step), after
-    a warm-up step; returns the steps it ran (2)."""
+    a warm-up step, on the engine the chain switches choose; returns the
+    steps it ran (the warm-up and profile_step's)."""
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
     blocks = bench_blocks(k, 2)
     drv = ScannerDriver(C.ScannerArgs(waterfall=waterfall),
-                        subchunks_per_step=k, input_format="cu8", device=dev)
+                        subchunks_per_step=k, input_format="cu8", device=dev,
+                        **switches)
     drv.run(blocks[:1])
     sync()
-    profile_step(lambda: drv.run(blocks[1:]), sync, SCANNER_PARTS,
+    profile_step(lambda: drv.run(blocks[1:]), sync, parts or SCANNER_PARTS,
                  "other (FSM, RSSI, select)", by_kernel=waterfall > 0)
     return drv.block_index
 
 
-def phase_profile_chain(dev, mode: str, k: int, sync):
+def phase_profile_chain(dev, mode: str, k: int, sync, mono: bool = True):
     """One dsd_in / single K-block step, wire upload and output drain
-    included, under torch.profiler (profile_step)."""
+    included, under torch.profiler (profile_step), after a warm-up step;
+    returns the steps it ran."""
     import torch
     blocks = chain_blocks(mode, k, 2)
-    chain = make_chain(mode, k, dev)
+    chain = make_chain(mode, k, dev, mono)
     st, _ = chain.step(chain.init_state(),
                        torch.from_numpy(blocks[0]).to(dev))
     sync()
@@ -707,8 +784,9 @@ def phase_profile_chain(dev, mode: str, k: int, sync):
     def step():
         _, out = chain.step(st, torch.from_numpy(blocks[1]).to(dev))
         out.cpu()
-    profile_step(step, sync, CHAIN_PARTS, "other (int16 cast, small ops)",
-                 by_kernel=True)
+    return 1 + profile_step(step, sync,
+                            CHAIN_PARTS if mono else TWO_KERNEL_PARTS,
+                            "other (int16 cast, small ops)", by_kernel=True)
 
 
 def wf_work(k: int, w: int, hops: int):
@@ -914,16 +992,376 @@ def phase_bench_waterfall(dev, k: int, n_blocks: int, w: int, sync):
         "scanner_w0_same_call": {"msamples_per_s": out[0]}}
 
 
-def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
-    """``run()`` under torch.profiler: the device's busy share (the union
-    of its events' intervals) and its time by part of the step (profiling
-    adds host overhead to the wall time); with ``by_kernel``, also by
-    device function.
+def rel(ref, got) -> float:
+    return max_err(ref, got) / max(peak(ref), 1e-30)
 
-    A small device op and a synchronize come first: the device's first
-    activity in a profiler session is sometimes not recorded (a step's
-    3.2 MB upload went missing so), and only device events that start
-    inside the step's own record_function range are counted."""
+
+def front_end_case(dev, fmt: str, k: int, timer, reps: int = REPS):
+    """K6 vs its plain version over two consecutive blocks from a random
+    state, then its times on ``reps`` fresh inputs.  Returns its row and
+    the band planes of those inputs (K7's)."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
+    from sdr_pmr446_tpu_torch.ops import decode
+    rng = np.random.default_rng(k)
+    fe = FrontEnd(fmt, device=dev)
+    n = k * C.SUBCHUNK_IN
+    band = occupied_band(n)
+    wires = [torch.as_tensor(decode.quantize_iq(band * np.exp(0.37j * s), fmt),
+                             device=dev) for s in range(reps)]
+    state = (random_c64(rng, dev, scale=0.1), random_c64(rng, dev, scale=0.01),
+             random_c64(rng, dev, fe.hist_len, scale=0.01))
+    ref = got = state
+    snrs, errs = [], []
+    for step in range(2):
+        r = fe.plain(wires[step], *ref)
+        g = fe.kernel(wires[step], *got)
+        torch.cuda.synchronize(dev)
+        snrs.append(snr_db(as_np(r.band), as_np(g.band)))
+        errs.append(max_err(r.band, g.band))
+        carries = {name: rel(getattr(r, name), getattr(g, name))
+                   for name in ("dc_y", "front_hist")}
+        log(f"  K6 {fmt} K={k} block {step}: band SNR {snrs[-1]:.1f} dB, "
+            f"max|err| {errs[-1]:.3g}; carries rel " + ", ".join(
+                f"{key} {val:.3g}" for key, val in carries.items()))
+        check(snrs[-1] > TOL_SNR_DB, f"K6 {fmt} K={k} band SNR")
+        check(max_err(r.dc_x, g.dc_x) == 0.0, f"K6 {fmt} dc_x")
+        for name, val in carries.items():
+            check(val < TOL_CARRY_REL, f"K6 {fmt} carry {name}")
+        ref, got = r[:3], g[:3]
+    inputs = [(w,) + state for w in wires]
+    t_kernel = timed(timer, fe.kernel, inputs)
+    t_plain = timed(timer, fe.plain, inputs)
+    nbytes, ops = front_work(n, decode.BYTES_PER_SAMPLE[fmt], fe.hist_len)
+    b = bound(nbytes + 8 * (n * 25 // 128), ops)
+    log(f"  K6 {fmt} K={k} times (median of {reps}, ms): kernel "
+        f"{t_kernel:.4f}, plain {t_plain:.4f}, bound {b['bound_ms']:.5f} "
+        f"({b['bound_by']})")
+    bands = [fe.kernel(*a).band for a in inputs]
+    return {"name": "front_end", "route": "cuda",
+            "source": "sdr_pmr446_tpu_torch/csrc/front_end.cu",
+            "replaces": "sdr_pmr446_tpu/kernels/front_end.py:822",
+            "max_abs_err": max(errs), "ms": t_kernel, "plain_ms": t_plain,
+            **b, "library_ms": None}, bands
+
+
+def pfb_case(dev, bands, k: int, mag: str, timer):
+    """K7 vs its plain version over two consecutive bands (K6's) from a
+    random state, then its times on every band.  Returns its row."""
+    import torch
+    from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod
+    rng = np.random.default_rng(k + 1)
+    pd = PfbDemod(device=dev)
+    state = (random_c64(rng, dev, 400, scale=0.1),
+             torch.tensor(1, dtype=torch.int32, device=dev),
+             random_c64(rng, dev, 16, scale=0.1))
+    ref = got = state
+    errs = []
+    for step in range(2):
+        r = pd.plain(bands[step], *ref, ns=NS, mag=mag)
+        g = pd.kernel(bands[step], *got, ns=NS, mag=mag)
+        torch.cuda.synchronize(dev)
+        d_snr = snr_db(as_np(r.demod), as_np(g.demod))
+        m_rel = rel(r.mag, g.mag)
+        errs.append(max_err(r.demod, g.demod))
+        carries = {name: rel(getattr(r, name), getattr(g, name))
+                   for name in ("pfb_hist", "prev")}
+        log(f"  K7 mag={mag} K={k} block {step}: demod SNR {d_snr:.1f} dB, "
+            f"max|err| {errs[-1]:.3g}, |y| rel {m_rel:.3g}; carries rel "
+            + ", ".join(f"{key} {val:.3g}" for key, val in carries.items()))
+        check(d_snr > TOL_SNR_DB, f"K7 {mag} K={k} demod SNR")
+        check(m_rel < TOL_MAG_RTOL, f"K7 {mag} K={k} |y|")
+        check(int(r.parity) == int(g.parity), "K7 parity")
+        for name, val in carries.items():
+            check(val < TOL_CARRY_REL, f"K7 carry {name}")
+        ref, got = r[2:], g[2:]
+    inputs = [(b,) + state for b in bands]
+    t_kernel = timed(timer, lambda *a: pd.kernel(*a, ns=NS, mag=mag), inputs)
+    t_plain = timed(timer, lambda *a: pd.plain(*a, ns=NS, mag=mag), inputs)
+    f = bands[0].shape[1] // 16
+    b = bound(*[x + y for x, y in zip(pfb_work(k, f, plane=mag == "plane"),
+                                      (8 * bands[0].shape[1], 0))])
+    log(f"  K7 mag={mag} K={k} times (median of {len(inputs)}, ms): kernel "
+        f"{t_kernel:.4f}, plain {t_plain:.4f}, bound {b['bound_ms']:.5f} "
+        f"({b['bound_by']})")
+    return {"name": "pfb_demod", "route": "cuda",
+            "source": "sdr_pmr446_tpu_torch/csrc/pfb_demod.cu",
+            "replaces": "sdr_pmr446_tpu/kernels/pfb_demod.py:674",
+            "max_abs_err": max(errs), "ms": t_kernel, "plain_ms": t_plain,
+            **b, "library_ms": None}
+
+
+def resample_case(dev, k: int, timer, reps: int = REPS):
+    """K9 vs its plain version over two consecutive blocks of DC-blocked
+    planes from a random history, then its times, its plain version's and
+    F.conv1d's (the plain version's one library call, alone) on ``reps``
+    fresh inputs.  Returns its row."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels.resample_kernel import Resampler
+    from sdr_pmr446_tpu_torch.ops import decode, iir
+    rng = np.random.default_rng(k + 2)
+    rs = Resampler(device=dev)
+    n = k * C.SUBCHUNK_IN
+    band = occupied_band(n)
+    planes = []
+    for s_ in range(reps):
+        x = torch.as_tensor(decode.quantize_iq(band * np.exp(0.37j * s_),
+                                               "cf32"), device=dev)
+        xr, xi = decode.decode_planes(x, "cf32")
+        z = torch.zeros(2, device=dev)
+        planes.append(iir.dc_blocker_apply((z, z), torch.stack([xr, xi]),
+                                           C.DC_BLOCK_ALPHA)[1])
+    hist = random_c64(rng, dev, rs.hist_len, scale=0.1)
+    ref_h = got_h = hist
+    errs = []
+    for step in range(2):
+        rh, rb = rs.plain(ref_h, planes[step][0], planes[step][1])
+        gh, gb = rs.kernel(got_h, planes[step][0], planes[step][1])
+        torch.cuda.synchronize(dev)
+        snr = snr_db(as_np(rb), as_np(gb))
+        errs.append(max_err(rb, gb))
+        log(f"  K9 K={k} block {step}: band SNR {snr:.1f} dB, max|err| "
+            f"{errs[-1]:.3g}, history max|err| {max_err(rh, gh):.3g}")
+        check(snr > TOL_SNR_DB, f"K9 K={k} band SNR")
+        check(max_err(rh, gh) == 0.0, f"K9 K={k} history")
+        ref_h, got_h = rh, gh
+    inputs = [(hist, p[0], p[1]) for p in planes]
+    t_kernel = timed(timer, rs.kernel, inputs)
+    t_plain = timed(timer, rs.plain, inputs)
+    op = rs.op
+    need = (n // op.M - 1) * op.M + op.W
+    lhs = [(torch.cat([torch.view_as_real(hist).T, p], dim=-1)[:, :need]
+            .reshape(2, 1, need).contiguous(),) for p in planes]
+    conv = lambda x: torch.nn.functional.conv1d(x, op.weight, stride=op.M)
+    t_lib = timed(timer, conv, lhs)
+    lib_err = max_err(conv(*lhs[0]).transpose(1, 2).reshape(2, -1),
+                      rs.kernel(*inputs[0])[1])
+    check(lib_err < 1e-3 * peak(rs.plain(*inputs[0])[1]),
+          f"K9: F.conv1d differs by {lib_err:.3g}")
+    b = bound(*resample_work(n))
+    log(f"  K9 K={k} times (median of {reps}, ms): kernel {t_kernel:.4f}, "
+        f"plain {t_plain:.4f}, F.conv1d {t_lib:.4f}, bound "
+        f"{b['bound_ms']:.5f} ({b['bound_by']}); F.conv1d within "
+        f"{lib_err:.3g} of the kernel")
+    return {"name": "resampler", "route": "cuda",
+            "source": "sdr_pmr446_tpu_torch/csrc/resample_kernel.cu",
+            "replaces": "sdr_pmr446_tpu/kernels/resample_kernel.py:88",
+            "max_abs_err": max(errs), "ms": t_kernel, "plain_ms": t_plain,
+            **b, "library_ms": t_lib}
+
+
+def chan_tail_case(dev, fmt: str, k: int, timer, reps: int = REPS):
+    """K5 vs its plain version in both modes on K6's band of two
+    consecutive blocks, from a random state (single: mixer phase 7); then
+    its times on ``reps`` fresh bands.  Returns the two K5 rows."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels.chan_tail import MonoChain
+    from sdr_pmr446_tpu_torch.ops import decode
+    n = k * C.SUBCHUNK_IN
+    rows = []
+    for mode in ("dsd", "single"):
+        mono = MonoChain(mode, fmt, channel=5,
+                         audio_gain=C.SDR_DEFAULT_AUDIO_GAIN, device=dev)
+        tail = mono.tail
+        rng = np.random.default_rng(k)
+        st, n0 = random_mono_state(mono, rng, dev)
+        fe_st, ref, got, n0_ref, n0_got = st[:3], st[3:], st[3:], n0, n0
+        errs = []
+        for step in range(2):
+            wire = torch.as_tensor(decode.quantize_iq(
+                mono_signal(mode, n, step), fmt), device=dev)
+            fe = mono.front.kernel(wire, *fe_st)
+            r = tail.plain(fe.band, *ref, n0=n0_ref)
+            g = tail.kernel(fe.band, *got, n0=n0_got)
+            torch.cuda.synchronize(dev)
+            errs.append(max_err(r.out, g.out))
+            if mode == "dsd":
+                lsb = int((g.out.to(torch.int16).int()
+                           - r.out.to(torch.int16).int()).abs().max())
+                what = f"PCM max {lsb} LSB"
+                check(lsb <= TOL_PCM_LSB, f"K5 dsd {fmt} K={k} PCM")
+            else:
+                snr = snr_db(as_np(r.out), as_np(g.out))
+                what = f"audio SNR {snr:.1f} dB"
+                check(snr > TOL_SNR_DB, f"K5 single {fmt} K={k} audio SNR")
+                check(int(r.n0) == int(g.n0), "K5 mixer phase")
+            carries = [rel(getattr(r, name), getattr(g, name))
+                       for name in ("band_hist", "sig_prev", "demod_hist")]
+            check(max(carries) < TOL_CARRY_REL, f"K5 {mode} carries")
+            log(f"  K5 {mode} {fmt} K={k} block {step}: {what}, max|err| "
+                f"{errs[-1]:.3g}; carries rel <= {max(carries):.3g}")
+            fe_st, ref, n0_ref, got, n0_got = fe[:3], r[:3], r.n0, g[:3], g.n0
+        base = mono_signal(mode, n, 0)
+        bands = [mono.front.kernel(torch.as_tensor(decode.quantize_iq(
+            base * np.exp(0.37j * s_), fmt), device=dev), *st[:3]).band
+            for s_ in range(reps)]
+        inputs = [(b_,) + tuple(st[3:]) for b_ in bands]
+        t_kernel = timed(timer, lambda *a: tail.kernel(*a, n0=n0), inputs)
+        t_plain = timed(timer, lambda *a: tail.plain(*a, n0=n0), inputs)
+        nb = n * 25 // 128
+        tb, to = tail_work(tail, nb)
+        b = bound(tb + 8 * nb, to)
+        log(f"  K5 {mode} {fmt} K={k} times (median of {reps}, ms): kernel "
+            f"{t_kernel:.4f}, plain {t_plain:.4f}, bound {b['bound_ms']:.5f} "
+            f"({b['bound_by']})")
+        rows.append({"name": f"chan_tail_{mode}", "route": "cuda",
+                     "source": "sdr_pmr446_tpu_torch/csrc/chan_tail.cu",
+                     "replaces": "sdr_pmr446_tpu/kernels/chan_tail.py:308",
+                     "max_abs_err": max(errs), "ms": t_kernel,
+                     "plain_ms": t_plain, **b, "library_ms": None})
+    return rows
+
+
+def phase_new_kernels(dev, timer):
+    """Phase 11(a): K6, K7, K9 and K5 against their plain versions on the
+    card, with their times; returns their rows (K6 and K7 at K = 40 cu8,
+    K9 at K = 40, K5 at K = 16 cu8)."""
+    fe_row, bands = front_end_case(dev, "cu8", 40, timer)
+    _, bands10 = front_end_case(dev, "cs16", 10, timer)
+    pfb_row = pfb_case(dev, bands, 40, "sums", timer)
+    pfb_case(dev, bands10, 10, "sums", timer)
+    pfb_case(dev, bands10, 10, "plane", timer)
+    rs_row = resample_case(dev, 40, timer)
+    resample_case(dev, 10, timer)
+    tail_rows = chan_tail_case(dev, "cu8", 16, timer)
+    chan_tail_case(dev, "cs16", 15, timer)
+    return [fe_row, pfb_row, rs_row] + tail_rows
+
+
+#: the scanner's engines, by their chain switches
+ENGINES = {"duo": {}, "trio": {"fuse_band": False},
+           "fuse_dc_off": {"fuse_dc": False}}
+
+
+def phase_engines_bench(dev, k: int, n_blocks: int, sync):
+    """The scanner's three engines through ScannerDriver over the same
+    distinct blocks, in turns (duo, trio, fuse_dc_off, fuse_dc_off, trio,
+    duo) after one warm-up block each: throughput, and decisions and
+    events equal to the duo's.  Returns the steps of each engine and the
+    throughputs."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
+    blocks = bench_blocks(k, n_blocks)
+    steps = {e: 0 for e in ENGINES}
+    for name, sw in ENGINES.items():
+        warm = ScannerDriver(subchunks_per_step=k, input_format="cu8",
+                             device=dev, **sw)
+        warm.run(blocks[:1])
+        steps[name] += warm.block_index
+    sync()
+    n_samp = n_blocks * k * C.SUBCHUNK_IN
+    out, results = {e: [] for e in ENGINES}, {}
+    for name in ("duo", "trio", "fuse_dc_off", "fuse_dc_off", "trio", "duo"):
+        drv = ScannerDriver(subchunks_per_step=k, input_format="cu8",
+                            device=dev, **ENGINES[name])
+        t0 = time.perf_counter()
+        results[name] = drv.run(blocks)
+        sync()
+        sec = time.perf_counter() - t0
+        out[name].append(n_samp / sec / 1e6)
+        steps[name] += drv.block_index
+        log(f"  K={k} {name}, {n_blocks} blocks: {sec * 1e3:.1f} ms, "
+            f"{out[name][-1]:.1f} Msamples/s, "
+            f"{n_samp / C.SDR_SAMPLERATE / sec:.1f}x real time")
+    for name in ("trio", "fuse_dc_off"):
+        for field in ("active_trace", "ct_detected"):
+            check(np.array_equal(getattr(results[name], field),
+                                 getattr(results["duo"], field)),
+                  f"{name} {field} vs the duo")
+        check(results[name].events == results["duo"].events,
+              f"{name} events vs the duo")
+        got, ref = results[name], results["duo"]
+        diff = float(np.max(np.abs(got.audio - ref.audio)))
+        # blocks 0-1 carry channel 5 (after two settling sub-chunks); the
+        # rest is the hang through the silent block, demodulated noise
+        sig = (ref.audio_subchunks >= 2) & (ref.audio_subchunks < 2 * k)
+        snr = snr_db(ref.audio.reshape(-1, NS)[sig],
+                     got.audio.reshape(-1, NS)[sig])
+        log(f"  {name}: decisions and events == the duo's; audio max|diff| "
+            f"{diff:.3g}, on channel 5's blocks SNR {snr:.1f} dB")
+        if name == "trio":
+            # K6 and K7 run K1's device code: the trio/duo gate
+            check(diff < 1e-4, "trio audio vs the duo")
+        else:
+            # an f32 DC blocker (plain ops, as JAX's XLA one) against K1's
+            # double scan: noise demodulated in the hang may take other
+            # atan2 branches, the signal stays within the oracle gate
+            check(snr > 40.0, "fuse_dc_off audio vs the duo")
+    return steps, {f"scanner_{e}": {"msamples_per_s": v}
+                   for e, v in out.items()}
+
+
+def phase_trio(dev, oracle_run, sync):
+    """Phase 11(b): the trio (fuse_band=False) and fuse_dc=False scanners
+    against the oracle at K = 10 (decisions also equal to phase 3's duo
+    run), at K = 40 in turns with the duo, one step each with host reads
+    made errors, one profiled trio step.  Returns the steps of each engine
+    and the throughputs."""
+    steps = {e: 0 for e in ENGINES}
+    for name in ("trio", "fuse_dc_off"):
+        n, res = phase_oracle(dev, 10, 30, **ENGINES[name])
+        steps[name] += n
+        check(np.array_equal(res.active_trace, oracle_run.active_trace)
+              and res.events == oracle_run.events,
+              f"{name} decisions vs the duo at K = 10")
+    bench_steps, bench = phase_engines_bench(dev, 40, 4, sync)
+    for name in ENGINES:
+        steps[name] += bench_steps[name]
+    for name in ("trio", "fuse_dc_off"):
+        steps[name] += phase_no_host_reads(dev, 40, sync, **ENGINES[name])
+    steps["trio"] += phase_profile(dev, 40, sync, parts=TRIO_PARTS,
+                                   **ENGINES["trio"])
+    return steps, bench
+
+
+def phase_two_kernel(dev, mode: str, k: int, n_blocks: int, sync):
+    """Phase 11(c) for one chain: dsd_in or single on the two-kernel
+    engine (K6 -> K5) against the mono engine (K4) on the same bytes,
+    throughput in turns (mono, two-kernel, two-kernel, mono), one step with
+    host reads made errors, one profiled two-kernel step.  Returns the
+    steps of each engine and the throughputs."""
+    from sdr_pmr446_tpu_torch.io import synth
+    steps = {"mono": n_blocks, "two": n_blocks}
+    blocks = chain_blocks(mode, k, n_blocks)
+    one = run_chain(make_chain(mode, k, dev), blocks)
+    two = run_chain(make_chain(mode, k, dev, mono=False), blocks)
+    if mode == "dsd":
+        lsb = float(np.max(np.abs(one.astype(np.int32) - two.astype(np.int32))))
+        log(f"  dsd K={k}, {n_blocks} blocks: two-kernel PCM within "
+            f"{lsb:.0f} LSB of the mono engine's")
+        check(lsb <= TOL_PCM_LSB, "dsd two-kernel vs mono")
+    else:
+        snr = snr_db(one, two)
+        tone = synth.tone_snr_db(two[4000:], 1000.0)
+        log(f"  single K={k}, {n_blocks} blocks: two-kernel audio SNR "
+            f"{snr:.1f} dB against the mono engine, 1 kHz tone SNR "
+            f"{tone:.1f} dB")
+        check(snr > TOL_SNR_DB, "single two-kernel vs mono")
+        check(tone > TOL_TONE_DB, "single two-kernel tone SNR")
+    runs = {"mono": [], "two": []}
+    for mono in (True, False, False, True):
+        key = "mono" if mono else "two"
+        r = phase_chain_throughput(dev, mode, k, n_blocks, sync, mono)
+        runs[key].append(r["msamples_per_s"])
+        steps[key] += n_blocks + 2
+    steps["two"] += phase_profile_chain(dev, mode, k, sync, mono=False)
+    return steps, {f"{mode}_mono": {"msamples_per_s": runs["mono"]},
+                   f"{mode}_two_kernel": {"msamples_per_s": runs["two"]}}
+
+
+PROFILE_ATTEMPTS = 3           # profiler sessions tried for one step
+
+
+def profile_session(run, sync):
+    """One torch.profiler session: a small device op, run(), a synchronize,
+    then run() again inside a record_function range.  Returns the device
+    events that start inside that range (the range's own device-side
+    annotation left out), the last three device events before it as (us
+    before its start, name), the session's device events in all, and the
+    range's wall time in ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -931,17 +1369,49 @@ def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
                              ProfilerActivity.CUDA]) as prof:
         torch.zeros(1, device="cuda").add_(1)
         sync()
+        run()
+        sync()
         with record_function("chip_smoke step"):
             t0 = time.perf_counter()
             run()
             sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    step_start = next(e.time_range.start for e in prof.events()
-                      if e.name == "chip_smoke step")
-    # the range itself shows up on the device too, as a user annotation
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and e.time_range.start >= step_start
-           and e.name != "chip_smoke step"]
+    events = prof.events()
+    # the host-side range; it shows up on the device too, as an annotation
+    step_start = next(e.time_range.start for e in events
+                      if e.name == "chip_smoke step"
+                      and e.device_type == DeviceType.CPU)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != "chip_smoke step"]
+    evs = [e for e in device if e.time_range.start >= step_start]
+    before = sorted((e.time_range.start - step_start, kernel_name(e.name))
+                    for e in device if e.time_range.start < step_start)[-3:]
+    return evs, before, len(device), wall_ms
+
+
+def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
+    """``run()`` under torch.profiler: the device's busy share (the union
+    of its events' intervals) and its time by part of the step (profiling
+    adds host overhead to the wall time); with ``by_kernel``, also by
+    device function.  Returns how many times it called ``run()``.
+
+    A small device op, one run() and a synchronize come first: the
+    device's first activities in a profiler session are sometimes not
+    recorded (a step's 3.2 MB upload, and once an upload and three kernels,
+    went missing so), and only device events that start inside the second
+    run's record_function range are counted.  The last device events
+    before that range are logged with their offsets, to show none of the
+    step's fell outside it.  A session that recorded no device event in
+    the range (seen once, in a 1 ms dsd step) is logged and made again, up
+    to PROFILE_ATTEMPTS sessions."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        evs, before, n_device, wall_ms = profile_session(run, sync)
+        log("  last device events before the step (us from its start): "
+            + ", ".join(f"{name[:24]} {dt:.0f}" for dt, name in before))
+        if evs:
+            break
+        log(f"  profiler session {attempt}: no device event in the step's "
+            f"range ({n_device} device events in the session)")
     check(len(evs) > 0, "the profiler recorded no device events")
     busy_us, end = 0.0, -float("inf")
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in evs):
@@ -965,6 +1435,7 @@ def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
                                         + e.time_range.elapsed_us())
         for name, us in sorted(fns.items(), key=lambda f: -f[1]):
             log(f"      {us / 1e3:8.4f} ms  {name}")
+    return 2 * attempt
 
 
 def main() -> int:
@@ -973,9 +1444,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from sdr_pmr446_tpu_torch.kernels import (audio_bank, build, chan_tail,
-                                              duo, waterfall)
+                                              duo, front_end, pfb_demod,
+                                              resample_kernel, waterfall)
     dev = torch.device("cuda", 0)
     sync = lambda: torch.cuda.synchronize(dev)
+    t_run = time.perf_counter()
 
     log("phase 1: card and build")
     smi = subprocess.run(
@@ -997,7 +1470,7 @@ def main() -> int:
     duo.LAUNCHES = 0
     audio_bank.LAUNCHES = 0
     log("phase 3: scanner vs the oracle (ScannerDriver, cu8, K=10)")
-    steps = phase_oracle(dev, 10, 30)
+    steps, oracle_run = phase_oracle(dev, 10, 30)
     log("phase 4: scanner at the bench geometry (K=40)")
     bench_steps, bench = phase_bench(dev, 40, 4, sync)
     steps += bench_steps
@@ -1059,6 +1532,51 @@ def main() -> int:
     for row in wf_rows:
         row["launches"] = wf_launches["waterfall"]
     rows += wf_rows
+
+    t11 = time.perf_counter()
+    log("phase 11: K6, K7, K9 and K5 on the card, and their paths")
+    log("  (a) each kernel vs its plain version")
+    new_rows = {row["name"]: row for row in phase_new_kernels(dev,
+                                                              cuda_timer)}
+    t11b = time.perf_counter()
+    log("  (b) the trio (fuse_band=False) and fuse_dc=False scanners")
+    kernel_mods = (duo, audio_bank, front_end, pfb_demod, resample_kernel)
+    for mod in kernel_mods:
+        mod.LAUNCHES = 0
+    esteps, ebench = phase_trio(dev, oracle_run, sync)
+    bench.update(ebench)
+    elaunch = {mod.__name__.split(".")[-1]: mod.LAUNCHES
+               for mod in kernel_mods}
+    log(f"  launches over the engines' steps {esteps}: {elaunch}")
+    want = {"duo": esteps["duo"], "audio_bank": sum(esteps.values()),
+            "front_end": esteps["trio"],
+            "pfb_demod": esteps["trio"] + esteps["fuse_dc_off"],
+            "resample_kernel": esteps["fuse_dc_off"]}
+    for name, n in want.items():
+        check(elaunch[name] == n, f"{name} launched {elaunch[name]} times "
+              f"for {n} steps")
+    new_rows["front_end"]["launches"] = elaunch["front_end"]
+    new_rows["pfb_demod"]["launches"] = elaunch["pfb_demod"]
+    new_rows["resampler"]["launches"] = elaunch["resample_kernel"]
+    t11c = time.perf_counter()
+    log("  (c) dsd_in and single on the two-kernel engine (mono=False), "
+        "K=16 cu8")
+    for mode in ("dsd", "single"):
+        chan_tail.LAUNCHES = chan_tail.TAIL_LAUNCHES = front_end.LAUNCHES = 0
+        tsteps, tbench = phase_two_kernel(dev, mode, 16, 4, sync)
+        bench.update(tbench)
+        tl = {"K4": chan_tail.LAUNCHES, "K5": chan_tail.TAIL_LAUNCHES,
+              "K6": front_end.LAUNCHES}
+        log(f"  {mode} launches over {tsteps} steps: {tl}")
+        check(tl["K4"] == tsteps["mono"], f"K4 launches ({mode})")
+        check(tl["K5"] == tl["K6"] == tsteps["two"],
+              f"K5 / K6 launches ({mode})")
+        new_rows[f"chan_tail_{mode}"]["launches"] = tl["K5"]
+    rows += list(new_rows.values())
+    t_end = time.perf_counter()
+    log(f"  phase 11 took {t_end - t11:.1f} s ((a) {t11b - t11:.1f}, (b) "
+        f"{t11c - t11b:.1f}, (c) {t_end - t11c:.1f}); the run "
+        f"{t_end - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))
     print(json.dumps({"kernels": rows}))

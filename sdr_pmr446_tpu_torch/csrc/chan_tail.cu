@@ -1,12 +1,14 @@
-// K4: the whole dsd_in / single-channel chain ("mono chain") on Hopper.
+// K4: the whole dsd_in / single-channel chain ("mono chain") on Hopper, and
+// K5: its tail alone, for the two-kernel engine (K6 -> K5).
 //
-// Replaces sdr_pmr446_tpu/kernels/chan_tail.py::PallasMonoChain.apply (the
-// TPU kernel's bodies _mono_body_pk2 / _mono_body_cs16 / _mono_body_ilv and
-// the tail _tail_core).  What it computes is documented beside its plain
-// PyTorch version, kernels/chan_tail.py.
+// K4 replaces sdr_pmr446_tpu/kernels/chan_tail.py::PallasMonoChain.apply
+// (the TPU kernel's bodies _mono_body_pk2 / _mono_body_cs16 /
+// _mono_body_ilv and the tail _tail_core); K5 replaces PallasChanTail.apply
+// (_body).  What they compute is documented beside their plain PyTorch
+// versions, kernels/chan_tail.py.
 //
-// Seven launches on the caller's stream, no allocation (the wrapper passes
-// every scratch buffer):
+// K4 (mono_run) runs seven launches on the caller's stream, no allocation
+// (the wrapper passes every scratch buffer):
 //   1-3. the front end of K1 (front_end.cuh): decode, DC blocker, 25/128
 //      resampler into the band planes [2][nb];
 //   4. mono_state<FMT>: the carried front history, DC x/y, the last HB raw
@@ -23,6 +25,15 @@
 //      [demod_hist | demod]; both also write demod_hist'.
 // Device memory between launches: the front end's, the decimated signal
 // planes [2][F] and the demod [F].
+//
+// K5 (tail_run) reads the band planes K6 wrote and runs tail_state (4's
+// band history and mixer phase alone), then launches 5-7.  What bounds it
+// on the H100: at K = 16 it reads the 2.5 MB band (~0.75 us) and does ~45
+// MFLOP for dsd (bytes bound) or ~84 MFLOP for single, the 838-tap
+// decimator and the mixer (operations bound, ~1.3 us).  As in K4's tail,
+// each decimator block loads its window (mixed once a sample for single)
+// and the taps into shared memory; the decimated signal and the demod go
+// through device memory.
 #include "front_end.cuh"
 
 #define DEC 16              // decimation of the channel filter
@@ -43,8 +54,18 @@
 
 enum { MODE_DSD = 0, MODE_SINGLE = 1 };
 
-// 4. front_hist' (last H of [front_hist | y]), band_hist' (last HB of
-// [band_hist | band]), DC blocker x[-1] and y[-1], mixer phase n0'
+// band_hist' (the last HB of [band_hist | band]) and, when n0_out is set
+// (single), the mixer phase n0' = (n0 + nb) mod 32
+static __device__ __forceinline__ void tail_state_at(
+    int j, const float* __restrict__ bhist_in, int HB,
+    const float* __restrict__ band, long long nb, float* __restrict__ bhist_out,
+    const int* __restrict__ n0_in, int* __restrict__ n0_out) {
+  hist_tail(j, bhist_in, HB, band, band + nb, nb, bhist_out);
+  if (j == 0 && n0_out != nullptr)
+    n0_out[0] = (int)((n0_in[0] + nb % PHASES) % PHASES);
+}
+
+// 4. the front end's carried state (front_state) and the tail's
 template <int FMT>
 static __global__ void mono_state(const uint8_t* __restrict__ wire, long long n,
                                   float inv_cu8,
@@ -61,35 +82,19 @@ static __global__ void mono_state(const uint8_t* __restrict__ wire, long long n,
                                   const int* __restrict__ n0_in,
                                   int* __restrict__ n0_out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < H) {
-    const float2 v = ye_sample(fhist_in, H, ylocal, carry, pj, n, chunks,
-                               n + j);
-    fhist_out[2 * j] = v.x;
-    fhist_out[2 * j + 1] = v.y;
-  }
-  if (j < HB) {
-    const long long e = nb + j;
-    float vr, vi;
-    if (e < HB) {
-      vr = bhist_in[2 * e];
-      vi = bhist_in[2 * e + 1];
-    } else {
-      vr = band[e - HB];
-      vi = band[nb + e - HB];
-    }
-    bhist_out[2 * j] = vr;
-    bhist_out[2 * j + 1] = vi;
-  }
-  if (j == 0) {
-    const float2 y = ye_sample(fhist_in, H, ylocal, carry, pj, n, chunks,
-                               H + n - 1);
-    dc_y_out[0] = y.x;
-    dc_y_out[1] = y.y;
-    const float2 x = load_iq<FMT>(wire, n - 1, inv_cu8);
-    dc_x_out[0] = x.x;
-    dc_x_out[1] = x.y;
-    if (n0_out != nullptr) n0_out[0] = (int)((n0_in[0] + nb % PHASES) % PHASES);
-  }
+  front_state<FMT>(j, wire, n, inv_cu8, ylocal, carry, pj, chunks, fhist_in,
+                   H, fhist_out, dc_x_out, dc_y_out);
+  tail_state_at(j, bhist_in, HB, band, nb, bhist_out, n0_in, n0_out);
+}
+
+// K5's state launch: the tail's carried state alone
+static __global__ void tail_state(const float* __restrict__ bhist_in, int HB,
+                                  const float* __restrict__ band, long long nb,
+                                  float* __restrict__ bhist_out,
+                                  const int* __restrict__ n0_in,
+                                  int* __restrict__ n0_out) {
+  tail_state_at(blockIdx.x * blockDim.x + threadIdx.x, bhist_in, HB, band, nb,
+                bhist_out, n0_in, n0_out);
 }
 
 // 5. sig[f] = sum_w kd[w] * m(be[HB - (P - 1) + 16 f + w]),
@@ -231,33 +236,16 @@ static __global__ void mono_post_fir(const float* __restrict__ dhist, int DH,
   out[n0 + nl] = acc;
 }
 
-template <int FMT>
-static int mono_launch(int mode, const uint8_t* wire, long long n,
-                       const float* dc_x, const float* dc_y, const float* fhist,
-                       int H, const float* bhist, int HB, const float* sig_prev,
+// Launches 5-7 on the band planes [2][nb]: decimator, discriminator,
+// post-FIR (the tail shared by K4 and K5); sig and dem are scratch.
+static int tail_launch(int mode, const float* band, long long nb,
+                       const float* bhist, int HB, const float* sig_prev,
                        const float* dhist, int DH, const int* n0,
-                       const float* kc, const float* pj, double p, double g,
-                       double pL, double pSeg, int seg, float inv_cu8,
                        const float* kd, int P, const float* tab,
                        const float* kpost, int post_taps, float dscale,
-                       float* ylocal, float* yend, float* carry, float* band,
-                       float* sig, float* dem, float* dc_x_out,
-                       float* dc_y_out, float* fhist_out, float* bhist_out,
-                       float* sig_prev_out, float* dhist_out, int* n0_out,
-                       float* out, cudaStream_t s) {
-  const int chunks = (int)((n + DC_L - 1) / DC_L);
-  const long long nb = n / RES_M * RES_L;
+                       float* sig, float* dem, float* sig_prev_out,
+                       float* dhist_out, float* out, cudaStream_t s) {
   const int F = (int)(nb / DEC);
-  const int fe = front_end_launch<FMT>(wire, n, dc_x, dc_y, fhist, H, kc, pj,
-                                       p, g, pL, pSeg, seg, inv_cu8, ylocal,
-                                       yend, carry, band, s);
-  if (fe != 0) return fe;
-  const int tail = H > HB ? H : HB;
-  mono_state<FMT><<<(tail + 255) / 256, 256, 0, s>>>(
-      wire, n, inv_cu8, ylocal, carry, pj, chunks, fhist, H, fhist_out, bhist,
-      HB, band, nb, bhist_out, dc_x_out, dc_y_out, n0,
-      mode == MODE_SINGLE ? n0_out : nullptr);
-  SDR_CHECK_LAUNCH();
   const int dec_blocks = (F + DEC_OUT - 1) / DEC_OUT;
   if (mode == MODE_SINGLE)
     mono_decim<MODE_SINGLE><<<dec_blocks, 32 * DEC_WARPS, 0, s>>>(
@@ -281,6 +269,50 @@ static int mono_launch(int mode, const uint8_t* wire, long long n,
   return 0;
 }
 
+// The tail's arguments that K4 and K5 check alike
+static bool tail_args_ok(int mode, int HB, int DH, const void* n0,
+                         const void* tab, const void* n0_out, int P,
+                         int post_taps) {
+  const bool single = mode == MODE_SINGLE;
+  return P >= 1 && P <= MAX_DEC_TAPS && HB >= P - 1 &&
+         (mode == MODE_DSD || single) &&
+         (!single || (n0 != nullptr && tab != nullptr && n0_out != nullptr &&
+                      post_taps <= MAX_FIR_TAPS)) &&
+         (single || post_taps <= UP_MAX_P) && DH >= post_taps - 1 &&
+         post_taps >= 1;
+}
+
+template <int FMT>
+static int mono_launch(int mode, const uint8_t* wire, long long n,
+                       const float* dc_x, const float* dc_y, const float* fhist,
+                       int H, const float* bhist, int HB, const float* sig_prev,
+                       const float* dhist, int DH, const int* n0,
+                       const float* kc, const float* pj, double p, double g,
+                       double pL, double pSeg, int seg, float inv_cu8,
+                       const float* kd, int P, const float* tab,
+                       const float* kpost, int post_taps, float dscale,
+                       float* ylocal, float* yend, float* carry, float* band,
+                       float* sig, float* dem, float* dc_x_out,
+                       float* dc_y_out, float* fhist_out, float* bhist_out,
+                       float* sig_prev_out, float* dhist_out, int* n0_out,
+                       float* out, cudaStream_t s) {
+  const int chunks = (int)((n + DC_L - 1) / DC_L);
+  const long long nb = n / RES_M * RES_L;
+  const int fe = front_end_launch<FMT>(wire, n, dc_x, dc_y, fhist, H, kc, pj,
+                                       p, g, pL, pSeg, seg, inv_cu8, ylocal,
+                                       yend, carry, band, s);
+  if (fe != 0) return fe;
+  const int tail = H > HB ? H : HB;
+  mono_state<FMT><<<(tail + 255) / 256, 256, 0, s>>>(
+      wire, n, inv_cu8, ylocal, carry, pj, chunks, fhist, H, fhist_out, bhist,
+      HB, band, nb, bhist_out, dc_x_out, dc_y_out, n0,
+      mode == MODE_SINGLE ? n0_out : nullptr);
+  SDR_CHECK_LAUNCH();
+  return tail_launch(mode, band, nb, bhist, HB, sig_prev, dhist, DH, n0, kd,
+                     P, tab, kpost, post_taps, dscale, sig, dem, sig_prev_out,
+                     dhist_out, out, s);
+}
+
 extern "C" int mono_run(int fmt, int mode, const void* wire, long long n,
                         const void* dc_x, const void* dc_y, const void* fhist,
                         int H, const void* bhist, int HB, const void* sig_prev,
@@ -294,13 +326,8 @@ extern "C" int mono_run(int fmt, int mode, const void* wire, long long n,
                         void* fhist_out, void* bhist_out, void* sig_prev_out,
                         void* dhist_out, void* n0_out, void* out,
                         void* stream) {
-  const bool single = mode == MODE_SINGLE;
-  if (n <= 0 || n % (RES_M * DEC) != 0 || H < RS_P - 1 || P < 1 ||
-      P > MAX_DEC_TAPS || HB < P - 1 || (mode != MODE_DSD && !single) ||
-      (single && (n0 == nullptr || tab == nullptr || n0_out == nullptr ||
-                  post_taps > MAX_FIR_TAPS || DH < post_taps - 1)) ||
-      (!single && (post_taps > UP_MAX_P || DH < post_taps - 1)) ||
-      post_taps < 1)
+  if (n <= 0 || n % (RES_M * DEC) != 0 || H < RS_P - 1 ||
+      !tail_args_ok(mode, HB, DH, n0, tab, n0_out, P, post_taps))
     return (int)cudaErrorInvalidValue;
 #define SDR_MONO_ARGS                                                        \
   mode, (const uint8_t*)wire, n, (const float*)dc_x, (const float*)dc_y,     \
@@ -321,4 +348,30 @@ extern "C" int mono_run(int fmt, int mode, const void* wire, long long n,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SDR_MONO_ARGS
+}
+
+// K5: the tail alone, on band planes [2][nb] written by K6 (nb a whole
+// number of 400-sample group rows).  One state launch, then the tail's.
+extern "C" int tail_run(int mode, const void* band, long long nb,
+                        const void* bhist, int HB, const void* sig_prev,
+                        const void* dhist, int DH, const void* n0,
+                        const void* kd, int P, const void* tab,
+                        const void* kpost, int post_taps, float dscale,
+                        void* sig, void* dem, void* bhist_out,
+                        void* sig_prev_out, void* dhist_out, void* n0_out,
+                        void* out, void* stream) {
+  if (nb <= 0 || nb % (UP_M * DEC) != 0 ||
+      !tail_args_ok(mode, HB, DH, n0, tab, n0_out, P, post_taps))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  tail_state<<<(HB + 255) / 256, 256, 0, s>>>(
+      (const float*)bhist, HB, (const float*)band, nb, (float*)bhist_out,
+      (const int*)n0, mode == MODE_SINGLE ? (int*)n0_out : nullptr);
+  SDR_CHECK_LAUNCH();
+  return tail_launch(mode, (const float*)band, nb, (const float*)bhist, HB,
+                     (const float*)sig_prev, (const float*)dhist, DH,
+                     (const int*)n0, (const float*)kd, P, (const float*)tab,
+                     (const float*)kpost, post_taps, dscale, (float*)sig,
+                     (float*)dem, (float*)sig_prev_out, (float*)dhist_out,
+                     (float*)out, s);
 }

@@ -1,7 +1,7 @@
-// The front end shared by K1 (csrc/duo.cu) and K4 (csrc/chan_tail.cu):
-// wire decode, the IQ DC blocker and the 25/128 polyphase resampler to the
-// 200 kHz band.  What it computes is documented beside its plain PyTorch
-// version, kernels/duo.py::FrontEnd.
+// The front end shared by K1 (csrc/duo.cu), K4 (csrc/chan_tail.cu) and K6
+// (csrc/front_end.cu): wire decode, the IQ DC blocker and the 25/128
+// polyphase resampler to the 200 kHz band.  What it computes is documented
+// beside its plain PyTorch version, kernels/front_end.py::FrontEnd.
 //
 // Three launches (the caller issues them, see front_end_launch):
 //   1. fe_dc_local<FMT>: wire decode + zero-state DC response per chunk;
@@ -9,7 +9,10 @@
 //   3. fe_resample: 25/128 polyphase resampler, one thread per band output,
 //      the DC fix-up fused into its shared-memory window load.
 // Device memory between launches: the chunk-local DC response [2][n] and
-// the band planes [2][nb].
+// the band planes [2][nb].  front_state gives the carried state (front
+// history, DC x[-1] and y[-1]); each kernel that runs the front end calls it
+// from its own state launch.  resample_frames is the resampler's arithmetic
+// on a loaded window, shared with K9 (csrc/resample_kernel.cu).
 #pragma once
 
 #include "sdr_common.cuh"
@@ -82,6 +85,27 @@ static __device__ __forceinline__ float2 ye_sample(
                      dc_fix(ylocal + n, carry + chunks, pj, m));
 }
 
+// band[25 f + q] = sum_i kc[q][i] * win[128 (f - f0) + o_q + i] for the
+// RS_FB frames from f0 of one block, from its loaded window planes
+static __device__ __forceinline__ void resample_frames(
+    const float* wr, const float* wi, const float* __restrict__ kc,
+    float* __restrict__ band, long long nb, int f0, int frames) {
+  const int fl = threadIdx.x / RES_L;
+  const int q = threadIdx.x % RES_L;
+  const int f = f0 + fl;
+  if (fl >= RS_FB || f >= frames) return;
+  const int off = RES_M * fl + (q * RES_M) / RES_L;
+  const float* k = kc + q * RS_P;
+  float ar = 0.f, ai = 0.f;
+  for (int i = 0; i < RS_P; ++i) {
+    const float kv = __ldg(k + i);
+    ar += kv * wr[off + i];
+    ai += kv * wi[off + i];
+  }
+  band[(long long)f * RES_L + q] = ar;
+  band[nb + (long long)f * RES_L + q] = ai;
+}
+
 // 3. band[25 f + q] = sum_i kc[q][i] * ye[H - 345 + 128 f + o_q + i]
 static __global__ void fe_resample(const float* __restrict__ ylocal,
                                    const float* __restrict__ carry,
@@ -102,20 +126,33 @@ static __global__ void fe_resample(const float* __restrict__ ylocal,
     wi[j] = v.y;
   }
   __syncthreads();
-  const int fl = threadIdx.x / RES_L;
-  const int q = threadIdx.x % RES_L;
-  const int f = f0 + fl;
-  if (fl >= RS_FB || f >= frames) return;
-  const int off = RES_M * fl + (q * RES_M) / RES_L;
-  const float* k = kc + q * RS_P;
-  float ar = 0.f, ai = 0.f;
-  for (int i = 0; i < RS_P; ++i) {
-    const float kv = __ldg(k + i);
-    ar += kv * wr[off + i];
-    ai += kv * wi[off + i];
+  resample_frames(wr, wi, kc, band, nb, f0, frames);
+}
+
+// Entry j of the front end's carried state: front_hist' (the last H of
+// [front_hist | y]) for j < H; DC blocker x[-1] and y[-1] for j == 0.
+template <int FMT>
+static __device__ __forceinline__ void front_state(
+    int j, const uint8_t* __restrict__ wire, long long n, float inv_cu8,
+    const float* __restrict__ ylocal, const float* __restrict__ carry,
+    const float* __restrict__ pj, int chunks,
+    const float* __restrict__ fhist_in, int H, float* __restrict__ fhist_out,
+    float* __restrict__ dc_x_out, float* __restrict__ dc_y_out) {
+  if (j < H) {
+    const float2 v = ye_sample(fhist_in, H, ylocal, carry, pj, n, chunks,
+                               n + j);
+    fhist_out[2 * j] = v.x;
+    fhist_out[2 * j + 1] = v.y;
   }
-  band[(long long)f * RES_L + q] = ar;
-  band[nb + (long long)f * RES_L + q] = ai;
+  if (j == 0) {
+    const float2 y = ye_sample(fhist_in, H, ylocal, carry, pj, n, chunks,
+                               H + n - 1);
+    dc_y_out[0] = y.x;
+    dc_y_out[1] = y.y;
+    const float2 x = load_iq<FMT>(wire, n - 1, inv_cu8);
+    dc_x_out[0] = x.x;
+    dc_x_out[1] = x.y;
+  }
 }
 
 // Launches 1-3 for n input samples: ylocal/yend/carry are scratch, band the

@@ -1,4 +1,4 @@
-// Shared device code of the scanner kernels (csrc/duo.cu, csrc/audio_bank.cu).
+// Shared device code of the port's kernels (csrc/*.cu).
 //
 // The one-pole DC blocker y[n] = p*y[n-1] + g*(x[n] - x[n-1]) runs as a
 // chunked parallel scan, the replacement for the TPU kernels' triangular
@@ -69,6 +69,29 @@ static __device__ __forceinline__ float dc_fix(const float* __restrict__ ylocal,
                                                const float* __restrict__ pj,
                                                long long n) {
   return ylocal[n] + carry[n / DC_L] * pj[n % DC_L];
+}
+
+// Entry j < HB of a carried history: the last HB samples of [hist (HB
+// complex, interleaved) | x (nb samples, planes xr and xi)].
+static __device__ __forceinline__ void hist_tail(int j,
+                                                 const float* __restrict__ hist,
+                                                 int HB,
+                                                 const float* __restrict__ xr,
+                                                 const float* __restrict__ xi,
+                                                 long long nb,
+                                                 float* __restrict__ hist_out) {
+  if (j >= HB) return;
+  const long long e = nb + j;
+  float vr, vi;
+  if (e < HB) {
+    vr = hist[2 * e];
+    vi = hist[2 * e + 1];
+  } else {
+    vr = xr[e - HB];
+    vi = xi[e - HB];
+  }
+  hist_out[2 * j] = vr;
+  hist_out[2 * j + 1] = vi;
 }
 
 // Deterministic sum over a RED_THREADS block (fixed tree order, no atomics).

@@ -47,7 +47,7 @@ from torch import nn
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.taps import design as D
 from sdr_pmr446_tpu_torch.kernels import build
-from sdr_pmr446_tpu_torch.kernels.duo import DC_L, dc_powers, scan_constants
+from sdr_pmr446_tpu_torch.kernels.front_end import DC_L, dc_powers, scan_constants
 from sdr_pmr446_tpu_torch.ops import fir, iir
 
 NCH = C.NUM_CHANNELS

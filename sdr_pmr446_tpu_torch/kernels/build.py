@@ -67,6 +67,33 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P,   # outputs
         _P,                               # stream
     ],
+    "fe_run": [
+        _I, _P, _LL,                      # fmt, wire, n_samples
+        _P, _P, _P, _I,                   # dc_x, dc_y, fhist, H
+        _P, _P, _D, _D, _D, _D, _I, _F,   # kc, pj, p, g, pL, pSeg, seg, inv_cu8
+        _P, _P, _P, _P,                   # ylocal, yend, carry, band
+        _P, _P, _P,                       # dc_x, dc_y, fhist outputs
+        _P,                               # stream
+    ],
+    "pfb_demod_run": [
+        _P, _LL, _P, _P, _P,              # band, nb, phist, parity, prev
+        _P, _P, _F, _I, _I,               # ck_re, ck_im, dscale, K, ns
+        _P, _P, _P, _P, _P,               # chan, phist', demod, mag, prev'
+        _P,                               # stream
+    ],
+    "resample_run": [
+        _P, _I, _P, _P, _LL, _P,          # hist, P - 1, xr, xi, n, kc
+        _P, _P,                           # band, hist'
+        _P,                               # stream
+    ],
+    "tail_run": [
+        _I, _P, _LL, _P, _I,              # mode, band, nb, bhist, HB
+        _P, _P, _I, _P,                   # sig_prev, dhist, DH, n0
+        _P, _I, _P, _P, _I, _F,           # kd, P, tab, post taps, width, dscale
+        _P, _P,                           # sig, dem
+        _P, _P, _P, _P, _P,               # bhist', sig_prev', dhist', n0', out
+        _P,                               # stream
+    ],
     "audio_bank_run": [
         _P, _I, _P, _I,                   # demod, F, hist, H
         _P, _P, _P, _P, _P, _I, _I,       # dc_x, dc_y, gain, b_arr, sel, K, ns

@@ -1,11 +1,16 @@
-"""K4: the dsd_in / single-channel "mono chain", CUDA kernel and plain version.
+"""K4 (the dsd_in / single-channel "mono chain") and K5 (its tail), in CUDA.
 
-Replaces the TPU kernel sdr_pmr446_tpu/kernels/chan_tail.py::PallasMonoChain.apply
-(bodies ``_mono_body_pk2`` / ``_mono_body_cs16`` / ``_mono_body_ilv`` and the
-tail ``_tail_core``).  For one block of wire bytes it computes
+Each is a CUDA kernel with its plain PyTorch version beside it.
 
-  1. the front end K1 has too (kernels/duo.py::FrontEnd): wire decode, the
-     IQ DC blocker and the 25/128 resampler to the 200 kHz band;
+K4 replaces the TPU kernel
+sdr_pmr446_tpu/kernels/chan_tail.py::PallasMonoChain.apply (bodies
+``_mono_body_pk2`` / ``_mono_body_cs16`` / ``_mono_body_ilv`` and the tail
+``_tail_core``); K5 replaces PallasChanTail.apply (``_body``), steps 2-4
+alone on the band planes that K6 (kernels/front_end.py) writes: the
+two-kernel engine, ``mono=False``.  For one block of wire bytes K4 computes
+
+  1. K6's front end (kernels/front_end.py::FrontEnd): wire decode, the IQ
+     DC blocker and the 25/128 resampler to the 200 kHz band;
   2. a 16x decimating lowpass to 12.5 kHz: the 477-tap 60 dB filter of
      scanner/dsd_in.stage2_taps (mode "dsd"), or, after the channel mixer
      band[i] * e^{-j w (n0 + i)}, the 838-tap 80 dB channel filter of
@@ -23,10 +28,14 @@ dc_y (c64), front_hist (c64 [512] cu8/cs8, [384] otherwise), band_hist (c64
 [dh * 25], dh = 2 / 17) and, for "single", n0 (i32, the band index of the
 block's first sample mod 32: the mixer phase).
 
-The JAX kernel folds the mixer into complex decimator taps plus a
+``ChanTail(mode, channel, audio_gain, device=)(band [2, nb], band_hist,
+sig_prev, demod_hist, n0=None) -> TailOut(band_hist', sig_prev',
+demod_hist', n0', out)`` is K5, and K4's plain version is K6's followed by
+K5's.  The JAX kernels fold the mixer into complex decimator taps plus a
 (-1)^(g + u) alternation that is right only when a step has an even number
-of 400-sample group rows (K % 8 == 0).  Here the mixer is applied exactly,
-by index, so every K is served.
+of 400-sample group rows (K % 8 == 0), and K5 takes the rotation ``rot``
+where the port carries ``n0``.  Here the mixer is applied exactly, by
+index, so every K is served.
 
 The CUDA version (csrc/chan_tail.cu) runs seven launches on the current
 stream: the three front-end launches of K1 (csrc/front_end.cuh), the state
@@ -40,11 +49,14 @@ against a 3.2 MB cu8 read — operations bound, ~7-8 us at the card's f32
 rate (chip_smoke.py counts it).  It runs far above that: seven
 small launches make it latency and launch bound; fusing them and keeping
 the band on chip is later work.
+
+K5's CUDA version (``tail_run`` in csrc/chan_tail.cu) runs a state launch
+(band_hist', n0') and K4's last three launches on K6's band: bytes bound
+for dsd, operations bound for single, ~1 us at K = 16; see the source.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -53,7 +65,9 @@ from torch import nn
 
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.kernels import build
-from sdr_pmr446_tpu_torch.kernels.duo import FMT_CODE, FrontEnd, compact_phases
+from sdr_pmr446_tpu_torch.kernels.front_end import (FMT_CODE, FrontEnd,
+                                                    compact_phases)
+from sdr_pmr446_tpu_torch.kernels.pfb_demod import DEMOD_SCALE
 from sdr_pmr446_tpu_torch.ops import fm
 from sdr_pmr446_tpu_torch.ops.resample import PolyResampler
 from sdr_pmr446_tpu_torch.taps import design as D
@@ -63,19 +77,30 @@ DPS = 25                      # decimated samples per group row
 DEC = 16                      # decimation of the channel filter
 PHASE_PERIOD = 32             # mixer period in band samples (fs / 6.25 kHz)
 MODES = ("dsd", "single")
+#: mode codes of the C entry points (csrc/chan_tail.cu MODE_*)
+MODE_CODE = {"dsd": 0, "single": 1}
 #: (history group rows hb, demod history rows dh, outputs per group row)
 GEOMETRY = {"dsd": (2, 2, 96), "single": (3, 17, 25)}
-_SCALE = float(np.float32(1.0 / (2.0 * math.pi * C.FM_KF)))
 
-#: kernel launches of the CUDA version (one per chain step); the plain
+#: kernel launches of K4's CUDA version (one per chain step); the plain
 #: version never counts
 LAUNCHES = 0
+#: kernel launches of K5's CUDA version (one per chain step), likewise
+TAIL_LAUNCHES = 0
 
 
 class MonoOut(NamedTuple):
     dc_x: torch.Tensor        # c64 []
     dc_y: torch.Tensor        # c64 []
     front_hist: torch.Tensor  # c64 [H]
+    band_hist: torch.Tensor   # c64 [hb * 400]
+    sig_prev: torch.Tensor    # c64 []
+    demod_hist: torch.Tensor  # f32 [dh * 25]
+    n0: Optional[torch.Tensor]  # i32 [] ("single"), None ("dsd")
+    out: torch.Tensor         # f32 [G * 96] ("dsd") / [G * 25] ("single")
+
+
+class TailOut(NamedTuple):
     band_hist: torch.Tensor   # c64 [hb * 400]
     sig_prev: torch.Tensor    # c64 []
     demod_hist: torch.Tensor  # f32 [dh * 25]
@@ -99,19 +124,17 @@ def audio_fir_taps(audio_gain: float) -> np.ndarray:
         np.float32)
 
 
-class MonoChain(nn.Module):
-    """K4 for one mode and wire format.  ``module(wire, dc_x, dc_y,
-    front_hist, band_hist, sig_prev, demod_hist, n0)`` -> MonoOut: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+class ChanTail(nn.Module):
+    """K5 for one mode.  ``module(band, band_hist, sig_prev, demod_hist,
+    n0)`` -> TailOut: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors.  K4 (MonoChain) runs it after its front end."""
 
-    def __init__(self, mode: str, fmt: str, channel: int | None = None,
+    def __init__(self, mode: str, channel: int | None = None,
                  audio_gain: float = 1.0, *, device):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
-        self.front = FrontEnd(fmt, device=device)
-        self.fmt = self.front.fmt
         self.hb, self.dh, self.out_w = GEOMETRY[mode]
         if mode == "dsd":
             from sdr_pmr446_tpu_torch.scanner.dsd_in import stage2_taps, up_taps
@@ -134,46 +157,45 @@ class MonoChain(nn.Module):
             raise ValueError("band history shorter than the decimator")
 
     def init_state(self, device) -> tuple:
-        """Zero (dc_x, dc_y, front_hist, band_hist, sig_prev, demod_hist)."""
+        """Zero (band_hist, sig_prev, demod_hist)."""
         c64 = dict(dtype=torch.complex64, device=device)
-        return (torch.zeros((), **c64), torch.zeros((), **c64),
-                torch.zeros(self.front.hist_len, **c64),
-                torch.zeros(self.hb * GL, **c64), torch.zeros((), **c64),
+        return (torch.zeros(self.hb * GL, **c64), torch.zeros((), **c64),
                 torch.zeros(self.dh * DPS, dtype=torch.float32,
                             device=device))
 
-    def geometry(self, wire: torch.Tensor):
-        """(n input samples, band samples nb, decimated samples F, group
-        rows G)."""
-        n = self.front.samples(wire)
-        nb = n * C.RESAMP_L // C.RESAMP_M
-        return n, nb, nb // DEC, nb // GL
+    def geometry(self, band: torch.Tensor):
+        """(band samples nb, decimated samples F, group rows G)."""
+        if band.dim() != 2 or band.shape[0] != 2:
+            raise ValueError(f"band must be planes [2, nb], got "
+                             f"{tuple(band.shape)}")
+        nb = band.shape[1]
+        if nb == 0 or nb % GL:
+            raise ValueError(f"{nb} band samples is not whole group rows of "
+                             f"{GL}")
+        return nb, nb // DEC, nb // GL
 
-    def forward(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
-                demod_hist, n0=None) -> MonoOut:
-        if wire.device.type == "cuda":
-            return self.kernel(wire, dc_x, dc_y, front_hist, band_hist,
-                               sig_prev, demod_hist, n0)
-        if wire.device.type == "cpu":
-            return self.plain(wire, dc_x, dc_y, front_hist, band_hist,
-                              sig_prev, demod_hist, n0)
-        raise ValueError(f"no mono-chain implementation for device "
-                         f"{wire.device}")
-
-    def _check_n0(self, n0):
+    def check_n0(self, n0) -> None:
         if (n0 is None) != (self.mode == "dsd"):
             raise ValueError("n0 is the single chain's mixer phase: pass it "
                              "for mode 'single' only")
 
+    def forward(self, band, band_hist, sig_prev, demod_hist,
+                n0=None) -> TailOut:
+        if band.device.type == "cuda":
+            return self.kernel(band, band_hist, sig_prev, demod_hist, n0)
+        if band.device.type == "cpu":
+            return self.plain(band, band_hist, sig_prev, demod_hist, n0)
+        raise ValueError(f"no channel-tail implementation for device "
+                         f"{band.device}")
+
     # ------------------------------------------------------------ plain
-    def plain(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
-              demod_hist, n0=None) -> MonoOut:
+    def plain(self, band, band_hist, sig_prev, demod_hist,
+              n0=None) -> TailOut:
         """The same function in plain PyTorch ops, step by step as the JAX
         op path runs it (any device)."""
-        self._check_n0(n0)
-        _, nb, _, _ = self.geometry(wire)
+        self.check_n0(n0)
+        nb, _, _ = self.geometry(band)
         hb = self.hb * GL
-        ndx, ndy, nfh, band = self.front.plain(wire, dc_x, dc_y, front_hist)
         be = torch.cat([torch.view_as_real(band_hist).T, band], dim=-1)
         new_bh = torch.complex(be[0, nb:], be[1, nb:])
         new_n0 = None
@@ -196,66 +218,166 @@ class MonoChain(nn.Module):
                 torch.flip(self.post_taps, dims=[0]).reshape(1, 1, -1))
             out = out.reshape(-1)
             new_dh = de[dem.shape[0]:]
-        return MonoOut(ndx, ndy, nfh, new_bh.contiguous(), new_prev,
-                       new_dh.contiguous(), new_n0, out.contiguous())
+        return TailOut(new_bh.contiguous(), new_prev, new_dh.contiguous(),
+                       new_n0, out.contiguous())
+
+    # ------------------------------------------------------------- cuda
+    def check_state(self, band_hist, sig_prev, demod_hist, n0, dev) -> None:
+        """Raise unless the carried state and the taps suit the kernels."""
+        build.require(band_hist, "band_hist", torch.complex64,
+                      (self.hb * GL,), dev)
+        build.require(sig_prev, "sig_prev", torch.complex64, (), dev)
+        build.require(demod_hist, "demod_hist", torch.float32,
+                      (self.dh * DPS,), dev)
+        build.require(self.decim.weight, "decimator taps", torch.float32,
+                      None, dev)
+        build.require(self.post_taps, "post taps", torch.float32, None, dev)
+        if self.mode == "single":
+            build.require(n0, "n0", torch.int32, (), dev)
+            build.require(self.tab, "mixer table", torch.complex64,
+                          (PHASE_PERIOD,), dev)
+
+    def c_args(self) -> tuple:
+        """(kd, P, tab, post taps, post width, scale) as tail_run and
+        mono_run take them."""
+        single = self.mode == "single"
+        width = (self.post_taps.shape[0] if single
+                 else self.post_taps.shape[1])
+        return (self.decim.weight.data_ptr(), self.decim.P,
+                self.tab.data_ptr() if single else None,
+                self.post_taps.data_ptr(), width, DEMOD_SCALE)
+
+    def outputs(self, g: int, dev) -> TailOut:
+        """Empty outputs for ``g`` group rows."""
+        c64 = dict(dtype=torch.complex64, device=dev)
+        return TailOut(torch.empty(self.hb * GL, **c64),
+                       torch.empty((), **c64),
+                       torch.empty(self.dh * DPS, dtype=torch.float32,
+                                   device=dev),
+                       torch.empty((), dtype=torch.int32, device=dev)
+                       if self.mode == "single" else None,
+                       torch.empty(g * self.out_w, dtype=torch.float32,
+                                   device=dev))
+
+    def kernel(self, band, band_hist, sig_prev, demod_hist,
+               n0=None) -> TailOut:
+        """Launch tail_run (csrc/chan_tail.cu) on the current stream
+        (raises on any fault)."""
+        global TAIL_LAUNCHES
+        self.check_n0(n0)
+        nb, f, g = self.geometry(band)
+        dev = band.device
+        build.require(band, "band", torch.float32, (2, nb), dev)
+        self.check_state(band_hist, sig_prev, demod_hist, n0, dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        sig, dem = torch.empty(2 * f, **f32), torch.empty(f, **f32)
+        out = self.outputs(g, dev)
+        code = build.library().tail_run(
+            MODE_CODE[self.mode], band.data_ptr(), nb, band_hist.data_ptr(),
+            self.hb * GL, sig_prev.data_ptr(), demod_hist.data_ptr(),
+            self.dh * DPS, _ptr(n0), *self.c_args(), sig.data_ptr(),
+            dem.data_ptr(), out.band_hist.data_ptr(), out.sig_prev.data_ptr(),
+            out.demod_hist.data_ptr(), _ptr(out.n0), out.out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(code, "tail_run")
+        TAIL_LAUNCHES += 1
+        return out
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+class MonoChain(nn.Module):
+    """K4 for one mode and wire format.  ``module(wire, dc_x, dc_y,
+    front_hist, band_hist, sig_prev, demod_hist, n0)`` -> MonoOut: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+
+    def __init__(self, mode: str, fmt: str, channel: int | None = None,
+                 audio_gain: float = 1.0, *, device):
+        super().__init__()
+        self.tail = ChanTail(mode, channel, audio_gain, device=device)
+        self.front = FrontEnd(fmt, device=device)
+        self.fmt = self.front.fmt
+        self.mode = mode
+        self.hb, self.dh, self.out_w = GEOMETRY[mode]
+
+    def init_state(self, device) -> tuple:
+        """Zero (dc_x, dc_y, front_hist, band_hist, sig_prev, demod_hist)."""
+        c64 = dict(dtype=torch.complex64, device=device)
+        return (torch.zeros((), **c64), torch.zeros((), **c64),
+                torch.zeros(self.front.hist_len, **c64),
+                *self.tail.init_state(device))
+
+    def forward(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
+                demod_hist, n0=None) -> MonoOut:
+        if wire.device.type == "cuda":
+            return self.kernel(wire, dc_x, dc_y, front_hist, band_hist,
+                               sig_prev, demod_hist, n0)
+        if wire.device.type == "cpu":
+            return self.plain(wire, dc_x, dc_y, front_hist, band_hist,
+                              sig_prev, demod_hist, n0)
+        raise ValueError(f"no mono-chain implementation for device "
+                         f"{wire.device}")
+
+    # ------------------------------------------------------------ plain
+    def plain(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
+              demod_hist, n0=None) -> MonoOut:
+        """The same function in plain PyTorch ops: K6's plain version, then
+        K5's (any device)."""
+        self.tail.check_n0(n0)
+        fe = self.front.plain(wire, dc_x, dc_y, front_hist)
+        t = self.tail.plain(fe.band, band_hist, sig_prev, demod_hist, n0)
+        return MonoOut(fe.dc_x, fe.dc_y, fe.front_hist, *t)
 
     # ------------------------------------------------------------- cuda
     def kernel(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
                demod_hist, n0=None) -> MonoOut:
-        """Launch csrc/chan_tail.cu on the current stream (raises on any
-        fault)."""
+        """Launch mono_run (csrc/chan_tail.cu) on the current stream
+        (raises on any fault)."""
         global LAUNCHES
-        self._check_n0(n0)
-        n, nb, f, g = self.geometry(wire)
+        self.tail.check_n0(n0)
+        n = self.front.samples(wire)
+        nb = n * C.RESAMP_L // C.RESAMP_M
+        f, g = nb // DEC, nb // GL
         dev = wire.device
-        h, hb, dh = self.front.hist_len, self.hb * GL, self.dh * DPS
-        single = self.mode == "single"
-        build.require(wire, "wire", torch.uint8, (wire.numel(),), dev)
-        build.require(dc_x, "dc_x", torch.complex64, (), dev)
-        build.require(dc_y, "dc_y", torch.complex64, (), dev)
-        build.require(front_hist, "front_hist", torch.complex64, (h,), dev)
-        build.require(band_hist, "band_hist", torch.complex64, (hb,), dev)
-        build.require(sig_prev, "sig_prev", torch.complex64, (), dev)
-        build.require(demod_hist, "demod_hist", torch.float32, (dh,), dev)
-        build.require(self.decim.weight, "decimator taps", torch.float32,
-                      None, dev)
-        build.require(self.post_taps, "post taps", torch.float32, None, dev)
-        if single:
-            build.require(n0, "n0", torch.int32, (), dev)
-            build.require(self.tab, "mixer table", torch.complex64,
-                          (PHASE_PERIOD,), dev)
+        h = self.front.hist_len
+        self.front.check_state(wire, dc_x, dc_y, front_hist)
+        self.tail.check_state(band_hist, sig_prev, demod_hist, n0, dev)
         (ylocal, yend, carry), fe_args = self.front.kernel_args(n, dev)
-        kc, pj, p, gg, p_l, p_seg, seg, inv_cu8 = fe_args
         f32 = dict(dtype=torch.float32, device=dev)
-        c64 = dict(dtype=torch.complex64, device=dev)
         band = torch.empty(2 * nb, **f32)
-        sig = torch.empty(2 * f, **f32)
-        dem = torch.empty(f, **f32)
+        sig, dem = torch.empty(2 * f, **f32), torch.empty(f, **f32)
+        c64 = dict(dtype=torch.complex64, device=dev)
+        t = self.tail.outputs(g, dev)
         out = MonoOut(torch.empty((), **c64), torch.empty((), **c64),
-                      torch.empty(h, **c64), torch.empty(hb, **c64),
-                      torch.empty((), **c64), torch.empty(dh, **f32),
-                      torch.empty((), dtype=torch.int32, device=dev)
-                      if single else None,
-                      torch.empty(g * self.out_w, **f32))
-        ptr = lambda t: t.data_ptr() if t is not None else None
-        post_width = (self.post_taps.shape[1] if self.mode == "dsd"
-                      else self.post_taps.shape[0])
+                      torch.empty(h, **c64), *t)
         code = build.library().mono_run(
-            FMT_CODE[self.fmt], int(single), wire.data_ptr(), n,
+            FMT_CODE[self.fmt], MODE_CODE[self.mode], wire.data_ptr(), n,
             dc_x.data_ptr(), dc_y.data_ptr(), front_hist.data_ptr(), h,
-            band_hist.data_ptr(), hb, sig_prev.data_ptr(),
-            demod_hist.data_ptr(), dh, ptr(n0),
-            kc, pj, p, gg, p_l, p_seg, seg, inv_cu8,
-            self.decim.weight.data_ptr(), self.decim.P,
-            ptr(self.tab) if single else None,
-            self.post_taps.data_ptr(), post_width, _SCALE,
+            band_hist.data_ptr(), self.hb * GL, sig_prev.data_ptr(),
+            demod_hist.data_ptr(), self.dh * DPS, _ptr(n0), *fe_args,
+            *self.tail.c_args(),
             ylocal.data_ptr(), yend.data_ptr(), carry.data_ptr(),
             band.data_ptr(), sig.data_ptr(), dem.data_ptr(),
             out.dc_x.data_ptr(), out.dc_y.data_ptr(),
             out.front_hist.data_ptr(), out.band_hist.data_ptr(),
             out.sig_prev.data_ptr(), out.demod_hist.data_ptr(),
-            ptr(out.n0), out.out.data_ptr(),
+            _ptr(out.n0), out.out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(code, "mono_run")
         LAUNCHES += 1
         return out
+
+
+class TwoKernelChain(MonoChain):
+    """The two-kernel engine (JAX ``mono=False``): K6 writes the band
+    planes, then K5 runs the tail on them.  K4's interface, state and plain
+    version; on CUDA tensors ``forward`` launches K6 and K5."""
+
+    def forward(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
+                demod_hist, n0=None) -> MonoOut:
+        self.tail.check_n0(n0)
+        fe = self.front(wire, dc_x, dc_y, front_hist)
+        t = self.tail(fe.band, band_hist, sig_prev, demod_hist, n0)
+        return MonoOut(fe.dc_x, fe.dc_y, fe.front_hist, *t)

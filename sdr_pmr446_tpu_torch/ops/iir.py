@@ -35,6 +35,15 @@ def _tables(p: float, length: int):
     return u, p ** (j + 1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(p: float, length: int, dtype, device):
+    """_tables as tensors of ``dtype`` on ``device``, made once: a step on
+    the card then copies nothing from the host."""
+    u, pj = _tables(p, length)
+    return (torch.as_tensor(u, dtype=dtype, device=device),
+            torch.as_tensor(pj, dtype=dtype, device=device))
+
+
 def first_order_scan(z: torch.Tensor, p: float, y0: torch.Tensor,
                      chunk: int = CHUNK) -> torch.Tensor:
     """Solve y[n] = p*y[n-1] + z[n] along the last axis of real ``z``.
@@ -43,9 +52,7 @@ def first_order_scan(z: torch.Tensor, p: float, y0: torch.Tensor,
     """
     t = z.shape[-1]
     length = min(chunk, t)
-    u, pj = _tables(float(p), length)
-    u = torch.as_tensor(u, dtype=z.dtype, device=z.device)
-    pj = torch.as_tensor(pj, dtype=z.dtype, device=z.device)
+    u, pj = _device_tables(float(p), length, z.dtype, z.device)
     y0 = y0.to(z.dtype)
     if t <= length:
         return z @ u + y0[..., None] * pj

@@ -45,16 +45,20 @@ class ScanResult:
 
 class ScannerDriver:
     """``device`` alone chooses the implementation: a CUDA device runs the
-    hand-written kernels, the CPU their plain versions (device.resolve)."""
+    hand-written kernels, the CPU their plain versions (device.resolve).
+    ``fuse_band`` and ``fuse_dc`` choose the chain's engine
+    (scanner/chain.py)."""
 
     def __init__(self, args: Optional[C.ScannerArgs] = None,
                  subchunks_per_step: int = 10, input_format: str = "cu8",
-                 device="cuda", on_subchunk: Optional[Callable] = None):
+                 device="cuda", on_subchunk: Optional[Callable] = None,
+                 fuse_band: bool = True, fuse_dc: bool = True):
         self.args = args or C.ScannerArgs()
         self.chain = ScannerChain(
             C.BlockConfig(subchunks_per_step), lowpass=self.args.lowpass,
             fir_deemph=self.args.fir_deemph, input_format=input_format,
-            device=device, waterfall=self.args.waterfall)
+            device=device, waterfall=self.args.waterfall,
+            fuse_band=fuse_band, fuse_dc=fuse_dc)
         self.device = self.chain.device
         self.on_subchunk = on_subchunk
         self.params = make_runtime_params(self.args, self.device)

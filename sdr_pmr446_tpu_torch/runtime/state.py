@@ -9,6 +9,9 @@ four FIR histories of the JAX op path (hp/delay/deemph/audio-lp) stay zero
 here, as they do on the JAX kernel engine.  With the waterfall on,
 ``wf_hist`` is c64 [w//2] as in the JAX state, and the port writes it and
 ``wf_cnt`` every step, so a JAX XLA-path engine resumes from a port state.
+The trio (``fuse_band=False``) carries the duo's layout; with
+``fuse_dc=False`` ``resamp_hist`` is the resampler's c64 [345] input
+history, as in the JAX chain, and these conversions carry it both ways.
 
 The dsd_in and single-channel chains carry the JAX mono engine's layouts
 (scanner/dsd_in.py::DsdState, scanner/single.py::SingleState); their numpy
@@ -33,6 +36,7 @@ class ScannerState(NamedTuple):
     dc_x: torch.Tensor          # c64 []     IQ DC blocker x[-1]
     dc_y: torch.Tensor          # c64 []     IQ DC blocker y[-1]
     resamp_hist: torch.Tensor   # c64 [384|512] DC-blocked front history
+    #                             ([345] resampler history, fuse_dc=False)
     # band rate (200 kHz)
     pfb_hist: torch.Tensor      # c64 [400]  channelizer history
     frame_parity: torch.Tensor  # i32 []     global PFB frame count mod 2

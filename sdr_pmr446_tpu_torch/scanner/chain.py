@@ -1,27 +1,36 @@
-"""The 16-channel PMR446 scanner block step on the kernel engine (PyTorch).
+"""The 16-channel PMR446 scanner block step on the kernel engines (PyTorch).
 
 Counterpart of sdr_pmr446_tpu/scanner/chain.py::ScannerChain._step_impl on
-its recorded default engine (``use_pallas=True``):
+its kernel engines (``use_pallas=True``):
 
     (state, wire bytes [K * SUBCHUNK_IN samples], params) -> (state', StepOutputs)
 
   1. wire in (raw capture bytes, torch.uint8);
-  2. K1 (kernels/duo.py): decode, DC blocker, resampler, PFB,
-     discriminator, per-sub-chunk |y| sums -> RSSI;
+  2. decode, DC blocker, resampler, PFB, discriminator, per-sub-chunk |y|
+     sums -> RSSI, on one of three engines, as in JAX:
+     - ``fuse_band=True`` (the default, the JAX duo): K1
+       (kernels/duo.py);
+     - ``fuse_band=False``, the JAX "trio": K6 (kernels/front_end.py) ->
+       K7 (kernels/pfb_demod.py);
+     - ``fuse_dc=False``: the wire decoded to planes and the DC blocker as
+       plain ops (ops/decode.py, ops/iir.py, XLA ops in JAX too) -> K9
+       (kernels/resample_kernel.py) -> K7; it implies the trio, as in JAX,
+       and carries the resampler's 345-sample history in ``resamp_hist``;
   3. FSM phase A: the squelch schedule from RSSI alone;
   4. K2 (kernels/audio_bank.py): audio FIR bank, lp DC blocker and the
      selected channel's CTCSS tone sums;
   5. FSM phase C: CTCSS detection and events;
   6. per-sub-chunk selection of the active channel's audio;
   7. with the waterfall on (``waterfall=w``): K3 (kernels/waterfall.py) on
-     K1's band planes -> one dB row of w bins per sub-chunk.
+     the engine's band planes -> one dB row of w bins per sub-chunk.
 
 Every stage runs over all 16 channels; nothing reads the device from the
-host, so a step is asynchronous end to end.  The JAX group path needs
-K % 8 == 0 (chain.py:136-138) and its in-kernel waterfall only some widths
-and K (spectrogram.kernel_wf_supported); the port serves every K and every
-width that spectrogram.validate_width accepts, as far as K3's w*w*4-byte
-table fits on the device.
+host, so a step is asynchronous end to end.  The JAX group path (the duo
+and the group trio) needs K % 8 == 0 (chain.py:136-138), its row trio
+serves the rest, and its in-kernel waterfall only some widths and K
+(spectrogram.kernel_wf_supported); every engine of the port serves every K
+and every width that spectrogram.validate_width accepts, as far as K3's
+w*w*4-byte table fits on the device.
 
 The waterfall's window history is the w/2 band samples before the block.
 For w <= 800 it is read from the tail of the incoming ``pfb_hist`` (the
@@ -44,9 +53,12 @@ from sdr_pmr446_tpu_torch.taps import design as D
 from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
-from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
+from sdr_pmr446_tpu_torch.kernels.duo import DuoOut, ScannerDuo
+from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
+from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod
+from sdr_pmr446_tpu_torch.kernels.resample_kernel import Resampler
 from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
-from sdr_pmr446_tpu_torch.ops import decode, spectrogram
+from sdr_pmr446_tpu_torch.ops import decode, iir, spectrogram
 from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums
 from sdr_pmr446_tpu_torch.runtime.state import ScannerState, init_scanner_state
 from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_phase_a,
@@ -100,12 +112,14 @@ class ScannerChain(nn.Module):
 
     The kernels run for CUDA devices (the default); on the CPU, which the
     caller asks for with ``device="cpu"``, every kernel wrapper takes its
-    plain PyTorch version."""
+    plain PyTorch version.  ``fuse_band`` and ``fuse_dc`` choose the engine
+    of steps 1-2 by the JAX names and defaults (module docstring)."""
 
     def __init__(self, block: C.BlockConfig | None = None,
                  lowpass: bool = False, fir_deemph: bool = False,
                  input_format: str = "cu8", device="cuda",
-                 waterfall: int = 0):
+                 waterfall: int = 0, fuse_band: bool = True,
+                 fuse_dc: bool = True):
         super().__init__()
         precision.check()
         spectrogram.validate_width(waterfall)
@@ -113,7 +127,21 @@ class ScannerChain(nn.Module):
         self.input_format = decode.wire_format(input_format)
         self.device = devices.resolve(device)
         self.waterfall = max(waterfall, 0)
-        self.duo = ScannerDuo(self.input_format, device=self.device)
+        self.fuse_dc = fuse_dc
+        self.fuse_band = fuse_band and fuse_dc
+        if self.fuse_band:
+            self.duo = ScannerDuo(self.input_format, device=self.device)
+            self.resamp_hist_len = self.duo.front_hist_len
+        else:
+            if fuse_dc:
+                self.front = FrontEnd(self.input_format, device=self.device)
+                self.resamp_hist_len = self.front.hist_len
+            else:
+                self.resampler = Resampler(device=self.device)
+                self.resamp_hist_len = self.resampler.hist_len
+            self.pfb = PfbDemod(device=self.device)
+        self.pfb_hist_len = (self.duo.pfb if self.fuse_band
+                             else self.pfb).hist_len
         self.audio_bank = AudioBank(lowpass, fir_deemph, device=self.device)
         self.wf = (Waterfall(self.waterfall, device=self.device)
                    if self.waterfall else None)
@@ -121,8 +149,7 @@ class ScannerChain(nn.Module):
         self.deemph_hist_len = deemph.shape[0] - 1
 
     def init_state(self) -> ScannerState:
-        return init_scanner_state(self.duo.front_hist_len,
-                                  self.duo.pfb.hist_len,
+        return init_scanner_state(self.resamp_hist_len, self.pfb_hist_len,
                                   self.deemph_hist_len, self.audio_bank.hist,
                                   self.device, waterfall=self.waterfall)
 
@@ -132,6 +159,31 @@ class ScannerChain(nn.Module):
         return self.block.input_len * decode.BYTES_PER_SAMPLE[
             self.input_format]
 
+    def _band_and_demod(self, state: ScannerState, wire: torch.Tensor,
+                        ns: int) -> DuoOut:
+        """Steps 1-2 on the chain's engine, as K1's outputs (the front
+        history field holds the resampler's on the fuse_dc=False path)."""
+        if self.fuse_band:
+            return self.duo(wire, state.dc_x, state.dc_y, state.resamp_hist,
+                            state.pfb_hist, state.frame_parity,
+                            state.demod_prev, ns)
+        if self.fuse_dc:
+            dc_x, dc_y, hist, band = self.front(
+                wire, state.dc_x, state.dc_y, state.resamp_hist)
+        else:
+            xr, xi = decode.decode_planes(wire, self.input_format)
+            (ndx, ndy), y = iir.dc_blocker_apply(
+                (torch.view_as_real(state.dc_x),
+                 torch.view_as_real(state.dc_y)),
+                torch.stack([xr, xi]), C.DC_BLOCK_ALPHA)
+            dc_x = torch.complex(ndx[0], ndx[1])
+            dc_y = torch.complex(ndy[0], ndy[1])
+            hist, band = self.resampler(state.resamp_hist, y[0], y[1])
+        p = self.pfb(band, state.pfb_hist, state.frame_parity,
+                     state.demod_prev, ns)
+        return DuoOut(dc_x, dc_y, hist, p.demod, p.mag, p.pfb_hist, p.parity,
+                      p.prev, band)
+
     def step(self, state: ScannerState, wire: torch.Tensor,
              params: RuntimeParams):
         """One block step; ``wire`` is uint8 [step_arg_len] on the device."""
@@ -140,8 +192,7 @@ class ScannerChain(nn.Module):
         if wire.shape != (self.step_arg_len,):
             raise ValueError(f"wire has shape {tuple(wire.shape)}, expected "
                              f"({self.step_arg_len},)")
-        d = self.duo(wire, state.dc_x, state.dc_y, state.resamp_hist,
-                     state.pfb_hist, state.frame_parity, state.demod_prev, ns)
+        d = self._band_and_demod(state, wire, ns)
         rssi_db = rssi_from_sums(d.mag_sums, ns)
 
         carry_in = FsmCarry(state.fsm_state, state.active_chan, state.rssi,
@@ -160,7 +211,7 @@ class ScannerChain(nn.Module):
         audio_sel = a.audio.reshape(NCH, k, ns)[
             sel, torch.arange(k, device=sel.device)]
 
-        # 7. waterfall rows from K1's band planes
+        # 7. waterfall rows from the engine's band planes
         wf_hist, wf_cnt = state.wf_hist, state.wf_cnt
         if self.wf is not None:
             hist = (state.pfb_hist if self.wf.wl <= state.pfb_hist.shape[0]

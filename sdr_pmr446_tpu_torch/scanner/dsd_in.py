@@ -1,15 +1,19 @@
 """dsd_in: the wideband-FM front end for external digital-voice decoders (PyTorch).
 
-Counterpart of sdr_pmr446_tpu/scanner/dsd_in.py on its kernel engine (the
-MONO one-kernel chain, ``DsdInChain(use_pallas=True)``):
+Counterpart of sdr_pmr446_tpu/scanner/dsd_in.py on its kernel engines
+(``DsdInChain(use_pallas=True)``):
 
     wire bytes @1.024 Msps -> DC block -> 25/128 resample to 200 kHz
     -> 16x decimating lowpass to 12.5 kHz -> freqdem(0.5)
     -> 96/25 upsample to 48 kHz -> x32767, clip -> int16 (truncated)
 
-One step is one launch of K4 (kernels/chan_tail.py::MonoChain, mode
-"dsd").  The JAX kernel engine needs K % 8 == 0; the port serves every K,
-including the app's default K = 10.
+``mono=True`` (the default, the JAX MONO one-kernel chain): one launch of
+K4 (kernels/chan_tail.py::MonoChain, mode "dsd").  ``mono=False``, the JAX
+two-kernel engine: K6 (kernels/front_end.py::FrontEnd) writes the band
+planes and K5 (kernels/chan_tail.py::ChanTail) runs the rest.  Both carry
+the same state (DsdState, JAX's PallasDsdState), so a state passes between
+the engines and the packages.  The JAX kernel engines need K % 8 == 0; the
+port serves every K, including the app's default K = 10.
 """
 
 from __future__ import annotations
@@ -63,14 +67,18 @@ class DsdInChain:
     raw cu8, cs8, cs16 or cf32 bytes."""
 
     def __init__(self, subchunks_per_step: int = 10,
-                 input_format: str = "cf32", device=devices.DEFAULT):
-        from sdr_pmr446_tpu_torch.kernels.chan_tail import MonoChain
+                 input_format: str = "cf32", device=devices.DEFAULT,
+                 mono: bool = True):
+        from sdr_pmr446_tpu_torch.kernels.chan_tail import (MonoChain,
+                                                            TwoKernelChain)
         precision.check()
         self.device = devices.resolve(device)
         self.input_format = decode.wire_format(input_format)
         self.input_len = subchunks_per_step * C.SUBCHUNK_IN
         self.output_len = self.input_len * 3 // 64
-        self.mono = MonoChain("dsd", self.input_format, device=self.device)
+        self.mono = mono
+        self.engine = (MonoChain if mono else TwoKernelChain)(
+            "dsd", self.input_format, device=self.device)
 
     @property
     def step_arg_len(self) -> int:
@@ -78,13 +86,13 @@ class DsdInChain:
         return self.input_len * decode.BYTES_PER_SAMPLE[self.input_format]
 
     def init_state(self) -> DsdState:
-        return DsdState(*self.mono.init_state(self.device))
+        return DsdState(*self.engine.init_state(self.device))
 
     def step(self, state: DsdState, wire: torch.Tensor):
         if wire.shape != (self.step_arg_len,):
             raise ValueError(f"wire has shape {tuple(wire.shape)}, expected "
                              f"({self.step_arg_len},)")
-        o = self.mono(wire, *state)
+        o = self.engine(wire, *state)
         # clipped in the kernel; the int16 cast truncates toward zero, as
         # the JAX chain's astype(jnp.int16) does
         return (DsdState(o.dc_x, o.dc_y, o.front_hist, o.band_hist,

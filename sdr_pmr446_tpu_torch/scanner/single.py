@@ -1,17 +1,22 @@
 """Single-channel NBFM monitor chain (BASELINE.json config 1), PyTorch.
 
-Counterpart of sdr_pmr446_tpu/scanner/single.py on its kernel engine (the
-MONO one-kernel chain, ``SingleChannelChain(use_pallas=True)``): fixed-tune
-demodulation of ONE PMR channel from the 1.024 Msps band capture —
-resample to 200 kHz, mix the channel to baseband (a 32-entry phase table
-indexed by the band sample's global index mod 32), 16x decimating channel
-filter, NBFM discriminator, then the CTCSS-removal highpass, audio gain and
-de-emphasis composed into one FIR.
+Counterpart of sdr_pmr446_tpu/scanner/single.py on its kernel engines
+(``SingleChannelChain(use_pallas=True)``): fixed-tune demodulation of ONE
+PMR channel from the 1.024 Msps band capture — resample to 200 kHz, mix
+the channel to baseband (a 32-entry phase table indexed by the band
+sample's global index mod 32), 16x decimating channel filter, NBFM
+discriminator, then the CTCSS-removal highpass, audio gain and de-emphasis
+composed into one FIR.
 
-One step is one launch of K4 (kernels/chan_tail.py::MonoChain, mode
-"single").  The mixer phase is carried in ``n0``, so every K is served,
-including an odd number of 400-sample group rows per step (odd K), which
-the JAX kernel's (-1)^(g+u) alternation cannot take.
+``mono=True`` (the default, the JAX MONO one-kernel chain): one launch of
+K4 (kernels/chan_tail.py::MonoChain, mode "single").  ``mono=False``, the
+JAX two-kernel engine: K6 (kernels/front_end.py::FrontEnd) writes the band
+planes and K5 (kernels/chan_tail.py::ChanTail) runs the rest.  Both carry
+the same state (SingleState, JAX's PallasSingleState), so a state passes
+between the engines and the packages.  The mixer phase is carried in
+``n0``, so every K is served, including an odd number of 400-sample group
+rows per step (odd K), which the JAX kernels' (-1)^(g+u) alternation
+cannot take.
 """
 
 from __future__ import annotations
@@ -55,8 +60,10 @@ class SingleChannelChain:
 
     def __init__(self, channel: int, subchunks_per_step: int = 10,
                  audio_gain: float = C.SDR_DEFAULT_AUDIO_GAIN,
-                 input_format: str = "cf32", device=devices.DEFAULT):
-        from sdr_pmr446_tpu_torch.kernels.chan_tail import MonoChain
+                 input_format: str = "cf32", device=devices.DEFAULT,
+                 mono: bool = True):
+        from sdr_pmr446_tpu_torch.kernels.chan_tail import (MonoChain,
+                                                            TwoKernelChain)
         precision.check()
         self.device = devices.resolve(device)
         self.channel = channel
@@ -64,8 +71,10 @@ class SingleChannelChain:
         self.input_format = decode.wire_format(input_format)
         self.input_len = subchunks_per_step * C.SUBCHUNK_IN
         self.output_len = self.input_len * 25 // 2048
-        self.mono = MonoChain("single", self.input_format, channel=channel,
-                              audio_gain=audio_gain, device=self.device)
+        self.mono = mono
+        self.engine = (MonoChain if mono else TwoKernelChain)(
+            "single", self.input_format, channel=channel,
+            audio_gain=audio_gain, device=self.device)
 
     @property
     def step_arg_len(self) -> int:
@@ -73,7 +82,7 @@ class SingleChannelChain:
         return self.input_len * decode.BYTES_PER_SAMPLE[self.input_format]
 
     def init_state(self) -> SingleState:
-        return SingleState(*self.mono.init_state(self.device),
+        return SingleState(*self.engine.init_state(self.device),
                            torch.zeros((), dtype=torch.int32,
                                        device=self.device))
 
@@ -81,6 +90,6 @@ class SingleChannelChain:
         if wire.shape != (self.step_arg_len,):
             raise ValueError(f"wire has shape {tuple(wire.shape)}, expected "
                              f"({self.step_arg_len},)")
-        o = self.mono(wire, *state[:-1], n0=state.n0)
+        o = self.engine(wire, *state[:-1], n0=state.n0)
         return (SingleState(o.dc_x, o.dc_y, o.front_hist, o.band_hist,
                             o.sig_prev, o.demod_hist, o.n0), o.out)

@@ -344,3 +344,46 @@ def test_mono_chain_step_makes_no_host_reads_on_card(mode):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize(dev)
     assert out.shape == (chain.output_len,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dsd", "single"])
+@pytest.mark.parametrize("fmt,k", [("cu8", 16), ("cs16", 15)])
+def test_chan_tail_kernel_matches_plain_on_card(mode, fmt, k):
+    """K5 vs its plain version on K6's band of two consecutive blocks (the
+    carried state included; K = 15 gives an odd number of group rows): dsd
+    PCM within 1 LSB, single audio SNR > 100 dB, carries to 5e-5 of their
+    peak, the mixer phase exact."""
+    from sdr_pmr446_tpu_torch.kernels import chan_tail
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(k)
+    mono = chan_tail.MonoChain(mode, fmt, channel=5, audio_gain=2.0,
+                               device=dev)
+    st, n0 = random_mono_state(mono, rng, dev, 7)
+    fe_st, ref, n0_ref = st[:3], st[3:], n0
+    got, n0_got = list(ref), n0
+    n = k * C.SUBCHUNK_IN
+    for step in range(2):
+        wire = torch.as_tensor(decode.quantize_iq(
+            mono_input(mode, n, step), fmt), device=dev)
+        fe = mono.front(wire, *fe_st)
+        launches = chan_tail.TAIL_LAUNCHES
+        r = mono.tail.plain(fe.band, *ref, n0=n0_ref)
+        g = mono.tail(fe.band, *got, n0=n0_got)
+        torch.cuda.synchronize(dev)
+        assert chan_tail.TAIL_LAUNCHES == launches + 1
+        if mode == "dsd":
+            d = (g.out.to(torch.int16).int() - r.out.to(torch.int16).int())
+            assert d.abs().max().item() <= 1
+        else:
+            want, have = r.out.cpu().double(), g.out.cpu().double()
+            snr = 10 * torch.log10((want ** 2).sum() / ((have - want) ** 2).sum())
+            assert snr > 100.0, f"step {step}: {snr:.1f} dB"
+        for name in ("band_hist", "sig_prev", "demod_hist"):
+            assert rel_err(getattr(g, name).cpu().numpy(),
+                           getattr(r, name).cpu().numpy()) < 5e-5, name
+        if mode == "single":
+            assert int(g.n0) == int(r.n0)
+        fe_st = list(fe[:3])
+        ref, n0_ref = list(r[:3]), r.n0
+        got, n0_got = list(g[:3]), g.n0

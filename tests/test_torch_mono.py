@@ -1,6 +1,8 @@
-"""The port's dsd_in and single-channel chains (K4) vs the JAX package.
+"""The port's dsd_in and single-channel chains (K4; K6 -> K5) vs JAX.
 
-On the CPU the chains run K4's plain PyTorch version.  They are held to
+On the CPU the chains run the kernels' plain PyTorch versions: K4's on the
+default ``mono=True`` engine, K6's then K5's with ``mono=False``.  They are
+held to
 
   - the JAX mono engine (``use_pallas=True, pallas_interpret=True``, the
     one-kernel PallasMonoChain) at K = 8 on the same wire bytes, two
@@ -14,7 +16,18 @@ On the CPU the chains run K4's plain PyTorch version.  They are held to
   - the port's copy of the float64 DsdInOracle: SNR > 50 dB, tone SNR
     > 17 dB (tests/test_dsd_in.py:33-56).
 
-States pass from the JAX package to the port and back.
+The two-kernel engine (``mono=False``) is held to
+
+  - the JAX two-kernel engine (``mono=False``: PallasFrontEnd ->
+    PallasChanTail) at K = 8, under the mono engine's gates above;
+  - K5 alone against PallasChanTail at K = 8 on the same band planes, from
+    a non-zero state and mixer phase 7: dsd PCM within 1 LSB, single audio
+    SNR > 100 dB (tests/test_dsd_in.py:165-184, tests/test_misc.py:128-154);
+  - the port's ``mono=True`` chain at K = 10 (cu8) and 15 (cs16, an odd
+    number of group rows): the same output and state;
+  - the JAX op path at K = 5, under the op-path gates above.
+
+States pass from the JAX package to the port and back, on both engines.
 """
 
 import numpy as np
@@ -70,10 +83,10 @@ def jax_chain(mode, k, **kw):
     return JaxSingle(5, k, **kw)
 
 
-def port_chain(mode, k, fmt):
+def port_chain(mode, k, fmt, mono=True):
     if mode == "dsd":
-        return DsdInChain(k, input_format=fmt, device="cpu")
-    return SingleChannelChain(5, k, input_format=fmt, device="cpu")
+        return DsdInChain(k, input_format=fmt, device="cpu", mono=mono)
+    return SingleChannelChain(5, k, input_format=fmt, device="cpu", mono=mono)
 
 
 def output(mode, o):
@@ -111,14 +124,14 @@ def assert_outputs_close(mode, port_out, jax_out, what):
         assert snr > 100.0, f"{what}: {snr:.1f} dB"
 
 
-@pytest.fixture(scope="module")
-def kernel_runs():
-    """Two K=8 steps of each JAX mono engine: wire bytes, outputs and the
+def jax_kernel_runs(mono):
+    """Two K=8 steps of each JAX kernel engine: wire bytes, outputs and the
     state before and after each step."""
     runs = {}
     for mode, fmt in FMT.items():
         chain = jax_chain(mode, K_KERNEL, input_format=fmt, use_pallas=True,
-                          pallas_interpret=True)
+                          pallas_interpret=True, mono=mono)
+        assert chain.mono == mono
         n = chain.input_len
         words = jdecode.pack_iq(capture(mode, 2 * n), fmt)
         wl = words.size // 2
@@ -134,6 +147,12 @@ def kernel_runs():
             run["states"].append([np.asarray(v) for v in st])
         runs[mode] = run
     return runs
+
+
+@pytest.fixture(scope="module")
+def kernel_runs():
+    """The JAX mono engine's runs (jax_kernel_runs)."""
+    return jax_kernel_runs(mono=True)
 
 
 @pytest.mark.parametrize("mode", ["dsd", "single"])
@@ -213,8 +232,8 @@ def op_runs():
     return runs
 
 
-def run_port(mode, k, iq):
-    chain = port_chain(mode, k, "cf32")
+def run_port(mode, k, iq, mono=True):
+    chain = port_chain(mode, k, "cf32", mono)
     n = chain.input_len
     states, outs = [chain.init_state()], []
     for i in range(len(iq) // n):
@@ -284,3 +303,133 @@ def test_mono_chain_rejects_bad_inputs():
     chain = DsdInChain(1, input_format="cu8", device="cpu")
     with pytest.raises(ValueError, match="expected"):
         chain.step(chain.init_state(), wire[:-2])
+
+
+# --------------------------------------------------- the two-kernel engine
+@pytest.fixture(scope="module")
+def two_kernel_runs():
+    """The JAX two-kernel engine's runs (jax_kernel_runs)."""
+    return jax_kernel_runs(mono=False)
+
+
+@pytest.mark.parametrize("mode", ["dsd", "single"])
+def test_two_kernel_chain_matches_jax_two_kernel_engine(two_kernel_runs,
+                                                        mode):
+    from sdr_pmr446_tpu_torch.kernels import front_end
+    run = two_kernel_runs[mode]
+    chain = port_chain(mode, K_KERNEL, FMT[mode], mono=False)
+    assert not chain.mono
+    st = chain.init_state()
+    launches = (front_end.LAUNCHES, chan_tail.TAIL_LAUNCHES)
+    for i in range(2):
+        st, out = chain.step(st, torch.from_numpy(run["wires"][i]))
+        assert out.shape == (chain.output_len,)
+        assert_outputs_close(mode, out.numpy(), run["outs"][i], f"step {i}")
+        assert_states_close(st, run["states"][i + 1], f"step {i}")
+    # the plain versions never count
+    assert (front_end.LAUNCHES, chan_tail.TAIL_LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("mode", ["dsd", "single"])
+def test_two_kernel_states_pass_both_ways(two_kernel_runs, mode):
+    """The JAX two-kernel state after step 1 resumes in the port's
+    two-kernel chain, and the port's resumes in the JAX one: each step 2
+    gives the JAX step 2 output."""
+    run = two_kernel_runs[mode]
+    chain = port_chain(mode, K_KERNEL, FMT[mode], mono=False)
+    _, out = chain.step(FROM_NUMPY[mode](run["states"][1], "cpu"),
+                        torch.from_numpy(run["wires"][1]))
+    assert_outputs_close(mode, out.numpy(), run["outs"][1], "resumed")
+    st, _ = chain.step(chain.init_state(), torch.from_numpy(run["wires"][0]))
+    jst = JAX_STATE[mode](*(jnp.asarray(v) for v in TO_NUMPY[mode](st)))
+    jchain = run["chain"]
+    _, o = jchain.step(jst, jnp.asarray(run["wires"][1].view(np.float32))
+                       .reshape(jchain.step_arg_shape))
+    assert_outputs_close(mode, output(mode, o), run["outs"][1], "handed back")
+
+
+@pytest.mark.parametrize("mode", ["dsd", "single"])
+def test_chan_tail_plain_matches_jax_kernel(mode):
+    """K5 alone: two streamed K = 8 steps of PallasChanTail on the same
+    band planes from a non-zero state (single: mixer phase 7, the JAX
+    kernel's rotation e^{-j w n0}), outputs under the gates above, every
+    carry within 1e-5 of its peak."""
+    from sdr_pmr446_tpu.kernels.chan_tail import PallasChanTail
+    from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
+    single = mode == "single"
+    rng = np.random.default_rng(17)
+    jt = PallasChanTail(mode, channel=5, audio_gain=2.0, interpret=True)
+    tail = chan_tail.ChanTail(mode, 5, 2.0, device="cpu")
+    fe = FrontEnd("cu8", device="cpu")
+    st = [np.asarray(0.1 * (rng.standard_normal(tail.hb * 400)
+                            + 1j * rng.standard_normal(tail.hb * 400)),
+                     np.complex64),
+          np.complex64(0.3 - 0.2j),
+          (0.1 * rng.standard_normal(tail.dh * 25)).astype(np.float32)]
+    tab = chan_tail.mixer_table(5)
+    n0 = 7
+    jst = [jnp.asarray(v) for v in st]
+    tst = [torch.from_numpy(np.array(v)) for v in st]
+    tn0 = torch.tensor(n0, dtype=torch.int32) if single else None
+    fst = [torch.zeros((), dtype=torch.complex64)] * 2 + [
+        torch.zeros(fe.hist_len, dtype=torch.complex64)]
+    n = K_KERNEL * C.SUBCHUNK_IN
+    iq = capture(mode, 2 * n)
+    launches = chan_tail.TAIL_LAUNCHES
+    for i in range(2):
+        f = fe(torch.from_numpy(decode.quantize_iq(iq[i * n:(i + 1) * n],
+                                                   "cu8")), *fst)
+        band = f.band.numpy()
+        jo = [np.asarray(v) for v in jt.apply(
+            *jst, jnp.asarray(band[0].reshape(-1, 400)),
+            jnp.asarray(band[1].reshape(-1, 400)),
+            rot=jnp.asarray(tab[n0]) if single else None)]
+        to = tail(f.band, *tst, n0=tn0)
+        assert_outputs_close(mode, to.out.numpy(), jo[3], f"step {i}")
+        for name, got, want in zip(("band_hist", "sig_prev", "demod_hist"),
+                                   to[:3], jo[:3]):
+            peak = max(float(np.max(np.abs(want))), 1e-30)
+            assert float(np.max(np.abs(got.numpy() - want))) < 1e-5 * peak, \
+                f"step {i} {name}"
+        if single:
+            n0 = (n0 + band.shape[1]) % 32
+            assert int(to.n0) == n0
+        jst = [jnp.asarray(v) for v in jo[:3]]
+        tst, tn0, fst = list(to[:3]), to.n0, list(f[:3])
+    assert chan_tail.TAIL_LAUNCHES == launches
+
+
+@pytest.mark.parametrize("mode", ["dsd", "single"])
+@pytest.mark.parametrize("k,fmt", [(10, "cu8"), (15, "cs16")])
+def test_two_kernel_chain_matches_mono_chain(mode, k, fmt):
+    """The port's two engines on the same bytes, K = 10 and K = 15 (an odd
+    number of group rows): the same output and state over two steps."""
+    chains = [port_chain(mode, k, fmt, mono) for mono in (True, False)]
+    n = k * C.SUBCHUNK_IN
+    iq = capture(mode, 2 * n)
+    sts = [c.init_state() for c in chains]
+    for i in range(2):
+        wire = torch.from_numpy(decode.quantize_iq(iq[i * n:(i + 1) * n], fmt))
+        (sa, a), (sb, b) = (c.step(s, wire) for c, s in zip(chains, sts))
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+        for x, y in zip(sa, sb):
+            torch.testing.assert_close(y, x, rtol=0, atol=0)
+        sts = [sa, sb]
+
+
+def test_two_kernel_dsd_matches_jax_op_path_at_odd_k(op_runs):
+    run = op_runs["dsd"]
+    _, outs = run_port("dsd", K_ODD, run["iq"], mono=False)
+    for i, (got, want) in enumerate(zip(outs, run["outs"])):
+        assert snr_db(want, got) > 60.0, f"step {i}"
+        err = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert err.max() <= 2, f"step {i}: {err.max()} LSB"
+
+
+def test_two_kernel_single_matches_jax_op_path_at_odd_k(op_runs):
+    run = op_runs["single"]
+    states, outs = run_port("single", K_ODD, run["iq"], mono=False)
+    assert [int(s.n0) for s in states] == [0, 16, 0]
+    for i, (got, want) in enumerate(zip(outs, run["outs"])):
+        snr = snr_db(want, got)
+        assert snr > 60.0, f"step {i}: {snr:.1f} dB"
