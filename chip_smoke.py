@@ -37,7 +37,9 @@ on its own lines; any failure raises and ends the run:
      (device busy share, device time by part and by device function);
  10. the waterfall: K3 against its plain version on the card, on K1's band
      of two consecutive cu8 blocks from a random history and counter, at
-     K = 40 with w = 80, 120, 840 and at K = 10 with w = 64, with its times
+     K = 40 with w = 80, 120, 840 and at K = 10 with w = 64, 4096 and 8192
+     (the last two also, with the plain version, against the float64
+     asgramcf oracle), with its times
      beside torch.stft's (the library yardstick, never called by the port);
      the scanner with -w 120 through ScannerDriver at K = 10 over 3 steps,
      each row within 1e-2 dB of the float64 asgramcf oracle fed the
@@ -59,10 +61,23 @@ on its own lines; any failure raises and ends the run:
      two-kernel engine (mono=False: K6 -> K5) at K = 16 against the mono
      engine on the same bytes, throughput in turns (mono, two, two, mono),
      a step with host reads made errors, one profiled step.
+ 12. the scanner's op-path switches: (a) K8 (the audio bank without its
+     CTCSS epilogue: apply and apply_dc) against its plain versions at
+     K = 40 and 10 on the demod of K6 -> K7, over two calls from a random
+     state, its audio equal bit for bit to K2's, with its times and, for
+     apply, F.conv1d's (the library yardstick, never called by the port);
+     (b) the fuse_ctcss=False, fuse_lp_dc=False and fuse_rssi=False engines
+     through ScannerDriver against the oracle at K = 10 (decisions also
+     equal to phase 3's run), then at K = 40 in turns with the trio (trio,
+     ctcss_off, lp_dc_off, rssi_off, rssi_off, lp_dc_off, ctcss_off, trio):
+     decisions, events and audio (bit for bit) equal to the trio's, one
+     step each with host reads made errors, one profiled fuse_lp_dc=False
+     step; (c) the launch counts of K8 (apply, apply_dc), K2, K6 and K7.
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
-scanner in 10, the engines of 11(b), each two-kernel chain in 11(c)) runs
-with the launch counts set to 0 just before it and read just after.  Each
+scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
+switched engines of 12(b)) runs with the launch counts set to 0 just
+before it and read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
 H100 SXM's HBM3 rate and f32 rate outside the tensor cores).  The
@@ -100,6 +115,7 @@ TOL_DSD_ORACLE_DB = 50.0       # dsd_in vs the float64 oracle (tests/test_dsd_in
 TOL_TONE_DB = 35.0             # single-channel 1 kHz tone (tests/test_misc.py:80-97)
 TOL_WF_DB = 2e-3               # K3 rows vs its plain version (tests/test_scanner.py:341-378)
 TOL_WF_ORACLE_DB = 1e-2        # -w rows vs the float64 oracle (tests/test_driver_apps.py:140-173)
+WIDE_WF = 4096                 # K3 widths also held to the float64 oracle
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 ATAN2_OPS = 20                 # operations counted for one atan2f / sincos
@@ -833,8 +849,10 @@ def stft_rows(dev, w: int, k: int, cnt: int):
 def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
     """K3 vs its plain version on K1's band of two consecutive cu8 blocks,
     from a random history (the PFB history's tail for w <= 800, else a
-    carried wf_hist) and counter; then the times of the kernel, the plain
-    version and torch.stft on ``reps`` fresh inputs.  Returns its row."""
+    carried wf_hist) and counter, and from w = WIDE_WF both also against
+    the float64 asgramcf oracle (AsgramStream) started from the same
+    history and counter; then the times of the kernel, the plain version
+    and torch.stft on ``reps`` fresh inputs.  Returns its row."""
     import torch
     from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
     from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
@@ -851,6 +869,12 @@ def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
                                      np.complex64), device=dev)
     ref_h = got_h = own
     ref_c = got_c = cnt
+    asg = None
+    if w >= WIDE_WF:
+        from sdr_pmr446_tpu_torch.oracle.chain import AsgramStream
+        asg = AsgramStream(w)
+        asg.buf = own.cpu().numpy().astype(np.complex128)
+        asg.counter = cnt0
     errs = []
     for step, blk in enumerate(bench_blocks(k, 2)):
         d = duo.kernel(torch.as_tensor(blk, device=dev), *dstate, ns=NS)
@@ -863,6 +887,20 @@ def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
         h_rel = max_err(r.hist, g.hist) / max(peak(r.hist), 1e-30)
         log(f"  K3 w={w} K={k} block {step}: rows max|err| {errs[-1]:.3g} dB, "
             f"hist rel {h_rel:.3g}, cnt {int(r.cnt)} / {int(g.cnt)}")
+        if asg is not None:
+            band = as_np(d.band).astype(np.float64)
+            band = band[0] + 1j * band[1]
+            sub = band.shape[0] // k
+            rows = []
+            for i in range(k):
+                asg.write(band[i * sub:(i + 1) * sub])
+                rows.append(asg.execute())
+            o_k = float(np.max(np.abs(as_np(g.rows) - np.stack(rows))))
+            o_p = float(np.max(np.abs(as_np(r.rows) - np.stack(rows))))
+            log(f"    vs the float64 asgramcf oracle: kernel {o_k:.3g} dB, "
+                f"plain {o_p:.3g} dB")
+            check(max(o_k, o_p) < TOL_WF_ORACLE_DB,
+                  f"K3 w={w} K={k} rows vs the oracle")
         check(errs[-1] < TOL_WF_DB, f"K3 w={w} K={k} rows")
         check(h_rel < TOL_CARRY_REL, f"K3 w={w} K={k} history")
         check(int(r.cnt) == int(g.cnt), f"K3 w={w} K={k} counter")
@@ -1236,27 +1274,27 @@ ENGINES = {"duo": {}, "trio": {"fuse_band": False},
            "fuse_dc_off": {"fuse_dc": False}}
 
 
-def phase_engines_bench(dev, k: int, n_blocks: int, sync):
-    """The scanner's three engines through ScannerDriver over the same
-    distinct blocks, in turns (duo, trio, fuse_dc_off, fuse_dc_off, trio,
-    duo) after one warm-up block each: throughput, and decisions and
-    events equal to the duo's.  Returns the steps of each engine and the
-    throughputs."""
+def phase_engines_bench(dev, k: int, n_blocks: int, sync, engines: dict,
+                        order: tuple):
+    """Scanner engines (``engines``: name -> chain switches) through
+    ScannerDriver over the same distinct blocks, one warm-up block each,
+    then in the turns ``order``.  Returns the steps of each engine, each
+    one's last result and the throughputs."""
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
     blocks = bench_blocks(k, n_blocks)
-    steps = {e: 0 for e in ENGINES}
-    for name, sw in ENGINES.items():
+    steps = {e: 0 for e in engines}
+    for name, sw in engines.items():
         warm = ScannerDriver(subchunks_per_step=k, input_format="cu8",
                              device=dev, **sw)
         warm.run(blocks[:1])
         steps[name] += warm.block_index
     sync()
     n_samp = n_blocks * k * C.SUBCHUNK_IN
-    out, results = {e: [] for e in ENGINES}, {}
-    for name in ("duo", "trio", "fuse_dc_off", "fuse_dc_off", "trio", "duo"):
+    out, results = {e: [] for e in engines}, {}
+    for name in order:
         drv = ScannerDriver(subchunks_per_step=k, input_format="cu8",
-                            device=dev, **ENGINES[name])
+                            device=dev, **engines[name])
         t0 = time.perf_counter()
         results[name] = drv.run(blocks)
         sync()
@@ -1266,13 +1304,37 @@ def phase_engines_bench(dev, k: int, n_blocks: int, sync):
         log(f"  K={k} {name}, {n_blocks} blocks: {sec * 1e3:.1f} ms, "
             f"{out[name][-1]:.1f} Msamples/s, "
             f"{n_samp / C.SDR_SAMPLERATE / sec:.1f}x real time")
+    return steps, results, {f"scanner_{e}": {"msamples_per_s": v}
+                            for e, v in out.items()}
+
+
+def check_decisions(got, ref, what: str) -> None:
+    """Decisions and events of one driver run equal another's."""
+    for field in ("active_trace", "ct_detected"):
+        check(np.array_equal(getattr(got, field), getattr(ref, field)),
+              f"{what} {field}")
+    check(got.events == ref.events, f"{what} events")
+
+
+def phase_trio(dev, oracle_run, sync):
+    """Phase 11(b): the trio (fuse_band=False) and fuse_dc=False scanners
+    against the oracle at K = 10 (decisions also equal to phase 3's duo
+    run), at K = 40 in turns with the duo, one step each with host reads
+    made errors, one profiled trio step.  Returns the steps of each engine
+    and the throughputs."""
+    steps = {e: 0 for e in ENGINES}
+    k = 40
     for name in ("trio", "fuse_dc_off"):
-        for field in ("active_trace", "ct_detected"):
-            check(np.array_equal(getattr(results[name], field),
-                                 getattr(results["duo"], field)),
-                  f"{name} {field} vs the duo")
-        check(results[name].events == results["duo"].events,
-              f"{name} events vs the duo")
+        n, res = phase_oracle(dev, 10, 30, **ENGINES[name])
+        steps[name] += n
+        check_decisions(res, oracle_run, f"{name} vs the duo at K = 10")
+    bench_steps, results, bench = phase_engines_bench(
+        dev, k, 4, sync, ENGINES,
+        ("duo", "trio", "fuse_dc_off", "fuse_dc_off", "trio", "duo"))
+    for name in ENGINES:
+        steps[name] += bench_steps[name]
+    for name in ("trio", "fuse_dc_off"):
+        check_decisions(results[name], results["duo"], f"{name} vs the duo")
         got, ref = results[name], results["duo"]
         diff = float(np.max(np.abs(got.audio - ref.audio)))
         # blocks 0-1 carry channel 5 (after two settling sub-chunks); the
@@ -1290,30 +1352,181 @@ def phase_engines_bench(dev, k: int, n_blocks: int, sync):
             # double scan: noise demodulated in the hang may take other
             # atan2 branches, the signal stays within the oracle gate
             check(snr > 40.0, "fuse_dc_off audio vs the duo")
-    return steps, {f"scanner_{e}": {"msamples_per_s": v}
-                   for e, v in out.items()}
-
-
-def phase_trio(dev, oracle_run, sync):
-    """Phase 11(b): the trio (fuse_band=False) and fuse_dc=False scanners
-    against the oracle at K = 10 (decisions also equal to phase 3's duo
-    run), at K = 40 in turns with the duo, one step each with host reads
-    made errors, one profiled trio step.  Returns the steps of each engine
-    and the throughputs."""
-    steps = {e: 0 for e in ENGINES}
     for name in ("trio", "fuse_dc_off"):
-        n, res = phase_oracle(dev, 10, 30, **ENGINES[name])
-        steps[name] += n
-        check(np.array_equal(res.active_trace, oracle_run.active_trace)
-              and res.events == oracle_run.events,
-              f"{name} decisions vs the duo at K = 10")
-    bench_steps, bench = phase_engines_bench(dev, 40, 4, sync)
-    for name in ENGINES:
-        steps[name] += bench_steps[name]
-    for name in ("trio", "fuse_dc_off"):
-        steps[name] += phase_no_host_reads(dev, 40, sync, **ENGINES[name])
-    steps["trio"] += phase_profile(dev, 40, sync, parts=TRIO_PARTS,
+        steps[name] += phase_no_host_reads(dev, k, sync, **ENGINES[name])
+    steps["trio"] += phase_profile(dev, k, sync, parts=TRIO_PARTS,
                                    **ENGINES["trio"])
+    return steps, bench
+
+
+def k8_work(f: int, hist: int, la: int, ll: int, dc: bool):
+    """K8: the audio and lp FIRs over 16 channels (multiply-add = 2), with
+    ``dc`` the lp DC blocker (4 a sample); demod read, audio and lp (or
+    lp_dcb) written, the history read and written, the taps, the carries."""
+    nbytes = 3 * 16 * f * 4 + 2 * 16 * hist * 4 + 4 * (la + ll)
+    if dc:
+        nbytes += 4 * 16 * 4
+    return nbytes, 16 * f * ((la + ll) * 2 + (4 if dc else 0))
+
+
+def k8_case(dev, k: int, timer, reps: int = REPS):
+    """K8 apply and apply_dc vs their plain versions over two consecutive
+    calls from a random non-zero state, on the demod of K6 -> K7 of two
+    consecutive bench blocks; K8's audio equal bit for bit to K2's on the
+    same input (the same ab_fir launch); then the times of each kernel, its
+    plain version and, for apply, one F.conv1d (cuDNN, f32, TF32 off) of
+    [hist | demod] against the two composed FIRs, the gain folded into the
+    audio row (the library yardstick, never called by the port), on
+    ``reps`` fresh inputs.  Returns the two K8 rows."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
+    from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
+    from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod
+    rng = np.random.default_rng(k + 3)
+    fe, pd = FrontEnd("cu8", device=dev), PfbDemod(device=dev)
+    fst = (random_c64(rng, dev, scale=0.1), random_c64(rng, dev, scale=0.01),
+           random_c64(rng, dev, fe.hist_len, scale=0.01))
+    pst = (random_c64(rng, dev, 400, scale=0.1),
+           torch.tensor(1, dtype=torch.int32, device=dev),
+           random_c64(rng, dev, 16, scale=0.1))
+    demods = []
+    for blk in bench_blocks(k, 2):
+        fo = fe.kernel(torch.as_tensor(blk, device=dev), *fst)
+        po = pd.kernel(fo.band, *pst, ns=NS)
+        demods.append(po.demod)
+        fst, pst = fo[:3], po[2:]
+    bank = AudioBank(device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hist = torch.as_tensor(0.1 * rng.standard_normal((16, bank.hist)), **f32)
+    dcx = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
+    dcy = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
+    gain = torch.tensor(C.SDR_DEFAULT_AUDIO_GAIN, **f32)
+    b_arr = torch.full((k,), NS - 1, dtype=torch.int32, device=dev)
+    sel = torch.zeros(k, dtype=torch.int32, device=dev)
+    ref_a = got_a = hist
+    ref_d = got_d = (hist, dcx, dcy)
+    errs = {"apply": [], "apply_dc": []}
+    for step, dm in enumerate(demods):
+        ra = bank.apply_plain(ref_a, dm, gain)
+        ga = bank.apply_kernel(got_a, dm, gain)
+        rd = bank.apply_dc_plain(*ref_d, dm, gain)
+        gd = bank.apply_dc_kernel(*got_d, dm, gain)
+        k2 = bank.kernel(*got_d, dm, gain, b_arr, sel, NS)
+        torch.cuda.synchronize(dev)
+        # the bench block's noise channels demodulate to +-1 and their audio
+        # peaks near 6, where f32 rounding of the ~600-tap sums alone
+        # reaches 7e-6 against float64: the audio gate scales with the peak
+        a_tol = TOL_AUDIO_ATOL * max(1.0, peak(ra.audio))
+        res = {name: (r, g, plane, max_err(r.audio, g.audio),
+                      rel(getattr(r, plane), getattr(g, plane)))
+               for name, r, g, plane in (("apply", ra, ga, "lp"),
+                                         ("apply_dc", rd, gd, "lp_dcb"))}
+        carries = {nm: rel(getattr(rd, nm), getattr(gd, nm))
+                   for nm in ("dc_x", "dc_y")}
+        log(f"  K8 K={k} block {step}: "
+            + "; ".join(f"{name} audio max|err| {a_err:.3g}, {plane} rel "
+                        f"{p_rel:.3g}"
+                        for name, (_, _, plane, a_err, p_rel) in res.items())
+            + f" (audio peak {peak(ra.audio):.3g}, gate {a_tol:.3g}); "
+            "carries rel "
+            + ", ".join(f"{nm} {val:.3g}" for nm, val in carries.items()))
+        for name, (r, g, plane, a_err, p_rel) in res.items():
+            errs[name].append(a_err)
+            check(max_err(r.hist, g.hist) == 0.0, f"K8 {name} K={k} history")
+            check(a_err < a_tol, f"K8 {name} K={k} audio")
+            check(p_rel < TOL_CARRY_REL, f"K8 {name} K={k} {plane}")
+            check(torch.equal(g.audio, k2.audio),
+                  f"K8 {name} K={k} audio vs K2's")
+        for nm, val in carries.items():
+            check(val < TOL_CARRY_REL, f"K8 apply_dc K={k} carry {nm}")
+        log(f"  K8 K={k} block {step}: within the gates; audio == K2's bit "
+            "for bit")
+        ref_a, got_a, ref_d, got_d = ra.hist, ga.hist, rd[:3], gd[:3]
+    dms = [torch.roll(demods[0], 97 * s_, dims=1).contiguous()
+           for s_ in range(reps)]
+    ins_a = [(hist, dm, gain) for dm in dms]
+    ins_d = [(hist, dcx, dcy, dm, gain) for dm in dms]
+    t = {"apply": timed(timer, bank.apply_kernel, ins_a),
+         "apply_plain": timed(timer, bank.apply_plain, ins_a),
+         "apply_dc": timed(timer, bank.apply_dc_kernel, ins_d),
+         "apply_dc_plain": timed(timer, bank.apply_dc_plain, ins_d)}
+    la, ll = bank.taps_audio.shape[0], bank.taps_lp.shape[0]
+    n_taps = max(la, ll)
+    w = torch.zeros((2, 1, n_taps), **f32)
+    w[0, 0, n_taps - la:] = torch.flip(bank.taps_audio, [0]) * gain
+    w[1, 0, n_taps - ll:] = torch.flip(bank.taps_lp, [0])
+    xs = [(torch.cat([hist[:, bank.hist - (n_taps - 1):], dm], dim=-1)
+           .reshape(16, 1, -1).contiguous(),) for dm in dms]
+    conv = lambda x: torch.nn.functional.conv1d(x, w)
+    t_lib = timed(timer, conv, xs)
+    lib, ga = conv(*xs[0]), bank.apply_kernel(*ins_a[0])
+    lib_err = max(rel(ga.audio, lib[:, 0]), rel(ga.lp, lib[:, 1]))
+    check(lib_err < 1e-4, f"K8: F.conv1d differs by {lib_err:.3g} of the peak")
+    f = k * NS
+    b_a = bound(*k8_work(f, bank.hist, la, ll, dc=False))
+    b_d = bound(*k8_work(f, bank.hist, la, ll, dc=True))
+    log(f"  K8 K={k} times (median of {reps}, ms): apply {t['apply']:.4f}, "
+        f"plain {t['apply_plain']:.4f}, F.conv1d {t_lib:.4f}, bound "
+        f"{b_a['bound_ms']:.5f} ({b_a['bound_by']}); apply_dc "
+        f"{t['apply_dc']:.4f}, plain {t['apply_dc_plain']:.4f}, bound "
+        f"{b_d['bound_ms']:.5f} ({b_d['bound_by']}); F.conv1d within "
+        f"{lib_err:.3g} of the kernel's peak")
+    src = dict(route="cuda", source="sdr_pmr446_tpu_torch/csrc/audio_bank.cu")
+    return [{"name": "audio_bank_apply", **src,
+             "replaces": "sdr_pmr446_tpu/kernels/audio_bank.py:390",
+             "max_abs_err": max(errs["apply"]), "ms": t["apply"],
+             "plain_ms": t["apply_plain"], **b_a, "library_ms": t_lib},
+            {"name": "audio_bank_apply_dc", **src,
+             "replaces": "sdr_pmr446_tpu/kernels/audio_bank.py:452",
+             "max_abs_err": max(errs["apply_dc"]), "ms": t["apply_dc"],
+             "plain_ms": t["apply_dc_plain"], **b_d, "library_ms": None}]
+
+
+#: the scanner's op-path switches, by their chain switches
+SWITCHED = {"ctcss_off": {"fuse_ctcss": False},
+            "lp_dc_off": {"fuse_lp_dc": False},
+            "rssi_off": {"fuse_rssi": False}}
+#: the parts of a switched scanner step
+SWITCH_PARTS = (("K6 front end", ("fe_",)), ("K7 PFB demod", ("pfb_",)),
+                ("K8 audio bank", ("ab_",)),
+                ("DC carry scan (K6)", ("dc_carry",)),
+                ("copies", ("Memcpy", "Memset")))
+
+
+def phase_switches(dev, oracle_run, sync):
+    """Phase 12(b): the three switched engines against the oracle at K = 10
+    (decisions also equal to phase 3's run), then at K = 40 in turns with
+    the trio (decisions, events and audio equal to the trio's: the audio
+    depends only on K6/K7's demod and ab_fir), one step each with host reads
+    made errors, one profiled fuse_lp_dc=False step.  Returns the steps of
+    each engine and the throughputs."""
+    k = 40
+    engines = {"trio": ENGINES["trio"], **SWITCHED}
+    steps = {e: 0 for e in engines}
+    for name, sw in SWITCHED.items():
+        n, res = phase_oracle(dev, 10, 30, **sw)
+        steps[name] += n
+        check_decisions(res, oracle_run, f"{name} vs the duo at K = 10")
+    bench_steps, results, bench = phase_engines_bench(
+        dev, k, 4, sync, engines,
+        ("trio", "ctcss_off", "lp_dc_off", "rssi_off", "rssi_off",
+         "lp_dc_off", "ctcss_off", "trio"))
+    for name in engines:
+        steps[name] += bench_steps[name]
+    ref = results["trio"]
+    for name in SWITCHED:
+        got = results[name]
+        check_decisions(got, ref, f"{name} vs the trio")
+        check(np.array_equal(got.audio_subchunks, ref.audio_subchunks)
+              and np.array_equal(got.audio, ref.audio),
+              f"{name} audio vs the trio's")
+        log(f"  {name}: decisions, events and audio == the trio's (audio bit "
+            f"for bit, {len(got.audio)} samples)")
+    for name, sw in SWITCHED.items():
+        steps[name] += phase_no_host_reads(dev, k, sync, **sw)
+    steps["lp_dc_off"] += phase_profile(dev, k, sync, parts=SWITCH_PARTS,
+                                        **SWITCHED["lp_dc_off"])
     return steps, bench
 
 
@@ -1357,11 +1570,14 @@ PROFILE_ATTEMPTS = 3           # profiler sessions tried for one step
 
 def profile_session(run, sync):
     """One torch.profiler session: a small device op, run(), a synchronize,
-    then run() again inside a record_function range.  Returns the device
-    events that start inside that range (the range's own device-side
-    annotation left out), the last three device events before it as (us
-    before its start, name), the session's device events in all, and the
-    range's wall time in ms."""
+    then inside a record_function range a marker kernel (torch.cuda._sleep,
+    ``spin_kernel``) and run() again.  Returns the device events that
+    start after the marker (the range's own device-side annotation left
+    out), the last three device events before it as (us before its end,
+    name), the session's device events in all, and the range's wall time
+    in ms.  The marker puts the step's start on the device's clock: the
+    host-side range start alone once lay 1-3 ms after every device event of
+    a 1 ms dsd step, as if the two clocks were that far apart."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1373,16 +1589,19 @@ def profile_session(run, sync):
         sync()
         with record_function("chip_smoke step"):
             t0 = time.perf_counter()
+            torch.cuda._sleep(100)
             run()
             sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    # the host-side range; it shows up on the device too, as an annotation
-    step_start = next(e.time_range.start for e in events
-                      if e.name == "chip_smoke step"
-                      and e.device_type == DeviceType.CPU)
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and e.name != "chip_smoke step"]
+    marks = [e.time_range.end for e in device if "spin_kernel" in e.name]
+    # the host-side range is the fallback if the marker went unrecorded
+    step_start = marks[-1] if marks else next(
+        e.time_range.start for e in events
+        if e.name == "chip_smoke step" and e.device_type == DeviceType.CPU)
+    device = [e for e in device if "spin_kernel" not in e.name]
     evs = [e for e in device if e.time_range.start >= step_start]
     before = sorted((e.time_range.start - step_start, kernel_name(e.name))
                     for e in device if e.time_range.start < step_start)[-3:]
@@ -1398,12 +1617,12 @@ def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
     A small device op, one run() and a synchronize come first: the
     device's first activities in a profiler session are sometimes not
     recorded (a step's 3.2 MB upload, and once an upload and three kernels,
-    went missing so), and only device events that start inside the second
-    run's record_function range are counted.  The last device events
-    before that range are logged with their offsets, to show none of the
-    step's fell outside it.  A session that recorded no device event in
-    the range (seen once, in a 1 ms dsd step) is logged and made again, up
-    to PROFILE_ATTEMPTS sessions."""
+    went missing so), and only device events that start after the second
+    run's marker kernel are counted (profile_session).  The last device
+    events before the marker are logged with their offsets, to show none
+    of the step's fell outside it.  A session that recorded no device event
+    in the step (seen in 1 ms dsd steps) is logged and made again, up to
+    PROFILE_ATTEMPTS sessions."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         evs, before, n_device, wall_ms = profile_session(run, sync)
         log("  last device events before the step (us from its start): "
@@ -1513,7 +1732,7 @@ def main() -> int:
     log("phase 10: the waterfall (K3) on the card")
     wf_rows = [waterfall_case(dev, k, w, cuda_timer)
                for k, w in ((40, 80), (40, 120), (40, 840), (10, 64),
-                            (10, 4096))]
+                            (10, 4096), (10, 8192))]
     log("  the scanner with -w 120 vs the oracle (ScannerDriver, cu8, K=10)")
     phase_waterfall_oracle(dev, 10, 30, 120)
     log("  BASELINE config 4: the scanner with -w 80 at K=40 (cu8)")
@@ -1573,10 +1792,43 @@ def main() -> int:
               f"K5 / K6 launches ({mode})")
         new_rows[f"chan_tail_{mode}"]["launches"] = tl["K5"]
     rows += list(new_rows.values())
+    t12 = time.perf_counter()
+    log(f"  phase 11 took {t12 - t11:.1f} s ((a) {t11b - t11:.1f}, (b) "
+        f"{t11c - t11b:.1f}, (c) {t12 - t11c:.1f})")
+
+    log("phase 12: K8 and the scanner's op-path switches")
+    log("  (a) K8 (apply, apply_dc) vs its plain versions")
+    k8_rows = k8_case(dev, 40, cuda_timer)
+    k8_case(dev, 10, cuda_timer)
+    t12b = time.perf_counter()
+    log("  (b) the switched engines (fuse_ctcss / fuse_lp_dc / fuse_rssi "
+        "= False)")
+    for mod in kernel_mods:
+        mod.LAUNCHES = 0
+    audio_bank.APPLY_LAUNCHES = audio_bank.APPLY_DC_LAUNCHES = 0
+    ssteps, sbench = phase_switches(dev, oracle_run, sync)
+    bench.update(sbench)
+    sl = {"K1": duo.LAUNCHES, "K2": audio_bank.LAUNCHES,
+          "K8 apply": audio_bank.APPLY_LAUNCHES,
+          "K8 apply_dc": audio_bank.APPLY_DC_LAUNCHES,
+          "K6": front_end.LAUNCHES, "K7": pfb_demod.LAUNCHES,
+          "K9": resample_kernel.LAUNCHES}
+    log(f"  (c) launches over the engines' steps {ssteps}: {sl}")
+    want = {"K1": 0, "K2": ssteps["trio"], "K8 apply": ssteps["lp_dc_off"],
+            "K8 apply_dc": ssteps["ctcss_off"] + ssteps["rssi_off"],
+            "K6": sum(ssteps.values()), "K7": sum(ssteps.values()), "K9": 0}
+    for name, n in want.items():
+        check(sl[name] == n, f"{name} launched {sl[name]} times for {n} "
+              f"steps")
+    k8_rows[0]["launches"] = sl["K8 apply"]
+    k8_rows[1]["launches"] = sl["K8 apply_dc"]
+    # K6 and K7 run on both paths: phase 11(b)'s launches and these
+    new_rows["front_end"]["launches"] += sl["K6"]
+    new_rows["pfb_demod"]["launches"] += sl["K7"]
+    rows += k8_rows
     t_end = time.perf_counter()
-    log(f"  phase 11 took {t_end - t11:.1f} s ((a) {t11b - t11:.1f}, (b) "
-        f"{t11c - t11b:.1f}, (c) {t_end - t11c:.1f}); the run "
-        f"{t_end - t_run:.1f} s")
+    log(f"  phase 12 took {t_end - t12:.1f} s ((a) {t12b - t12:.1f}, (b) "
+        f"and (c) {t_end - t12b:.1f}); the run {t_end - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))
     print(json.dumps({"kernels": rows}))

@@ -3,13 +3,15 @@
 Counterpart of sdr_pmr446_tpu/apps/sdr_pmr446.py with the flags of the
 ported slice: -g/--gain, -s/--squelch, -w/--waterfall, -l/--lowpass,
 -m/--mask, -a/--audio-gain, -p/--lock-mode, --fir-deemph, --input,
---input-format, --output (WAV), --seconds, --subchunks-per-step and
---device (cuda: the kernels, cpu: their plain versions).  With -w W each
-sub-chunk prints its ASCII waterfall line and the channel footer (the
-reference's terminal UI) on stdout.  Flags of parts not yet ported (-b,
---faithful, --steps-per-dispatch, --checkpoint*, --resume, rtl_tcp://
-inputs, --output live) exit with a "not yet ported" error instead of being
-ignored.
+--input-format, --device-decode, --output (WAV), --seconds,
+--subchunks-per-step and --device (cuda: the kernels, cpu: their plain
+versions).  With -w W each sub-chunk prints its ASCII waterfall line and
+the channel footer (the reference's terminal UI) on stdout.  SIGTERM and
+SIGQUIT stop the scan at the next block boundary and the partial WAV is
+written (exit 0); SIGUSR1 does nothing; an interrupt (SIGINT) exits 130.
+Flags of parts not yet ported (-b, --faithful, --steps-per-dispatch,
+--checkpoint*, --resume, rtl_tcp:// inputs, --output live) exit with a
+"not yet ported" error instead of being ignored.
 
     python -m sdr_pmr446_tpu_torch.apps.sdr_pmr446 --input cap.cu8 -w 120
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import signal
 import sys
 
 import numpy as np
@@ -62,6 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="IQ capture file (cf32/cs16/cs8/cu8; 1.024 Msps at "
                         "446.1 MHz); default: synthetic demo signal")
     p.add_argument("--input-format", type=str, default=None, choices=FORMATS)
+    p.add_argument("--device-decode", action="store_true",
+                   help="accepted as in the JAX CLI; the port always ships "
+                        "the capture's raw wire bytes and decodes them on "
+                        "the device (needs a capture file)")
     p.add_argument("--output", type=str, default="audio.wav",
                    help="output WAV for the demodulated audio")
     p.add_argument("--seconds", type=float, default=5.0,
@@ -139,6 +146,10 @@ def main(argv=None) -> int:
     log.info("audio lowpass: %s, channel mask: 0x%04X",
              "enabled" if args.lowpass else "disabled", args.channel_mask)
 
+    if ns.device_decode and not ns.input:
+        logging.error("--device-decode needs a capture FILE (synthetic "
+                      "inputs have no wire bytes to ship)")
+        return 1
     if ns.input:
         fmt = decode.wire_format(ns.input_format
                                  or iq_io.detect_format(ns.input))
@@ -173,7 +184,25 @@ def main(argv=None) -> int:
         logging.error("%s", e)
         return 1
     log.info("device: %s", driver.device)
-    result = driver.run(wire_blocks(raw, fmt, driver.feed_len))
+
+    # the reference's signal set (src/sdr_pmr446.c:779-786, 190-199): TERM
+    # and QUIT stop at the next block boundary, USR1 is a no-op wake
+    def _sig_stop(signum, frame):
+        log.info("Signal caught, exiting!")
+        driver.request_stop()
+
+    for name, handler in (("SIGTERM", _sig_stop), ("SIGQUIT", _sig_stop),
+                          ("SIGUSR1", lambda *_: None)):
+        if hasattr(signal, name):
+            try:
+                signal.signal(getattr(signal, name), handler)
+            except (ValueError, OSError):
+                pass                    # not the main thread / unsupported
+    try:
+        result = driver.run(wire_blocks(raw, fmt, driver.feed_len))
+    except KeyboardInterrupt:
+        log.info("Signal caught, exiting!")
+        return 130
     wav.write_wav(ns.output, result.audio, C.AUDIO_SAMPLERATE)
     log.info("wrote %d audio samples (%.2f s) to %s", len(result.audio),
              len(result.audio) / C.AUDIO_SAMPLERATE, ns.output)

@@ -1,22 +1,31 @@
-// K2: the audio filter bank, the lp DC blocker and the CTCSS DFT on Hopper.
+// K2 and K8: the audio filter bank, the lp DC blocker and the CTCSS DFT on
+// Hopper.
 //
-// Replaces sdr_pmr446_tpu/kernels/audio_bank.py::PallasAudioBank.apply_dc_ctcss
-// (TPU body _body_dc_ctcss, tables _ctcss_dft_consts / _kernel_matrix).  What
-// it computes is documented beside its plain PyTorch version,
+// K2 replaces sdr_pmr446_tpu/kernels/audio_bank.py::PallasAudioBank.
+// apply_dc_ctcss (TPU body _body_dc_ctcss, tables _ctcss_dft_consts /
+// _kernel_matrix); K8 replaces PallasAudioBank.apply (body _body) and
+// apply_dc (body _body_dc), the same bank without the CTCSS epilogue.  What
+// they compute is documented beside their plain PyTorch versions,
 // kernels/audio_bank.py.
 //
-// Five launches on the caller's stream, no allocation:
+// The launches, all on the caller's stream, none allocating:
 //   1. ab_fir: the composed audio and lp FIRs, one thread per (channel,
 //      sample) over a shared-memory window of [hist | demod]; the gain is
 //      read on the device;
 //   2. ab_dc_local: zero-state lp DC response per chunk, 16 rows;
 //   3. dc_carry_kernel: chunk carries (sdr_common.cuh);
-//   4. ab_ctcss: one block per (sub-chunk k, tone t) over channel sel[k], the
-//      DC fix-up fused into the load; the tone phase is reduced exactly in
-//      integers (10 f_t p mod 125000) and evaluated with sincospif, so no f32
-//      argument of thousands of radians ever reaches a sine;
+//   4. ab_ctcss (K2): one block per (sub-chunk k, tone t) over channel
+//      sel[k], the DC fix-up fused into the load; the tone phase is reduced
+//      exactly in integers (10 f_t p mod 125000) and evaluated with
+//      sincospif, so no f32 argument of thousands of radians ever reaches a
+//      sine;
+//      ab_dc_plane (K8 apply_dc): the DC-blocked lp plane, the fix-up of
+//      every sample;
 //   5. ab_tail: the new demod history and the lp DC blocker carries.
-// Device memory between launches: lp and its chunk-local DC response.
+// Entry points: audio_bank_run (K2: 1-5), audio_bank_apply (K8 apply: 1
+// and the history part of 5) and audio_bank_apply_dc (K8 apply_dc: 1-3,
+// ab_dc_plane, 5).  Device memory between launches: lp and its chunk-local
+// DC response.
 #include "sdr_common.cuh"
 
 #define AB_TILE 256            // output samples per FIR block
@@ -134,7 +143,20 @@ static __global__ void ab_ctcss(const float* __restrict__ lplocal,
   }
 }
 
+// 4'. lp_dcb[c][n] = the DC-blocked lp, one thread per (channel, sample)
+static __global__ void ab_dc_plane(const float* __restrict__ lplocal,
+                                   const float* __restrict__ carry,
+                                   const float* __restrict__ pj, int F,
+                                   int chunks, float* __restrict__ lp_dcb) {
+  const int c = blockIdx.y;
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= F) return;
+  lp_dcb[(long long)c * F + n] = dc_fix(lplocal + (long long)c * F,
+                                        carry + (long long)c * chunks, pj, n);
+}
+
 // 5. new history = last H of [hist | demod]; lp DC blocker x[-1], y[-1]
+//    unless dc_x_out is null (K8 apply, which has no DC blocker)
 static __global__ void ab_tail(const float* __restrict__ hist, int H,
                                const float* __restrict__ demod, int F,
                                const float* __restrict__ lp,
@@ -150,7 +172,7 @@ static __global__ void ab_tail(const float* __restrict__ hist, int H,
     hist_out[(long long)c * H + j] =
         e < H ? hist[(long long)c * H + e] : demod[(long long)c * F + e - H];
   }
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && dc_x_out != nullptr) {
     const long long m = F - 1;
     dc_x_out[c] = lp[(long long)c * F + m];
     dc_y_out[c] = dc_fix(lplocal + (long long)c * F,
@@ -158,21 +180,18 @@ static __global__ void ab_tail(const float* __restrict__ hist, int H,
   }
 }
 
-extern "C" int audio_bank_run(const void* demod, int F, const void* hist,
-                              int H, const void* dc_x, const void* dc_y,
-                              const void* gain, const void* b_arr,
-                              const void* sel, int K, int ns, const void* ta,
-                              int La, const void* tl, int Ll, const void* pj,
-                              double p, double g, double pL, double pSeg,
-                              int seg,
-                              const void* f10, void* lp, void* lplocal,
-                              void* yend, void* carry, void* audio,
-                              void* hist_out, void* dc_x_out, void* dc_y_out,
-                              void* raw_pre, void* raw_mem, void* stream) {
-  if (F <= 0 || K <= 0 || (long long)K * ns != F || La <= 0 || Ll <= 0 ||
-      La > MAX_TAPS || Ll > MAX_TAPS || La > H || Ll > H)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+static bool ab_bad_args(int F, int H, int La, int Ll) {
+  return F <= 0 || La <= 0 || Ll <= 0 || La > MAX_TAPS || Ll > MAX_TAPS ||
+         La > H || Ll > H;
+}
+
+// Launches 1-3: audio, lp, lp's chunk-local DC response and chunk carries.
+static int ab_fir_dc(const void* demod, int F, const void* hist, int H,
+                     const void* dc_x, const void* dc_y, const void* gain,
+                     const void* ta, int La, const void* tl, int Ll, double p,
+                     double g, double pL, double pSeg, int seg, void* lp,
+                     void* lplocal, void* yend, void* carry, void* audio,
+                     cudaStream_t s) {
   const int chunks = (F + DC_L - 1) / DC_L;
   ab_fir<<<dim3((F + AB_TILE - 1) / AB_TILE, NCH), AB_TILE, 0, s>>>(
       (const float*)demod, F, (const float*)hist, H, (const float*)ta, La,
@@ -186,10 +205,81 @@ extern "C" int audio_bank_run(const void* demod, int F, const void* hist,
       (const float*)yend, (float*)carry, (const float*)dc_y, chunks, pL, pSeg,
       seg);
   SDR_CHECK_LAUNCH();
+  return 0;
+}
+
+extern "C" int audio_bank_run(const void* demod, int F, const void* hist,
+                              int H, const void* dc_x, const void* dc_y,
+                              const void* gain, const void* b_arr,
+                              const void* sel, int K, int ns, const void* ta,
+                              int La, const void* tl, int Ll, const void* pj,
+                              double p, double g, double pL, double pSeg,
+                              int seg,
+                              const void* f10, void* lp, void* lplocal,
+                              void* yend, void* carry, void* audio,
+                              void* hist_out, void* dc_x_out, void* dc_y_out,
+                              void* raw_pre, void* raw_mem, void* stream) {
+  if (ab_bad_args(F, H, La, Ll) || K <= 0 || (long long)K * ns != F)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int chunks = (F + DC_L - 1) / DC_L;
+  const int e = ab_fir_dc(demod, F, hist, H, dc_x, dc_y, gain, ta, La, tl, Ll,
+                          p, g, pL, pSeg, seg, lp, lplocal, yend, carry, audio,
+                          s);
+  if (e != 0) return e;
   ab_ctcss<<<dim3(K, NTONES), RED_THREADS, 0, s>>>(
       (const float*)lplocal, (const float*)carry, (const float*)pj, F, chunks,
       ns, (const int*)b_arr, (const int*)sel, (const int*)f10,
       (float*)raw_pre, (float*)raw_mem);
+  SDR_CHECK_LAUNCH();
+  ab_tail<<<NCH, 256, 0, s>>>((const float*)hist, H, (const float*)demod, F,
+                              (const float*)lp, (const float*)lplocal,
+                              (const float*)carry, (const float*)pj, chunks,
+                              (float*)hist_out, (float*)dc_x_out,
+                              (float*)dc_y_out);
+  SDR_CHECK_LAUNCH();
+  return 0;
+}
+
+// K8 apply: audio and the lp branch (no DC blocker), the new history.
+extern "C" int audio_bank_apply(const void* demod, int F, const void* hist,
+                                int H, const void* gain, const void* ta,
+                                int La, const void* tl, int Ll, void* lp,
+                                void* audio, void* hist_out, void* stream) {
+  if (ab_bad_args(F, H, La, Ll)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  ab_fir<<<dim3((F + AB_TILE - 1) / AB_TILE, NCH), AB_TILE, 0, s>>>(
+      (const float*)demod, F, (const float*)hist, H, (const float*)ta, La,
+      (const float*)tl, Ll, (const float*)gain, (float*)audio, (float*)lp);
+  SDR_CHECK_LAUNCH();
+  ab_tail<<<NCH, 256, 0, s>>>((const float*)hist, H, (const float*)demod, F,
+                              nullptr, nullptr, nullptr, nullptr, 0,
+                              (float*)hist_out, nullptr, nullptr);
+  SDR_CHECK_LAUNCH();
+  return 0;
+}
+
+// K8 apply_dc: audio, the DC-blocked lp plane, the history and carries.
+extern "C" int audio_bank_apply_dc(const void* demod, int F, const void* hist,
+                                   int H, const void* dc_x, const void* dc_y,
+                                   const void* gain, const void* ta, int La,
+                                   const void* tl, int Ll, const void* pj,
+                                   double p, double g, double pL, double pSeg,
+                                   int seg, void* lp, void* lplocal,
+                                   void* yend, void* carry, void* audio,
+                                   void* hist_out, void* dc_x_out,
+                                   void* dc_y_out, void* lp_dcb,
+                                   void* stream) {
+  if (ab_bad_args(F, H, La, Ll)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int chunks = (F + DC_L - 1) / DC_L;
+  const int e = ab_fir_dc(demod, F, hist, H, dc_x, dc_y, gain, ta, La, tl, Ll,
+                          p, g, pL, pSeg, seg, lp, lplocal, yend, carry, audio,
+                          s);
+  if (e != 0) return e;
+  ab_dc_plane<<<dim3((F + 255) / 256, NCH), 256, 0, s>>>(
+      (const float*)lplocal, (const float*)carry, (const float*)pj, F, chunks,
+      (float*)lp_dcb);
   SDR_CHECK_LAUNCH();
   ab_tail<<<NCH, 256, 0, s>>>((const float*)hist, H, (const float*)demod, F,
                               (const float*)lp, (const float*)lplocal,

@@ -18,8 +18,13 @@
 //      a register as a direct DFT: the windows are read straight from the
 //      history and the band planes through the read-only cache, the
 //      window x DFT table [w/2][w] (float64 on the host, rounded once) with
-//      __ldg.  The groups' sums are added in a fixed order and written as
-//      partials [rows][slabs][w].
+//      __ldg.  Each hop's w/2-term DFT sums and the |S|^2 sum over hops
+//      accumulate in double: in f32 the rounding of 4096 sequential terms
+//      (w = 8192) swamped the weakest bins past the 2e-3 dB gate, while an
+//      f32 product is exact in double and the card's double rate is half
+//      its f32 rate, far above what the table reads allow.  The groups'
+//      sums are added in a fixed order and written as partials
+//      [rows][slabs][w].
 //   2. wf_rows: one block per row adds its slabs in order, divides by the
 //      row's hop count (computed from cnt, like the hop positions), takes
 //      10*log10(max(p, 1e-30)) and writes the row fftshifted.  Block 0 also
@@ -82,21 +87,21 @@ static __global__ void wf_partials(const float* __restrict__ band,
   for (int item = threadIdx.x; item < groups * w; item += blockDim.x) {
     const int g = item / w;
     const int f = item - g * w;
-    float acc = 0.f;
+    double acc = 0.0;
     for (int h = g; h < nh; h += groups) {
       const long long u = u0 + (a + h) * delay;  // window xe[u, u + wl)
       const int jh = u >= wl ? 0 : (int)(wl - u);
-      float sr = 0.f, si = 0.f;
+      double sr = 0.0, si = 0.0;
       for (int j = 0; j < jh; ++j) {
         const float2 x = hs[u + j];
         const float2 t = __ldg(tab + (long long)j * w + f);
-        sr += x.x * t.x - x.y * t.y;
-        si += x.x * t.y + x.y * t.x;
+        sr += (double)x.x * t.x - (double)x.y * t.y;
+        si += (double)x.x * t.y + (double)x.y * t.x;
       }
       const long long e0 = u - wl;
       for (int j = jh; j < wl; ++j) {
-        const float xr = __ldg(br + e0 + j);
-        const float xi = __ldg(bi + e0 + j);
+        const double xr = __ldg(br + e0 + j);
+        const double xi = __ldg(bi + e0 + j);
         const float2 t = __ldg(tab + (long long)j * w + f);
         sr += xr * t.x - xi * t.y;
         si += xr * t.y + xi * t.x;
@@ -104,9 +109,9 @@ static __global__ void wf_partials(const float* __restrict__ band,
       acc += sr * sr + si * si;
     }
     if (groups == 1)
-      out[f] = acc;
+      out[f] = (float)acc;
     else
-      red[item] = acc;
+      red[item] = (float)acc;
   }
   if (groups > 1) {
     __syncthreads();

@@ -1,6 +1,6 @@
-"""K2: the audio filter bank + lp DC blocker + CTCSS DFT, CUDA kernel and plain version.
+"""K2 and K8: the audio filter bank, the lp DC blocker and the CTCSS DFT.
 
-Replaces the TPU kernel
+K2 replaces the TPU kernel
 sdr_pmr446_tpu/kernels/audio_bank.py::PallasAudioBank.apply_dc_ctcss
 (body ``_body_dc_ctcss``, tables ``_ctcss_dft_consts`` / ``_kernel_matrix``).
 For all 16 channels of one block of discriminator output it computes
@@ -21,17 +21,32 @@ thousands of radians, where an f32 sin loses digits; both versions reduce
 the phase exactly in integers instead (every CTCSS tone is a whole number
 of 0.1 Hz, so w_t p = 2 pi ((10 f_t p) mod 125000) / 125000).
 
+K8 replaces PallasAudioBank.apply (body ``_body``) and apply_dc (body
+``_body_dc``), the same bank without the CTCSS epilogue, which the
+scanner's op-path switches run (scanner/chain.py):
+
+  apply(hist, demod, gain) -> (hist', audio, lp)
+  apply_dc(hist, dc_x, dc_y, demod, gain) -> (hist', dc_x', dc_y', audio,
+                                              lp_dcb)
+
+lp_dcb being the DC-blocked lp plane [16, F] that the FSM's CTCSS scan
+reads.  dc_x' is lp[:, F-1]; the JAX kernel recomputes it as a dot against
+the new history, which gives the same value to f32 rounding.  K2's and K8's
+plain versions are one function (``apply_plain`` and ``apply_dc_plain``,
+which ``plain`` extends by the tone sums).
+
 Carried state: the last H (512, or 640 for lowpass + fir_deemph) demod
 samples per channel and the lp DC blocker's (x[-1], y[-1]) per channel.
 
-The CUDA version (csrc/audio_bank.cu) runs five launches: the composed FIR
-pair over a shared-memory window of [hist | demod], the chunk-local lp DC
-response, the chunk-carry scan, the CTCSS sums (one block per (k, tone),
-DC fix-up fused into the load) and the state tail.  Intermediates in
-device memory: lp and its chunk-local DC response (2 x 4 B per channel
-sample).  What bounds it: the FIRs are ~800 MACs per channel sample
-(~1.6 GFLOP per K=40 block) — compute, and small for the card; the CTCSS
-pass is 38 sincos per selected-channel sample.
+The CUDA versions (csrc/audio_bank.cu) share their launches: the composed
+FIR pair over a shared-memory window of [hist | demod], the chunk-local lp
+DC response, the chunk-carry scan, then K2's CTCSS sums (one block per
+(k, tone), DC fix-up fused into the load) or K8 apply_dc's DC-blocked lp
+plane, and the state tail; K8 apply runs the FIR pair and the history
+alone.  Intermediates in device memory: lp and its chunk-local DC response
+(2 x 4 B per channel sample).  What bounds it: the FIRs are ~800 MACs per
+channel sample (~1.6 GFLOP per K=40 block) — compute, and small for the
+card; the CTCSS pass is 38 sincos per selected-channel sample.
 """
 
 from __future__ import annotations
@@ -60,9 +75,27 @@ PHASE_PERIOD = 10 * C.AUDIO_SAMPLERATE
 _P = 1.0 - C.DC_BLOCK_ALPHA
 _G = (1.0 + _P) / 2.0
 
-#: kernel launches of the CUDA version (one per call); the plain version
-#: never counts
+#: kernel launches of the CUDA versions (one per call): K2, K8 apply and
+#: K8 apply_dc; the plain versions never count
 LAUNCHES = 0
+APPLY_LAUNCHES = 0
+APPLY_DC_LAUNCHES = 0
+
+
+class BankOut(NamedTuple):
+    """K8 apply's outputs, in the JAX order."""
+    hist: torch.Tensor      # f32 [16, H]
+    audio: torch.Tensor     # f32 [16, F]
+    lp: torch.Tensor        # f32 [16, F]  the lp branch before its DC blocker
+
+
+class BankDcOut(NamedTuple):
+    """K8 apply_dc's outputs, in the JAX order."""
+    hist: torch.Tensor      # f32 [16, H]
+    dc_x: torch.Tensor      # f32 [16]  lp x[-1]
+    dc_y: torch.Tensor      # f32 [16]  lp DC blocker y[-1]
+    audio: torch.Tensor     # f32 [16, F]
+    lp_dcb: torch.Tensor    # f32 [16, F]  the DC-blocked lp branch
 
 
 class AudioOut(NamedTuple):
@@ -128,10 +161,12 @@ def ctcss_sums_plain(lpdc: torch.Tensor, b_arr: torch.Tensor,
 
 
 class AudioBank(nn.Module):
-    """K2.  ``module(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)`` ->
-    AudioOut: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors.  ``gain`` is a 0-d f32 tensor (read on device, never on the
-    host); b_arr, sel are i32 [K] from the FSM schedule."""
+    """K2 (``forward``) and K8 (``apply``, ``apply_dc``).
+
+    ``module(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)`` -> AudioOut.
+    Each of the three runs the CUDA kernel for CUDA tensors and the plain
+    version for CPU tensors.  ``gain`` is a 0-d f32 tensor (read on device,
+    never on the host); b_arr, sel are i32 [K] from the FSM schedule."""
 
     def __init__(self, lowpass: bool = False, fir_deemph: bool = False,
                  *, device):
@@ -147,13 +182,29 @@ class AudioBank(nn.Module):
         self.register_buffer("f10", torch.as_tensor(tone_units(),
                                                     device=device))
 
+    @staticmethod
+    def _route(demod, kernel, plain, *args):
+        if demod.device.type == "cuda":
+            return kernel(*args)
+        if demod.device.type == "cpu":
+            return plain(*args)
+        raise ValueError(f"no audio bank for device {demod.device}")
+
     def forward(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
                 ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
-        if demod.device.type == "cuda":
-            return self.kernel(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)
-        if demod.device.type == "cpu":
-            return self.plain(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)
-        raise ValueError(f"no audio bank for device {demod.device}")
+        return self._route(demod, self.kernel, self.plain, hist, dc_x, dc_y,
+                           demod, gain, b_arr, sel, ns)
+
+    def apply(self, hist, demod, gain) -> BankOut:
+        """K8 apply: (hist', audio, lp), as PallasAudioBank.apply."""
+        return self._route(demod, self.apply_kernel, self.apply_plain, hist,
+                           demod, gain)
+
+    def apply_dc(self, hist, dc_x, dc_y, demod, gain) -> BankDcOut:
+        """K8 apply_dc: (hist', dc_x', dc_y', audio, lp_dcb), as
+        PallasAudioBank.apply_dc."""
+        return self._route(demod, self.apply_dc_kernel, self.apply_dc_plain,
+                           hist, dc_x, dc_y, demod, gain)
 
     @staticmethod
     def _k(demod, ns):
@@ -163,55 +214,85 @@ class AudioBank(nn.Module):
                              f"{tuple(demod.shape)}")
         return f, f // ns
 
+    @staticmethod
+    def _f(demod):
+        if demod.dim() != 2 or demod.shape[0] != NCH or demod.shape[1] == 0:
+            raise ValueError(f"demod must be [16, F], got "
+                             f"{tuple(demod.shape)}")
+        return demod.shape[1]
+
     # ------------------------------------------------------------ plain
-    def plain(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
-              ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
-        """The same function in plain PyTorch ops (any device)."""
-        f, _ = self._k(demod, ns)
+    def apply_plain(self, hist, demod, gain) -> BankOut:
+        """K8 apply in plain PyTorch ops (any device): the FIR pair."""
+        f = self._f(demod)
         h = hist.shape[-1]
         la, ll = self.taps_audio.shape[0], self.taps_lp.shape[0]
         _, audio = fir.fir_apply(hist[:, h - (la - 1):], demod,
                                  self.taps_audio)
         _, lp = fir.fir_apply(hist[:, h - (ll - 1):], demod, self.taps_lp)
-        (ndx, ndy), lpdc = iir.dc_blocker_apply((dc_x, dc_y), lp,
-                                                C.DC_BLOCK_ALPHA)
-        raw_pre, raw_mem = ctcss_sums_plain(lpdc, b_arr, sel, ns, self.f10)
         new_hist = torch.cat([hist, demod], dim=-1)[:, f:].contiguous()
-        return AudioOut(new_hist, ndx.contiguous(), ndy.contiguous(),
-                        audio * gain, raw_pre, raw_mem)
+        return BankOut(new_hist, audio * gain, lp)
+
+    def apply_dc_plain(self, hist, dc_x, dc_y, demod, gain) -> BankDcOut:
+        """K8 apply_dc in plain PyTorch ops: the FIR pair, then the lp DC
+        blocker (ops/iir.py)."""
+        new_hist, audio, lp = self.apply_plain(hist, demod, gain)
+        (ndx, ndy), lp_dcb = iir.dc_blocker_apply((dc_x, dc_y), lp,
+                                                  C.DC_BLOCK_ALPHA)
+        return BankDcOut(new_hist, ndx.contiguous(), ndy.contiguous(), audio,
+                         lp_dcb)
+
+    def plain(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
+              ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
+        """K2 in plain PyTorch ops: apply_dc_plain, then the tone sums."""
+        self._k(demod, ns)
+        o = self.apply_dc_plain(hist, dc_x, dc_y, demod, gain)
+        raw_pre, raw_mem = ctcss_sums_plain(o.lp_dcb, b_arr, sel, ns, self.f10)
+        return AudioOut(o.hist, o.dc_x, o.dc_y, o.audio, raw_pre, raw_mem)
 
     # ------------------------------------------------------------- cuda
+    def _check(self, hist, demod, gain, dev, dc=None):
+        """Raise unless the inputs and the taps suit the kernels."""
+        f = self._f(demod)
+        build.require(demod, "demod", torch.float32, (NCH, f), dev)
+        build.require(hist, "hist", torch.float32, (NCH, self.hist), dev)
+        build.require(gain, "gain", torch.float32, (), dev)
+        for name in ("taps_audio", "taps_lp", "pj"):
+            build.require(getattr(self, name), name, torch.float32, None, dev)
+        for name, t in zip(("dc_x", "dc_y"), dc or ()):
+            build.require(t, name, torch.float32, (NCH,), dev)
+        return f
+
+    def _dc_scratch(self, f, dev):
+        """(lp, lplocal, yend, carry) device scratch and the carry scan's
+        constants (p^L, p^(L*seg), seg) for an F-sample block."""
+        chunks = -(-f // DC_L)
+        f32 = dict(dtype=torch.float32, device=dev)
+        return ((torch.empty((NCH, f), **f32), torch.empty((NCH, f), **f32),
+                 torch.empty((NCH, chunks), **f32),
+                 torch.empty((NCH, chunks), **f32)), scan_constants(chunks))
+
     def kernel(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
-             ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
-        """Launch csrc/audio_bank.cu on the current stream."""
+               ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
+        """Launch K2 (csrc/audio_bank.cu audio_bank_run) on the current
+        stream."""
         global LAUNCHES
         f, k = self._k(demod, ns)
         dev = demod.device
         h = self.hist
-        build.require(demod, "demod", torch.float32, (NCH, f), dev)
-        build.require(hist, "hist", torch.float32, (NCH, h), dev)
-        build.require(dc_x, "dc_x", torch.float32, (NCH,), dev)
-        build.require(dc_y, "dc_y", torch.float32, (NCH,), dev)
-        build.require(gain, "gain", torch.float32, (), dev)
+        self._check(hist, demod, gain, dev, (dc_x, dc_y))
         build.require(b_arr, "b_arr", torch.int32, (k,), dev)
         build.require(sel, "sel", torch.int32, (k,), dev)
-        for name in ("taps_audio", "taps_lp", "pj"):
-            build.require(getattr(self, name), name, torch.float32, None, dev)
         build.require(self.f10, "f10", torch.int32, None, dev)
-        chunks = -(-f // DC_L)
-        p_l, p_seg, seg = scan_constants(chunks)
+        (lp, lplocal, yend, carry), (p_l, p_seg, seg) = self._dc_scratch(f,
+                                                                          dev)
         f32 = dict(dtype=torch.float32, device=dev)
         c64 = dict(dtype=torch.complex64, device=dev)
-        lp = torch.empty((NCH, f), **f32)
-        lplocal = torch.empty((NCH, f), **f32)
-        yend = torch.empty((NCH, chunks), **f32)
-        carry = torch.empty((NCH, chunks), **f32)
         out = AudioOut(torch.empty((NCH, h), **f32), torch.empty(NCH, **f32),
                        torch.empty(NCH, **f32), torch.empty((NCH, f), **f32),
                        torch.empty((k, C.CTCSS_NUM_FREQS), **c64),
                        torch.empty((k, C.CTCSS_NUM_FREQS), **c64))
-        lib = build.library()
-        code = lib.audio_bank_run(
+        code = build.library().audio_bank_run(
             demod.data_ptr(), f, hist.data_ptr(), h,
             dc_x.data_ptr(), dc_y.data_ptr(), gain.data_ptr(),
             b_arr.data_ptr(), sel.data_ptr(), k, ns,
@@ -227,4 +308,51 @@ class AudioBank(nn.Module):
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(code, "audio_bank_run")
         LAUNCHES += 1
+        return out
+
+    def apply_kernel(self, hist, demod, gain) -> BankOut:
+        """Launch K8 apply (csrc/audio_bank.cu audio_bank_apply) on the
+        current stream."""
+        global APPLY_LAUNCHES
+        dev = demod.device
+        f = self._check(hist, demod, gain, dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = BankOut(torch.empty((NCH, self.hist), **f32),
+                      torch.empty((NCH, f), **f32),
+                      torch.empty((NCH, f), **f32))
+        code = build.library().audio_bank_apply(
+            demod.data_ptr(), f, hist.data_ptr(), self.hist, gain.data_ptr(),
+            self.taps_audio.data_ptr(), self.taps_audio.shape[0],
+            self.taps_lp.data_ptr(), self.taps_lp.shape[0],
+            out.lp.data_ptr(), out.audio.data_ptr(), out.hist.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(code, "audio_bank_apply")
+        APPLY_LAUNCHES += 1
+        return out
+
+    def apply_dc_kernel(self, hist, dc_x, dc_y, demod, gain) -> BankDcOut:
+        """Launch K8 apply_dc (csrc/audio_bank.cu audio_bank_apply_dc) on
+        the current stream."""
+        global APPLY_DC_LAUNCHES
+        dev = demod.device
+        f = self._check(hist, demod, gain, dev, (dc_x, dc_y))
+        (lp, lplocal, yend, carry), (p_l, p_seg, seg) = self._dc_scratch(f,
+                                                                          dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = BankDcOut(torch.empty((NCH, self.hist), **f32),
+                        torch.empty(NCH, **f32), torch.empty(NCH, **f32),
+                        torch.empty((NCH, f), **f32),
+                        torch.empty((NCH, f), **f32))
+        code = build.library().audio_bank_apply_dc(
+            demod.data_ptr(), f, hist.data_ptr(), self.hist,
+            dc_x.data_ptr(), dc_y.data_ptr(), gain.data_ptr(),
+            self.taps_audio.data_ptr(), self.taps_audio.shape[0],
+            self.taps_lp.data_ptr(), self.taps_lp.shape[0],
+            self.pj.data_ptr(), _P, _G, p_l, p_seg, seg,
+            lp.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
+            carry.data_ptr(), out.audio.data_ptr(), out.hist.data_ptr(),
+            out.dc_x.data_ptr(), out.dc_y.data_ptr(), out.lp_dcb.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(code, "audio_bank_apply_dc")
+        APPLY_DC_LAUNCHES += 1
         return out

@@ -103,6 +103,21 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,           # outputs
         _P,                               # stream
     ],
+    "audio_bank_apply": [
+        _P, _I, _P, _I, _P,               # demod, F, hist, H, gain
+        _P, _I, _P, _I,                   # audio taps, La, lp taps, Ll
+        _P, _P, _P,                       # lp, audio, hist'
+        _P,                               # stream
+    ],
+    "audio_bank_apply_dc": [
+        _P, _I, _P, _I,                   # demod, F, hist, H
+        _P, _P, _P,                       # dc_x, dc_y, gain
+        _P, _I, _P, _I,                   # audio taps, La, lp taps, Ll
+        _P, _D, _D, _D, _D, _I,           # pj, p, g, pL, pSeg, seg
+        _P, _P, _P, _P,                   # lp, lplocal, yend, carry
+        _P, _P, _P, _P, _P,               # audio, hist', dc_x', dc_y', lp_dcb
+        _P,                               # stream
+    ],
     "wf_run": [
         _P, _LL, _P, _I, _P, _P,          # band, nb, hist, hist_len, cnt, tab
         _I, _I, _I, _I, _I,               # w, K, sub, slab_hops, slabs

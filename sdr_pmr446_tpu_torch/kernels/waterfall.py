@@ -18,11 +18,12 @@ written in the CUDA source: bytes for the function, its own direct-DFT
 operations for this first version.
 
 Size: the window x DFT table lives on the device, w*w*4 bytes (25.6 KB at
-w = 80, 2.8 MB at 840, 67 MB at 4096; the widest width validate_width
-accepts, 78400, would need 24.6 GB), and the direct DFT does w*w/2 complex
-multiply-adds a hop.  Every accepted width runs at every K as far as the
-table fits; chip_smoke.py checks widths 64 to 4096 against the plain
-version.
+w = 80, 2.8 MB at 840, 67 MB at 4096, 268 MB at 8192; the widest width
+validate_width accepts, 78400, would need 24.6 GB), and the direct DFT does
+w*w/2 complex multiply-adds a hop, summed in double (f32 sums of 4096
+terms missed the 2e-3 dB gate at w = 8192).  Every accepted width runs at
+every K as far as the table fits on the device; chip_smoke.py checks widths
+64 to 8192 against the plain version.
 """
 
 from __future__ import annotations

@@ -116,8 +116,9 @@ def asgram_rows_any_p(hist: torch.Tensor, cnt: torch.Tensor, br: torch.Tensor,
     Hop i fires at band sample u_i = (w/4 - cnt) + i*w/4 (1-based) while
     u_i <= k*subchunk; its window is the w/2 samples of [hist | band] that
     end at u_i, and it belongs to row (u_i - 1) // subchunk.  The counter is
-    taken modulo the hop (a loaded state may hold any value).  Every index
-    is computed on the tensors' device: no host read."""
+    taken modulo the hop (a loaded state may hold any value).  The DFT
+    products and sums are taken in double, as K3's (csrc/waterfall.cu).
+    Every index is computed on the tensors' device: no host read."""
     wl, delay = w // 2, w // 4
     ks = k * subchunk
     dev = br.device
@@ -132,17 +133,19 @@ def asgram_rows_any_p(hist: torch.Tensor, cnt: torch.Tensor, br: torch.Tensor,
     idx = torch.clamp(u[:, None] + torch.arange(wl, device=dev)[None, :],
                       max=xr.shape[0] - 1)
     wcat = torch.cat([xr[idx], xi[idx]], dim=-1)              # [n_max, w]
+    # the f32 samples and table, multiplied and summed in double: an f32
+    # product of w terms misses the weakest bins by 0.015 dB at w = 8192
     table = torch.as_tensor(_dft_win_packed(w), device=dev)
-    sq = (wcat @ table) ** 2                                  # [n_max, 2w]
+    sq = (wcat.double() @ table.double()) ** 2                # [n_max, 2w]
     row = (u - 1) // subchunk
     sel = (row[:, None] == torch.arange(k, device=dev)[None, :]).to(
-        torch.float32)                                        # [n_max, k]
+        torch.float64)                                        # [n_max, k]
     m2 = sel.T @ sq                                           # [k, 2w]
     counts = torch.clamp(sel.sum(0), min=1.0)
     rows = rows_from_psd_sums(m2[:, :w] + m2[:, w:], w, subchunk, counts)
     new_hist = torch.complex(xr[xr.shape[0] - wl:], xi[xi.shape[0] - wl:])
     new_cnt = ((cnt + ks) % delay).to(torch.int32)
-    return new_hist, new_cnt, rows
+    return new_hist, new_cnt, rows.to(torch.float32)
 
 
 def asgram_rows_p(hist: torch.Tensor, br: torch.Tensor, bi: torch.Tensor,

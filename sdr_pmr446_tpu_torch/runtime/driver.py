@@ -8,6 +8,9 @@ log lines for tune/detune/change/CTCSS events (src/sdr_pmr446.c:838-862,
 on, its rows.  While the waterfall is on the event lines are returned but
 not logged (the terminal shows the waterfall instead), and ``on_subchunk``
 is called with each sub-chunk's outputs, as in the JAX driver.
+``request_stop()`` (a signal handler's call) makes ``run()`` finish the
+step in flight, drain it and return the partial result at the next block
+boundary, as the JAX driver does without its checkpoint flush.
 
 The step is asynchronous on a CUDA device, so block i+1 is dispatched
 before block i's outputs are read back: the host-side drain overlaps the
@@ -46,25 +49,36 @@ class ScanResult:
 class ScannerDriver:
     """``device`` alone chooses the implementation: a CUDA device runs the
     hand-written kernels, the CPU their plain versions (device.resolve).
-    ``fuse_band`` and ``fuse_dc`` choose the chain's engine
-    (scanner/chain.py)."""
+    ``fuse_band``, ``fuse_dc``, ``fuse_rssi``, ``fuse_lp_dc`` and
+    ``fuse_ctcss`` choose the chain's engine (scanner/chain.py)."""
 
     def __init__(self, args: Optional[C.ScannerArgs] = None,
                  subchunks_per_step: int = 10, input_format: str = "cu8",
                  device="cuda", on_subchunk: Optional[Callable] = None,
-                 fuse_band: bool = True, fuse_dc: bool = True):
+                 fuse_band: bool = True, fuse_dc: bool = True,
+                 fuse_rssi: bool = True, fuse_lp_dc: bool = True,
+                 fuse_ctcss: bool = True):
         self.args = args or C.ScannerArgs()
         self.chain = ScannerChain(
             C.BlockConfig(subchunks_per_step), lowpass=self.args.lowpass,
             fir_deemph=self.args.fir_deemph, input_format=input_format,
             device=device, waterfall=self.args.waterfall,
-            fuse_band=fuse_band, fuse_dc=fuse_dc)
+            fuse_band=fuse_band, fuse_dc=fuse_dc, fuse_rssi=fuse_rssi,
+            fuse_lp_dc=fuse_lp_dc, fuse_ctcss=fuse_ctcss)
         self.device = self.chain.device
         self.on_subchunk = on_subchunk
         self.params = make_runtime_params(self.args, self.device)
         self.state = self.chain.init_state()
         self.block_index = 0
         self.subchunk = 0
+        # the reference's exit_via_sig flag (src/sdr_pmr446.c:190-199)
+        self._stop_requested = False
+        self.stopped = False
+
+    def request_stop(self) -> None:
+        """Ask run() to stop at the next block boundary (signal-safe: it
+        only sets a flag, like the reference's sighandler)."""
+        self._stop_requested = True
 
     @property
     def feed_len(self) -> int:
@@ -76,16 +90,29 @@ class ScannerDriver:
         acc = dict(audio=[], audio_sub=[], active=[], rssi=[], rel=[],
                    det=[], idx=[], events=[], wf=[])
         pending = None
-        for blk in blocks:
-            raw = np.ascontiguousarray(blk).view(np.uint8).reshape(-1)
-            wire = torch.from_numpy(raw).to(self.device)
-            self.state, out = self.chain.step(self.state, wire, self.params)
+        self.stopped = False
+        try:
+            for blk in blocks:
+                raw = np.ascontiguousarray(blk).view(np.uint8).reshape(-1)
+                wire = torch.from_numpy(raw).to(self.device)
+                self.state, out = self.chain.step(self.state, wire,
+                                                  self.params)
+                if pending is not None:
+                    self._drain(pending, acc)
+                pending = out
+                self.block_index += 1
+                if self._stop_requested:
+                    break
             if pending is not None:
                 self._drain(pending, acc)
-            pending = out
-            self.block_index += 1
-        if pending is not None:
-            self._drain(pending, acc)
+        except KeyboardInterrupt:
+            # an untrapped SIGINT mid-step or mid-drain: keep what was
+            # drained; the pending block's outputs are dropped, since a
+            # partial drain must not run twice
+            self._stop_requested = True
+        if self._stop_requested:
+            self.stopped = True
+            self._stop_requested = False
         cat = lambda xs, shape, dt: (np.concatenate(xs) if xs
                                      else np.zeros(shape, dt))
         return ScanResult(

@@ -24,6 +24,24 @@ its kernel engines (``use_pallas=True``):
   7. with the waterfall on (``waterfall=w``): K3 (kernels/waterfall.py) on
      the engine's band planes -> one dB row of w bins per sub-chunk.
 
+Three op-path switches, with the JAX names, defaults and implications
+(JAX chain.py:123-152, 376-429, 487-501), replace steps 3-5 by the audio
+bank without its CTCSS epilogue (K8) and the FSM's three-phase scan
+(scanner/fsm.fsm_ctcss_scan_v3 on the channel-major lp plane):
+
+  - ``fuse_ctcss=False``: K8 ``apply_dc`` (FIR bank + lp DC blocker);
+  - ``fuse_lp_dc=False``: K8 ``apply`` (FIR bank), then the lp DC blocker
+    as plain ops (ops/iir.py, an XLA op in JAX too);
+  - ``fuse_rssi=False``: K7 emits the |y| plane and the RSSI is its
+    per-sub-chunk mean in dB (ops/rssi.subchunk_rssi), then K8 ``apply_dc``
+    (or ``apply`` with ``fuse_lp_dc=False``).
+
+``fuse_ctcss`` needs ``fuse_lp_dc`` and ``fuse_rssi``, and the duo needs
+``fuse_ctcss``, so any switch off runs the trio's K6 -> K7 (or, with
+``fuse_dc=False``, the plain DC blocker -> K9 -> K7).  The JAX
+``fuse_group`` has no counterpart: every engine serves every K.  The state
+layout is the trio's, so states pass between the engines and packages.
+
 Every stage runs over all 16 channels; nothing reads the device from the
 host, so a step is asynchronous end to end.  The JAX group path (the duo
 and the group trio) needs K % 8 == 0 (chain.py:136-138), its row trio
@@ -59,10 +77,11 @@ from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod
 from sdr_pmr446_tpu_torch.kernels.resample_kernel import Resampler
 from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
 from sdr_pmr446_tpu_torch.ops import decode, iir, spectrogram
-from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums
+from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums, subchunk_rssi
 from sdr_pmr446_tpu_torch.runtime.state import ScannerState, init_scanner_state
-from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_phase_a,
-                                              fsm_phase_c, raw_sums_to_ctcss)
+from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_ctcss_scan_v3,
+                                              fsm_phase_a, fsm_phase_c,
+                                              raw_sums_to_ctcss)
 
 NCH = C.NUM_CHANNELS
 
@@ -113,13 +132,15 @@ class ScannerChain(nn.Module):
     The kernels run for CUDA devices (the default); on the CPU, which the
     caller asks for with ``device="cpu"``, every kernel wrapper takes its
     plain PyTorch version.  ``fuse_band`` and ``fuse_dc`` choose the engine
-    of steps 1-2 by the JAX names and defaults (module docstring)."""
+    of steps 1-2, ``fuse_rssi``, ``fuse_lp_dc`` and ``fuse_ctcss`` the op
+    path of steps 3-5, by the JAX names and defaults (module docstring)."""
 
     def __init__(self, block: C.BlockConfig | None = None,
                  lowpass: bool = False, fir_deemph: bool = False,
                  input_format: str = "cu8", device="cuda",
                  waterfall: int = 0, fuse_band: bool = True,
-                 fuse_dc: bool = True):
+                 fuse_dc: bool = True, fuse_rssi: bool = True,
+                 fuse_lp_dc: bool = True, fuse_ctcss: bool = True):
         super().__init__()
         precision.check()
         spectrogram.validate_width(waterfall)
@@ -128,7 +149,10 @@ class ScannerChain(nn.Module):
         self.device = devices.resolve(device)
         self.waterfall = max(waterfall, 0)
         self.fuse_dc = fuse_dc
-        self.fuse_band = fuse_band and fuse_dc
+        self.fuse_rssi = fuse_rssi
+        self.fuse_lp_dc = fuse_lp_dc
+        self.fuse_ctcss = fuse_ctcss and fuse_lp_dc and fuse_rssi
+        self.fuse_band = fuse_band and fuse_dc and self.fuse_ctcss
         if self.fuse_band:
             self.duo = ScannerDuo(self.input_format, device=self.device)
             self.resamp_hist_len = self.duo.front_hist_len
@@ -162,7 +186,8 @@ class ScannerChain(nn.Module):
     def _band_and_demod(self, state: ScannerState, wire: torch.Tensor,
                         ns: int) -> DuoOut:
         """Steps 1-2 on the chain's engine, as K1's outputs (the front
-        history field holds the resampler's on the fuse_dc=False path)."""
+        history field holds the resampler's on the fuse_dc=False path, the
+        |y| field K7's plane [16, F] when fuse_rssi=False)."""
         if self.fuse_band:
             return self.duo(wire, state.dc_x, state.dc_y, state.resamp_hist,
                             state.pfb_hist, state.frame_parity,
@@ -180,7 +205,8 @@ class ScannerChain(nn.Module):
             dc_y = torch.complex(ndy[0], ndy[1])
             hist, band = self.resampler(state.resamp_hist, y[0], y[1])
         p = self.pfb(band, state.pfb_hist, state.frame_parity,
-                     state.demod_prev, ns)
+                     state.demod_prev, ns,
+                     mag="sums" if self.fuse_rssi else "plane")
         return DuoOut(dc_x, dc_y, hist, p.demod, p.mag, p.pfb_hist, p.parity,
                       p.prev, band)
 
@@ -193,22 +219,41 @@ class ScannerChain(nn.Module):
             raise ValueError(f"wire has shape {tuple(wire.shape)}, expected "
                              f"({self.step_arg_len},)")
         d = self._band_and_demod(state, wire, ns)
-        rssi_db = rssi_from_sums(d.mag_sums, ns)
+        rssi_db = (rssi_from_sums(d.mag_sums, ns) if self.fuse_rssi
+                   else subchunk_rssi(d.mag_sums, k))
 
         carry_in = FsmCarry(state.fsm_state, state.active_chan, state.rssi,
                             state.ct_count, state.ct_carry, state.ct_detected,
                             state.ct_max_idx, state.ct_freq)
-        sched = fsm_phase_a(carry_in, rssi_db, params.channel_mask,
-                            params.squelch_level, params.lock_max, ns)
-        sel_k = torch.clamp(sched.act2, 0, NCH - 1).to(torch.int32)
-        a = self.audio_bank(state.audio_hist, state.lp_dc_x, state.lp_dc_y,
-                            d.demod, params.audio_gain, sched.b_arr, sel_k,
-                            ns)
-        s_pre, s_suf = raw_sums_to_ctcss(sched, a.raw_pre, a.raw_mem, ns)
-        carry_out, fo = fsm_phase_c(carry_in, sched, s_pre, s_suf)
+        if self.fuse_ctcss:
+            sched = fsm_phase_a(carry_in, rssi_db, params.channel_mask,
+                                params.squelch_level, params.lock_max, ns)
+            sel_k = torch.clamp(sched.act2, 0, NCH - 1).to(torch.int32)
+            a = self.audio_bank(state.audio_hist, state.lp_dc_x,
+                                state.lp_dc_y, d.demod, params.audio_gain,
+                                sched.b_arr, sel_k, ns)
+            s_pre, s_suf = raw_sums_to_ctcss(sched, a.raw_pre, a.raw_mem, ns)
+            carry_out, fo = fsm_phase_c(carry_in, sched, s_pre, s_suf)
+            audio_hist, lp_dc_x, lp_dc_y = a.hist, a.dc_x, a.dc_y
+            audio = a.audio
+        else:
+            if self.fuse_lp_dc:
+                audio_hist, lp_dc_x, lp_dc_y, audio, lp_dcb = \
+                    self.audio_bank.apply_dc(
+                        state.audio_hist, state.lp_dc_x, state.lp_dc_y,
+                        d.demod, params.audio_gain)
+            else:
+                audio_hist, audio, lp = self.audio_bank.apply(
+                    state.audio_hist, d.demod, params.audio_gain)
+                (lp_dc_x, lp_dc_y), lp_dcb = iir.dc_blocker_apply(
+                    (state.lp_dc_x, state.lp_dc_y), lp, C.DC_BLOCK_ALPHA)
+            carry_out, fo = fsm_ctcss_scan_v3(
+                carry_in, rssi_db, None, params.channel_mask,
+                params.squelch_level, params.lock_max,
+                lp_cm=lp_dcb.reshape(NCH, k, ns))
 
         sel = torch.clamp(fo.active_chan, 0, NCH - 1).long()
-        audio_sel = a.audio.reshape(NCH, k, ns)[
+        audio_sel = audio.reshape(NCH, k, ns)[
             sel, torch.arange(k, device=sel.device)]
 
         # 7. waterfall rows from the engine's band planes
@@ -223,7 +268,7 @@ class ScannerChain(nn.Module):
         new_state = state._replace(
             dc_x=d.dc_x, dc_y=d.dc_y, resamp_hist=d.front_hist,
             pfb_hist=d.pfb_hist, frame_parity=d.parity, demod_prev=d.prev,
-            lp_dc_x=a.dc_x, lp_dc_y=a.dc_y, audio_hist=a.hist,
+            lp_dc_x=lp_dc_x, lp_dc_y=lp_dc_y, audio_hist=audio_hist,
             fsm_state=carry_out.fsm_state,
             active_chan=carry_out.active_chan, rssi=carry_out.rssi,
             ct_count=carry_out.ct_count, ct_carry=carry_out.ct_carry,

@@ -1,21 +1,32 @@
 """Squelch FSM + CTCSS detector over sub-chunk summaries (PyTorch).
 
-Counterpart of sdr_pmr446_tpu/scanner/fsm.py, phases A and C of its v3
-formulation, which the kernel engine runs around the audio-bank kernel:
+Counterpart of sdr_pmr446_tpu/scanner/fsm.py:
 
-  A. ``fsm_phase_a``: the squelch FSM and the detector's in-window count
-     schedule — a pure function of the per-sub-chunk RSSI, so the tone
-     sums inside the audio-bank kernel can be driven by it;
-  (B. the windowed-DFT tone sums: inside K2, kernels/audio_bank.py;)
-  C. ``fsm_phase_c``: the Goertzel-carry chain and the detection state.
+  - ``fsm_ctcss_scan`` (v1): the per-sub-chunk scan, each step a handful
+    of [16] RSSI ops and the [38, ns] windowed-DFT tone sums of the active
+    channel (``ctcss_tables``, ``ctcss_subchunk_sums``, ``ctcss_detect``);
+    the test oracle of the other two;
+  - ``fsm_ctcss_scan_v2`` / ``fsm_ctcss_scan_v3``: the same decisions in
+    three phases, which the scanner's op-path switches run
+    (scanner/chain.py):
+      A. ``fsm_phase_a``: the squelch FSM and the detector's in-window
+         count schedule — a pure function of the per-sub-chunk RSSI;
+      B. ``fsm_tone_sums``: the tone sums of every sub-chunk's selected
+         channel as two complex [K, ns] x [ns, 38] products (on the default
+         engine they come from K2 instead, kernels/audio_bank.py, through
+         ``raw_sums_to_ctcss``);
+      C. ``fsm_phase_c``: the Goertzel-carry chain and the detection state.
 
-The JAX package runs A and C as associative scans.  Here both are a loop
-over the K sub-chunks (K <= 160) of small tensor ops on the step's device,
-with no host reads, so the step stays asynchronous.  The recurrences are
-keep-or-set maps and affine maps with coefficients in {0, 1}, whose chains
-of non-zero terms are at most two long (the 2441-sample window spans at
-most two 1225-sample sub-chunks), so the sequential form computes the same
-values as the associative one and the decisions are equal.
+The JAX package runs v2's A and C as sequential scans and v3's as
+associative scans.  Here A and C are a loop over the K sub-chunks (K <=
+160) of small tensor ops on the step's device, with no host reads, so the
+step stays asynchronous.  The recurrences are keep-or-set maps and affine
+maps with coefficients in {0, 1}, whose chains of non-zero terms are at
+most two long (the 2441-sample window spans at most two 1225-sample
+sub-chunks), so the sequential form computes the same values as the
+associative one and the decisions are equal; v2 and v3 are therefore one
+function here.  The phasor tables are built once on the host in float64
+and kept per device.
 """
 
 from __future__ import annotations
@@ -80,6 +91,13 @@ def _tone_omegas() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _phasor_table(ns: int) -> np.ndarray:
+    """E0[t, i] = exp(-j w_t i), i < ns, complex64 (host f64)."""
+    return np.exp(-1j * np.outer(_tone_omegas(), np.arange(ns))
+                  ).astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=None)
 def _count_phasor_table() -> np.ndarray:
     """U[t, c] = exp(-j w_t c), c < CTCSS_BLOCK_SIZE, complex64 (host f64)."""
     c = np.arange(C.CTCSS_BLOCK_SIZE)
@@ -105,12 +123,124 @@ def _wrap_table() -> np.ndarray:
 def _device_table(name: str, device: str, *key) -> torch.Tensor:
     """The named constant table as a tensor on ``device`` (built once)."""
     tables = {
+        "e0": lambda: _phasor_table(*key),
+        "u": _count_phasor_table,
         "u_t": lambda: np.ascontiguousarray(_count_phasor_table().T),
         "corr": lambda: _window_corr_table(*key),
         "wrap": _wrap_table,
         "freqs": lambda: np.asarray(C.CTCSS_FREQS, np.float32),
+        "idx": lambda: np.arange(*key, dtype=np.int32),
     }
     return torch.as_tensor(tables[name](), device=device)
+
+
+def ctcss_tables(ns: int, device="cpu"):
+    """(e0 c64 [38, ns], u_table c64 [38, 2441], wrap c64 [38], freqs f32
+    [38], idx_i i32 [ns]) on ``device``: the static tables of the
+    windowed-DFT CTCSS update, as JAX fsm.ctcss_tables(ns)."""
+    dev = str(torch.device(device))
+    return (_device_table("e0", dev, ns), _device_table("u", dev),
+            _device_table("wrap", dev), _device_table("freqs", dev),
+            _device_table("idx", dev, ns))
+
+
+def _pick(t: torch.Tensor, i: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """t[i] along ``dim`` for a 0-d index tensor, on the device: indexing
+    with a 0-d tensor would read it on the host."""
+    return t.index_select(dim, i.long().reshape(1)).squeeze(dim)
+
+
+def ctcss_subchunk_sums(x: torch.Tensor, cnt: torch.Tensor, tables):
+    """Pre/post-boundary windowed-DFT sums for one [ns] sub-chunk.
+
+    x: [ns] f32 (the DC-blocked lp branch); cnt: i32 [] samples already in
+    the current 2441-window.  Returns (s_pre, s_suf, has_b), s_pre/s_suf
+    [38] c64: the power of a completed window is |carry + s_pre|^2."""
+    e0, u_table, wrap, _, idx_i = tables
+    ns = e0.shape[1]
+    cnt = torch.as_tensor(cnt, device=x.device)
+    u = _pick(u_table, cnt, dim=1)
+    z = e0 * x[None, :] * u[:, None]
+    b = (C.CTCSS_BLOCK_SIZE - 1) - cnt
+    pre = (idx_i <= b)[None, :]
+    zero = torch.zeros_like(z)
+    s_pre = torch.where(pre, z, zero).sum(-1)
+    s_suf = torch.where(pre, zero, z * wrap[:, None]).sum(-1)
+    return s_pre, s_suf, b < ns
+
+
+def ctcss_detect(power: torch.Tensor):
+    """(detected, argmax) of the 38 tone powers (src/sdr_pmr446.c:391-405)."""
+    avgp = power.mean()
+    pidx = torch.argmax(power).to(torch.int32)
+    maxp = power.amax()
+    det = ((avgp > C.CTCSS_AVG_POWER_THRESH)
+           & (maxp / torch.clamp(avgp, min=1e-30)
+              > C.CTCSS_MAX_AVG_RATIO_THRESH))
+    return det, pidx
+
+
+def fsm_ctcss_scan(carry_in: FsmCarry, rssi_k: torch.Tensor, lp: torch.Tensor,
+                   mask: torch.Tensor, squelch: torch.Tensor,
+                   lock_max: torch.Tensor):
+    """The FSM + CTCSS scan over K sub-chunks, one sub-chunk a step (v1).
+
+    rssi_k [K, 16] dB; lp [K, 16, ns] the DC-blocked lp branch of every
+    channel; mask bool [16]; squelch f32 [] dB; lock_max bool [].
+    Returns (carry_out, FsmOutputs with leading K axis)."""
+    k_sub, nch, ns = lp.shape
+    n_win = C.CTCSS_BLOCK_SIZE
+    tables = ctcss_tables(ns, lp.device)
+    freqs = tables[3]
+    nch_en = torch.clamp(mask.to(torch.int32).sum(), min=1)
+    st, act, rel, cnt, cc, det, tidx, tfreq = carry_in
+    zero_c = torch.zeros_like(cc)
+    rows = []
+    for k in range(k_sub):
+        rssi_c = rssi_k[k]
+        # find_max_rssi_channel (src/sdr_pmr446.c:668-700)
+        rm = torch.where(mask, rssi_c, torch.full_like(rssi_c, -float("inf")))
+        max_ch = torch.argmax(rm).to(torch.int32)
+        avg = (torch.where(mask, rssi_c, torch.zeros_like(rssi_c)).sum()
+               / nch_en.to(torch.float32))
+        rel = _pick(rm, max_ch) - avg
+        # squelch FSM (src/sdr_pmr446.c:827-874)
+        scanning = st == 0
+        tune = scanning & (rel > squelch)
+        in_tuned = ~scanning
+        do_change = in_tuned & lock_max & (act != max_ch)
+        prev_chan = act
+        act1 = torch.where(tune | do_change, max_ch, act)
+        detune = in_tuned & (rel < squelch - C.SQUELCH_HYSTERESIS_DB)
+        act2 = torch.where(detune, -1, act1)
+        st = torch.where(tune, 1, torch.where(detune, 0, st)).to(torch.int32)
+        # detune resets the detector (ctcss_detector_reset + freq = 0)
+        cnt = torch.where(detune, 0, cnt)
+        cc = torch.where(detune, zero_c, cc)
+        det_r = det & ~detune
+        tidx_r = torch.where(detune, 0, tidx)
+        tfreq = torch.where(detune, 0.0, tfreq)
+        # CTCSS analysis of the active channel (ctcss_execute)
+        is_active = act2 >= 0
+        x = _pick(lp[k], torch.clamp(act2, 0, nch - 1))
+        s_pre, s_suf, has_b = ctcss_subchunk_sums(x, cnt, tables)
+        y = cc + s_pre
+        newdet, pidx = ctcss_detect(y.real * y.real + y.imag * y.imag)
+        upd = is_active & has_b
+        det = torch.where(upd, newdet, det_r)
+        tidx = torch.where(upd, pidx, tidx_r)
+        cc = torch.where(is_active, torch.where(has_b, s_suf, y), cc)
+        cnt = torch.where(is_active, (cnt + ns) % n_win, cnt)
+        tfreq = torch.where(is_active, _pick(freqs, tidx), tfreq)
+        # CTCSS events compare pre/post per call (src/sdr_pmr446.c:607-626)
+        acq = is_active & det & ~det_r
+        chg = is_active & det & det_r & (tidx != tidx_r)
+        lost = is_active & ~det & det_r
+        act = act2
+        rows.append((act2, rel, tune, detune, do_change, prev_chan, act1,
+                     det, tidx, tfreq, acq, chg, lost))
+    outs = FsmOutputs(*(torch.stack(c) for c in zip(*rows)))
+    return FsmCarry(st, act, rel, cnt, cc, det, tidx, tfreq), outs
 
 
 def fsm_phase_a(carry_in: FsmCarry, rssi_k: torch.Tensor, mask: torch.Tensor,
@@ -161,6 +291,29 @@ def fsm_phase_a(carry_in: FsmCarry, rssi_k: torch.Tensor, mask: torch.Tensor,
                        st_arr, cnt_arr)
 
 
+def fsm_tone_sums(sched: FsmSchedule, lp: torch.Tensor | None,
+                  lp_cm: torch.Tensor | None, ns: int):
+    """Phase B: the windowed-DFT sums of the schedule's selected channel,
+    (s_pre, s_suf) [K, 38] c64, from ``lp`` [K, 16, ns] or its
+    channel-major form ``lp_cm`` [16, K, ns] (the layout the audio bank
+    emits: only the selected rows are read)."""
+    k = sched.act2.shape[0]
+    src = lp_cm if lp_cm is not None else lp
+    dev = str(src.device)
+    e0, _, wrap, _, idx_i = ctcss_tables(ns, dev)
+    sel = torch.clamp(sched.act2, 0, C.NUM_CHANNELS - 1).long()
+    ks = torch.arange(k, device=src.device)
+    lp_sel = lp_cm[sel, ks] if lp_cm is not None else lp[ks, sel]  # [K, ns]
+    pre = (idx_i[None, :] <= sched.b_arr[:, None]).to(torch.float32)
+    xp = lp_sel * pre
+    xs = lp_sel * (1.0 - pre)
+    e0t = e0.T                                                  # [ns, 38]
+    u = _device_table("u_t", dev)[sched.cnt_r.long()]           # [K, 38]
+    s_pre = (xp.to(torch.complex64) @ e0t) * u
+    s_suf = (xs.to(torch.complex64) @ e0t) * (u * wrap[None, :])
+    return s_pre, s_suf
+
+
 def raw_sums_to_ctcss(sched: FsmSchedule, raw_pre: torch.Tensor,
                       raw_mem: torch.Tensor, ns: int):
     """(s_pre, s_suf) [K, 38] c64 from the audio-bank kernel's global-phase
@@ -198,20 +351,12 @@ def fsm_phase_c(carry_in: FsmCarry, sched: FsmSchedule, s_pre: torch.Tensor,
         tidx_r = torch.where(dt, 0, tidx)
         tfreq_r = torch.where(dt, 0.0, tfreq)
         y = cc_in + s_pre[k]
-        power = y.real * y.real + y.imag * y.imag
-        avgp = power.mean()
-        pidx = torch.argmax(power).to(torch.int32)
-        maxp = power.amax()
-        newdet = ((avgp > C.CTCSS_AVG_POWER_THRESH)
-                  & (maxp / torch.clamp(avgp, min=1e-30)
-                     > C.CTCSS_MAX_AVG_RATIO_THRESH))
+        newdet, pidx = ctcss_detect(y.real * y.real + y.imag * y.imag)
         det = torch.where(upd, newdet, det_r)
         tidx = torch.where(upd, pidx, tidx_r)
         cc = torch.where(act_k, torch.where(sched.has_b[k], s_suf[k], y),
                          cc_in)
-        # index_select, not freqs[tidx]: a 0-d index tensor is read on the host
-        tfreq = torch.where(act_k, freqs.index_select(0, tidx.long()[None])[0],
-                            tfreq_r)
+        tfreq = torch.where(act_k, _pick(freqs, tidx), tfreq_r)
         acq = act_k & det & ~det_r
         chg = act_k & det & det_r & (tidx != tidx_r)
         lost = act_k & ~det & det_r
@@ -225,3 +370,27 @@ def fsm_phase_c(carry_in: FsmCarry, sched: FsmSchedule, s_pre: torch.Tensor,
                       sched.do_change, sched.act_prev, sched.act1, det_o,
                       tidx_o, tfreq_o, acq_o, chg_o, lost_o)
     return carry_out, outs
+
+
+def fsm_ctcss_scan_v3(carry_in: FsmCarry, rssi_k: torch.Tensor,
+                      lp: torch.Tensor | None, mask: torch.Tensor,
+                      squelch: torch.Tensor, lock_max: torch.Tensor,
+                      lp_cm: torch.Tensor | None = None):
+    """fsm_ctcss_scan in three phases: fsm_phase_a -> fsm_tone_sums ->
+    fsm_phase_c (the same decisions; test-enforced).  ``lp_cm``
+    ([16, K, ns], channel-major) may be passed instead of ``lp``
+    ([K, 16, ns]); the values are identical either way."""
+    if lp_cm is not None:
+        assert lp is None
+    ns = (lp_cm if lp_cm is not None else lp).shape[-1]
+    sched = fsm_phase_a(carry_in, rssi_k, mask, squelch, lock_max, ns)
+    s_pre, s_suf = fsm_tone_sums(sched, lp, lp_cm, ns)
+    return fsm_phase_c(carry_in, sched, s_pre, s_suf)
+
+
+def fsm_ctcss_scan_v2(carry_in: FsmCarry, rssi_k: torch.Tensor,
+                      lp: torch.Tensor, mask: torch.Tensor,
+                      squelch: torch.Tensor, lock_max: torch.Tensor):
+    """JAX's sequential three-phase scan: in the port, where phases A and
+    C are sequential loops already, the same function as v3."""
+    return fsm_ctcss_scan_v3(carry_in, rssi_k, lp, mask, squelch, lock_max)

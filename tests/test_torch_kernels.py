@@ -228,6 +228,57 @@ def test_audio_bank_kernel_matches_plain_on_card(lowpass, fir_deemph):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lowpass,fir_deemph", [(False, False), (True, True)])
+def test_audio_bank_k8_kernels_match_plain_on_card(lowpass, fir_deemph):
+    """K8 (``apply``, ``apply_dc``) vs its plain versions over two calls
+    from a random non-zero state: history exact, audio atol 1e-5, lp and
+    lp_dcb within 5e-5 of their peak, DC carries to 5e-5 of their peak; the
+    audio equal bit for bit to K2's on the same input (the same FIR
+    launch); one launch a call on each counter."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(6)
+    k = 10
+    bank = audio_bank.AudioBank(lowpass, fir_deemph, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hist = torch.as_tensor(0.1 * rng.standard_normal((16, bank.hist)), **f32)
+    dcx = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
+    dcy = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
+    gain = torch.tensor(4.0, **f32)
+    b = torch.full((k,), NS - 1, dtype=torch.int32, device=dev)
+    sel = torch.zeros(k, dtype=torch.int32, device=dev)
+    ref_a, got_a, ref_d, got_d = hist, hist, (hist, dcx, dcy), (hist, dcx, dcy)
+    for step in range(2):
+        demod = torch.as_tensor(0.2 * rng.standard_normal((16, k * NS)),
+                                **f32)
+        counts = (audio_bank.APPLY_LAUNCHES, audio_bank.APPLY_DC_LAUNCHES)
+        ra = bank.apply_plain(ref_a, demod, gain)
+        ga = bank.apply(got_a, demod, gain)
+        rd = bank.apply_dc_plain(*ref_d, demod, gain)
+        gd = bank.apply_dc(*got_d, demod, gain)
+        k2 = bank.kernel(*got_d, demod, gain, b, sel, NS)
+        torch.cuda.synchronize(dev)
+        assert (audio_bank.APPLY_LAUNCHES, audio_bank.APPLY_DC_LAUNCHES) == (
+            counts[0] + 1, counts[1] + 1)
+        for r, g in ((ra, ga), (rd, gd)):
+            np.testing.assert_array_equal(g.hist.cpu().numpy(),
+                                          r.hist.cpu().numpy())
+            np.testing.assert_allclose(g.audio.cpu().numpy(),
+                                       r.audio.cpu().numpy(), rtol=0,
+                                       atol=1e-5)
+        for name, r, g in (("lp", ra.lp, ga.lp), ("lp_dcb", rd.lp_dcb,
+                                                  gd.lp_dcb),
+                           ("dc_x", rd.dc_x, gd.dc_x),
+                           ("dc_y", rd.dc_y, gd.dc_y)):
+            assert rel_err(g.cpu().numpy(), r.cpu().numpy()) < 5e-5, name
+        assert torch.equal(ga.audio, k2.audio) and torch.equal(gd.audio,
+                                                               k2.audio)
+        np.testing.assert_array_equal(gd.dc_x.cpu().numpy(),
+                                      k2.dc_x.cpu().numpy())
+        ref_a, got_a = ra.hist, ga.hist
+        ref_d, got_d = rd[:3], gd[:3]
+
+
+@pytest.mark.cuda
 def test_chain_step_makes_no_host_reads_on_card():
     """A warmed-up chain step on the card runs under
     torch.cuda.set_sync_debug_mode("error"): no op of the step (FSM

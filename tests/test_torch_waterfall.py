@@ -391,7 +391,8 @@ def _cuda_or_skip():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,k", [(80, 40), (120, 40), (840, 40), (64, 10)])
+@pytest.mark.parametrize("w,k", [(80, 40), (120, 40), (840, 40), (64, 10),
+                                 (8192, 10)])
 def test_waterfall_kernel_matches_plain_on_card(w, k):
     """The CUDA kernel vs its plain version over two consecutive blocks
     from a non-zero history and counter: rows within 2e-3 dB, history to
