@@ -73,11 +73,37 @@ on its own lines; any failure raises and ends the run:
      decisions, events and audio (bit for bit) equal to the trio's, one
      step each with host reads made errors, one profiled fuse_lp_dc=False
      step; (c) the launch counts of K8 (apply, apply_dc), K2, K6 and K7.
+ 13. the time-sharded chains on a one-card (stream x time) mesh, BASELINE
+     config 5: (a) K10 (the pre-pass's wire-direct DC summary) against its
+     plain version over one config-5 step's wire (4 streams x K = 40, one
+     launch) in each format, w within 1e-5 of its peak, xl exact, with its
+     times; (b) K11 (the halo ring shift) against torch.roll (its plain
+     version and library yardstick) on the plane path's real tails, bit
+     for bit, with both times; (c) the sharded duo at (4, 5), K = 40, cu8,
+     over 4 captures of 4 occupied blocks and a hang block (the
+     transmission ends half-way, receiver noise follows), against 4
+     unsharded ScannerChains on the same bytes with JAX's sharded gates
+     (decisions and events exact, RSSI within 5e-3 dB, audio within 1e-4),
+     throughput in turns (sharded, unsharded, unsharded, sharded), one step
+     with host reads made errors, one profiled step; (d) the plane path at
+     (4, 4), K = 40, with halo_dma=True equal to halo_dma=False field for
+     field and to ScannerChain(fuse_dc=False) per stream under the same
+     gates, throughput in turns with (c)'s duo over the same 4 blocks; (e)
+     the sharded dsd / single mono chains at (2, 2), K = 16, against the
+     unsharded mono chains (PCM within 1 LSB and > 60 dB, audio > 60 dB);
+     (f) the duo on an (S, 1) mesh (bench.py's batch8: 8 streams, K = 8,
+     no pre-pass) and (g) the sharded trio (fuse_band=False) at (4, 5), K =
+     40, each against unsharded chains under the same gates.  The launch
+     counts of K10, K11, K1, K2, K4, K6, K7, K8 and K9 over each of (c)-(g)
+     are set to 0 just before and checked == just after; then every kernel
+     of the path is held against its plain version on the inputs one step
+     of the path gave it (every shard: K_local = 8 for K1, K2, K4, K6 and
+     K7 sums, 10 for K9, K7 plane and K8), field by field (PATH_GATES).
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
 scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
-switched engines of 12(b)) runs with the launch counts set to 0 just
-before it and read just after.  Each
+switched engines of 12(b), each sharded path of 13) runs with the launch
+counts set to 0 just before it and read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
 H100 SXM's HBM3 rate and f32 rate outside the tensor cores).  The
@@ -89,6 +115,7 @@ The last two lines of standard output are the kernel table
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -109,6 +136,9 @@ TOL_CARRY_REL = 5e-5           # carried state, relative to its peak: f32
 #                                346/416-tap sums taken in another order
 TOL_AUDIO_ATOL = 1e-5          # audio
 TOL_TONE_REL = 3e-5            # CTCSS tone sums, relative to their peak
+TOL_NOISE_TURNS = 1e-3         # demod of a noise-only channel: median |err|
+#                                in turns (its discriminator is f32 rounding
+#                                over |y|, unbounded as |y| nears 0)
 TOL_PCM_LSB = 1                # dsd PCM after the int16 truncation: a value
 #                                near a whole number may truncate either way
 TOL_DSD_ORACLE_DB = 50.0       # dsd_in vs the float64 oracle (tests/test_dsd_in.py:33-56)
@@ -1657,6 +1687,702 @@ def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
     return 2 * attempt
 
 
+#: BASELINE.json config 5 on one card: the (streams, time shards) mesh and
+#: K of each sharded path of phase 13
+CONFIG5 = {"duo": ((4, 5), 40), "plane": ((4, 4), 40), "mono": ((2, 2), 16),
+           "serve": ((8, 1), 8), "trio": ((4, 5), 40)}
+#: (channel, CTCSS code) of each config-5 stream
+STREAM_CODES = ((5, 12), (9, 3), (2, 7), (14, 20), (3, 4), (7, 15), (11, 25),
+                (16, 33))
+#: the hang block's receiver noise, per plane: 2.5 LSB of cu8 (below half
+#: an LSB the wire is near constant, the DC-blocked band ~1e-6, and the
+#: discriminator demodulates rounding: audio no two implementations share,
+#: tests/test_torch_sharded.py::test_noise_hang_in_both_packages)
+HANG_NOISE = 0.02
+TOL_SUMMARY_REL = 1e-5         # K10 w: 128-term f32 sums in another order
+#: the parts of a sharded duo step
+SHARDED_PARTS = (("K10 zero summary", ("zs_",)),
+                 ("K1 duo", ("duo_", "fe_", "pfb_")),
+                 ("K2 audio bank", ("ab_",)),
+                 ("DC carry scan (K1 and K2)", ("dc_carry",)),
+                 ("copies", ("Memcpy", "Memset")))
+SHARDED_DECISIONS = ("active_chan", "ct_detected", "ct_max_idx", "ev_tuned",
+                     "ev_detuned", "ev_changed", "ev_prev_chan",
+                     "ev_new_chan", "ev_ct_acquired", "ev_ct_changed",
+                     "ev_ct_lost", "audio_valid")
+
+
+@functools.lru_cache(maxsize=None)
+def config5_streams(n_streams: int, k: int, n_blocks: int,
+                    hang: bool = False) -> tuple:
+    """The capture batch of config 5: stream s carries its own channel and
+    CTCSS code (STREAM_CODES) throughout ``n_blocks`` cu8 blocks, block i
+    turned by e^{0.37 j i} so that no two blocks share their bytes.  With
+    ``hang``, one block more in which the transmission ends half-way and
+    receiver noise follows (HANG_NOISE): the FSM's hang and detune, the
+    discriminator on noise across shard starts."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import synth
+    from sdr_pmr446_tpu_torch.ops import decode
+    n = k * C.SUBCHUNK_IN
+    out = []
+    for s in range(n_streams):
+        ch, code = STREAM_CODES[s]
+        iq = synth.make_scanner_iq(n, channel=ch, ctcss_code=code,
+                                   seed=200 + s)
+        blocks = [iq * np.exp(0.37j * i) for i in range(n_blocks)]
+        if hang:
+            rng = np.random.default_rng(300 + s)
+            end = k // 2 * C.SUBCHUNK_IN
+            blk = iq * np.exp(0.37j * n_blocks)
+            blk[end:] = HANG_NOISE * (rng.standard_normal(n - end)
+                                      + 1j * rng.standard_normal(n - end))
+            blocks.append(blk)
+        out.append(tuple(decode.quantize_iq(b, "cu8") for b in blocks))
+    return tuple(out)
+
+
+def step_wires(streams, dev):
+    """The [S, bytes] wire of each step, uploaded."""
+    import torch
+    return [torch.as_tensor(np.stack(blk), device=dev)
+            for blk in zip(*streams)]
+
+
+def summary_work(n: int, bps: int):
+    """K10: the wire read once, v read, w and xl written (16 B a 128-sample
+    row); a multiply-add per plane and sample (4 operations)."""
+    return n * bps + 4 * 128 + 16 * (n // 128), 4 * n
+
+
+def summary_case(dev, timer, blocks, reps: int = REPS):
+    """Phase 13(a): K10 against its plain version on the wire of one
+    config-5 step (every stream and shard in one launch), in each format;
+    its times at cu8 on ``reps`` fresh inputs.  Returns its row."""
+    import torch
+    from sdr_pmr446_tpu_torch.kernels import summary
+    from sdr_pmr446_tpu_torch.ops import decode
+    cu8 = np.concatenate(blocks)
+    x = ((cu8.astype(np.float64) - 127.5) / 127.5).view(np.complex128)
+    n = x.shape[0]
+    errs = []
+    for fmt in ("cu8", "cs8", "cs16", "cf32"):
+        wire = torch.as_tensor(cu8 if fmt == "cu8"
+                               else decode.quantize_iq(x, fmt), device=dev)
+        w, xl = summary.zero_summary_kernel(wire, fmt)
+        wr, xr = summary.zero_summary_plain(wire, fmt)
+        torch.cuda.synchronize(dev)
+        err, pk = max_err(w, wr), peak(wr)
+        errs.append(err)
+        log(f"  K10 {fmt}, {n} samples ({wire.numel() / 1e6:.1f} MB, "
+            f"{n // 128} rows): w max|err| {err:.3g} (peak {pk:.3g}), xl "
+            f"{'exact' if torch.equal(xl, xr) else 'DIFFERS'}")
+        check(err <= TOL_SUMMARY_REL * pk, f"K10 {fmt} w")
+        check(torch.equal(xl, xr), f"K10 {fmt} xl")
+    # fresh inputs: the cu8 bytes rolled by whole samples
+    wires = [(torch.roll(torch.as_tensor(cu8, device=dev), 2 * 977 * r),)
+             for r in range(reps)]
+    t_k = timed(timer, lambda w: summary.zero_summary_kernel(w, "cu8"), wires)
+    t_p = timed(timer, lambda w: summary.zero_summary_plain(w, "cu8"), wires)
+    b = bound(*summary_work(n, 2))
+    log(f"  K10 cu8 times (median of {reps}, ms): kernel {t_k:.4f}, plain "
+        f"{t_p:.4f}, bound {b['bound_ms']:.5f} ({b['bound_by']}); library "
+        "call: none (the decode and the [R, 128] x [128] product are two "
+        "calls, and the decoded planes would cost 8 B a sample more)")
+    return {"name": "zero_summary", "route": "cuda",
+            "source": "sdr_pmr446_tpu_torch/csrc/summary.cu",
+            "replaces": "sdr_pmr446_tpu/kernels/summary.py:97",
+            "max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p, **b,
+            "library_ms": None}
+
+
+def capture_ring_tails(chain, wire, params):
+    """One step of a halo_dma=True plane-path chain from its zero state,
+    recording the tails its two ring shifts move."""
+    from sdr_pmr446_tpu_torch.kernels import halo_dma
+    tails, orig = [], halo_dma.ring_shift_right
+
+    def record(t):
+        tails.append(t.clone())
+        return orig(t)
+    halo_dma.ring_shift_right = record
+    try:
+        chain.step(chain.init_state(), wire, params)
+    finally:
+        halo_dma.ring_shift_right = orig
+    return tails
+
+
+def ring_shift_case(dev, timer, tails, reps: int = REPS):
+    """Phase 13(b): K11 against torch.roll (its plain version and library
+    yardstick) on the plane path's real tails, bit for bit, with both
+    times.  Returns its row (timed on the resampler-history tail)."""
+    import torch
+    from sdr_pmr446_tpu_torch.kernels import halo_dma
+    rows = []
+    for name, t in zip(("resampler history", "PFB tail"), tails):
+        got = halo_dma.ring_shift_kernel(t)
+        want = halo_dma.ring_shift_plain(t)
+        torch.cuda.synchronize(dev)
+        check(torch.equal(got, want), f"K11 {name}")
+        ins = [(t,)] * reps
+        t_k = timed(timer, halo_dma.ring_shift_kernel, ins)
+        t_p = timed(timer, halo_dma.ring_shift_plain, ins)
+        t_lib = timed(timer, lambda x: torch.roll(x, 1, dims=1), ins)
+        nbytes = 2 * t.numel() * t.element_size()
+        b = bound(nbytes, 0)
+        log(f"  K11 {name} {tuple(t.shape)} {t.dtype}: == torch.roll bit for "
+            f"bit; times (ms) kernel {t_k:.4f}, plain {t_p:.4f}, torch.roll "
+            f"{t_lib:.4f}, bound {b['bound_ms']:.6f} ({b['bound_by']}, "
+            f"{nbytes} B)")
+        rows.append({"name": "ring_shift", "route": "cuda",
+                     "source": "sdr_pmr446_tpu_torch/csrc/halo_dma.cu",
+                     "replaces": "sdr_pmr446_tpu/kernels/halo_dma.py:64",
+                     "max_abs_err": max_err(got, want), "ms": t_k,
+                     "plain_ms": t_p, **b, "library_ms": t_lib})
+    return rows[0]
+
+
+def run_sharded(chain, wires, *params):
+    """Steps of a sharded chain from its zero state (``params``: the
+    scanner's runtime parameters); returns (state, per-step outputs)."""
+    st = chain.init_state()
+    outs = []
+    for w in wires:
+        st, o = chain.step(st, w, *params)
+        outs.append(o)
+    return st, outs
+
+
+def run_streams(chains, wires, params):
+    """The unsharded chains, one a stream, over the same [S, bytes] wires;
+    returns per step the outputs stacked over the streams."""
+    import torch
+    from sdr_pmr446_tpu_torch.scanner.chain import StepOutputs
+    states = [c.init_state() for c in chains]
+    outs = []
+    for w in wires:
+        step = []
+        for s, c in enumerate(chains):
+            states[s], o = c.step(states[s], w[s], params)
+            step.append(o)
+        outs.append(StepOutputs(*(torch.stack(v) for v in zip(*step))))
+    return outs
+
+
+def check_sharded(got, want, what: str) -> str:
+    """JAX's sharded == unsharded gate (tests/test_sharding.py:494-513) on
+    [S, K, ...] outputs: decisions and events exact, RSSI within 5e-3 dB,
+    audio within 1e-4.  Returns a summary."""
+    from sdr_pmr446_tpu_torch.scanner.chain import outputs_to_numpy
+    rssi = audio = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = outputs_to_numpy(g), outputs_to_numpy(w)
+        for f in SHARDED_DECISIONS:
+            check(np.array_equal(g[f], w[f]), f"{what} step {i} {f}")
+        rssi = max(rssi, float(np.max(np.abs(g["rssi_db"] - w["rssi_db"]))))
+        audio = max(audio, float(np.max(np.abs(g["audio"] - w["audio"]))))
+    check(rssi <= 5e-3, f"{what} RSSI {rssi:.3g} dB")
+    check(audio < 1e-4, f"{what} audio {audio:.3g}")
+    return (f"decisions and events exact, RSSI max|diff| {rssi:.3g} dB, "
+            f"audio max|diff| {audio:.3g}")
+
+
+def turns(dev, runners: dict, streams, order, k: int, sync):
+    """Throughput of each runner (name -> fn(wires) -> (state, per-step
+    outputs [S, K, ...])) in turns (``order``), each turn from the zero
+    state over the same blocks, uploads and drains inside.  Returns (the
+    last turn's result of each, Msamples/s of each)."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.scanner.chain import outputs_to_numpy
+    n_s, n_blocks = len(streams), len(streams[0])
+    n_samp = n_s * n_blocks * k * C.SUBCHUNK_IN
+    last, rates = {}, {name: [] for name in runners}
+    for turn in order:
+        t0 = time.perf_counter()
+        wires = [torch.from_numpy(np.stack(blk)).to(dev)
+                 for blk in zip(*streams)]
+        last[turn] = runners[turn](wires)
+        drained = [outputs_to_numpy(o) for o in last[turn][1]]
+        sync()
+        sec = time.perf_counter() - t0
+        rates[turn].append(n_samp / sec / 1e6)
+        log(f"  {turn}: {n_blocks} blocks x {n_s} streams "
+            f"({n_samp / C.SDR_SAMPLERATE:.2f} s of radio) in "
+            f"{sec * 1e3:.1f} ms, {rates[turn][-1]:.1f} Msamples/s "
+            f"({len(drained)} steps drained)")
+    return last, rates
+
+
+def no_host_reads(chain, state, wire, params, sync, what: str):
+    """One step of a warmed-up chain under set_sync_debug_mode("error")."""
+    import torch
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = chain.step(state, wire, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    log(f"  {what} step under set_sync_debug_mode('error'): no host reads")
+    return state
+
+
+#: the kernel and plain version behind each recorded wrapper method
+KERNEL_OF = {"forward": ("kernel", "plain"),
+             "apply": ("apply_kernel", "apply_plain")}
+#: each kernel against its plain version on a sharded path's own inputs,
+#: output field by field, with the gates of phases 2, 6, 11 and 12:
+#: "snr" > TOL_SNR_DB; "turns" a demod [16, F] (turns_readings: the
+#: channels carrying a signal by "snr", the noise-only ones by their median
+#: error, the error taken modulo one turn); "mag", "carry", "tone" relative to
+#: the field's peak within TOL_MAG_RTOL, TOL_CARRY_REL, TOL_TONE_REL;
+#: "audio" within TOL_AUDIO_ATOL per unit of its peak (K8's gate: noise
+#: channels demodulate to +-1); "pcm" within TOL_PCM_LSB; "exact"
+_CARRIES = {"dc_x": "carry", "dc_y": "carry", "front_hist": "carry"}
+_MONO = {**_CARRIES, "band_hist": "carry", "sig_prev": "carry",
+         "demod_hist": "carry"}
+PATH_GATES = {
+    "K1": {"demod": "turns", "pfb_hist": "snr", "mag_sums": "mag",
+           "prev": "carry", "parity": "exact", **_CARRIES},
+    "K2": {"audio": "audio", "raw_pre": "tone", "raw_mem": "tone",
+           "hist": "exact", "dc_x": "carry", "dc_y": "carry"},
+    "K4 dsd": {"out": "pcm", **_MONO},
+    "K4 single": {"out": "snr", "n0": "exact", **_MONO},
+    "K6": {"band": "snr", "dc_x": "exact", "dc_y": "carry",
+           "front_hist": "carry"},
+    "K7": {"demod": "turns", "mag": "mag", "pfb_hist": "carry",
+           "prev": "carry", "parity": "exact"},
+    "K8 apply": {"hist": "exact", "audio": "audio", "lp": "carry"},
+    "K9": {0: "exact", 1: "snr"},
+}
+
+
+@contextlib.contextmanager
+def recording(**methods):
+    """Records the arguments of every call of each wrapper method (name =
+    module.method, a name of PATH_GATES) made inside; yields {name:
+    (method, [(args, kwargs), ...])}."""
+    calls = {}
+    for name, meth in methods.items():
+        calls[name] = (meth, [])
+
+        def rec(*args, _meth=meth, _calls=calls[name][1], **kw):
+            _calls.append((args, kw))
+            return _meth(*args, **kw)
+        setattr(meth.__self__, meth.__name__, rec)
+    try:
+        yield calls
+    finally:
+        for meth, _ in calls.values():
+            delattr(meth.__self__, meth.__name__)
+
+
+def turns_readings(out, g) -> list:
+    """The "turns" gate of a demod [16, F] (``out`` the plain version's
+    output, ``g`` the kernel's demod), the error taken modulo one turn of
+    the discriminator (atan2 / (2 pi kf) over 2 pi), as [(name, reading,
+    within the gate)]: the SNR over the channels that carry a signal (mean
+    |y| at least a tenth of the strongest's, from the output's |y| sums
+    [K, 16] or plane [16, F]) > TOL_SNR_DB, and the median |err| in turns
+    over the noise-only ones < TOL_NOISE_TURNS.  On noise the
+    discriminator's error is f32 rounding over |y|, unbounded where |y|
+    nears 0, so there an SNR says nothing of the kernel (57.5 dB over all
+    16 channels of a config-5 block, where K1 holds > 110 dB on 16
+    occupied ones)."""
+    from sdr_pmr446_tpu_torch import config as C
+    turn = 1.0 / C.FM_KF
+    ref = as_np(out.demod).astype(np.float64)
+    err = np.remainder(as_np(g) - ref + turn / 2, turn) - turn / 2
+    mag = as_np(out.mag_sums if hasattr(out, "mag_sums") else out.mag)
+    level = mag.mean(axis=1 if mag.shape == ref.shape else 0)
+    sig = level >= 0.1 * level.max()
+    snr = float(10 * np.log10(np.sum(ref[sig] ** 2)
+                              / max(np.sum(err[sig] ** 2), 1e-300)))
+    noise = float(np.median(np.abs(err[~sig]))) / turn if (~sig).any() else 0.
+    return [(f"snr on {int(sig.sum())} signal channels", snr,
+             snr > TOL_SNR_DB),
+            ("noise channels' median turns", noise, noise < TOL_NOISE_TURNS)]
+
+
+def gate_reading(kind: str, r, g):
+    """(the reading, whether it is within the gate) of one output field
+    against its plain version's (PATH_GATES; "turns" in turns_readings)."""
+    import torch
+    if kind == "snr":
+        val = snr_db(as_np(r), as_np(g))
+        return val, val > TOL_SNR_DB
+    if kind == "pcm":
+        val = int((g.to(torch.int16).int() - r.to(torch.int16).int())
+                  .abs().max())
+        return val, val <= TOL_PCM_LSB
+    if kind == "exact":
+        val = max_err(r, g)
+        return val, val == 0.0
+    if kind == "audio":
+        val = max_err(r, g)
+        return val, val < TOL_AUDIO_ATOL * max(1.0, peak(r))
+    val = rel(r, g)
+    return val, val < {"mag": TOL_MAG_RTOL, "carry": TOL_CARRY_REL,
+                       "tone": TOL_TONE_REL}[kind]
+
+
+def hold_recorded(calls: dict, last: int, what: str) -> None:
+    """The ``last`` recorded calls of each kernel's wrapper (one step's
+    shards) again through the kernel and through its plain version on the
+    same inputs, held field by field to PATH_GATES; logs the worst reading
+    of each field.  Run outside the launch-count windows."""
+    import torch
+    for name, (meth, args_list) in calls.items():
+        mod = meth.__self__
+        kern, plain = (getattr(mod, a) for a in KERNEL_OF[meth.__name__])
+        gates = PATH_GATES[name]
+        worst = {}
+        for args, kw in args_list[-last:]:
+            r, g = plain(*args, **kw), kern(*args, **kw)
+            torch.cuda.synchronize()
+            for field, kind in gates.items():
+                rv, gv = ((getattr(r, field), getattr(g, field))
+                          if isinstance(field, str) else (r[field], g[field]))
+                readings = (turns_readings(r, gv) if kind == "turns" else
+                            [(kind, *gate_reading(kind, rv, gv))])
+                for label, val, ok in readings:
+                    key = f"{field} {label}"
+                    check(ok, f"{name} on {what}: {key} {val:.3g}")
+                    low = label.startswith("snr")
+                    prev = worst.get(key, val)
+                    worst[key] = min(prev, val) if low else max(prev, val)
+        check(len(args_list) >= last, f"{name} on {what}: "
+              f"{len(args_list)} calls recorded for {last}")
+        log(f"  {name} vs its plain version on {what}'s own inputs ({last} "
+            "calls, one step): " + ", ".join(
+                f"{key} {v:.3g}" for key, v in worst.items()))
+
+
+def phase_config5_duo(dev, sync):
+    """Phase 13(c): BASELINE config 5 on one card, the fused duo at (4, 5),
+    K = 40 (K_local = 8), cu8: the sharded chain against 4 unsharded
+    ScannerChains on the same bytes (4 occupied blocks and the hang block),
+    throughput in turns, one step with host reads made errors (its K1 and
+    K2 calls recorded), one profiled step.  Returns (the sharded steps, the
+    unsharded steps, the throughputs, the chain, a function that holds the
+    recorded calls)."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    (n_s, n_t), k = CONFIG5["duo"]
+    streams = config5_streams(n_s, k, 4, hang=True)
+    n_blocks = len(streams[0])
+    params = make_runtime_params(C.ScannerArgs(), dev)
+    chain = ShardedScannerChain(make_mesh(n_s, n_t), C.BlockConfig(k))
+    check(chain.fused_duo, "config 5 runs the sharded duo")
+    chains = [ScannerChain(C.BlockConfig(k), device=dev) for _ in range(n_s)]
+    wires = step_wires(streams, dev)
+    st, _ = run_sharded(chain, wires[:1], params)          # warm-up
+    run_streams(chains, wires[:1], params)
+    sync()
+    runners = {"sharded": lambda w: run_sharded(chain, w, params),
+               "unsharded": lambda w: (None, run_streams(chains, w, params))}
+    last, rates = turns(dev, runners, streams, ("sharded", "unsharded",
+                                                "unsharded", "sharded"),
+                        k, sync)
+    steps = {"sharded": 1 + 2 * n_blocks,
+             "unsharded": n_s * (1 + 2 * n_blocks)}
+    log(f"  sharded vs unsharded over {n_blocks} blocks (the last the hang "
+        f"block, noise from sub-chunk {k // 2}): " + check_sharded(
+            last["sharded"][1], last["unsharded"][1], "config 5 duo"))
+    with recording(K1=chain.duo.forward,
+                   K2=chain.audio_bank.forward) as calls:
+        st = no_host_reads(chain, st, wires[1], params, sync,
+                           f"sharded duo ({n_s}, {n_t}) K={k}")
+    steps["sharded"] += 1
+    holder = {"st": st}
+
+    def one_step():
+        holder["st"], _ = chain.step(holder["st"], wires[2], params)
+    steps["sharded"] += profile_step(one_step, sync, SHARDED_PARTS,
+                                     "other (FSM, halos, pre-pass fold)",
+                                     by_kernel=True)
+    hold = lambda: hold_recorded(  # noqa: E731
+        calls, n_s * n_t, f"the sharded duo ({n_s}, {n_t}) K={k}")
+    return steps, {"config5_duo_sharded": {"msamples_per_s":
+                                           rates["sharded"]},
+                   "config5_duo_unsharded": {"msamples_per_s":
+                                             rates["unsharded"]}}, chain, hold
+
+
+def phase_config5_plane(dev, sync, timer):
+    """Phase 13(b) and (d): the plane path at (4, 4), K = 40 (K_local =
+    10): K11 on the tails of one warm-up step; then, with the counts reset
+    by the caller, the chain with halo_dma=True and with halo_dma=False in
+    turns with the (4, 5) duo of (c) over the same 4 blocks (each warmed
+    up), the two plane chains equal field for field and held against
+    ScannerChain(fuse_dc=False) per stream, one step with host reads made
+    errors (its K9, K7 and K8 calls recorded).  Returns (K11's row, a
+    function of the duo chain that runs the counted path and returns its
+    steps, its throughputs and a function that holds the recorded
+    calls)."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.runtime.state import state_to_numpy
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    (n_s, n_t), k = CONFIG5["plane"]
+    streams = config5_streams(n_s, k, 4)
+    wires = step_wires(streams, dev)
+    params = make_runtime_params(C.ScannerArgs(), dev)
+    mesh = make_mesh(n_s, n_t)
+    chain = {dma: ShardedScannerChain(mesh, C.BlockConfig(k), halo_dma=dma)
+             for dma in (True, False)}
+    check(not chain[True].fused, "config 5 plane path")
+    row = ring_shift_case(dev, timer, capture_ring_tails(chain[True],
+                                                         wires[0], params))
+    run_sharded(chain[False], wires[:1], params)           # warm-up
+    sync()
+
+    def counted(duo):
+        names = {True: "plane path, K11", False: "plane path, collectives"}
+        runners = {names[dma]: (lambda w, c=chain[dma]:
+                                run_sharded(c, w, params))
+                   for dma in (True, False)}
+        runners["duo"] = lambda w: run_sharded(duo, w, params)
+        order = (names[True], names[False], "duo", "duo", names[False],
+                 names[True])
+        last, rates = turns(dev, runners, streams, order, k, sync)
+        res = {dma: last[names[dma]] for dma in (True, False)}
+        ref = run_streams([ScannerChain(C.BlockConfig(k), device=dev,
+                                        fuse_dc=False) for _ in range(n_s)],
+                          wires, params)
+        sync()
+        for a, b in zip(res[True][1], res[False][1]):
+            for f, x, y in zip(a._fields, a, b):
+                check(torch.equal(x, y), f"plane path halo_dma field {f}")
+        for x, y in zip(state_to_numpy(res[True][0]),
+                        state_to_numpy(res[False][0])):
+            check(np.array_equal(x, y), "plane path halo_dma state")
+        log(f"  plane path ({n_s}, {n_t}) K={k}: halo_dma=True == False "
+            f"field for field over {len(wires)} steps; vs fuse_dc=False "
+            "per stream: " + check_sharded(res[True][1], ref,
+                                          "config 5 plane path"))
+        pc = chain[True]
+        with recording(K9=pc.resampler.forward, K7=pc.pfb.forward,
+                       **{"K8 apply": pc.audio_bank.apply}) as calls:
+            no_host_reads(pc, res[True][0], wires[0], params, sync,
+                          f"plane path ({n_s}, {n_t}) K={k} halo_dma=True")
+        hold = lambda: hold_recorded(  # noqa: E731
+            calls, n_s * n_t, f"the plane path ({n_s}, {n_t}) K={k}")
+        n = len(wires)
+        bench = {"config5_plane_k11": {"msamples_per_s": rates[names[True]]},
+                 "config5_plane_collectives": {
+                     "msamples_per_s": rates[names[False]]},
+                 "config5_duo_in_plane_turns": {
+                     "msamples_per_s": rates["duo"]}}
+        return ({"dma": 2 * n + 1, "collective": 2 * n, "duo": 2 * n,
+                 "unsharded": n_s * n}, bench, hold)
+    return row, counted
+
+
+def phase_config5_mono(dev, sync):
+    """Phase 13(e): the sharded dsd / single mono chains at (2, 2), K = 16,
+    cu8, against the unsharded mono chains on the card, their K4 calls
+    recorded.  Returns a function that runs the counted path and returns
+    the sharded steps (the unsharded ones run before the caller's count
+    window) and a function that holds the recorded calls."""
+    import torch
+    from sdr_pmr446_tpu_torch.parallel.dsd_sharded import ShardedDsdInChain
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import make_mesh
+    from sdr_pmr446_tpu_torch.parallel.single_sharded import (
+        ShardedSingleChain)
+    (n_s, n_t), k = CONFIG5["mono"]
+    n_steps = 2
+    refs, plan = {}, {}
+    for mode in ("dsd", "single"):
+        blocks = chain_blocks(mode, k, n_steps + n_s - 1)
+        streams = [blocks[s:s + n_steps] for s in range(n_s)]
+        wires = step_wires(streams, dev)
+        outs = []
+        for s in range(n_s):
+            ch = make_chain(mode, k, dev)
+            st = ch.init_state()
+            got = []
+            for w in wires:
+                st, o = ch.step(st, w[s])
+                got.append(o)
+            outs.append(torch.cat(got))
+        refs[mode] = torch.stack(outs)
+        plan[mode] = wires
+    sync()
+
+    def counted():
+        mesh = make_mesh(n_s, n_t)
+        calls = {}
+        for mode, wires in plan.items():
+            chain = (ShardedDsdInChain(mesh, k) if mode == "dsd"
+                     else ShardedSingleChain(mesh, 5, k))
+            with recording(**{f"K4 {mode}": chain.mono.forward}) as rec:
+                _, outs = run_sharded(chain, wires)
+            calls.update(rec)
+            got = torch.cat(outs, dim=1)
+            ref = refs[mode]
+            for s in range(n_s):
+                g, r = as_np(got[s]).astype(np.float64), as_np(ref[s])
+                snr = snr_db(r.astype(np.float64), g)
+                if mode == "dsd":
+                    lsb = float(np.max(np.abs(g - r)))
+                    check(lsb <= TOL_PCM_LSB and snr > 60.0,
+                          f"sharded dsd stream {s}")
+                    what = f"PCM within {lsb:.0f} LSB, SNR {snr:.1f} dB"
+                else:
+                    check(snr > 60.0, f"sharded single stream {s}")
+                    what = f"audio SNR {snr:.1f} dB"
+                log(f"  sharded {mode} ({n_s}, {n_t}) K={k} stream {s}: "
+                    f"{what} against the unsharded mono chain")
+        hold = lambda: hold_recorded(  # noqa: E731
+            calls, n_s * n_t, f"the sharded mono chains ({n_s}, {n_t}) K={k}")
+        return n_steps * len(plan), hold
+    return counted
+
+
+def phase_config5_engine(dev, sync, name: str, **switches):
+    """Phase 13(f) and (g): one more sharded engine (CONFIG5[name]) over 2
+    blocks against unsharded ScannerChains with the same switches on the
+    same bytes, by check_sharded, the kernel calls of its second step
+    recorded: "serve" the duo on an (S, 1) mesh (bench.py's batch8 geometry:
+    8 streams at K = 8; no pre-pass, K1 keeps its carries), "trio" the
+    fused trio (``fuse_band=False``).  Returns (the sharded steps, the
+    unsharded steps, a function that holds the recorded calls)."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    (n_s, n_t), k = CONFIG5[name]
+    wires = step_wires(config5_streams(n_s, k, 2), dev)
+    params = make_runtime_params(C.ScannerArgs(), dev)
+    chain = ShardedScannerChain(make_mesh(n_s, n_t), C.BlockConfig(k),
+                                **switches)
+    if name == "trio":
+        check(chain.fused and not chain.fused_duo, "the sharded trio")
+        methods = dict(K6=chain.front.forward, K7=chain.pfb.forward,
+                       K2=chain.audio_bank.forward)
+    else:
+        check(chain.fused_duo, "the (S, 1) duo")
+        methods = dict(K1=chain.duo.forward, K2=chain.audio_bank.forward)
+    t0 = time.perf_counter()
+    st, outs = run_sharded(chain, wires[:1], params)
+    with recording(**methods) as calls:
+        st, o = chain.step(st, wires[1], params)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = run_streams([ScannerChain(C.BlockConfig(k), device=dev, **switches)
+                       for _ in range(n_s)], wires, params)
+    log(f"  {name} ({n_s}, {n_t}) K={k}: 2 steps in {ms:.1f} ms; vs "
+        f"{n_s} unsharded chains: " + check_sharded(
+            outs + [o], ref, f"config 5 {name}"))
+    hold = lambda: hold_recorded(  # noqa: E731
+        calls, n_s * n_t, f"the sharded {name} ({n_s}, {n_t}) K={k}")
+    return 2, 2 * n_s, hold
+
+
+def phase_sharded(dev, sync, timer):
+    """Phase 13: K10 and K11 against their plain versions, then config 5's
+    sharded paths with the launch counts set to 0 just before each and
+    read just after; after each count, every kernel of the path against
+    its plain version on the inputs the path gave it.  Returns (the K10
+    and K11 rows, throughputs)."""
+    from sdr_pmr446_tpu_torch.kernels import (audio_bank, chan_tail, duo,
+                                              front_end, halo_dma, pfb_demod,
+                                              resample_kernel, summary)
+    mods = (summary, halo_dma, duo, audio_bank, front_end, pfb_demod,
+            resample_kernel, chan_tail)
+
+    def reset():
+        for m in mods:
+            m.LAUNCHES = 0
+        audio_bank.APPLY_LAUNCHES = audio_bank.APPLY_DC_LAUNCHES = 0
+
+    def counts():
+        return {"K10": summary.LAUNCHES, "K11": halo_dma.LAUNCHES,
+                "K1": duo.LAUNCHES, "K2": audio_bank.LAUNCHES,
+                "K6": front_end.LAUNCHES, "K7": pfb_demod.LAUNCHES,
+                "K8 apply": audio_bank.APPLY_LAUNCHES,
+                "K9": resample_kernel.LAUNCHES, "K4": chan_tail.LAUNCHES}
+
+    def expect(want, what):
+        got = counts()
+        log(f"  {what} launches: {got}")
+        for name, n in got.items():
+            check(n == want.get(name, 0), f"{what}: {name} launched {n} "
+                  f"times for {want.get(name, 0)}")
+        return got
+
+    t0 = time.perf_counter()
+    log("  (a) K10 (zero summary) vs its plain version")
+    (n_s, n_t), k = CONFIG5["duo"]
+    k10_row = summary_case(dev, timer, [s[0] for s in config5_streams(
+        n_s, k, 4)])
+    t_a = time.perf_counter()
+    log("  (b) K11 (ring shift) vs torch.roll on the plane path's tails")
+    k11_row, plane_counted = phase_config5_plane(dev, sync, timer)
+    t_b = time.perf_counter()
+    log(f"  (c) config 5: the sharded duo at {CONFIG5['duo'][0]}, K={k}, cu8")
+    reset()
+    steps, bench, duo_chain, hold = phase_config5_duo(dev, sync)
+    sh = n_s * n_t * steps["sharded"] + steps["unsharded"]
+    k10 = expect({"K10": steps["sharded"], "K1": sh, "K2": sh},
+                 f"(c) over {steps}")["K10"]
+    hold()
+    t_c = time.perf_counter()
+    (n_s, n_t), k = CONFIG5["plane"]
+    log(f"  (d) the plane path at ({n_s}, {n_t}), K={k}: halo_dma on / off, "
+        "in turns with the duo of (c)")
+    reset()
+    psteps, pbench, hold = plane_counted(duo_chain)
+    bench.update(pbench)
+    sh = n_s * n_t * (psteps["dma"] + psteps["collective"])
+    dsh = math.prod(CONFIG5["duo"][0]) * psteps["duo"]
+    c = expect({"K11": 2 * psteps["dma"], "K9": sh + psteps["unsharded"],
+                "K7": sh + psteps["unsharded"], "K8 apply": sh,
+                "K2": psteps["unsharded"] + dsh, "K1": dsh,
+                "K10": psteps["duo"]}, f"(d) over {psteps}")
+    k11_row["launches"] = c["K11"]
+    k10 += c["K10"]
+    hold()
+    t_d = time.perf_counter()
+    (n_s, n_t), k = CONFIG5["mono"]
+    log(f"  (e) the sharded dsd / single mono chains at ({n_s}, {n_t}), K={k}")
+    mono_counted = phase_config5_mono(dev, sync)
+    reset()
+    msteps, hold = mono_counted()
+    c = expect({"K10": msteps, "K4": n_s * n_t * msteps},
+               f"(e) over {msteps} steps")
+    k10 += c["K10"]
+    hold()
+    t_e = time.perf_counter()
+    for sub, name, sw in (("f", "serve", {}),
+                          ("g", "trio", {"fuse_band": False})):
+        (n_s, n_t), k = CONFIG5[name]
+        log(f"  ({sub}) the sharded {name} at ({n_s}, {n_t}), K={k}, cu8")
+        reset()
+        n_sh, n_un, hold = phase_config5_engine(dev, sync, name, **sw)
+        sh = n_s * n_t * n_sh + n_un
+        kernels = ("K6", "K7", "K2") if name == "trio" else ("K1", "K2")
+        expect({kn: sh for kn in kernels}, f"({sub}) over {n_sh} sharded, "
+               f"{n_un} unsharded steps")
+        hold()
+    k10_row["launches"] = k10
+    t_g = time.perf_counter()
+    log(f"  phase 13 took {t_g - t0:.1f} s ((a) {t_a - t0:.1f}, (b) "
+        f"{t_b - t_a:.1f}, (c) {t_c - t_b:.1f}, (d) {t_d - t_c:.1f}, (e) "
+        f"{t_e - t_d:.1f}, (f) and (g) {t_g - t_e:.1f})")
+    return [k10_row, k11_row], bench
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1826,9 +2552,15 @@ def main() -> int:
     new_rows["front_end"]["launches"] += sl["K6"]
     new_rows["pfb_demod"]["launches"] += sl["K7"]
     rows += k8_rows
-    t_end = time.perf_counter()
-    log(f"  phase 12 took {t_end - t12:.1f} s ((a) {t12b - t12:.1f}, (b) "
-        f"and (c) {t_end - t12b:.1f}); the run {t_end - t_run:.1f} s")
+    t13 = time.perf_counter()
+    log(f"  phase 12 took {t13 - t12:.1f} s ((a) {t12b - t12:.1f}, (b) "
+        f"and (c) {t13 - t12b:.1f})")
+
+    log("phase 13: the time-sharded chains on a one-card mesh (K10, K11)")
+    sharded_rows, sbench = phase_sharded(dev, sync, cuda_timer)
+    bench.update(sbench)
+    rows += sharded_rows
+    log(f"  the run {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))
     print(json.dumps({"kernels": rows}))

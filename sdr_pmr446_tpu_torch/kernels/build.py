@@ -124,6 +124,16 @@ SIGNATURES = {
         _P, _P, _P, _P,                   # part, rows, hist_out, cnt_out
         _P,                               # stream
     ],
+    "zero_summary_run": [
+        _I, _P, _LL, _P, _F,              # fmt, wire, n_samples, v, inv_cu8
+        _P, _P,                           # w, xl
+        _P,                               # stream
+    ],
+    "ring_shift_run": [
+        _P, _P, _I, _I, _LL,              # src, dst, n_stream, n_time, bytes
+        _LL, _LL, _LL, _LL,               # src / dst stream and shard strides
+        _P,                               # stream
+    ],
 }
 
 

@@ -27,6 +27,7 @@ the H100 (~3 us at K = 40); see the source.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -48,6 +49,30 @@ DEMOD_SCALE = float(np.float32(1.0 / (2.0 * math.pi * C.FM_KF)))
 #: kernel launches of the CUDA version (one per call); the plain version
 #: never counts
 LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_planes(device: str):
+    """(re, im) f32 [416, 16] of the fused PFB kernel on ``device``."""
+    ck = make_pfb_kernel(D.pfb_prototype())
+    return (torch.as_tensor(ck.real.astype(np.float32), device=device),
+            torch.as_tensor(ck.imag.astype(np.float32), device=device))
+
+
+def last_frame_output(tail_r: torch.Tensor, tail_i: torch.Tensor,
+                      sign: torch.Tensor) -> torch.Tensor:
+    """The 16 channel outputs of the final PFB frame, c64 [..., 16], from
+    the last 416 band samples (planes tail_r, tail_i [..., 416]); ``sign``
+    [...] = (-1)^(global index of that frame).  The discriminator's
+    previous-sample halo of the time-sharded chains (parallel/): each shard
+    computes its own last frame with one 416-tap dot and passes it right.
+    Counterpart of the JAX kernels/pfb_demod.py::last_frame_output (plain
+    ops outside any kernel, there as here)."""
+    kr, ki = _kernel_planes(str(tail_r.device))
+    lwr, lwi = tail_r[..., :, None], tail_i[..., :, None]
+    y = torch.complex((lwr * kr - lwi * ki).sum(-2),
+                      (lwr * ki + lwi * kr).sum(-2))
+    return (y * sign[..., None]).to(torch.complex64)
 
 
 class PfbOut(NamedTuple):

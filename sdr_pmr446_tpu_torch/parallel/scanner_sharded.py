@@ -1,0 +1,446 @@
+"""The time-sharded (stream x time) scanner on a one-card mesh (PyTorch).
+
+Counterpart of sdr_pmr446_tpu/parallel/scanner_sharded.py on its kernel
+engines (``use_pallas=True``), BASELINE.json config 5: S independent
+captures (the 'stream' axis), each block cut into D time shards (the 'time'
+axis).  In JAX the mesh's shards are devices and the halos move by
+collectives; here all S x D shards live on one card (``make_mesh``) and
+the collectives are tensor operations along the time dim
+(parallel/halo.py), or K11's ring shift (kernels/halo_dma.py) for the two
+front-end halos with ``halo_dma=True``.
+
+``ShardedScannerChain(mesh, block).step(state, wire uint8 [S,
+step_arg_len], params) -> (state', StepOutputs)``, every output leaf [S, K,
+...] and every state field [S, ...] (runtime/state.py::stack_state): per
+stream the unsharded ScannerChain's outputs, decisions and events exactly,
+RSSI and audio to f32 rounding of the composed carries.  Each shard runs
+the kernels of the unsharded engines on its K_local = K / D sub-chunks;
+the FSM runs per stream on the gathered [K, 16] RSSI and [K, 38] tone
+sums.  The engine follows JAX's gate: the kernel engines (duo or trio)
+when every ``fuse_*`` switch is on and K_local % 8 == 0, the plane path
+otherwise (the port has no ``fuse_group``, as in scanner/chain.py):
+
+  (a) the DUO (default): for D > 1 a read-only pre-pass (K10,
+      kernels/summary.py) and the fold of parallel/fused_halo.py give each
+      shard's exact incoming DC state; the outgoing halos (front history,
+      PFB row, the last frame's discriminator sample) are rebuilt from a
+      short corrected DC tail through the plain resampler; then K1 runs per
+      shard with the exact state and its own carries are dropped.  With
+      one time shard the pre-pass is skipped and K1 keeps its carries;
+  (b) the TRIO (``fuse_band=False``): K6 per shard from zero y and zero
+      history, the band planes corrected by the affine ramp and history
+      response (fused_halo.correct_band), then K7 on the corrected band;
+  (c) the PLANE path (any switch off or K_local % 8 != 0): the wire
+      decoded to planes, the DC blocker as a composed shard recurrence
+      (halo.shard_dc_blocker), K9 with the resampler-history halo, K7's
+      plane form, K8 ``apply``, the lp DC blocker over shards and the FSM's
+      three-phase CTCSS scan.
+
+On (a) and (b), FSM phase A runs on the gathered RSSI, K2 per shard from a
+zero lp-DC state, and its tone sums are corrected (fused_halo.
+correct_raw_sums) before phase C, with the kernel phase restarting every
+K_local sub-chunks (fsm.raw_sums_to_ctcss ``period``).
+
+Not yet ported (ROADMAP queue 1 item 9): the sharded waterfall
+(``waterfall > 0``) and ``multi_step``.  JAX's op engine (``use_pallas=
+False``) has no counterpart: on the CPU the chain runs the plain versions
+of the same kernels.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch import device as devices
+from sdr_pmr446_tpu_torch import precision
+from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
+from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
+from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
+from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod, last_frame_output
+from sdr_pmr446_tpu_torch.kernels.resample_kernel import Resampler
+from sdr_pmr446_tpu_torch.ops import decode
+from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums, subchunk_rssi
+from sdr_pmr446_tpu_torch.parallel import fused_halo as FH
+from sdr_pmr446_tpu_torch.parallel import halo
+from sdr_pmr446_tpu_torch.runtime.state import (ScannerState,
+                                                init_scanner_state,
+                                                stack_state)
+from sdr_pmr446_tpu_torch.scanner.chain import RuntimeParams, StepOutputs
+from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_ctcss_scan_v3,
+                                              fsm_phase_a, fsm_phase_c,
+                                              raw_sums_to_ctcss)
+from sdr_pmr446_tpu_torch.taps import design as D
+
+NCH = C.NUM_CHANNELS
+#: the duo pre-pass's DC tail: covers the 512-sample front history and the
+#: 416-sample band span of the PFB row and the last frame
+DUO_TAIL = 2560
+PFB_TAPS = 416
+NOT_PORTED = "not yet ported to the one-card mesh (ROADMAP queue 1 item 9)"
+
+
+class Mesh(NamedTuple):
+    """A (stream x time) mesh on one card: ``n_stream`` streams, each block
+    cut into ``n_time`` time shards, every shard on ``device``."""
+    n_stream: int
+    n_time: int
+    device: torch.device
+
+
+def make_mesh(n_stream: int, n_time: int, device=devices.DEFAULT) -> Mesh:
+    """The one-card counterpart of the JAX make_mesh (JAX's takes devices;
+    here every shard lives on ``device``, the card by default)."""
+    if n_stream < 1 or n_time < 1:
+        raise ValueError(f"mesh ({n_stream}, {n_time}): both axes must be "
+                         f">= 1")
+    return Mesh(n_stream, n_time, devices.resolve(device))
+
+
+def mesh_device(mesh: Mesh, device) -> torch.device:
+    """The chain's device, which must be the mesh's."""
+    dev = devices.resolve(device)
+    if dev != mesh.device:
+        raise ValueError(f"the chain runs on {dev}, its mesh on {mesh.device}")
+    return dev
+
+
+def time_shards(wire: torch.Tensor, mesh: Mesh, arg_len: int) -> torch.Tensor:
+    """Check ``wire`` (uint8 [S, arg_len]) and view it as [S, D, bytes a
+    shard]: shard d of stream s is wire[s, d * arg_len / D:][:arg_len / D]."""
+    want = (mesh.n_stream, arg_len)
+    if wire.dtype != torch.uint8 or tuple(wire.shape) != want:
+        raise ValueError(f"wire must be uint8 {want}, got {wire.dtype} "
+                         f"{tuple(wire.shape)}")
+    return wire.reshape(mesh.n_stream, mesh.n_time, -1)
+
+
+def stacked(outs, field: str) -> torch.Tensor:
+    """[S, D, ...] from per-(stream, shard) kernel outputs [S][D]."""
+    return torch.stack([torch.stack([getattr(o, field) for o in row])
+                        for row in outs])
+
+
+def frame_parities(parity: torch.Tensor, n_time: int, f_local: int):
+    """(each shard's incoming PFB frame parity [S, D], the sign of each
+    shard's last frame [S, D] f32, the next block's parity [S])."""
+    d = torch.arange(n_time, dtype=torch.int32, device=parity.device)
+    par = ((parity[:, None] + d * f_local) % 2).to(torch.int32)
+    lsign = (1.0 - 2.0 * ((par + f_local - 1) % 2)).to(torch.float32)
+    return par, lsign, ((parity + n_time * f_local) % 2).to(torch.int32)
+
+
+class _Front(NamedTuple):
+    """Steps 1-2 of every engine, per shard."""
+    dc_x: torch.Tensor        # c64 [S]      carried state of the next block
+    dc_y: torch.Tensor        # c64 [S]
+    resamp_hist: torch.Tensor  # c64 [S, H]
+    pfb_hist: torch.Tensor    # c64 [S, 400]
+    parity: torch.Tensor      # i32 [S]
+    prev: torch.Tensor        # c64 [S, 16]
+    demod: list               # [S][D] f32 [16, F_local]
+    rssi: torch.Tensor        # f32 [S, D, K_local, 16]
+
+
+class ShardedScannerChain:
+    """The scanner block step over S streams on a one-card (S, D) mesh.
+
+    ``device`` (the card by default) must be the mesh's: CUDA runs the
+    kernels, the CPU their plain versions.  ``fuse_band``, ``fuse_dc``,
+    ``fuse_rssi``, ``fuse_lp_dc`` and ``fuse_ctcss`` choose the engine by
+    the JAX names (module docstring); ``halo_dma`` moves the plane path's
+    two front-end halos by K11."""
+
+    def __init__(self, mesh: Mesh, block: C.BlockConfig | None = None,
+                 lowpass: bool = False, fir_deemph: bool = False,
+                 waterfall: int = 0, halo_dma: bool = False,
+                 input_format: str = "cu8", fuse_dc: bool = True,
+                 fuse_lp_dc: bool = True, fuse_rssi: bool = True,
+                 fuse_ctcss: bool = True, fuse_band: bool = True,
+                 device=devices.DEFAULT):
+        precision.check()
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        self.block = block or C.BlockConfig()
+        self.input_format = decode.wire_format(input_format)
+        if waterfall > 0:
+            raise NotImplementedError(f"the sharded waterfall is {NOT_PORTED}")
+        self.n_time, self.n_stream = mesh.n_time, mesh.n_stream
+        k = self.block.subchunks_per_step
+        if k % self.n_time:
+            raise ValueError(f"subchunks_per_step={k} must divide evenly over "
+                             f"the {self.n_time}-way time axis")
+        self.k_local = k // self.n_time
+        self.t_local = self.block.input_len // self.n_time
+        self.fused = bool(fuse_dc and fuse_lp_dc and fuse_rssi and fuse_ctcss
+                          and self.k_local % 8 == 0)
+        self.fused_duo = self.fused and fuse_band
+        self.halo_dma = halo_dma
+        dev = self.device
+        if self.fused_duo:
+            self.duo = ScannerDuo(self.input_format, device=dev)
+            self.resamp_hist_len = self.duo.front_hist_len
+        elif self.fused:
+            self.front = FrontEnd(self.input_format, device=dev)
+            self.resamp_hist_len = self.front.hist_len
+        else:
+            self.resampler = Resampler(device=dev)
+            self.resamp_hist_len = self.resampler.hist_len
+        if not self.fused_duo:
+            self.pfb = PfbDemod(device=dev)
+        self.pfb_hist_len = (self.duo.pfb if self.fused_duo
+                             else self.pfb).hist_len
+        self.audio_bank = AudioBank(lowpass, fir_deemph, device=dev)
+        deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
+        self.deemph_hist_len = deemph.shape[0] - 1
+
+    def init_state(self) -> ScannerState:
+        """The zero state of every stream, each field [S, ...]."""
+        return stack_state(init_scanner_state(
+            self.resamp_hist_len, self.pfb_hist_len, self.deemph_hist_len,
+            self.audio_bank.hist, self.device), self.n_stream)
+
+    @property
+    def step_arg_len(self) -> int:
+        """Wire bytes per stream and step."""
+        return self.block.input_len * decode.BYTES_PER_SAMPLE[
+            self.input_format]
+
+    def multi_step(self, state, wires, params):
+        raise NotImplementedError(f"multi_step is {NOT_PORTED}")
+
+    # ------------------------------------------------------------ engines
+    def _duo_front(self, st: ScannerState, wire3, ns: int) -> _Front:
+        """(a): K1 per shard, after the exact-state pre-pass when D > 1."""
+        n_s, n_t = self.n_stream, self.n_time
+        run = lambda s, d, *state: self.duo(wire3[s, d], *state, ns)  # noqa: E731
+        if n_t == 1:
+            outs = [[run(s, 0, st.dc_x[s], st.dc_y[s], st.resamp_hist[s],
+                         st.pfb_hist[s], st.frame_parity[s],
+                         st.demod_prev[s])] for s in range(n_s)]
+            last = lambda f: stacked(outs, f)[:, 0]  # noqa: E731
+            return _Front(last("dc_x"), last("dc_y"), last("front_hist"),
+                          last("pfb_hist"), last("parity"), last("prev"),
+                          [[o.demod for o in row] for row in outs],
+                          rssi_from_sums(stacked(outs, "mag_sums"), ns))
+        t_local = self.t_local
+        dcx_in, y_in, dcx_carry, dcy_carry, dc_tail = FH.exact_dc_state(
+            wire3, self.input_format, t_local, DUO_TAIL, st.dc_x, st.dc_y)
+
+        # the outgoing halos from the corrected tail, before the kernel
+        h = self.resamp_hist_len
+        hist_in, rh_carry = FH.shard_pass_right(st.resamp_hist,
+                                                dc_tail[..., -h:])
+        bt = FH.resample_tail(self.duo.front.resampler, dc_tail,
+                              FH.REBUILD_START)
+        pfb_hist_in, ph_carry = FH.shard_pass_right(
+            st.pfb_hist, bt[..., -self.pfb_hist_len:])
+        f_local = t_local * C.RESAMP_L // C.RESAMP_M // NCH
+        par, lsign, new_par = frame_parities(st.frame_parity, n_t, f_local)
+        cand = last_frame_output(bt[..., -PFB_TAPS:].real,
+                                 bt[..., -PFB_TAPS:].imag, lsign)
+        fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev,
+                                                   cand[..., None])
+
+        # K1 with the exact incoming state; its returned carries are the
+        # pre-pass's to f32 rounding, and the rebuilt ones are kept
+        outs = [[run(s, d, dcx_in[s, d], y_in[s, d], hist_in[s, d],
+                     pfb_hist_in[s, d], par[s, d], fm_prev[s, d])
+                 for d in range(n_t)] for s in range(n_s)]
+        return _Front(dcx_carry, dcy_carry, rh_carry, ph_carry, new_par,
+                      fm_carry, [[o.demod for o in row] for row in outs],
+                      rssi_from_sums(stacked(outs, "mag_sums"), ns))
+
+    def _last_samples(self, wire3) -> torch.Tensor:
+        """Each shard's last input sample, c64 [S, D]."""
+        bps = decode.BYTES_PER_SAMPLE[self.input_format]
+        xr, xi = decode.decode_planes(wire3[..., -bps:].reshape(-1),
+                                      self.input_format)
+        return torch.complex(xr, xi).reshape(wire3.shape[:2])
+
+    def _trio_front(self, st: ScannerState, wire3, ns: int) -> _Front:
+        """(b): K6 per shard from zero y and history, the band corrected,
+        then K7 on the corrected band."""
+        n_s, n_t = self.n_stream, self.n_time
+        h, t_local = self.resamp_hist_len, self.t_local
+        xlast = self._last_samples(wire3)
+        dcx_in, dcx_carry = halo.shard_scalar_prev(st.dc_x, xlast[..., None])
+        c64 = dict(dtype=torch.complex64, device=self.device)
+        zy, zh = torch.zeros((), **c64), torch.zeros(h, **c64)
+        fos = [[self.front(wire3[s, d], dcx_in[s, d], zy, zh)
+                for d in range(n_t)] for s in range(n_s)]
+        fc = FH.front_end_consts(t_local, h)
+        y_in, _, dcy_carry, _ = FH.compose_dc_chain(
+            stacked(fos, "dc_y"), xlast, st.dc_y, st.dc_x, fc["p_t1"], 0.0)
+        ramp = FH._device_const(FH.front_end_consts, str(self.device),
+                                "tail_ramp", t_local, h)
+        hist_in, rh_carry = FH.shard_pass_right(
+            st.resamp_hist, stacked(fos, "front_hist") + y_in[..., None] * ramp)
+        band = stacked(fos, "band")                        # [S, D, 2, nb]
+        g_local = band.shape[-1] // (NCH * C.RESAMP_L)
+        bw = band.reshape(n_s, n_t, 2, g_local, NCH * C.RESAMP_L)
+        band = torch.stack([
+            FH.correct_band(bw[:, :, 0], y_in.real, hist_in.real, t_local, h),
+            FH.correct_band(bw[:, :, 1], y_in.imag, hist_in.imag, t_local, h)],
+            dim=2).reshape(band.shape)
+        f_local = band.shape[-1] // NCH
+        par, lsign, new_par = frame_parities(st.frame_parity, n_t, f_local)
+        cand = last_frame_output(band[..., 0, -PFB_TAPS:],
+                                 band[..., 1, -PFB_TAPS:], lsign)
+        fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev,
+                                                   cand[..., None])
+        hl = self.pfb_hist_len
+        pfb_hist_in, ph_carry = FH.shard_pass_right(
+            st.pfb_hist, torch.complex(band[..., 0, -hl:], band[..., 1, -hl:]))
+        outs = [[self.pfb(band[s, d], pfb_hist_in[s, d], par[s, d],
+                          fm_prev[s, d], ns, mag="sums")
+                 for d in range(n_t)] for s in range(n_s)]
+        return _Front(dcx_carry, dcy_carry, rh_carry, ph_carry, new_par,
+                      fm_carry, [[o.demod for o in row] for row in outs],
+                      rssi_from_sums(stacked(outs, "mag"), ns))
+
+    def _plane_front(self, st: ScannerState, wire3, ns: int) -> _Front:
+        """(c): the plain DC blocker over shards, then K9 and K7's plane
+        form per shard."""
+        n_s, n_t = self.n_stream, self.n_time
+        t_local, kl = self.t_local, self.k_local
+        xr, xi = decode.decode_planes(wire3.reshape(-1), self.input_format)
+        x = torch.stack([xr.reshape(n_s, n_t, t_local),
+                         xi.reshape(n_s, n_t, t_local)], dim=2)
+        (ndx, ndy), y = halo.shard_dc_blocker(
+            (torch.view_as_real(st.dc_x), torch.view_as_real(st.dc_y)), x,
+            C.DC_BLOCK_ALPHA)
+        h = self.resamp_hist_len
+        rhist, r_carry = halo.shard_hist(
+            st.resamp_hist, torch.complex(y[..., 0, -h:], y[..., 1, -h:]), h,
+            self.halo_dma)
+        bands = [[self.resampler(rhist[s, d], y[s, d, 0], y[s, d, 1])[1]
+                  for d in range(n_t)] for s in range(n_s)]
+        # a shard's band (>= 19,600 samples) holds its whole last frame
+        tails = torch.stack([torch.stack([b[:, -PFB_TAPS:] for b in row])
+                             for row in bands])            # [S, D, 2, 416]
+        hl = self.pfb_hist_len
+        phist, p_carry = halo.shard_hist(
+            st.pfb_hist, torch.complex(tails[..., 0, -hl:],
+                                       tails[..., 1, -hl:]), hl,
+            self.halo_dma)
+        f_local = bands[0][0].shape[-1] // NCH
+        par, lsign, new_par = frame_parities(st.frame_parity, n_t, f_local)
+        cand = last_frame_output(tails[..., 0, :], tails[..., 1, :], lsign)
+        fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev,
+                                                   cand[..., None])
+        outs = [[self.pfb(bands[s][d], phist[s, d], par[s, d], fm_prev[s, d],
+                          ns, mag="plane")
+                 for d in range(n_t)] for s in range(n_s)]
+        rssi = torch.stack([torch.stack([subchunk_rssi(o.mag, kl)
+                                         for o in row]) for row in outs])
+        return _Front(torch.complex(ndx[..., 0], ndx[..., 1]),
+                      torch.complex(ndy[..., 0], ndy[..., 1]), r_carry,
+                      p_carry, new_par, fm_carry,
+                      [[o.demod for o in row] for row in outs], rssi)
+
+    # --------------------------------------------------------------- step
+    def step(self, state: ScannerState, wire: torch.Tensor,
+             params: RuntimeParams):
+        """One block step of every stream: ``wire`` uint8 [S, step_arg_len]
+        on the chain's device.  Returns (state', StepOutputs [S, K, ...])."""
+        wire3 = time_shards(wire, self.mesh, self.step_arg_len)
+        ns = C.SUBCHUNK_AUDIO
+        n_s, n_t, kl = self.n_stream, self.n_time, self.k_local
+        k = self.block.subchunks_per_step
+        if self.fused_duo:
+            fr = self._duo_front(state, wire3, ns)
+        elif self.fused:
+            fr = self._trio_front(state, wire3, ns)
+        else:
+            fr = self._plane_front(state, wire3, ns)
+        rssi_all = fr.rssi.reshape(n_s, k, NCH)
+        ha = self.audio_bank.hist
+        ah_tails = torch.stack([torch.stack([dm[:, -ha:] for dm in row])
+                                for row in fr.demod])
+        ah_local, ah_carry = halo.shard_hist(state.audio_hist, ah_tails, ha)
+        carries = [FsmCarry(state.fsm_state[s], state.active_chan[s],
+                            state.rssi[s], state.ct_count[s],
+                            state.ct_carry[s], state.ct_detected[s],
+                            state.ct_max_idx[s], state.ct_freq[s])
+                   for s in range(n_s)]
+        res = []
+        if self.fused:
+            # 7a. phase A per stream on the gathered RSSI
+            scheds = [fsm_phase_a(carries[s], rssi_all[s],
+                                  params.channel_mask, params.squelch_level,
+                                  params.lock_max, ns) for s in range(n_s)]
+            sel = torch.stack([torch.clamp(sc.act2, 0, NCH - 1)
+                               for sc in scheds]).to(torch.int32)
+            b_arr = torch.stack([sc.b_arr for sc in scheds]).to(torch.int32)
+            sel3 = sel.reshape(n_s, n_t, kl)
+            b3 = b_arr.reshape(n_s, n_t, kl)
+            # 6. K2 per shard from a zero lp-DC state; its zero-state error
+            # in the tone sums is delta * zeta^pos, added back exactly
+            z16 = torch.zeros(NCH, dtype=torch.float32, device=self.device)
+            banks = [[self.audio_bank(ah_local[s, d], z16, z16, fr.demod[s][d],
+                                      params.audio_gain, b3[s, d], sel3[s, d],
+                                      ns)
+                      for d in range(n_t)] for s in range(n_s)]
+            cc = FH.ctcss_corr_consts(kl, ns)
+            _, delta_lp, lpy_carry, lpx_carry = FH.compose_dc_chain(
+                stacked(banks, "dc_y"), stacked(banks, "dc_x"),
+                state.lp_dc_y, state.lp_dc_x, cc["p_t1"], FH._G)
+            delta_sel = torch.gather(delta_lp, 2, sel3.long())
+            pre, mem = FH.correct_raw_sums(
+                stacked(banks, "raw_pre"), stacked(banks, "raw_mem"),
+                delta_sel, b3, kl, ns)
+            audio = [[b.audio for b in row] for row in banks]
+            for s in range(n_s):
+                # 7b. the gathered tone sums; each shard's kernel phase
+                # restarts at its own sample 0 (period = K_local)
+                s_pre, s_suf = raw_sums_to_ctcss(
+                    scheds[s], pre[s].reshape(k, -1), mem[s].reshape(k, -1),
+                    ns, period=kl)
+                res.append(fsm_phase_c(carries[s], scheds[s], s_pre, s_suf))
+        else:
+            # 6. K8 apply per shard, the lp DC blocker over the shards
+            banks = [[self.audio_bank.apply(ah_local[s, d], fr.demod[s][d],
+                                            params.audio_gain)
+                      for d in range(n_t)] for s in range(n_s)]
+            (lpx_carry, lpy_carry), lp_dcb = halo.shard_dc_blocker(
+                (state.lp_dc_x, state.lp_dc_y), stacked(banks, "lp"),
+                C.DC_BLOCK_ALPHA)
+            audio = [[b.audio for b in row] for row in banks]
+            for s in range(n_s):
+                lp_cm = lp_dcb[s].transpose(0, 1).reshape(NCH, k, ns)
+                res.append(fsm_ctcss_scan_v3(
+                    carries[s], rssi_all[s], None, params.channel_mask,
+                    params.squelch_level, params.lock_max, lp_cm=lp_cm))
+
+        # 8. each stream's selected audio
+        ks = torch.arange(k, device=self.device)
+        outputs = []
+        for s, (carry_out, fo) in enumerate(res):
+            sel_s = torch.clamp(fo.active_chan, 0, NCH - 1).long()
+            a_s = torch.cat(audio[s], dim=-1).reshape(NCH, k, ns)
+            outputs.append(StepOutputs(
+                audio=a_s[sel_s, ks], audio_valid=fo.active_chan >= 0,
+                active_chan=fo.active_chan, rel_rssi=fo.rel_rssi,
+                rssi_db=rssi_all[s], ev_tuned=fo.ev_tuned,
+                ev_detuned=fo.ev_detuned, ev_changed=fo.ev_changed,
+                ev_prev_chan=fo.ev_prev_chan, ev_new_chan=fo.ev_new_chan,
+                ct_detected=fo.ct_detected, ct_max_idx=fo.ct_max_idx,
+                ct_freq=fo.ct_freq, ev_ct_acquired=fo.ev_ct_acquired,
+                ev_ct_changed=fo.ev_ct_changed, ev_ct_lost=fo.ev_ct_lost,
+                waterfall=torch.zeros((k, 0), dtype=torch.float32,
+                                      device=self.device)))
+        out = StepOutputs(*(torch.stack(v) for v in zip(*outputs)))
+        fsm = FsmCarry(*(torch.stack(v) for v in zip(*(c for c, _ in res))))
+        new_state = state._replace(
+            dc_x=fr.dc_x, dc_y=fr.dc_y, resamp_hist=fr.resamp_hist,
+            pfb_hist=fr.pfb_hist, frame_parity=fr.parity,
+            demod_prev=fr.prev, lp_dc_x=lpx_carry, lp_dc_y=lpy_carry,
+            audio_hist=ah_carry,
+            fsm_state=fsm.fsm_state, active_chan=fsm.active_chan,
+            rssi=fsm.rssi, ct_count=fsm.ct_count, ct_carry=fsm.ct_carry,
+            ct_detected=fsm.ct_detected, ct_max_idx=fsm.ct_max_idx,
+            ct_freq=fsm.ct_freq)
+        return ScannerState(*(v.contiguous() for v in new_state)), out

@@ -17,6 +17,12 @@ The dsd_in and single-channel chains carry the JAX mono engine's layouts
 (scanner/dsd_in.py::DsdState, scanner/single.py::SingleState); their numpy
 conversions below take and give the fields in PallasDsdState /
 PallasSingleState order, so states pass between the packages both ways.
+
+The time-sharded chains (parallel/) carry S streams' states at once: each
+field of the same NamedTuple with a leading [S] dim (``stack_state``), the
+layout of a JAX sharded chain's ``init_state(S)``.  The numpy conversions
+take and give such a state unchanged, so a sharded state passes between
+the packages both ways too.
 """
 
 from __future__ import annotations
@@ -97,6 +103,13 @@ def init_scanner_state(resamp_hist_len: int, pfb_hist_len: int,
         wf_hist=torch.zeros(max(waterfall, 0) // 2, **c64),
         wf_cnt=torch.zeros((), **i32),
     )
+
+
+def stack_state(state, n_streams: int):
+    """``state`` repeated for ``n_streams`` streams: every field of the same
+    NamedTuple with a leading [S] dim (a sharded chain's state)."""
+    return type(state)(*(v.unsqueeze(0).repeat((n_streams,) + (1,) * v.dim())
+                         for v in state))
 
 
 def state_to_numpy(state: ScannerState) -> list[np.ndarray]:

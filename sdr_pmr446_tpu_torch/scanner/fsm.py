@@ -105,9 +105,12 @@ def _count_phasor_table() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _window_corr_table(k: int, ns: int) -> np.ndarray:
-    """corr[k, t] = e^{+j w_t ns k}: undoes the kernel sums' global phase."""
-    idx = np.arange(k)
+def _window_corr_table(k: int, ns: int, period: int | None = None
+                       ) -> np.ndarray:
+    """corr[k, t] = e^{+j w_t ns (k mod period)}: undoes the kernel sums'
+    global phase.  ``period`` covers time-sharded kernel sums, whose sample
+    index restarts at 0 every K_local sub-chunks (parallel/)."""
+    idx = np.arange(k) if period is None else np.arange(k) % period
     return np.exp(1j * np.outer(idx * float(ns), _tone_omegas())
                   ).astype(np.complex64)
 
@@ -315,13 +318,16 @@ def fsm_tone_sums(sched: FsmSchedule, lp: torch.Tensor | None,
 
 
 def raw_sums_to_ctcss(sched: FsmSchedule, raw_pre: torch.Tensor,
-                      raw_mem: torch.Tensor, ns: int):
+                      raw_mem: torch.Tensor, ns: int,
+                      period: int | None = None):
     """(s_pre, s_suf) [K, 38] c64 from the audio-bank kernel's global-phase
     sums: applies the sub-chunk window phase (corr), the carried in-window
-    phase (u) and the window wrap factor."""
+    phase (u) and the window wrap factor.  ``period`` = K_local for the
+    gathered sums of a time-sharded step (each shard's kernel phase starts
+    at its own sample 0)."""
     k = raw_pre.shape[0]
     dev = str(raw_pre.device)
-    corr = _device_table("corr", dev, k, ns)
+    corr = _device_table("corr", dev, k, ns, period)
     u_t = _device_table("u_t", dev)
     wrap = _device_table("wrap", dev)
     cu = corr * u_t[sched.cnt_r.long()]

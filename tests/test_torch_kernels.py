@@ -438,3 +438,53 @@ def test_chan_tail_kernel_matches_plain_on_card(mode, fmt, k):
         fe_st = list(fe[:3])
         ref, n0_ref = list(r[:3]), r.n0
         got, n0_got = list(g[:3]), g.n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["cu8", "cs8", "cs16", "cf32"])
+def test_zero_summary_kernel_matches_plain_on_card(fmt):
+    """K10 vs its plain version on the wire of 4 streams x 5 shards at K = 8
+    a shard (one launch): w within 1e-5 of its peak (128-term f32 sums in
+    another order), xl exact."""
+    from sdr_pmr446_tpu_torch.kernels import summary
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(5)
+    n = 4 * 40 * C.SUBCHUNK_IN
+    x = 0.3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    wire = torch.as_tensor(decode.quantize_iq(x, fmt), device=dev)
+    launches = summary.LAUNCHES
+    w, xl = summary.zero_summary_wire(wire, fmt)
+    wr, xr = summary.zero_summary_plain(wire, fmt)
+    torch.cuda.synchronize(dev)
+    assert summary.LAUNCHES == launches + 1
+    assert w.shape == xl.shape == (2, n // 128)
+    assert rel_err(w.cpu().numpy(), wr.cpu().numpy()) <= 1e-5
+    assert torch.equal(xl, xr)
+
+
+@pytest.mark.cuda
+def test_ring_shift_kernel_matches_roll_on_card():
+    """K11 vs torch.roll, bit for bit: complex and real tails, contiguous
+    and as slices of longer planes (per-shard strides), and
+    halo.shard_hist with dma == without."""
+    from sdr_pmr446_tpu_torch.kernels import halo_dma
+    from sdr_pmr446_tpu_torch.parallel import halo
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(0)
+    planes = torch.randn(4, 4, 1000, dtype=torch.complex64, device=dev,
+                         generator=g)
+    cases = [planes[..., -345:], planes[..., -400:].contiguous(),
+             torch.randn(2, 3, 17, 5, device=dev, generator=g),
+             torch.randn(3, 2, 7, dtype=torch.float64, device=dev,
+                         generator=g)]
+    for t in cases:
+        launches = halo_dma.LAUNCHES
+        got = halo_dma.ring_shift_right(t)
+        torch.cuda.synchronize(dev)
+        assert halo_dma.LAUNCHES == launches + 1
+        assert torch.equal(got, torch.roll(t, 1, dims=1)), tuple(t.shape)
+    carried = torch.randn(4, 345, dtype=torch.complex64, device=dev,
+                          generator=g)
+    for a, b in zip(halo.shard_hist(carried, planes, 345, dma=True),
+                    halo.shard_hist(carried, planes, 345)):
+        assert torch.equal(a, b)
