@@ -99,10 +99,36 @@ on its own lines; any failure raises and ends the run:
      of the path is held against its plain version on the inputs one step
      of the path gave it (every shard: K_local = 8 for K1, K2, K4, K6 and
      K7 sums, 10 for K9, K7 plane and K8), field by field (PATH_GATES).
+ 14. K12, the probes: (a) the two probe tools through their entry points
+     (tools/probe_precision.py, tools/probe_layout.py: main()), with the
+     launch counts set to 0 just before and read just after (each mode
+     and each move once); (b) the precision readings: the kernel's ffma =
+     3xtf32 = 256.0625 and tf32 = 256.0 exactly, torch.matmul and F.conv1d
+     under the TF32-off policy 256.0625 exactly, their TF32-on readings
+     printed, both switches restored; (c) K12b's three modes against their
+     plain versions on seeded random [128, 256] x [256, 128] inputs (within
+     1e-5 of the output's peak), with their times beside torch.matmul's
+     (the library yardstick, never called by a mode); (d) K12a's eight
+     moves bit for bit against their plain versions, with their times.
+ 15. faithful mode (scanner/faithful.py, no kernel of its own: plain ops on
+     the card) at K = 10 on tests/test_faithful.py's busy scenario (tune,
+     a lock_mode max switch, a detune, CTCSS): against the float64 oracle
+     through every transition (active trace exact, audio SNR > 60 dB, peak
+     error < 2e-2, the detector's final state), decisions equal to the
+     port's CPU run, one step with host reads made errors, throughput in
+     Msamples/s, one step under torch.profiler; no kernel launches.
+ 16. the driver on the card at K = 40, cu8, over 4 distinct blocks: an
+     uninterrupted run with metrics (one JSONL record a sub-chunk, the JAX
+     keys), a run with a checkpoint every block stopped by request_stop()
+     after 2 blocks (the final flush), and a restore from that checkpoint
+     that runs the rest: decisions, events and audio of the two parts
+     equal to the uninterrupted run's bit for bit; K1 and K2 launched once
+     a step.
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
 scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
-switched engines of 12(b), each sharded path of 13) runs with the launch
+switched engines of 12(b), each sharded path of 13, the probe tools of
+14, faithful mode in 15, the driver's runs in 16) runs with the launch
 counts set to 0 just before it and read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
@@ -148,6 +174,10 @@ TOL_WF_ORACLE_DB = 1e-2        # -w rows vs the float64 oracle (tests/test_drive
 WIDE_WF = 4096                 # K3 widths also held to the float64 oracle
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+PEAK_TF32_OPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
+TOL_PROBE_REL = 1e-5           # K12b modes vs their plain versions, of the
+#                                output's peak: f32 sums in another order
+TOL_FAITHFUL_DB = 60.0         # faithful audio vs the oracle (tests/test_faithful.py:50-72)
 ATAN2_OPS = 20                 # operations counted for one atan2f / sincos
 FFT16_OPS = 5 * 16 * 4         # one 16-point complex FFT (5 N log2 N)
 
@@ -230,11 +260,13 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = PEAK_F32_OPS_PER_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
+    operations over their peak rate (f32 unless given), whichever is
+    larger."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -2383,6 +2415,273 @@ def phase_sharded(dev, sync, timer):
     return [k10_row, k11_row], bench
 
 
+def phase_probes(dev, timer, reps: int = REPS):
+    """Phase 14: the probe tools through their entry points (launch counts
+    0 before, read after), the readings, then K12b's modes and K12a's
+    moves against their plain versions with their times.  Returns the
+    K12 rows."""
+    import torch
+    from sdr_pmr446_tpu_torch import precision
+    from sdr_pmr446_tpu_torch.kernels import probe_layout as K12a
+    from sdr_pmr446_tpu_torch.kernels import probe_precision as K12b
+    from sdr_pmr446_tpu_torch.tools import probe_layout as layout_tool
+    from sdr_pmr446_tpu_torch.tools import probe_precision as precision_tool
+
+    log("  (a) the probe tools (main(), the K12 path)")
+    for counts in (K12b.LAUNCHES, K12a.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+    rc_p = precision_tool.main([])
+    rc_l = layout_tool.main([])
+    launches = {**K12b.LAUNCHES, **K12a.LAUNCHES}
+    log(f"  tools exited {rc_p} and {rc_l}; launches {launches}")
+    check(rc_p == 0 and rc_l == 0, "probe tools exit 0")
+    for name, n in launches.items():
+        check(n == 1, f"K12 {name} launched {n} times by its tool")
+
+    log("  (b) the precision readings")
+    want = {("kernel", "ffma"): K12b.EXACT, ("kernel", "tf32"): K12b.ROUNDED,
+            ("kernel", "3xtf32"): K12b.EXACT,
+            ("matmul", "policy"): K12b.EXACT, ("conv1d", "policy"): K12b.EXACT}
+    readings = precision_tool.readings(dev)
+    for r in readings:
+        log(f"  {r.path} {r.mode}: {r.value!r} -> {r.verdict}")
+        if (r.path, r.mode) in want:
+            check(r.value == want[(r.path, r.mode)],
+                  f"{r.path} {r.mode} read {r.value!r}")
+    precision.check()          # both TF32 switches restored (off)
+
+    log("  (c) K12b's modes vs their plain versions, random inputs")
+    rng = np.random.default_rng(14)
+    ins = [tuple(torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32), device=dev) for shape in ((128, 256), (256, 128)))
+        for _ in range(reps)]
+    m, k = ins[0][0].shape
+    n = ins[0][1].shape[1]
+    nbytes = 4 * (m * k + k * n + m * n)
+    flops = 2 * m * n * k
+    rows = []
+    for mode in K12b.MODES:
+        a, b = ins[0]
+        got = K12b.probe_dot_kernel(a, b, mode)
+        plain = K12b.probe_dot_plain(a, b, mode)
+        torch.cuda.synchronize(dev)
+        err = max_err(got, plain)
+        rel_err = err / peak(plain)
+        check(rel_err < TOL_PROBE_REL, f"K12b {mode} rel err {rel_err:.3g}")
+        t_k = timed(timer, lambda x, y: K12b.probe_dot_kernel(x, y, mode),
+                    ins)
+        t_p = timed(timer, lambda x, y: K12b.probe_dot_plain(x, y, mode),
+                    ins)
+        with precision.tf32_switches(False, False):
+            t_lib = timed(timer, torch.matmul, ins)
+        b_ = (bound(nbytes, flops) if mode == "ffma" else bound(
+            nbytes, flops * (1 if mode == "tf32" else 3),
+            PEAK_TF32_OPS_PER_S))
+        log(f"  K12b {mode}: max|err| {err:.3g} ({rel_err:.3g} of the peak); "
+            f"times (ms) kernel {t_k:.4f}, plain {t_p:.4f}, torch.matmul "
+            f"{t_lib:.4f}, bound {b_['bound_ms']:.6f} ({b_['bound_by']})")
+        rows.append({"name": f"probe_dot_{mode}", "route": "cuda",
+                     "source": "sdr_pmr446_tpu_torch/csrc/probe_precision.cu",
+                     "replaces": "tools/probe_precision.py:37",
+                     "launches": launches[mode], "max_abs_err": err,
+                     "ms": t_k, "plain_ms": t_p, **b_, "library_ms": t_lib})
+
+    log("  (d) K12a's moves vs their plain versions, bit for bit")
+    library = {"scratch_read_off16": lambda x: x[:, 16:144].contiguous(),
+               "scratch_read_narrow": lambda x: x[:, 16:32].contiguous(),
+               "value_lane_off16": lambda x: x[:, 16:144].contiguous(),
+               "value_stride_sub": lambda x: x[0::16, :].contiguous(),
+               "reshape_rows_wide": lambda x: torch.reshape(x, (8, 2048)),
+               "reshape_25_16": lambda x: torch.reshape(x, (200, 16)),
+               "transpose_16": lambda x: x.T.contiguous()}
+    for move, (shape_in, shape_out) in K12a.MOVES.items():
+        ins = [(torch.as_tensor(rng.standard_normal(shape_in).astype(
+            np.float32), device=dev),) for _ in range(reps)]
+        got = K12a.probe_move_kernel(ins[0][0], move)
+        plain = K12a.probe_move_plain(ins[0][0], move)
+        torch.cuda.synchronize(dev)
+        check(layout_tool.bits_equal(got, plain), f"K12a {move} bit for bit")
+        t_k = timed(timer, lambda x: K12a.probe_move_kernel(x, move), ins)
+        t_p = timed(timer, lambda x: K12a.probe_move_plain(x, move), ins)
+        t_lib = (timed(timer, library[move], ins) if move in library
+                 else None)
+        b_ = bound(4 * (math.prod(shape_in) + math.prod(shape_out)), 0)
+        lib = "none" if t_lib is None else f"{t_lib:.4f}"
+        log(f"  K12a {move}: == plain bit for bit; times (ms) kernel "
+            f"{t_k:.4f}, plain {t_p:.4f}, library {lib}, bound "
+            f"{b_['bound_ms']:.7f} ({b_['bound_by']})")
+        rows.append({"name": f"probe_layout_{move}", "route": "cuda",
+                     "source": "sdr_pmr446_tpu_torch/csrc/probe_layout.cu",
+                     "replaces": "tools/probe_layout.py:48",
+                     "launches": launches[move], "max_abs_err": 0.0,
+                     "ms": t_k, "plain_ms": t_p, **b_, "library_ms": t_lib})
+    return rows
+
+
+@functools.lru_cache(maxsize=None)
+def busy_scenario() -> np.ndarray:
+    """tests/test_faithful.py::_busy_scenario: ch3 with CTCSS 20 tunes, a
+    stronger ch7 appears (lock_mode max switches), silence detunes, ch5
+    with CTCSS 12; 60 sub-chunks, complex128."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import synth
+    n1 = 15 * C.SUBCHUNK_IN
+    seg1 = synth.make_scanner_iq(n1, channel=3, ctcss_code=20, seed=1)
+    seg2a = synth.make_scanner_iq(n1, channel=3, amplitude=0.4,
+                                  ctcss_code=20, seed=2, start_sample=n1)
+    seg2b = synth.make_scanner_iq(n1, channel=7, amplitude=1.0,
+                                  tone_hz=700.0, seed=3, start_sample=n1)
+    rng = np.random.default_rng(4)
+    seg3 = 1e-3 * (rng.standard_normal(n1) + 1j * rng.standard_normal(n1))
+    seg4 = synth.make_scanner_iq(n1, channel=5, ctcss_code=12, seed=5,
+                                 start_sample=3 * n1)
+    return np.concatenate([seg1, seg2a + seg2b, seg3, seg4])
+
+
+def run_faithful(chain, params, blocks, sync_debug_step: int = -1):
+    """Every block through the faithful chain; the outputs on the host.
+    Block ``sync_debug_step`` runs under set_sync_debug_mode("error")."""
+    import torch
+    st, outs = chain.init_state(), []
+    for i, blk in enumerate(blocks):
+        iq = torch.from_numpy(blk).to(chain.device)
+        if i == sync_debug_step:
+            torch.cuda.synchronize(chain.device)
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, o = chain.step(st, iq, params)
+        finally:
+            if i == sync_debug_step:
+                torch.cuda.set_sync_debug_mode("default")
+        outs.append(o)
+    return {f: np.concatenate([as_np(getattr(o, f)) for o in outs])
+            for f in outs[0]._fields}
+
+
+def phase_faithful(dev, k: int, sync):
+    """Phase 15: faithful mode on the card vs the float64 oracle and the
+    CPU run, throughput.  Returns the throughput record."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.oracle.chain import ScannerOracle
+    from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
+    from sdr_pmr446_tpu_torch.scanner.faithful import FaithfulScannerChain
+    iq = busy_scenario()
+    args = C.ScannerArgs(lock_mode="max")
+    chain = FaithfulScannerChain(k, device=dev)
+    n_blocks = len(iq) // chain.input_len
+    blocks = [iq[i * chain.input_len:(i + 1) * chain.input_len].astype(
+        np.complex64) for i in range(n_blocks)]
+    params = make_runtime_params(args, dev)
+    run_faithful(chain, params, blocks[:1])           # warm-up
+    sync()
+    t0 = time.perf_counter()
+    got = run_faithful(chain, params, blocks)
+    sync()
+    sec = time.perf_counter() - t0
+    n_samp = n_blocks * chain.input_len
+    msps = n_samp / sec / 1e6
+    rt = n_samp / C.SDR_SAMPLERATE / sec
+    log(f"  faithful K={k}, {n_blocks} blocks ({n_samp / C.SDR_SAMPLERATE:.2f}"
+        f" s of radio): {sec * 1e3:.1f} ms, {msps:.2f} Msamples/s, {rt:.1f}x "
+        f"real time")
+    ora = ScannerOracle(args)
+    ora.process(iq)
+    check(np.array_equal(got["active_chan"], np.asarray(ora.active_trace)),
+          f"faithful active trace {got['active_chan']} vs the oracle's")
+    kinds = [e.kind for e in ora.events]
+    check("tuned" in kinds and "changed" in kinds and "detuned" in kinds,
+          f"the busy scenario's events {kinds}")
+    valid = got["audio_valid"]
+    audio = got["audio"][valid].ravel()
+    ora_audio = np.concatenate(ora.audio)
+    check(audio.shape == ora_audio.shape, "faithful audio length")
+    snr = snr_db(ora_audio, audio)
+    err = float(np.max(np.abs(audio - ora_audio)))
+    check(snr > TOL_FAITHFUL_DB and err < 2e-2,
+          f"faithful audio vs oracle {snr:.1f} dB, max|err| {err:.3g}")
+    check(bool(ora.goertzel.tone_detected) == bool(got["ct_detected"][-1])
+          and ora.goertzel.max_power_index == got["ct_max_idx"][-1],
+          "faithful detector state vs the oracle's")
+    cpu = run_faithful(FaithfulScannerChain(k, device="cpu"),
+                       make_runtime_params(args, "cpu"), blocks)
+    for f in ("active_chan", "audio_valid", "ct_detected", "ct_max_idx"):
+        check(np.array_equal(got[f], cpu[f]), f"faithful {f} vs the CPU run")
+    cpu_snr = snr_db(cpu["audio"][valid].ravel(), audio)
+    run_faithful(chain, params, blocks[:2], sync_debug_step=1)
+    log(f"  vs the oracle: active trace exact, events {kinds}, audio SNR "
+        f"{snr:.1f} dB, max|err| {err:.3g}; decisions == the CPU run, audio "
+        f"SNR vs CPU {cpu_snr:.1f} dB; a step under set_sync_debug_mode("
+        f"'error'): no host reads")
+    st, _ = chain.step(chain.init_state(), torch.from_numpy(blocks[0]).to(
+        dev), params)
+    sync()
+
+    def step():
+        _, o = chain.step(st, torch.from_numpy(blocks[1]).to(dev), params)
+        o.audio.cpu()
+    profile_step(step, sync, (("copies", ("Memcpy", "Memset")),),
+                 "ops (front end, per-sub-chunk loop)", by_kernel=True)
+    return {"faithful": {"msamples_per_s": msps, "realtime_x": rt,
+                         "seconds": sec}}
+
+
+def phase_driver_checkpoint(dev, k: int, n_blocks: int):
+    """Phase 16: ScannerDriver with metrics, a stopped run with a
+    checkpoint every block, and its resume, against the uninterrupted run.
+    Returns the steps run."""
+    import os
+    import tempfile
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
+    blocks = bench_blocks(k, n_blocks)
+    make = lambda **kw: ScannerDriver(subchunks_per_step=k,
+                                      input_format="cu8", device=dev, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        full = make(metrics_path=metrics).run(blocks)
+        with open(metrics) as f:
+            recs = [json.loads(line) for line in f]
+        keys = {"subchunk", "active_chan", "rel_rssi", "rssi_db",
+                "ctcss_detected", "ctcss_code", "events"}
+        check(len(recs) == n_blocks * k, f"{len(recs)} metrics records")
+        check(all(set(r) == keys for r in recs), "metrics keys")
+        check([r["subchunk"] for r in recs] == list(range(n_blocks * k)),
+              "metrics sub-chunk indices")
+        check(sum((r["events"] for r in recs), []) == full.events,
+              "metrics events")
+        ckpt = os.path.join(tmp, "state.npz")
+        stop_at = n_blocks // 2
+        first = make(checkpoint_path=ckpt, checkpoint_every=1)
+        # block j drains after block j + 1 is dispatched: a stop asked in
+        # block stop_at - 2's drain ends the run after block stop_at - 1
+        first.on_subchunk = (lambda sub, o: first.request_stop()
+                             if sub == (stop_at - 1) * k - 1 else None)
+        part1 = first.run(blocks)
+        check(first.stopped and first.block_index == stop_at,
+              f"stopped at block {first.block_index}, wanted {stop_at}")
+        second = make(checkpoint_path=ckpt)
+        check(second.restore() == stop_at, "restored block index")
+        part2 = second.run(blocks)
+    for name in ("active_trace", "ct_detected", "ct_max_idx", "audio",
+                 "audio_subchunks", "rssi_trace", "rel_rssi"):
+        got = np.concatenate([getattr(part1, name), getattr(part2, name)])
+        want = getattr(full, name)
+        check(got.shape == want.shape, f"stop + resume {name} shape "
+              f"{got.shape} vs {want.shape}")
+        diff = (np.abs(got.astype(np.float64) - want).max() if got.size
+                else 0.0)
+        check(np.array_equal(got, want), f"stop + resume {name} vs the "
+              f"uninterrupted run: max|diff| {diff:.3g}")
+    check(part1.events + part2.events == full.events, "stop + resume events")
+    log(f"  K={k}, {n_blocks} blocks: {len(recs)} metrics records with the "
+        f"JAX keys; stopped after block {stop_at} (final flush), resumed: "
+        f"decisions, events, RSSI and audio == the uninterrupted run bit for "
+        f"bit; events {full.events}")
+    return n_blocks + stop_at + (n_blocks - stop_at)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2560,6 +2859,32 @@ def main() -> int:
     sharded_rows, sbench = phase_sharded(dev, sync, cuda_timer)
     bench.update(sbench)
     rows += sharded_rows
+
+    t14 = time.perf_counter()
+    log("phase 14: K12, the layout and f32-contraction probes")
+    rows += phase_probes(dev, cuda_timer)
+    t15 = time.perf_counter()
+    from sdr_pmr446_tpu_torch.kernels import halo_dma, summary
+    kernel_mods = (duo, audio_bank, front_end, pfb_demod, resample_kernel,
+                   chan_tail, waterfall, summary, halo_dma)
+    for mod in kernel_mods:
+        mod.LAUNCHES = 0
+    log("phase 15: faithful mode (K=10) vs the oracle and the CPU run")
+    bench.update(phase_faithful(dev, 10, sync))
+    fl = {mod.__name__.split(".")[-1]: mod.LAUNCHES for mod in kernel_mods}
+    log(f"  kernel launches over faithful mode: {fl}")
+    check(not any(fl.values()), "faithful mode launched a kernel")
+    t16 = time.perf_counter()
+    log("phase 16: the driver's metrics, checkpoint, stop and resume "
+        "(K=40, cu8)")
+    duo.LAUNCHES = audio_bank.LAUNCHES = 0
+    dsteps = phase_driver_checkpoint(dev, 40, 4)
+    dl = {"K1": duo.LAUNCHES, "K2": audio_bank.LAUNCHES}
+    log(f"  launches over the driver's {dsteps} steps: {dl}")
+    check(dl["K1"] == dl["K2"] == dsteps, "K1 / K2 launches in phase 16")
+    log(f"  phases 14-16 took {time.perf_counter() - t14:.1f} s (14 "
+        f"{t15 - t14:.1f}, 15 {t16 - t15:.1f}, 16 "
+        f"{time.perf_counter() - t16:.1f})")
     log(f"  the run {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))

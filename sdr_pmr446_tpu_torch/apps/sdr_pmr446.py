@@ -4,14 +4,20 @@ Counterpart of sdr_pmr446_tpu/apps/sdr_pmr446.py with the flags of the
 ported slice: -g/--gain, -s/--squelch, -w/--waterfall, -l/--lowpass,
 -m/--mask, -a/--audio-gain, -p/--lock-mode, --fir-deemph, --input,
 --input-format, --device-decode, --output (WAV), --seconds,
---subchunks-per-step and --device (cuda: the kernels, cpu: their plain
-versions).  With -w W each sub-chunk prints its ASCII waterfall line and
-the channel footer (the reference's terminal UI) on stdout.  SIGTERM and
-SIGQUIT stop the scan at the next block boundary and the partial WAV is
-written (exit 0); SIGUSR1 does nothing; an interrupt (SIGINT) exits 130.
-Flags of parts not yet ported (-b, --faithful, --steps-per-dispatch,
---checkpoint*, --resume, rtl_tcp:// inputs, --output live) exit with a
-"not yet ported" error instead of being ignored.
+--subchunks-per-step, --faithful, --checkpoint, --checkpoint-every,
+--checkpoint-backend npz, --resume and --device (cuda: the kernels, cpu:
+their plain versions).  With -w W each sub-chunk prints its ASCII
+waterfall line and the channel footer (the reference's terminal UI) on
+stdout.  SIGTERM and SIGQUIT stop the scan at the next block boundary,
+flush a final checkpoint (with --checkpoint) and write the partial WAV
+(exit 0); SIGUSR1 does nothing; an interrupt (SIGINT) exits 130.
+--faithful runs the validation chain (scanner/faithful.py) on the
+capture decoded to complex64; with --device-decode it exits 1, as in JAX.
+--resume without --checkpoint, or from a missing or unreadable
+checkpoint, exits 1.  Flags of parts not yet ported (-b,
+--steps-per-dispatch, --checkpoint-backend orbax, rtl_tcp:// inputs,
+--output live) exit with a "not yet ported" error instead of being
+ignored.
 
     python -m sdr_pmr446_tpu_torch.apps.sdr_pmr446 --input cap.cu8 -w 120
 """
@@ -22,14 +28,18 @@ import argparse
 import logging
 import signal
 import sys
+import zipfile
 
 import numpy as np
+import torch
 
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.io import iq as iq_io
 from sdr_pmr446_tpu_torch.io import synth, wav
 from sdr_pmr446_tpu_torch.ops import decode, spectrogram
 from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver, wire_blocks
+from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
+from sdr_pmr446_tpu_torch.scanner.faithful import FaithfulScannerChain
 from sdr_pmr446_tpu_torch.ui import waterfall as wf_ui
 
 FORMATS = "cf32 fc32 cs16 sc16 cs8 cu8 rtlsdr".split()
@@ -78,14 +88,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: 'cuda' runs the CUDA kernels, 'cpu' "
                         "their plain PyTorch versions (default: cuda; "
                         "without a CUDA device the run exits 1)")
+    p.add_argument("--faithful", action="store_true",
+                   help="the faithful gated audio path (validation mode, "
+                        "exact reference semantics through transitions)")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="checkpoint file (.npz): periodically persist "
+                        "(block index, state) for --resume")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="blocks between checkpoints (with --checkpoint)")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
+                   default="npz",
+                   help="checkpoint format; the port writes npz only")
+    p.add_argument("--resume", action="store_true",
+                   help="restore --checkpoint and continue mid-capture")
     # parts of the JAX app that this package does not have yet
     p.add_argument("-b", "--audio-api", type=str, default=None)
-    p.add_argument("--faithful", action="store_true")
     p.add_argument("--steps-per-dispatch", type=int, default=1)
-    p.add_argument("--checkpoint", type=str, default=None)
-    p.add_argument("--checkpoint-every", type=int, default=None)
-    p.add_argument("--checkpoint-backend", type=str, default=None)
-    p.add_argument("--resume", action="store_true")
     return p
 
 
@@ -94,15 +112,10 @@ def _unported(ns) -> list[str]:
     found = []
     if ns.audio_api is not None:
         found.append("-b/--audio-api")
-    if ns.faithful:
-        found.append("--faithful")
     if ns.steps_per_dispatch != 1:
         found.append("--steps-per-dispatch")
-    for flag in ("checkpoint", "checkpoint_every", "checkpoint_backend"):
-        if getattr(ns, flag) is not None:
-            found.append("--" + flag.replace("_", "-"))
-    if ns.resume:
-        found.append("--resume")
+    if ns.checkpoint_backend == "orbax":
+        found.append("--checkpoint-backend orbax (a JAX library)")
     if ns.input and ns.input.startswith("rtl_tcp://"):
         found.append("rtl_tcp:// input")
     if ns.output == "live":
@@ -150,6 +163,13 @@ def main(argv=None) -> int:
         logging.error("--device-decode needs a capture FILE (synthetic "
                       "inputs have no wire bytes to ship)")
         return 1
+    if ns.device_decode and ns.faithful:
+        logging.error("--device-decode is not available with --faithful "
+                      "(the validation chain takes complex64 input)")
+        return 1
+    if ns.resume and not ns.checkpoint:
+        logging.error("--resume needs --checkpoint")
+        return 1
     if ns.input:
         fmt = decode.wire_format(ns.input_format
                                  or iq_io.detect_format(ns.input))
@@ -166,6 +186,9 @@ def main(argv=None) -> int:
             synth.make_scanner_iq(n, channel=5, ctcss_code=12), fmt)
         log.info("using synthetic NBFM demo signal on channel 5, CTCSS 12")
 
+    if ns.faithful:
+        return _run_faithful(ns, args, raw, fmt, log)
+
     def on_subchunk(sub, o):
         print(wf_ui.render_waterfall_line(o["waterfall"],
                                           float(o["rel_rssi"])))
@@ -179,11 +202,21 @@ def main(argv=None) -> int:
         driver = ScannerDriver(
             args, subchunks_per_step=ns.subchunks_per_step, input_format=fmt,
             device=ns.device,
-            on_subchunk=on_subchunk if args.waterfall > 0 else None)
+            on_subchunk=on_subchunk if args.waterfall > 0 else None,
+            checkpoint_path=ns.checkpoint,
+            checkpoint_every=ns.checkpoint_every)
     except (ValueError, RuntimeError) as e:
         logging.error("%s", e)
         return 1
     log.info("device: %s", driver.device)
+    if ns.resume:
+        try:
+            driver.restore()
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:   # missing, corrupt, wrong layout
+            logging.error("cannot restore checkpoint '%s': %s",
+                          ns.checkpoint, e)
+            return 1
 
     # the reference's signal set (src/sdr_pmr446.c:779-786, 190-199): TERM
     # and QUIT stop at the next block boundary, USR1 is a no-op wake
@@ -202,10 +235,39 @@ def main(argv=None) -> int:
         result = driver.run(wire_blocks(raw, fmt, driver.feed_len))
     except KeyboardInterrupt:
         log.info("Signal caught, exiting!")
+        driver.checkpoint_now()
         return 130
     wav.write_wav(ns.output, result.audio, C.AUDIO_SAMPLERATE)
     log.info("wrote %d audio samples (%.2f s) to %s", len(result.audio),
              len(result.audio) / C.AUDIO_SAMPLERATE, ns.output)
+    log.info("Exiting")
+    return 0
+
+
+def _run_faithful(ns, args, raw: np.ndarray, fmt: str, log) -> int:
+    """--faithful: the validation chain over the whole blocks of the
+    capture (a short tail is dropped, as in JAX), decoded to complex64 on
+    the device; writes the valid sub-chunks' audio."""
+    try:
+        chain = FaithfulScannerChain(ns.subchunks_per_step, args.lowpass,
+                                     device=ns.device)
+    except (ValueError, RuntimeError) as e:
+        logging.error("%s", e)
+        return 1
+    log.info("device: %s (faithful mode)", chain.device)
+    params = make_runtime_params(args, chain.device)
+    block = chain.input_len * decode.BYTES_PER_SAMPLE[fmt]
+    st = chain.init_state()
+    audio = []
+    for i in range(len(raw) // block):
+        wire = torch.from_numpy(raw[i * block:(i + 1) * block])
+        st, o = chain.step(st, decode.decode_complex(
+            wire.to(chain.device), fmt), params)
+        audio.append(o.audio[o.audio_valid].reshape(-1).cpu().numpy())
+    out = np.concatenate(audio) if audio else np.zeros(0, np.float32)
+    wav.write_wav(ns.output, out, C.AUDIO_SAMPLERATE)
+    log.info("wrote %d audio samples (faithful mode) to %s", len(out),
+             ns.output)
     log.info("Exiting")
     return 0
 

@@ -134,6 +134,14 @@ SIGNATURES = {
         _LL, _LL, _LL, _LL,               # src / dst stream and shard strides
         _P,                               # stream
     ],
+    "probe_dot_run": [
+        _P, _P, _P, _I, _I, _I, _I,       # a, b, out, M, N, K, mode
+        _P,                               # stream
+    ],
+    "probe_layout_run": [
+        _I, _P, _P,                       # move, x, out
+        _P,                               # stream
+    ],
 }
 
 

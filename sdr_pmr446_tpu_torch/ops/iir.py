@@ -70,16 +70,18 @@ def first_order_scan(z: torch.Tensor, p: float, y0: torch.Tensor,
     return y[..., :t] if pad else y
 
 
-def dc_blocker_apply(state, x: torch.Tensor, alpha: float = 0.0005):
+def dc_blocker_apply(state, x: torch.Tensor, alpha: float = 0.0005,
+                     chunk: int = CHUNK):
     """One-pole DC blocker y[n] = p*y[n-1] + g*(x[n] - x[n-1]).
 
     state = (x_prev, y_prev), each [...]; x is [..., T] real.  Returns
     ((x[..., -1], y[..., -1]), y) — exact streaming across blocks.
+    ``chunk`` is the scan's chunk length L; it changes only f32 rounding.
     """
     x_prev, y_prev = state
     p = 1.0 - alpha
     g = (1.0 + p) / 2.0
     x1 = torch.cat([x_prev[..., None].to(x.dtype), x[..., :-1]], dim=-1)
     z = g * x + (-g) * x1
-    y = first_order_scan(z, p, y_prev)
+    y = first_order_scan(z, p, y_prev, chunk)
     return (x[..., -1], y[..., -1]), y

@@ -14,6 +14,8 @@ decisions at risk.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -30,3 +32,19 @@ def check() -> None:
             "TF32 is enabled (torch.backends.cuda.matmul.allow_tf32 or "
             "torch.backends.cudnn.allow_tf32); the scanner needs true f32 — "
             "call sdr_pmr446_tpu_torch.precision.apply()")
+
+
+@contextlib.contextmanager
+def tf32_switches(matmul: bool, cudnn: bool):
+    """Set the two TF32 switches for the body of a ``with``, then restore
+    both as they were, also when the body raises (the probe's readings
+    with TF32 on, kernels/probe_precision.py)."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old

@@ -8,9 +8,24 @@ log lines for tune/detune/change/CTCSS events (src/sdr_pmr446.c:838-862,
 on, its rows.  While the waterfall is on the event lines are returned but
 not logged (the terminal shows the waterfall instead), and ``on_subchunk``
 is called with each sub-chunk's outputs, as in the JAX driver.
-``request_stop()`` (a signal handler's call) makes ``run()`` finish the
-step in flight, drain it and return the partial result at the next block
-boundary, as the JAX driver does without its checkpoint flush.
+
+As in the JAX driver (driver.py:139-177, 189-306):
+
+  - ``metrics_path``: one JSONL record a sub-chunk (utils/profiling.py
+    ``log_jsonl``) with the JAX keys ``subchunk``, ``active_chan``,
+    ``rel_rssi``, ``rssi_db`` (16 values to 0.01 dB), ``ctcss_detected``,
+    ``ctcss_code`` and ``events`` (the sub-chunk's log lines);
+  - ``checkpoint_path`` / ``checkpoint_every``: (block index, state) saved
+    as .npz (runtime/state.py ``save_state``, the JAX package's npz format)
+    every ``checkpoint_every`` blocks (0: only ``checkpoint_now()`` and the
+    final flush on a stop write it); ``restore()`` loads it, reconciles its
+    history lengths (``adapt_state_histories``), refuses a layout the chain
+    cannot take, and makes the next ``run()`` skip the blocks already
+    processed (one-shot);
+  - ``request_stop()`` (a signal handler's call) makes ``run()`` finish the
+    step in flight, drain it, write a final checkpoint and return the
+    partial result at the next block boundary.  The orbax backend names a
+    JAX library and has no counterpart.
 
 The step is asynchronous on a CUDA device, so block i+1 is dispatched
 before block i's outputs are read back: the host-side drain overlaps the
@@ -27,9 +42,11 @@ import numpy as np
 import torch
 
 from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch.runtime import state as state_io
 from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
                                                 make_runtime_params,
                                                 outputs_to_numpy)
+from sdr_pmr446_tpu_torch.utils.profiling import log_jsonl
 
 log = logging.getLogger("sdr_pmr446")
 
@@ -57,7 +74,10 @@ class ScannerDriver:
                  device="cuda", on_subchunk: Optional[Callable] = None,
                  fuse_band: bool = True, fuse_dc: bool = True,
                  fuse_rssi: bool = True, fuse_lp_dc: bool = True,
-                 fuse_ctcss: bool = True):
+                 fuse_ctcss: bool = True,
+                 metrics_path: Optional[str] = None,
+                 checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 0):
         self.args = args or C.ScannerArgs()
         self.chain = ScannerChain(
             C.BlockConfig(subchunks_per_step), lowpass=self.args.lowpass,
@@ -71,6 +91,10 @@ class ScannerDriver:
         self.state = self.chain.init_state()
         self.block_index = 0
         self.subchunk = 0
+        self.metrics_path = metrics_path
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
+        self._resume_skip = 0            # armed by restore(), one-shot
         # the reference's exit_via_sig flag (src/sdr_pmr446.c:190-199)
         self._stop_requested = False
         self.stopped = False
@@ -79,6 +103,35 @@ class ScannerDriver:
         """Ask run() to stop at the next block boundary (signal-safe: it
         only sets a flag, like the reference's sighandler)."""
         self._stop_requested = True
+
+    def checkpoint_now(self) -> None:
+        """Save (block_index, state) now, whatever the cadence (the final
+        flush of a stopped run); does nothing without a checkpoint_path."""
+        if self.checkpoint_path:
+            state_io.save_state(self.checkpoint_path, self.block_index,
+                                self.state)
+
+    def restore(self, path: Optional[str] = None) -> int:
+        """Load a checkpoint (``path`` or checkpoint_path); the next run()
+        skips the blocks of its input that it covers.  Returns the restored
+        block index.  Raises ValueError for a state this chain cannot take
+        (the JAX op engine's layout, a non-history shape mismatch)."""
+        block_index, loaded = state_io.load_state(
+            path or self.checkpoint_path, self.device)
+        state_io.check_kernel_layout(loaded)
+        self.state = state_io.adapt_state_histories(loaded,
+                                                    self.chain.init_state())
+        self.block_index = block_index
+        self.subchunk = block_index * self.chain.block.subchunks_per_step
+        self._resume_skip = block_index
+        log.info("restored checkpoint at block %d (%d sub-chunks)",
+                 self.block_index, self.subchunk)
+        return self.block_index
+
+    def _maybe_checkpoint(self) -> None:
+        if self.checkpoint_every and \
+                self.block_index % self.checkpoint_every == 0:
+            self.checkpoint_now()
 
     @property
     def feed_len(self) -> int:
@@ -90,9 +143,14 @@ class ScannerDriver:
         acc = dict(audio=[], audio_sub=[], active=[], rssi=[], rel=[],
                    det=[], idx=[], events=[], wf=[])
         pending = None
+        # one-shot: only the run() right after restore() skips the blocks
+        # the checkpoint covers; a later run() consumes its whole input
+        skip, self._resume_skip = self._resume_skip, 0
         self.stopped = False
         try:
-            for blk in blocks:
+            for i, blk in enumerate(blocks):
+                if i < skip:
+                    continue
                 raw = np.ascontiguousarray(blk).view(np.uint8).reshape(-1)
                 wire = torch.from_numpy(raw).to(self.device)
                 self.state, out = self.chain.step(self.state, wire,
@@ -101,6 +159,7 @@ class ScannerDriver:
                     self._drain(pending, acc)
                 pending = out
                 self.block_index += 1
+                self._maybe_checkpoint()
                 if self._stop_requested:
                     break
             if pending is not None:
@@ -113,6 +172,10 @@ class ScannerDriver:
         if self._stop_requested:
             self.stopped = True
             self._stop_requested = False
+            # the final flush: a stopped run loses nothing since the last
+            # cadence checkpoint (the reference's teardown,
+            # src/sdr_pmr446.c:933-940)
+            self.checkpoint_now()
         cat = lambda xs, shape, dt: (np.concatenate(xs) if xs
                                      else np.zeros(shape, dt))
         return ScanResult(
@@ -130,15 +193,27 @@ class ScannerDriver:
         o = outputs_to_numpy(out)
         k = len(o["active_chan"])
         for i in range(k):
-            for m in self._event_lines(o, i):
+            sub = self.subchunk + i
+            msgs = self._event_lines(o, i)
+            for m in msgs:
                 acc["events"].append(m)
                 if self.args.waterfall <= 0:
                     log.info(m)
             if o["audio_valid"][i]:
                 acc["audio"].append(o["audio"][i])
-                acc["audio_sub"].append(self.subchunk + i)
+                acc["audio_sub"].append(sub)
+            if self.metrics_path is not None:
+                log_jsonl(self.metrics_path, {
+                    "subchunk": sub,
+                    "active_chan": int(o["active_chan"][i]),
+                    "rel_rssi": float(o["rel_rssi"][i]),
+                    "rssi_db": [round(float(v), 2) for v in o["rssi_db"][i]],
+                    "ctcss_detected": bool(o["ct_detected"][i]),
+                    "ctcss_code": int(o["ct_max_idx"][i]) + 1,
+                    "events": msgs,
+                })
             if self.on_subchunk is not None:
-                self.on_subchunk(self.subchunk + i, {f: o[f][i] for f in o})
+                self.on_subchunk(sub, {f: o[f][i] for f in o})
         acc["active"].append(o["active_chan"])
         acc["rssi"].append(o["rssi_db"])
         acc["rel"].append(o["rel_rssi"])

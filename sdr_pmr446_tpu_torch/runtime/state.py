@@ -131,10 +131,71 @@ def save_state(path: str, block_index: int, state: ScannerState) -> None:
 
 
 def load_state(path: str, device) -> tuple[int, ScannerState]:
-    """Read a checkpoint written by ``save_state`` here or in the JAX package."""
+    """Read a checkpoint written by ``save_state`` here or in the JAX
+    package.  A field the file lacks (one appended to the state after the
+    file was written) loads as None; ``adapt_state_histories`` then takes
+    the chain's init value for it (the driver's restore does both)."""
     with np.load(path) as z:
-        vals = [z[f"s{i}"] for i in range(len(ScannerState._fields))]
-        return int(z["block_index"]), state_from_numpy(vals, device)
+        vals = [torch.as_tensor(np.array(z[f"s{i}"], copy=True),
+                                device=device) if f"s{i}" in z else None
+                for i in range(len(ScannerState._fields))]
+        return int(z["block_index"]), ScannerState(*vals)
+
+
+#: the JAX op engine's FIR histories (use_pallas=False), zero on every
+#: kernel engine and in every state the port writes
+OP_ENGINE_HISTORIES = ("hp_hist", "delay_hist", "deemph_hist",
+                       "audio_lp_hist")
+
+
+def check_kernel_layout(state: ScannerState) -> None:
+    """Raise ValueError if ``state`` carries the JAX op engine's layout (a
+    non-zero FIR history of OP_ENGINE_HISTORIES): the port's chains would
+    read its audio path wrongly, so such a checkpoint is refused, never
+    reinterpreted (ROADMAP queue 1 item 7 ports that engine)."""
+    for name in OP_ENGINE_HISTORIES:
+        v = getattr(state, name)
+        if v is not None and bool(torch.any(v != 0)):
+            raise ValueError(
+                f"checkpoint field {name!r} is non-zero: the state has the "
+                f"JAX op engine's layout (use_pallas=False), which the "
+                f"port's chains do not take yet")
+
+
+def adapt_state_histories(state, reference):
+    """Reconcile a checkpoint's history lengths with the target chain's
+    (JAX runtime/state.py::adapt_state_histories, the same rules).
+
+    ``reference`` is the target chain's ``init_state()``.  The newest
+    samples of every ``*_hist`` field sit at its end, so a longer target is
+    left-padded with zeros and a shorter one keeps the newest suffix (the
+    duo's 384 and 512-sample front histories, the 512 and 640-sample audio
+    history).  A field that is None (missing from the file) takes the
+    reference's value.  Any other shape mismatch raises ValueError naming
+    the field."""
+    fields = getattr(state, "_fields", None)
+    vals = []
+    for i, (cur, ref) in enumerate(zip(state, reference)):
+        name = fields[i] if fields else str(i)
+        if cur is None:
+            vals.append(ref)
+            continue
+        if tuple(cur.shape) == tuple(ref.shape):
+            vals.append(cur)
+            continue
+        same_lead = tuple(cur.shape[:-1]) == tuple(ref.shape[:-1])
+        if not (name.endswith("_hist") and cur.dim() >= 1 and same_lead):
+            raise ValueError(
+                f"checkpoint field {name!r} has shape {tuple(cur.shape)}, "
+                f"chain expects {tuple(ref.shape)} — not a history, cannot "
+                f"migrate")
+        want, have = ref.shape[-1], cur.shape[-1]
+        if have >= want:
+            vals.append(cur[..., have - want:])
+        else:
+            pad = cur.new_zeros(tuple(cur.shape[:-1]) + (want - have,))
+            vals.append(torch.cat([pad, cur], dim=-1))
+    return type(state)(*vals)
 
 
 def _fields_from_numpy(cls, values, device):

@@ -4,9 +4,12 @@
     boundary with the step in flight drained: the partial result is the
     leading sub-chunks of an uninterrupted run, exactly;
   - SIGTERM to the running CLI logs "Signal caught, exiting!", writes the
-    partial WAV and exits 0 (the port's counterpart of
-    tests/test_driver_apps.py::test_scanner_app_sigterm_graceful, without
-    its checkpoint);
+    partial WAV and exits 0, and with --checkpoint flushes a final
+    checkpoint that restores at the block the run stopped at (the port's
+    counterpart of tests/test_driver_apps.py::
+    test_scanner_app_sigterm_graceful).  The child scans a 120 s capture
+    (some 240 blocks), so it is still running when the signal lands even
+    if the test process is descheduled for seconds;
   - ``--device-decode`` is accepted and changes nothing: the port always
     decodes the wire on the device, so the WAV is identical with and
     without it on a cs16 and a cf32 capture (the counterpart of
@@ -77,15 +80,31 @@ def test_request_stop_returns_the_leading_subchunks(tmp_path):
     assert not drv.stopped and len(rest.active_trace) == 15
 
 
-def test_scanner_app_sigterm_graceful(tmp_path):
-    """A real SIGTERM to the running CLI (--device cpu, the synthetic
-    source) exits 0 with the partial WAV written."""
-    out = str(tmp_path / "sig.wav")
+@pytest.fixture(scope="module")
+def long_capture(tmp_path_factory):
+    """A cu8 capture of 1220 sub-chunks (119.6 s): channel 5 with CTCSS 12
+    from the first sample, its 10-sub-chunk block repeated."""
+    from sdr_pmr446_tpu_torch.ops import decode
+    blk = decode.quantize_iq(0.7 * synth.make_scanner_iq(
+        10 * C.SUBCHUNK_IN, channel=5, ctcss_code=12), "cu8").tobytes()
+    path = tmp_path_factory.mktemp("long") / "cap.cu8"
+    with open(path, "wb") as f:
+        for _ in range(LONG_BLOCKS):
+            f.write(blk)
+    return str(path)
+
+
+LONG_BLOCKS = 122                 # 10-sub-chunk blocks of long_capture
+
+
+def sigterm_run(capture, out, *extra):
+    """Run the CLI on ``capture``, send SIGTERM once it has tuned; returns
+    (exit code, the stderr after the signal, all stderr)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.Popen(
         [sys.executable, "-m", "sdr_pmr446_tpu_torch.apps.sdr_pmr446",
-         "--seconds", "20", "--subchunks-per-step", "5", "--output", out,
-         "-p", "max", "--device", "cpu"],
+         "--input", capture, "--subchunks-per-step", "5", "--output", out,
+         "-p", "max", "--device", "cpu", *extra],
         stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
     seen = []
     try:
@@ -105,11 +124,40 @@ def test_scanner_app_sigterm_graceful(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    assert rc == 0, "".join(seen)
+    return rc, rest, "".join(seen)
+
+
+def test_scanner_app_sigterm_graceful(long_capture, tmp_path):
+    """A real SIGTERM to the running CLI (--device cpu) exits 0 with the
+    partial WAV written."""
+    out = str(tmp_path / "sig.wav")
+    rc, rest, seen = sigterm_run(long_capture, out)
+    assert rc == 0, seen
     assert "Signal caught, exiting!" in rest
     assert "wrote" in rest and "audio samples" in rest
     x, sr = wav.read_wav(out)
-    assert sr == C.AUDIO_SAMPLERATE and 0 < len(x) < 20 * C.AUDIO_SAMPLERATE
+    assert sr == C.AUDIO_SAMPLERATE
+    assert 0 < len(x) < LONG_BLOCKS * 10 * C.SUBCHUNK_AUDIO
+
+
+def test_scanner_app_sigterm_flushes_checkpoint(long_capture, tmp_path):
+    """With --checkpoint and --checkpoint-every 0 only the stop's final
+    flush writes the checkpoint; it holds the block the run stopped at,
+    whose sub-chunks the partial WAV covers, and restores there."""
+    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
+    out, ckpt = str(tmp_path / "sig.wav"), str(tmp_path / "sig.npz")
+    rc, rest, seen = sigterm_run(long_capture, out, "--checkpoint", ckpt,
+                                 "--checkpoint-every", "0")
+    assert rc == 0, seen
+    assert "Signal caught, exiting!" in rest
+    with np.load(ckpt) as z:
+        blocks = int(z["block_index"])
+    assert 0 < blocks < LONG_BLOCKS * 2
+    x, _ = wav.read_wav(out)
+    assert len(x) == blocks * 5 * C.SUBCHUNK_AUDIO
+    drv = ScannerDriver(subchunks_per_step=5, input_format="cu8",
+                        device="cpu")
+    assert drv.restore(ckpt) == blocks
 
 
 @pytest.mark.parametrize("fmt", ["cs16", "cf32"])
