@@ -36,11 +36,15 @@ on its own lines; any failure raises and ends the run:
      step with host reads made errors, and one step under torch.profiler
      (device busy share, device time by part and by device function);
  10. the waterfall: K3 against its plain version on the card, on K1's band
-     of two consecutive cu8 blocks from a random history and counter, at
-     K = 40 with w = 80, 120, 840 and at K = 10 with w = 64, 4096 and 8192
-     (the last two also, with the plain version, against the float64
-     asgramcf oracle), with its times
-     beside torch.stft's (the library yardstick, never called by the port);
+     of two consecutive cu8 blocks from a random history and counter, each
+     call repeated bit for bit, at K = 40 with w = 80, 120, 840 and at K =
+     10 with w = 64, 132, 4096, 8192 and 16384 (from 4096 also, with the
+     plain version, against the float64 asgramcf oracle), and at K = 2 with
+     w = 78400 against the oracle alone (the plain version's [w, 2w] table
+     does not fit; its row is logged, not listed), each Waterfall built in
+     under a second, with its times (CUDA events around the call, and
+     device time under torch.profiler) beside torch.stft's (the library
+     yardstick, never called by the port);
      the scanner with -w 120 through ScannerDriver at K = 10 over 3 steps,
      each row within 1e-2 dB of the float64 asgramcf oracle fed the
      oracle's band, decisions equal to the same run with the waterfall off;
@@ -172,6 +176,8 @@ TOL_TONE_DB = 35.0             # single-channel 1 kHz tone (tests/test_misc.py:8
 TOL_WF_DB = 2e-3               # K3 rows vs its plain version (tests/test_scanner.py:341-378)
 TOL_WF_ORACLE_DB = 1e-2        # -w rows vs the float64 oracle (tests/test_driver_apps.py:140-173)
 WIDE_WF = 4096                 # K3 widths also held to the float64 oracle
+PLAIN_WF = 16384               # widest K3 width held to the plain version,
+#                                whose [w, 2w] table takes 4.3 GB there
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_TF32_OPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
@@ -876,11 +882,14 @@ def wf_work(k: int, w: int, hops: int):
     return nbytes, hops * (5 * w * math.log2(w) + 2 * wl + 3 * w)
 
 
-def stft_rows(dev, w: int, k: int, cnt: int):
-    """The library yardstick: torch.stft (cuFFT) over the same hops, then
-    |S|^2 and the per-row sums.  Returns (inputs(hist, band) -> x, the
-    timed call(x) -> row sums [k, w], the hops' row counts [k])."""
+def stft_rows(dev, w: int, k: int, cnt: int, double: bool = False):
+    """The library yardstick: torch.stft (cuFFT, f32 unless ``double``)
+    over the same hops, then |S|^2 and the per-row sums.  Returns
+    (inputs(hist, band) -> x, the timed call(x) -> row sums [k, w], the
+    hops' row counts [k])."""
     import torch
+    real = torch.float64 if double else torch.float32
+    cplx = torch.complex128 if double else torch.complex64
     wl, delay, nb = w // 2, w // 4, k * 19600
     u0 = delay - cnt
     hops = (nb - u0) // delay + 1
@@ -889,39 +898,73 @@ def stft_rows(dev, w: int, k: int, cnt: int):
     counts = torch.bincount(row, minlength=k).float()
     win = torch.hamming_window(wl, periodic=True, dtype=torch.float64,
                                device=dev)
-    win = (win / win.sum()).float()
+    win = (win / win.sum()).to(real)
 
     def inputs(hist, band):
         # torch.stft centres a w/2 window in each w-sample frame: frame i
         # starts w/4 before hop i's window, xe[u0 + i w/4 .. + w/2)
-        xe = torch.cat([torch.zeros(delay, dtype=torch.complex64, device=dev),
-                        hist[hist.shape[0] - wl:],
-                        torch.complex(band[0], band[1]),
-                        torch.zeros(w, dtype=torch.complex64, device=dev)])
+        xe = torch.cat([torch.zeros(delay, dtype=cplx, device=dev),
+                        hist[hist.shape[0] - wl:].to(cplx),
+                        torch.complex(band[0], band[1]).to(cplx),
+                        torch.zeros(w, dtype=cplx, device=dev)])
         return xe[u0:u0 + (hops - 1) * delay + w].contiguous()
 
     def call(x):
         spec = torch.stft(x, n_fft=w, hop_length=delay, win_length=wl,
                           window=win, center=False, return_complex=True)
         p = spec.real ** 2 + spec.imag ** 2                 # [w, hops]
-        return torch.zeros(k, w, device=dev).index_add_(0, row, p.T)
+        return torch.zeros(k, w, dtype=real, device=dev).index_add_(
+            0, row, p.T)
     return inputs, call, counts, hops
+
+
+def device_ms(fn, inputs, sync) -> str:
+    """Device time of one fn(*args) call, averaged over ``inputs``: the sum
+    of the device events' durations in a profiled run of all of them
+    (profile_session), in ms, with the events counted; a session that
+    recorded no device event is made again, up to PROFILE_ATTEMPTS."""
+    for _ in range(PROFILE_ATTEMPTS):
+        evs, _, _, _ = profile_session(lambda: [fn(*a) for a in inputs],
+                                       sync)
+        if evs:
+            ms = sum(e.time_range.end - e.time_range.start
+                     for e in evs) / 1e3 / len(inputs)
+            return f"{ms:.4f} ({len(evs)} events for {len(inputs)} calls)"
+    return f"not recorded ({PROFILE_ATTEMPTS} profiler sessions)"
 
 
 def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
     """K3 vs its plain version on K1's band of two consecutive cu8 blocks,
     from a random history (the PFB history's tail for w <= 800, else a
-    carried wf_hist) and counter, and from w = WIDE_WF both also against
-    the float64 asgramcf oracle (AsgramStream) started from the same
-    history and counter; then the times of the kernel, the plain version
-    and torch.stft on ``reps`` fresh inputs.  Returns its row."""
+    carried wf_hist) and counter, each call repeated bit for bit, and from
+    w = WIDE_WF both also against the float64 asgramcf oracle
+    (AsgramStream) started from the same history and counter; above
+    PLAIN_WF the kernel against the oracle alone.  Then the times of the
+    kernel, the plain version and torch.stft on ``reps`` fresh inputs.
+    Returns its row (plain_ms None above PLAIN_WF)."""
     import torch
     from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
     from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
     from sdr_pmr446_tpu_torch.ops import spectrogram
     rng = np.random.default_rng(w + k)
     duo = ScannerDuo("cu8", device=dev)
+    t0 = time.perf_counter()
     wf = Waterfall(w, device=dev)
+    torch.cuda.synchronize(dev)
+    t_build = time.perf_counter() - t0
+    n_tab = sum(b.numel() * b.element_size() for b in wf.buffers())
+    p = wf.plan
+    kind = "Bluestein" if p.filt is not None else "direct"
+    split = (f"four-step {p.m1} x {p.m // p.m1}" if p.m1
+             else f"{p.nt} a block")
+    log(f"  K3 w={w}: Waterfall built in {t_build:.3f} s, M = {p.m} "
+        f"({kind}, {split}), tables {n_tab / 1e6:.3f} MB")
+    check(t_build < 1.0, f"K3 w={w}: Waterfall took {t_build:.3f} s to build")
+    with_plain = w <= PLAIN_WF
+    if not with_plain:
+        log(f"    no plain version above w = {PLAIN_WF}: its [w, 2w] float64 "
+            f"table would take {16 * w * w / 1e9:.1f} GB; the kernel is held "
+            f"to the float64 oracle alone")
     wl = w // 2
     dstate = random_duo_state(duo, rng, dev)
     cnt0 = int(rng.integers(1, w // 4))
@@ -931,36 +974,57 @@ def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
                                      np.complex64), device=dev)
     ref_h = got_h = own
     ref_c = got_c = cnt
-    asg = None
+    asg = asg32 = None
     if w >= WIDE_WF:
         from sdr_pmr446_tpu_torch.oracle.chain import AsgramStream
         asg = AsgramStream(w)
         asg.buf = own.cpu().numpy().astype(np.complex128)
         asg.counter = cnt0
+    if not with_plain:
+        # the oracle again with the window rounded to f32 (the plain
+        # version's), to show what that rounding alone costs at this width
+        asg32 = AsgramStream(w)
+        asg32.win = spectrogram._window(w).astype(np.float64)
+        asg32.buf, asg32.counter = asg.buf.copy(), cnt0
     errs = []
     for step, blk in enumerate(bench_blocks(k, 2)):
         d = duo.kernel(torch.as_tensor(blk, device=dev), *dstate, ns=NS)
         hist_r, hist_g = ((dstate[3], dstate[3]) if wl <= 400
                           else (ref_h, got_h))
-        r = wf.plain(d.band, hist_r, ref_c)
         g = wf.kernel(d.band, hist_g, got_c)
+        again = wf.kernel(d.band, hist_g, got_c)
+        r = wf.plain(d.band, hist_r, ref_c) if with_plain else g
         torch.cuda.synchronize(dev)
+        check(all(torch.equal(a, b) for a, b in zip(again, g)),
+              f"K3 w={w} K={k}: a second call differs")
         errs.append(max_err(r.rows, g.rows))
         h_rel = max_err(r.hist, g.hist) / max(peak(r.hist), 1e-30)
         log(f"  K3 w={w} K={k} block {step}: rows max|err| {errs[-1]:.3g} dB, "
-            f"hist rel {h_rel:.3g}, cnt {int(r.cnt)} / {int(g.cnt)}")
+            f"hist rel {h_rel:.3g}, cnt {int(r.cnt)} / {int(g.cnt)}; a "
+            f"second call bit-equal")
         if asg is not None:
             band = as_np(d.band).astype(np.float64)
             band = band[0] + 1j * band[1]
             sub = band.shape[0] // k
-            rows = []
+            rows, rows32 = [], []
             for i in range(k):
                 asg.write(band[i * sub:(i + 1) * sub])
                 rows.append(asg.execute())
+                if asg32 is not None:
+                    asg32.write(band[i * sub:(i + 1) * sub])
+                    rows32.append(asg32.execute())
+            if rows32:
+                log(f"    an f32-rounded window alone moves the oracle's rows "
+                    f"by {np.max(np.abs(np.stack(rows32) - np.stack(rows))):.3g}"
+                    f" dB (rows from {np.min(rows):.1f} to {np.max(rows):.1f}"
+                    f" dB)")
             o_k = float(np.max(np.abs(as_np(g.rows) - np.stack(rows))))
             o_p = float(np.max(np.abs(as_np(r.rows) - np.stack(rows))))
             log(f"    vs the float64 asgramcf oracle: kernel {o_k:.3g} dB, "
-                f"plain {o_p:.3g} dB")
+                f"plain {o_p:.3g} dB" if with_plain else
+                f"    vs the float64 asgramcf oracle: kernel {o_k:.3g} dB; "
+                f"its counter {asg.counter}")
+            check(asg.counter == int(g.cnt), f"K3 w={w} counter vs the oracle")
             check(max(o_k, o_p) < TOL_WF_ORACLE_DB,
                   f"K3 w={w} K={k} rows vs the oracle")
         check(errs[-1] < TOL_WF_DB, f"K3 w={w} K={k} rows")
@@ -981,22 +1045,39 @@ def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
                                   si * d.band[0] + c * d.band[1]]))
     inputs = [(b, hist, cnt) for b in bands]
     wf.kernel(*inputs[0])
-    wf.plain(*inputs[0])
     t_kernel = timer(wf.kernel, inputs)
-    t_plain = timer(wf.plain, inputs)
+    t_plain = None
+    if with_plain:
+        wf.plain(*inputs[0])
+        t_plain = timer(wf.plain, inputs)
     prep, call, counts, hops = stft_rows(dev, w, k, cnt0)
     xs = [(prep(hist, b),) for b in bands]
     lib_sums = call(*xs[0])
     t_lib = timer(call, xs)
     lib_rows = spectrogram.rows_from_psd_sums(lib_sums, w, counts=counts)
     lib_err = max_err(lib_rows, wf.kernel(*inputs[0]).rows)
+    if not with_plain:
+        # one hop a row at K = 2: the f32 transform moves the deepest bins
+        # (136 dB below the peak) by more than the gate; hold the f64 call
+        # to it instead
+        log(f"    f32 torch.stft rows within {lib_err:.3g} dB of the kernel's")
+        prep64, call64, _, _ = stft_rows(dev, w, k, cnt0, double=True)
+        lib_rows = spectrogram.rows_from_psd_sums(
+            call64(prep64(hist, bands[0])), w, counts=counts)
+        lib_err = max_err(lib_rows, wf.kernel(*inputs[0]).rows)
     check(lib_err < TOL_WF_ORACLE_DB, f"K3 w={w}: torch.stft rows differ "
           f"by {lib_err:.3g} dB")
     b = bound(*wf_work(k, w, hops))
+    sync = lambda: torch.cuda.synchronize(dev)
+    log(f"  K3 w={w} K={k} device time a call (torch.profiler, ms): kernel "
+        f"{device_ms(wf.kernel, inputs, sync)}, torch.stft "
+        f"{device_ms(call, xs, sync)}")
+    plain = f"{t_plain:.4f}" if with_plain else "not run"
     log(f"  K3 w={w} K={k} ({hops} hops) times (median of {reps}, ms): "
-        f"kernel {t_kernel:.4f}, plain {t_plain:.4f}, torch.stft "
+        f"kernel {t_kernel:.4f}, plain {plain}, torch.stft "
         f"{t_lib:.4f}, bound {b['bound_ms']:.5f} ({b['bound_by']}); "
-        f"torch.stft rows within {lib_err:.3g} dB of the kernel's")
+        f"torch.stft{'' if with_plain else ' (f64)'} rows within "
+        f"{lib_err:.3g} dB of the kernel's")
     return {"name": f"waterfall_w{w}_k{k}", "route": "cuda",
             "source": "sdr_pmr446_tpu_torch/csrc/waterfall.cu",
             "replaces": "sdr_pmr446_tpu/kernels/duo.py:101",
@@ -2757,7 +2838,10 @@ def main() -> int:
     log("phase 10: the waterfall (K3) on the card")
     wf_rows = [waterfall_case(dev, k, w, cuda_timer)
                for k, w in ((40, 80), (40, 120), (40, 840), (10, 64),
-                            (10, 4096), (10, 8192))]
+                            (10, 132), (10, 4096), (10, 8192), (10, 16384),
+                            (2, 78400))]
+    # the widest width has no plain version to time: logged, not listed
+    wf_rows = [row for row in wf_rows if row["plain_ms"] is not None]
     log("  the scanner with -w 120 vs the oracle (ScannerDriver, cu8, K=10)")
     phase_waterfall_oracle(dev, 10, 30, 120)
     log("  BASELINE config 4: the scanner with -w 80 at K=40 (cu8)")

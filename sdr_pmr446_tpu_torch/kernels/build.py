@@ -119,10 +119,16 @@ SIGNATURES = {
         _P,                               # stream
     ],
     "wf_run": [
-        _P, _LL, _P, _I, _P, _P,          # band, nb, hist, hist_len, cnt, tab
-        _I, _I, _I, _I, _I,               # w, K, sub, slab_hops, slabs
-        _P, _P, _P, _P,                   # part, rows, hist_out, cnt_out
+        _P, _LL, _P, _I, _P,              # band, nb, hist, hist_len, cnt
+        _P, _P, _P,                       # pre, filt (or None), tw
+        _I, _I, _I, _I, _I, _I,           # w, K, sub, M, M1, nt
+        _I, _I,                           # slab_hops, slabs
+        _P, _P,                           # scratch, part
+        _P, _P, _P,                       # rows, hist_out, cnt_out
         _P,                               # stream
+    ],
+    "wf_blocks_per_sm": [
+        _I, _I, _I, ctypes.POINTER(_I),   # w, M, nt, blocks out
     ],
     "zero_summary_run": [
         _I, _P, _LL, _P, _F,              # fmt, wire, n_samples, v, inv_cu8

@@ -11,23 +11,42 @@ Hamming windows at a stride of ``w/4``, ``|S|^2`` of each zero-padded
 ``module(band, hist, cnt)`` -> WfOut: ``band`` f32 [2, K*19600] (K1's band
 planes), ``hist`` c64 whose last ``w/2`` samples precede the block, ``cnt``
 i32 [] the carried in-hop counter.  The CUDA version (csrc/waterfall.cu) is
-two launches on the current stream, deterministic, with no host read: the
-counter is read on the device.  The plain version is
-ops/spectrogram.py::asgram_rows_any_p.  What bounds it on the H100 is
-written in the CUDA source: bytes for the function, its own direct-DFT
-operations for this first version.
+two to four launches on the current stream, deterministic, with no host
+read: the counter is read on the device.  The plain version is
+ops/spectrogram.py::asgram_rows_any_p, the direct DFT in double.
 
-Size: the window x DFT table lives on the device, w*w*4 bytes (25.6 KB at
-w = 80, 2.8 MB at 840, 67 MB at 4096, 268 MB at 8192; the widest width
-validate_width accepts, 78400, would need 24.6 GB), and the direct DFT does
-w*w/2 complex multiply-adds a hop, summed in double (f32 sums of 4096
-terms missed the 2e-3 dB gate at w = 8192).  Every accepted width runs at
-every K as far as the table fits on the device; chip_smoke.py checks widths
-64 to 8192 against the plain version.
+The kernel runs FFTs in shared memory, in double, on the float64 window
+(``window64``; the plain version keeps the JAX package's f32 constants), by
+the plan that ``make_plan`` builds in float64 on the host (O(w) tables on
+the device; ``Waterfall(78400)``, the widest width, holds 4.8 MB):
+
+- the transform length M is w when w is a power of two, or a product of
+  2, 3, 5 and 7 up to CAP (80, 120, 200, 840: one mixed-radix transform);
+  else Bluestein's chirp-z on the smallest power of two M >= w/2 + w - 1
+  (w = 132: 256; w = 78400: 131072), with the windowed chirp ``pre`` and
+  the transformed chirp filter ``filt``;
+- each FFT is Stockham, its first stage read straight from its source and
+  the rest between two shared-memory buffers: a radix-2, 4 or 8 stage
+  first when the power of two in M is not a power of 16, radix-16 stages,
+  then radix 3, 5 and 7 (``radices``), its twiddles laid out stage by stage
+  so that neighbouring butterflies read neighbouring entries
+  (``stage_twiddles``);
+- M <= CAP (4096 points) runs whole transforms in one block, ``nt`` =
+  max(1, BATCH / M) hops at once, a slab of a row's hops a block
+  (``slab_geometry``, sized from the launch's occupancy); above it the
+  four-step split M = m1 * (M/m1), m1 = 2^floor(log2 M / 2), through a
+  [hops, M] c128 scratch (two for Bluestein), one partial row a hop.
+
+Shared memory a block is 2*nt*M*16 + 8w bytes (64 KB + 8w to M = 2048,
+128 KB + 8w at 4096) or 64 KB in the four-step passes; the kernel is bound
+by its shared-memory traffic and its double arithmetic (the CUDA source
+says more).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -38,10 +57,12 @@ from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.kernels import build
 from sdr_pmr446_tpu_torch.ops import spectrogram
 
-#: threads of each block (csrc/waterfall.cu WF_THREADS)
-THREADS = 256
-#: hops per thread and slab (csrc/waterfall.cu WF_HOPS)
-HOPS_PER_THREAD = 16
+#: most points one block's transforms hold (csrc/waterfall.cu WF_CAP)
+CAP = 4096
+#: points a block transforms at once below CAP (csrc/waterfall.cu WF_BATCH)
+BATCH = 2048
+#: most rounds of ``nt`` hops a one-block launch's block runs
+MAX_ROUNDS = 8
 
 #: kernel launches of the CUDA version (one per call); the plain version
 #: never counts
@@ -54,34 +75,130 @@ class WfOut(NamedTuple):
     rows: torch.Tensor   # f32 [K, w] dB, fftshifted
 
 
-def dft_table(w: int) -> np.ndarray:
-    """f32 [w/2, w, 2]: the complex window x DFT table, entry (j, f) =
-    win[j] * exp(-2 pi i j f / w) — the content of
-    ops/spectrogram._dft_win_packed(w), computed the same way in float64 and
-    rounded once, but built a slab of rows at a time so that the host holds
-    little more than the table itself (w*w*4 bytes, as on the card)."""
+class Plan(NamedTuple):
+    """K3's FFT plan for one width (every table float64, O(m))."""
+    w: int
+    m: int                   # transform length, 2^a 3^b 5^c 7^d
+    m1: int                  # four-step split m = m1 * (m // m1); 0: none
+    nt: int                  # transforms a one-block launch runs at once
+    pre: np.ndarray          # c128 [w/2] window (times the chirp: Bluestein)
+    filt: np.ndarray | None  # c128 [m] FFT of the chirp filter / m, or None
+    tw: np.ndarray           # c128 twiddles: stage_twiddles(m) [m - 1], or
+    #                          for the four-step split stage_twiddles(m1),
+    #                          stage_twiddles(m // m1), exp(-2 pi i t / m)
+
+
+def radices(n: int) -> list[int]:
+    """The kernel's radix sequence for an n-point FFT, n = 2^a 3^b 5^c 7^d:
+    2^(a mod 4) first unless that is 1, then 16s, then 3s, 5s and 7s
+    (csrc/waterfall.cu next_radix)."""
+    a = (n & -n).bit_length() - 1
+    out = [1 << a % 4] * (a % 4 > 0) + [16] * (a // 4)
+    n >>= a
+    for p in (3, 5, 7):
+        while n % p == 0:
+            out.append(p)
+            n //= p
+    if n != 1:
+        raise ValueError("the kernel's FFT takes lengths 2^a 3^b 5^c 7^d")
+    return out
+
+
+def smooth(n: int) -> bool:
+    """True for the lengths the kernel transforms directly."""
+    for p in (2, 3, 5, 7):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def stage_twiddles(n: int) -> np.ndarray:
+    """c128 [n - 1]: the twiddles of an n-point FFT, stage after stage; the
+    stage of radix R after radices of product Ns holds
+    W_(Ns R)^(r k) at (r - 1)*Ns + k, r in [1, R), k in [0, Ns), so that
+    neighbouring butterflies read neighbouring entries."""
+    parts, ns = [], 1
+    for r_ in radices(n):
+        k = np.arange(ns)
+        parts += [np.exp(-2j * np.pi * r * k / (ns * r_))
+                  for r in range(1, r_)]
+        ns *= r_
+    return np.concatenate(parts)
+
+
+def window64(w: int) -> np.ndarray:
+    """The periodic Hamming window of ops/spectrogram._window in float64,
+    not rounded to f32: at w = 78400, where one hop makes a row reaching
+    136 dB below its peak, the f32 window alone moves the float64 asgramcf
+    oracle's rows by 0.0285 dB (chip_smoke.py phase 10 logs it)."""
+    win = np.hamming(w // 2 + 1)[:w // 2]
+    return win / np.sum(win)
+
+
+def chirp(w: int, n: np.ndarray) -> np.ndarray:
+    """c_n = exp(-pi i n^2 / w), with n^2 reduced mod 2w first (exact)."""
+    n = np.asarray(n, np.int64)
+    return np.exp(-1j * np.pi * ((n * n) % (2 * w)) / w)
+
+
+def make_plan(w: int) -> Plan:
+    """The transform length, the four-step split and the tables of width
+    ``w``.  A power of two, or a product of 2, 3, 5 and 7 up to CAP, is one
+    FFT of the windowed samples; any other width is S_f = c_f (a * b)_f
+    with a_j = x_j win_j c_j and
+    b_n = conj(c_n), the linear convolution taken as a circular one of
+    length m >= w/2 + w - 1, so the kernel's second FFT of
+    conj(FFT(a) * filt) is conj(S_f / c_f)."""
     wl = w // 2
-    win = spectrogram._window(w).astype(np.float64)
-    k = np.arange(w)[None, :]
-    tab = np.empty((wl, w, 2), np.float32)
-    step = max(1, (1 << 22) // w)
-    for j0 in range(0, wl, step):
-        j = np.arange(j0, min(wl, j0 + step))[:, None]
-        th = 2.0 * np.pi * j * k / w
-        wj = win[j0:j0 + j.shape[0], None]
-        tab[j0:j0 + j.shape[0], :, 0] = np.cos(th) * wj
-        tab[j0:j0 + j.shape[0], :, 1] = -(np.sin(th) * wj)
-    return tab
+    win = window64(w)
+    if w & (w - 1) == 0 or (smooth(w) and w <= CAP):
+        m, pre, filt = w, win.astype(np.complex128), None
+    else:
+        m = 1 << (w + wl - 2).bit_length()
+        c = chirp(w, np.arange(w))
+        pre = win * c[:wl]
+        b = np.zeros(m, np.complex128)
+        b[:w] = np.conj(c)
+        b[m - wl + 1:] = np.conj(c[1:wl])[::-1]
+        filt = np.fft.fft(b) / m
+    m1 = 0 if m <= CAP else 1 << ((m.bit_length() - 1) // 2)
+    tw = (np.concatenate([stage_twiddles(m1), stage_twiddles(m // m1),
+                          np.exp(-2j * np.pi * np.arange(m) / m)])
+          if m1 else stage_twiddles(m))
+    nt = 0 if m1 else max(1, BATCH // m)
+    return Plan(w, m, m1, nt, pre, filt, tw)
 
 
-def slab_geometry(w: int):
-    """(hops per slab, slabs per row) of the partials launch: a slab gives
-    each thread HOPS_PER_THREAD hops, and the slabs cover the most hops a
-    row can hold."""
-    groups = max(1, THREADS // w)
-    slab_hops = groups * HOPS_PER_THREAD
-    max_row_hops = C.SUBCHUNK_RESAMP // (w // 4) + 1
-    return slab_hops, -(-max_row_hops // slab_hops)
+def slab_geometry(plan: Plan, k: int, slots: int):
+    """(hops per slab, slabs per row) of the partials [k, slabs, w]: one
+    hop a slab on the four-step path; else whole rounds of ``nt`` hops, as
+    many (up to MAX_ROUNDS) as take the fewest rounds in all when the
+    blocks run ``slots`` at a time (waves x rounds; ties to more rounds,
+    fewer partials), the slabs covering the most hops a row can hold."""
+    max_row_hops = C.SUBCHUNK_RESAMP // (plan.w // 4) + 1
+    if plan.m1:
+        return 1, max_row_hops
+
+    def slabs(rounds):
+        return -(-max_row_hops // (plan.nt * rounds))
+
+    rounds = min(range(1, MAX_ROUNDS + 1), key=lambda r: (
+        -(-k * slabs(r) // slots) * r, -r))
+    return plan.nt * rounds, slabs(rounds)
+
+
+@functools.lru_cache(maxsize=None)
+def hop_slots(device_index: int, w: int, m: int, nt: int) -> int:
+    """Blocks of the one-block launch that the card holds at once: its
+    occupancy a SM (csrc/waterfall.cu wf_blocks_per_sm) times its SMs."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(build.library().wf_blocks_per_sm(w, m, nt,
+                                                     ctypes.byref(blocks)),
+                    "wf_blocks_per_sm")
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    return max(1, blocks.value) * sms
 
 
 class Waterfall(nn.Module):
@@ -95,8 +212,13 @@ class Waterfall(nn.Module):
             raise ValueError(f"waterfall width {w}: the waterfall is off")
         self.w = w
         self.wl = spectrogram.hist_len(w)
-        self.register_buffer("tab", torch.as_tensor(dft_table(w),
-                                                    device=device))
+        self.plan = make_plan(w)
+        as_dev = lambda a: None if a is None else torch.as_tensor(
+            a, device=device)
+        self.register_buffer("pre", as_dev(self.plan.pre))
+        self.register_buffer("filt", as_dev(self.plan.filt))
+        self.register_buffer("tw", as_dev(self.plan.tw))
+        self._geometry = {}  # (K, device index) -> slab_geometry
 
     def rows_in(self, band: torch.Tensor) -> int:
         """Sub-chunks K in ``band`` [2, K*19600]."""
@@ -134,20 +256,34 @@ class Waterfall(nn.Module):
         if hist.dim() != 1 or hist.shape[0] < self.wl:
             raise ValueError(f"hist needs >= {self.wl} samples")
         build.require(cnt, "cnt", torch.int32, (), dev)
-        build.require(self.tab, "tab", torch.float32, (self.wl, self.w, 2),
-                      dev)
-        slab_hops, slabs = slab_geometry(self.w)
-        part = torch.empty((k, slabs, self.w), dtype=torch.float32,
+        if self.tw.device != dev:
+            raise ValueError(f"the plan's tables are on {self.tw.device}, "
+                             f"the band on {dev}")
+        p = self.plan
+        key = (k, dev.index)
+        if key not in self._geometry:
+            slots = 0 if p.m1 else hop_slots(dev.index, p.w, p.m, p.nt)
+            self._geometry[key] = slab_geometry(p, k, slots)
+        slab_hops, slabs = self._geometry[key]
+        part = torch.empty((k, slabs, self.w), dtype=torch.float64,
                            device=dev)
+        scratch = None
+        if p.m1:
+            scratch = torch.empty((1 + (p.filt is not None),
+                                   nb // (self.w // 4) + 1, p.m),
+                                  dtype=torch.complex128, device=dev)
         out = WfOut(torch.empty(self.wl, dtype=torch.complex64, device=dev),
                     torch.empty((), dtype=torch.int32, device=dev),
                     torch.empty((k, self.w), dtype=torch.float32, device=dev))
         code = build.library().wf_run(
             band.data_ptr(), nb, hist.data_ptr(), hist.shape[0],
-            cnt.data_ptr(), self.tab.data_ptr(), self.w, k, C.SUBCHUNK_RESAMP,
-            slab_hops, slabs, part.data_ptr(), out.rows.data_ptr(),
-            out.hist.data_ptr(), out.cnt.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            cnt.data_ptr(), self.pre.data_ptr(),
+            None if self.filt is None else self.filt.data_ptr(),
+            self.tw.data_ptr(), self.w, k, C.SUBCHUNK_RESAMP, p.m, p.m1,
+            p.nt, slab_hops, slabs, None if scratch is None else
+            scratch.data_ptr(),
+            part.data_ptr(), out.rows.data_ptr(), out.hist.data_ptr(),
+            out.cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         build.check(code, "wf_run")
         LAUNCHES += 1
         return out

@@ -20,9 +20,9 @@ tests/test_torch_waterfall.py holds them bit-equal to the JAX ones.
 
 ``kernel_wf_supported`` has no counterpart: the JAX duo kernel computes the
 waterfall in-kernel only at the widths and K its Mosaic selectors allow,
-while the port's K3 (kernels/waterfall.py, csrc/waterfall.cu) serves every
-width that ``validate_width`` accepts, at every K, as far as its w*w*4-byte
-window x DFT table fits on the device (kernels/waterfall.py).
+while the port's K3 (kernels/waterfall.py, csrc/waterfall.cu, FFTs in
+shared memory with O(w) tables) serves every width that ``validate_width``
+accepts, at every K.
 """
 
 from __future__ import annotations
@@ -117,7 +117,10 @@ def asgram_rows_any_p(hist: torch.Tensor, cnt: torch.Tensor, br: torch.Tensor,
     u_i <= k*subchunk; its window is the w/2 samples of [hist | band] that
     end at u_i, and it belongs to row (u_i - 1) // subchunk.  The counter is
     taken modulo the hop (a loaded state may hold any value).  The DFT
-    products and sums are taken in double, as K3's (csrc/waterfall.cu).
+    products and sums are taken in double, as K3's FFTs (csrc/waterfall.cu),
+    by the direct definition: the [w, 2w] table grows as w^2 (4.3 GB in
+    double at w = 16384), so this version serves tests and checks, not
+    the widest widths.
     Every index is computed on the tensors' device: no host read."""
     wl, delay = w // 2, w // 4
     ks = k * subchunk

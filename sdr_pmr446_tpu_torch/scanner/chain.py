@@ -47,8 +47,7 @@ host, so a step is asynchronous end to end.  The JAX group path (the duo
 and the group trio) needs K % 8 == 0 (chain.py:136-138), its row trio
 serves the rest, and its in-kernel waterfall only some widths and K
 (spectrogram.kernel_wf_supported); every engine of the port serves every K
-and every width that spectrogram.validate_width accepts, as far as K3's
-w*w*4-byte table fits on the device.
+and every width that spectrogram.validate_width accepts.
 
 The waterfall's window history is the w/2 band samples before the block.
 For w <= 800 it is read from the tail of the incoming ``pfb_hist`` (the

@@ -82,11 +82,6 @@ def test_numpy_constants_bit_equal(w):
                                       js.wf_row_counts(w, k))
     assert spectrogram.uses_fast_path(w) == js.uses_fast_path(w)
     assert spectrogram.hist_len(w) == js.hist_len(w)
-    tab = kwf.dft_table(w)
-    assert tab.shape == (w // 2, w, 2) and tab.dtype == np.float32
-    packed = js._dft_win_packed(w)
-    np.testing.assert_array_equal(tab[..., 0], packed[:w // 2, :w])
-    np.testing.assert_array_equal(tab[..., 1], packed[:w // 2, w:])
 
 
 def test_rows_from_psd_sums_matches_jax():
@@ -105,6 +100,110 @@ def test_rows_from_psd_sums_matches_jax():
     want = js.rows_from_psd_sums(jnp.asarray(sums[:, :64]), 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
+
+
+# ------------------------------------------------ K3's FFT plan, in NumPy
+# the R-point DFTs of the kernel's butterflies (csrc/waterfall.cu dft)
+BUTTERFLY = {r: np.exp(-2j * np.pi * np.outer(np.arange(r), np.arange(r)) / r)
+             for r in (2, 3, 4, 5, 7, 8, 16)}
+
+
+def stockham(x, stw):
+    """The kernel's Stockham stages (csrc/waterfall.cu fft_stage, the
+    same index arithmetic) on the rows of x [..., L], in float64; ``stw``
+    the plan's L - 1 stage twiddles of that length."""
+    length = x.shape[-1]
+    assert stw.shape == (length - 1,)
+    ns, off = 1, 0
+    for r_ in kwf.radices(length):
+        q = length // r_
+        j = np.arange(q)
+        k = j % ns
+        v = [x[..., j + r * q] * (stw[off + (r - 1) * ns + k] if r else 1)
+             for r in range(r_)]
+        out = np.empty_like(x)
+        base = (j - k) * r_ + k
+        for s in range(r_):
+            out[..., base + s * ns] = sum(BUTTERFLY[r_][s, r] * v[r]
+                                          for r in range(r_))
+        x, off, ns = out, off + (r_ - 1) * ns, ns * r_
+    return x
+
+
+def prime_factors(n):
+    """The prime factors of n, with repeats."""
+    out, p = [], 2
+    while n > 1:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+        p += 1
+    return out
+
+
+def run_plan(plan, xw):
+    """What the kernel's passes leave at points f < w for one window of
+    w/2 samples ``xw``: S_f for a power of two, conj(S_f / c_f) through
+    Bluestein; each pass with the kernel's layout (wf_hops, or wf_cols
+    then wf_rowfft's MID and FINAL modes) and twiddle offsets."""
+    w, m, m1 = plan.w, plan.m, plan.m1
+    a = np.zeros(m, np.complex128)
+    a[:w // 2] = plan.pre * xw
+    if not m1:
+        y = stockham(a, plan.tw)
+        if plan.filt is not None:
+            y = stockham(np.conj(y * plan.filt), plan.tw)
+        return y[:w]
+    m2 = m // m1
+    st1, st2 = plan.tw[:m1 - 1], plan.tw[m1 - 1:m1 + m2 - 2]
+    wm = plan.tw[m1 + m2 - 2:]
+    assert wm.shape == (m,)
+    # wf_cols: columns n2 of x[m2 n1 + n2], m1-point FFTs, W_m^(n2 k1)
+    y = stockham(a.reshape(m1, m2).T, st1)                 # [n2, k1]
+    t_rows = (y * wm[np.arange(m2)[:, None] * np.arange(m1)]).T  # [k1, n2]
+    # wf_rowfft: m2-point row FFTs; point i of row rho is rho + m1 i
+    y = stockham(t_rows, st2)                              # [k1, k2]
+    if plan.filt is None:
+        return y.T.reshape(-1)[:w]
+    rho, i = np.arange(m1)[:, None], np.arange(m2)[None, :]
+    z = stockham(np.conj(y * plan.filt[rho + m1 * i]), st2)
+    y = stockham((z * wm[rho * i]).T, st1)                 # [k1', k2']
+    return y.T.reshape(-1)[:w]                             # k1' + m2 k2'
+
+
+@pytest.mark.parametrize("w", [8, 64, 80, 120, 132, 840, 4096, 8192, 16384,
+                               78400])
+def test_fft_plan_matches_numpy_fft(w):
+    """K3's host-side plan (radices, Bluestein's m and chirp, the
+    four-step split), run stage by stage in float64 NumPy with the
+    kernel's index arithmetic: within 1e-12 of the peak of np.fft.fft of
+    the windowed, zero-padded window; the tables O(w), not O(w^2)."""
+    plan = kwf.make_plan(w)
+    wl = w // 2
+    odd = w >> ((w & -w).bit_length() - 1)
+    direct = odd == 1 or (w <= kwf.CAP and all(
+        p in (3, 5, 7) for p in prime_factors(odd)))
+    blue = not direct
+    m = 1 << int(np.ceil(np.log2(wl + w - 1))) if blue else w
+    assert plan.m == m and (plan.filt is not None) == blue
+    assert int(np.prod(kwf.radices(m))) == m
+    if m <= kwf.CAP:
+        assert plan.m1 == 0 and 1 <= plan.nt and plan.nt * m <= kwf.CAP
+    else:
+        m2 = m // plan.m1
+        assert plan.m1 * m2 == m and plan.m1 <= m2 <= kwf.BATCH
+    mod = kwf.Waterfall(w, device="cpu")
+    n_tw = m - 1 if m <= kwf.CAP else plan.m1 + m // plan.m1 - 2 + m
+    assert sum(b.numel() for b in mod.buffers()) == wl + m * blue + n_tw
+    rng = np.random.default_rng(w)
+    xw = cplx(rng, wl, scale=1.0).astype(np.complex128)
+    win = np.hamming(wl + 1)[:wl]
+    want = np.fft.fft(win / win.sum() * xw, n=w)
+    got = run_plan(plan, xw)
+    if blue:
+        got = kwf.chirp(w, np.arange(w)) * np.conj(got)
+    err = np.max(np.abs(got - want)) / np.max(np.abs(want))
+    assert err <= 1e-12, err
 
 
 # ------------------------------------------------------ (b) K3 plain vs JAX
@@ -391,12 +490,13 @@ def _cuda_or_skip():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,k", [(80, 40), (120, 40), (840, 40), (64, 10),
-                                 (8192, 10)])
+@pytest.mark.parametrize("w,k", [(80, 40), (120, 40), (132, 10), (840, 40),
+                                 (64, 10), (8192, 10), (16384, 10)])
 def test_waterfall_kernel_matches_plain_on_card(w, k):
     """The CUDA kernel vs its plain version over two consecutive blocks
     from a non-zero history and counter: rows within 2e-3 dB, history to
-    5e-5 of its peak, counter exact, one launch a call."""
+    5e-5 of its peak, counter exact, one launch a call, and a second call
+    on the same inputs bit-equal to the first."""
     dev = _cuda_or_skip()
     rng = np.random.default_rng(w + k)
     mod = kwf.Waterfall(w, device=dev)
@@ -419,6 +519,9 @@ def test_waterfall_kernel_matches_plain_on_card(w, k):
         scale = ref.hist.abs().max().item()
         assert (got.hist - ref.hist).abs().max().item() <= 5e-5 * scale
         assert int(got.cnt) == int(ref.cnt)
+        again = mod(band, got_h, got_c)
+        for a, b in zip(again, got):
+            assert torch.equal(a, b)
         ref_h, ref_c, got_h, got_c = ref.hist, ref.cnt, got.hist, got.cnt
 
 
