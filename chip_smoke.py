@@ -11,7 +11,9 @@ on its own lines; any failure raises and ends the run:
   1. the card (nvidia-smi name and power limit) and the kernel build from
      sdr_pmr446_tpu_torch/csrc/*.cu;
   2. K1 (duo) and K2 (audio bank) against their plain PyTorch versions on
-     the card, at K = 40 (cu8) and K = 10 (cs16), with their times;
+     the card, at K = 40 (cu8) and K = 10 (cs16), a second K1 call equal
+     to the first bit for bit, with their times (CUDA events and device
+     time under torch.profiler);
   3. the scanner through ScannerDriver on a synthetic cu8 capture at K = 10
      (~3 s): active-channel trace exact and audio SNR > 40 dB against the
      float64 reference oracle (the port's copy, oracle/chain.py), tune and
@@ -19,12 +21,13 @@ on its own lines; any failure raises and ends the run:
   4. the scanner at the bench geometry K = 40 for four distinct blocks:
      throughput, decisions equal to the port's CPU run (plain versions),
      one step with host reads made errors (set_sync_debug_mode), and one
-     step under torch.profiler (device busy share, device time by part);
+     step under torch.profiler (device busy share, device time by part and
+     by device function: K1's six CUDA kernels apart);
   5. the kernels' launch counts over the runs of phases 3 and 4;
   6. K4 (the dsd_in / single mono chain) against its plain version on the
      card in both modes, two consecutive blocks each at K = 16 (cu8), 15
      (cs16, an odd number of group rows) and 10 (cu8, the app's K), with
-     its times;
+     its times (events and device);
   7. dsd_in end to end through its CLI (apps/dsd_in.main, --device cuda)
      on a synthetic cu8 FM capture at the app's K = 10: SNR > 50 dB
      against the float64 DsdInOracle, within 1 LSB of the port's CPU run,
@@ -53,18 +56,20 @@ on its own lines; any failure raises and ends the run:
      step with host reads made errors, one step under torch.profiler.
  11. the split-kernel engines: (a) K6 (front end) at K = 40 cu8 and
      K = 10 cs16, K7 (PFB + discriminator) on K6's band in both |y| forms,
-     K9 (resampler) at K = 40 and 10 with F.conv1d's time beside it (the
-     library yardstick, never called by the port), K5 (channel tail) in
-     both modes on K6's band at K = 16 cu8 and K = 15 cs16, each against
-     its plain version with its times; (b) the scanner's trio
-     (fuse_band=False: K6 -> K7) and fuse_dc=False (plain DC blocker -> K9
-     -> K7) engines against the oracle at K = 10 (decisions also equal to
-     phase 3's run), then at K = 40 in turns with the duo (duo, trio,
-     fuse_dc_off, fuse_dc_off, trio, duo), one step each with host reads
-     made errors, one profiled trio step; (c) dsd_in and single on the
-     two-kernel engine (mono=False: K6 -> K5) at K = 16 against the mono
-     engine on the same bytes, throughput in turns (mono, two, two, mono),
-     a step with host reads made errors, one profiled step.
+     K9 (resampler) at K = 40 and 10, each call repeated bit for bit, with
+     F.conv1d's event and device times beside its own (the library
+     yardstick, never called by the port), K5 (channel tail) in both modes
+     on K6's band at K = 16 cu8 and K = 15 cs16, each against its plain
+     version with its times (K6, K7 and K9 also on the device); (b) the
+     scanner's trio (fuse_band=False: K6 -> K7) and fuse_dc=False (plain
+     DC blocker -> K9 -> K7) engines against the oracle at K = 10
+     (decisions also equal to phase 3's run), then at K = 40 in turns
+     with the duo (duo, trio, fuse_dc_off, fuse_dc_off, trio, duo), one
+     step each with host reads made errors, one profiled trio step; (c)
+     dsd_in and single on the two-kernel engine (mono=False: K6 -> K5) at
+     K = 16 against the mono engine on the same bytes, throughput in turns
+     (mono, two, two, mono), a step with host reads made errors, one
+     profiled step.
  12. the scanner's op-path switches: (a) K8 (the audio bank without its
      CTCSS epilogue: apply and apply_dc) against its plain versions at
      K = 40 and 10 on the demod of K6 -> K7, over two calls from a random
@@ -83,9 +88,10 @@ on its own lines; any failure raises and ends the run:
      launch) in each format, w within 1e-5 of its peak, xl exact, with its
      times; (b) K11 (the halo ring shift) against torch.roll (its plain
      version and library yardstick) on the plane path's real tails, bit
-     for bit, with both times; (c) the sharded duo at (4, 5), K = 40, cu8,
-     over 4 captures of 4 occupied blocks and a hang block (the
-     transmission ends half-way, receiver noise follows), against 4
+     for bit, with both times by event and on the device; (c) the sharded
+     duo at (4, 5), K = 40, cu8, over 4 captures of 4 occupied blocks and
+     a hang block (the transmission ends half-way, receiver noise
+     follows), against 4
      unsharded ScannerChains on the same bytes with JAX's sharded gates
      (decisions and events exact, RSSI within 5e-3 dB, audio within 1e-4),
      throughput in turns (sharded, unsharded, unsharded, sharded), one step
@@ -113,7 +119,8 @@ on its own lines; any failure raises and ends the run:
      plain versions on seeded random [128, 256] x [256, 128] inputs (within
      1e-5 of the output's peak), with their times beside torch.matmul's
      (the library yardstick, never called by a mode); (d) K12a's eight
-     moves bit for bit against their plain versions, with their times.
+     moves bit for bit against their plain versions, with their times and
+     their library moves', by event and on the device.
  15. faithful mode (scanner/faithful.py, no kernel of its own: plain ops on
      the card) at K = 10 on tests/test_faithful.py's busy scenario (tune,
      a lock_mode max switch, a detune, CTCSS): against the float64 oracle
@@ -383,6 +390,10 @@ def phase_kernels(dev, fmt: str, k: int, timer, reps: int = REPS):
         log(f"    carry {name}: rel err {rel:.3g}")
         check(rel < TOL_CARRY_REL, f"K1 carry {name}")
     check(int(ref.parity) == int(got.parity), "K1 parity")
+    again = duo.kernel(wires[0], *state, ns=NS)
+    check(all(torch.equal(a, b) for a, b in zip(again, got)),
+          "K1: a second call differs from the first")
+    log("  K1: a second call equal to the first bit for bit")
 
     bank = AudioBank(device=dev)
     hist = torch.as_tensor(0.1 * rng.standard_normal((16, bank.hist)),
@@ -425,6 +436,10 @@ def phase_kernels(dev, fmt: str, k: int, timer, reps: int = REPS):
     }
     log(f"  times K={k} {fmt} (median of {len(wires)}, ms): " + ", ".join(
         f"{key} {val:.3f}" for key, val in times.items()))
+    sync = lambda: torch.cuda.synchronize(dev)
+    log(f"  device ms K={k} {fmt}: duo "
+        f"{device_ms(lambda *a: duo.kernel(*a, ns=NS), duo_in, sync)}, bank "
+        f"{device_ms(bank.kernel, bank_in, sync)}")
     f = k * NS
     return [
         {"name": "duo", "route": "cuda",
@@ -542,7 +557,8 @@ def phase_mono(dev, fmt: str, k: int, timer, reps: int = REPS):
         b = bound(*mono_work(mono, n, decode.BYTES_PER_SAMPLE[fmt]))
         log(f"  K4 {mode} {fmt} K={k} times (median of {reps}, ms): kernel "
             f"{t_kernel:.3f}, plain {t_plain:.3f}, bound {b['bound_ms']:.4f} "
-            f"({b['bound_by']})")
+            f"({b['bound_by']}); device "
+            f"{device_ms(kernel, inputs, torch.cuda.synchronize)}")
         rows.append({"name": f"mono_{mode}", "route": "cuda",
                      "source": "sdr_pmr446_tpu_torch/csrc/chan_tail.cu",
                      "replaces": "sdr_pmr446_tpu/kernels/chan_tail.py:600",
@@ -850,7 +866,7 @@ def phase_profile(dev, k: int, sync, waterfall: int = 0,
     drv.run(blocks[:1])
     sync()
     profile_step(lambda: drv.run(blocks[1:]), sync, parts or SCANNER_PARTS,
-                 "other (FSM, RSSI, select)", by_kernel=waterfall > 0)
+                 "other (FSM, RSSI, select)", by_kernel=True)
     return drv.block_index
 
 
@@ -1218,7 +1234,8 @@ def front_end_case(dev, fmt: str, k: int, timer, reps: int = REPS):
     b = bound(nbytes + 8 * (n * 25 // 128), ops)
     log(f"  K6 {fmt} K={k} times (median of {reps}, ms): kernel "
         f"{t_kernel:.4f}, plain {t_plain:.4f}, bound {b['bound_ms']:.5f} "
-        f"({b['bound_by']})")
+        f"({b['bound_by']}); device "
+        f"{device_ms(fe.kernel, inputs, lambda: torch.cuda.synchronize(dev))}")
     bands = [fe.kernel(*a).band for a in inputs]
     return {"name": "front_end", "route": "cuda",
             "source": "sdr_pmr446_tpu_torch/csrc/front_end.cu",
@@ -1263,9 +1280,11 @@ def pfb_case(dev, bands, k: int, mag: str, timer):
     f = bands[0].shape[1] // 16
     b = bound(*[x + y for x, y in zip(pfb_work(k, f, plane=mag == "plane"),
                                       (8 * bands[0].shape[1], 0))])
+    dev_k = device_ms(lambda *a: pd.kernel(*a, ns=NS, mag=mag), inputs,
+                      lambda: torch.cuda.synchronize(dev))
     log(f"  K7 mag={mag} K={k} times (median of {len(inputs)}, ms): kernel "
         f"{t_kernel:.4f}, plain {t_plain:.4f}, bound {b['bound_ms']:.5f} "
-        f"({b['bound_by']})")
+        f"({b['bound_by']}); device {dev_k}")
     return {"name": "pfb_demod", "route": "cuda",
             "source": "sdr_pmr446_tpu_torch/csrc/pfb_demod.cu",
             "replaces": "sdr_pmr446_tpu/kernels/pfb_demod.py:674",
@@ -1307,6 +1326,9 @@ def resample_case(dev, k: int, timer, reps: int = REPS):
             f"{errs[-1]:.3g}, history max|err| {max_err(rh, gh):.3g}")
         check(snr > TOL_SNR_DB, f"K9 K={k} band SNR")
         check(max_err(rh, gh) == 0.0, f"K9 K={k} history")
+        check(torch.equal(rs.kernel(got_h, planes[step][0],
+                                    planes[step][1])[1], gb),
+              f"K9 K={k}: a second call differs from the first")
         ref_h, got_h = rh, gh
     inputs = [(hist, p[0], p[1]) for p in planes]
     t_kernel = timed(timer, rs.kernel, inputs)
@@ -1322,10 +1344,13 @@ def resample_case(dev, k: int, timer, reps: int = REPS):
     check(lib_err < 1e-3 * peak(rs.plain(*inputs[0])[1]),
           f"K9: F.conv1d differs by {lib_err:.3g}")
     b = bound(*resample_work(n))
+    sync = lambda: torch.cuda.synchronize(dev)
     log(f"  K9 K={k} times (median of {reps}, ms): kernel {t_kernel:.4f}, "
         f"plain {t_plain:.4f}, F.conv1d {t_lib:.4f}, bound "
         f"{b['bound_ms']:.5f} ({b['bound_by']}); F.conv1d within "
-        f"{lib_err:.3g} of the kernel")
+        f"{lib_err:.3g} of the kernel; a second call equal bit for bit")
+    log(f"  K9 K={k} device ms: kernel {device_ms(rs.kernel, inputs, sync)}, "
+        f"F.conv1d {device_ms(conv, lhs, sync)}")
     return {"name": "resampler", "route": "cuda",
             "source": "sdr_pmr446_tpu_torch/csrc/resample_kernel.cu",
             "replaces": "sdr_pmr446_tpu/kernels/resample_kernel.py:88",
@@ -1944,10 +1969,13 @@ def ring_shift_case(dev, timer, tails, reps: int = REPS):
         t_lib = timed(timer, lambda x: torch.roll(x, 1, dims=1), ins)
         nbytes = 2 * t.numel() * t.element_size()
         b = bound(nbytes, 0)
+        sync = lambda: torch.cuda.synchronize(dev)
         log(f"  K11 {name} {tuple(t.shape)} {t.dtype}: == torch.roll bit for "
             f"bit; times (ms) kernel {t_k:.4f}, plain {t_p:.4f}, torch.roll "
             f"{t_lib:.4f}, bound {b['bound_ms']:.6f} ({b['bound_by']}, "
-            f"{nbytes} B)")
+            f"{nbytes} B); device ms kernel "
+            f"{device_ms(halo_dma.ring_shift_kernel, ins, sync)}, torch.roll "
+            f"{device_ms(lambda x: torch.roll(x, 1, dims=1), ins, sync)}")
         rows.append({"name": "ring_shift", "route": "cuda",
                      "source": "sdr_pmr446_tpu_torch/csrc/halo_dma.cu",
                      "replaces": "sdr_pmr446_tpu/kernels/halo_dma.py:64",
@@ -2589,9 +2617,19 @@ def phase_probes(dev, timer, reps: int = REPS):
                  else None)
         b_ = bound(4 * (math.prod(shape_in) + math.prod(shape_out)), 0)
         lib = "none" if t_lib is None else f"{t_lib:.4f}"
+        sync = lambda: torch.cuda.synchronize(dev)
+        if move not in library:
+            dev_lib = "none"
+        elif library[move](ins[0][0]).data_ptr() == ins[0][0].data_ptr():
+            dev_lib = "a view, no device work"
+        else:
+            dev_lib = device_ms(library[move], ins, sync)
+        dev_k = device_ms(lambda x: K12a.probe_move_kernel(x, move), ins,
+                          sync)
         log(f"  K12a {move}: == plain bit for bit; times (ms) kernel "
             f"{t_k:.4f}, plain {t_p:.4f}, library {lib}, bound "
-            f"{b_['bound_ms']:.7f} ({b_['bound_by']})")
+            f"{b_['bound_ms']:.7f} ({b_['bound_by']}); device ms kernel "
+            f"{dev_k}, library {dev_lib}")
         rows.append({"name": f"probe_layout_{move}", "route": "cuda",
                      "source": "sdr_pmr446_tpu_torch/csrc/probe_layout.cu",
                      "replaces": "tools/probe_layout.py:48",

@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Times of the filter-bank kernels of one tree of the port, by CUDA kernel.
+
+    python3 kernel_times.py [--tree DIR] [--label NAME] [--reps N] [--out FILE]
+
+Runs, on one CUDA card, the kernels that hold the resampler or the PFB of
+the ``sdr_pmr446_tpu_torch`` package found in DIR (default: this
+checkout), after building that tree's kernels from its own sources:
+
+  K1 (duo, cu8, K = 40), K6 (front end, cu8 K = 40 and cs16 K = 10), K7
+  (PFB + discriminator, |y| sums, K = 40 and 10, on the plain front end's
+  band), K9 (resampler, K = 40 and 10, with F.conv1d, its library
+  yardstick, beside it) and K4 (mono chain, dsd and single, cu8, K = 16),
+
+each on chip_smoke.py's inputs (the same helpers): CUDA events around one
+call (median over N fresh inputs, after a warm-up call), and the device
+time of the same N calls under torch.profiler, in all and by CUDA kernel,
+per call.  Two trees compare on one card when one job runs this for each
+in turns (parent, change, change, parent).  Prints a line per case and, last,
+one JSON object {"label", "card", "cases": {...}}; writes that object to
+FILE too when given.  Needs a CUDA device and nvcc; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import chip_smoke as cs  # noqa: E402  (helpers; the package loads lazily)
+
+
+def device_split(fn, inputs, sync) -> dict:
+    """Device ms a call of fn over ``inputs``, by CUDA kernel name."""
+    for _ in range(cs.PROFILE_ATTEMPTS):
+        evs, _, _, _ = cs.profile_session(lambda: [fn(*a) for a in inputs],
+                                          sync)
+        if evs:
+            break
+    by: dict = {}
+    for e in evs:
+        name = cs.kernel_name(e.name).split("<")[0]
+        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {name: ms / len(inputs) for name, ms in by.items()}
+
+
+def measure(fn, inputs, sync) -> dict:
+    split = device_split(fn, inputs, sync)
+    return {"event_ms": cs.timed(cs.cuda_timer, fn, inputs),
+            "device_ms": sum(split.values()), "by_kernel": split}
+
+
+def cases(dev, reps: int):
+    """(name, fn, inputs) of every case, built on ``dev``."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels.chan_tail import MonoChain
+    from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
+    from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
+    from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod
+    from sdr_pmr446_tpu_torch.kernels.resample_kernel import Resampler
+    from sdr_pmr446_tpu_torch.ops import decode, iir
+    out = []
+
+    def wires(k, fmt, base=None):
+        base = cs.occupied_band(k * C.SUBCHUNK_IN) if base is None else base
+        return [torch.as_tensor(decode.quantize_iq(
+            base * np.exp(0.37j * s), fmt), device=dev) for s in range(reps)]
+
+    rng = np.random.default_rng(40)
+    duo = ScannerDuo("cu8", device=dev)
+    st = cs.random_duo_state(duo, rng, dev)
+    out.append(("K1 cu8 K=40", lambda *a: duo.kernel(*a, ns=cs.NS),
+                [(w,) + st for w in wires(40, "cu8")]))
+    bands = {}
+    for fmt, k in (("cu8", 40), ("cs16", 10)):
+        fe = FrontEnd(fmt, device=dev)
+        st = (cs.random_c64(rng, dev, scale=0.1),
+              cs.random_c64(rng, dev, scale=0.01),
+              cs.random_c64(rng, dev, fe.hist_len, scale=0.01))
+        ins = [(w,) + st for w in wires(k, fmt)]
+        out.append((f"K6 {fmt} K={k}", fe.kernel, ins))
+        bands[k] = [fe.plain(*a).band for a in ins]
+    for k in (40, 10):
+        pd = PfbDemod(device=dev)
+        st = (cs.random_c64(rng, dev, 400, scale=0.1),
+              torch.tensor(1, dtype=torch.int32, device=dev),
+              cs.random_c64(rng, dev, 16, scale=0.1))
+        out.append((f"K7 sums K={k}", lambda *a, pd=pd: pd.kernel(
+            *a, ns=cs.NS, mag="sums"), [(b,) + st for b in bands[k]]))
+    for k in (40, 10):
+        rs = Resampler(device=dev)
+        n = k * C.SUBCHUNK_IN
+        hist = cs.random_c64(rng, dev, rs.hist_len, scale=0.1)
+        planes = []
+        for x in wires(k, "cf32"):
+            xr, xi = decode.decode_planes(x, "cf32")
+            z = torch.zeros(2, device=dev)
+            planes.append(iir.dc_blocker_apply(
+                (z, z), torch.stack([xr, xi]), C.DC_BLOCK_ALPHA)[1])
+        out.append((f"K9 K={k}", rs.kernel,
+                    [(hist, p[0], p[1]) for p in planes]))
+        op = rs.op
+        need = (n // op.M - 1) * op.M + op.W
+        lhs = [(torch.cat([torch.view_as_real(hist).T, p], dim=-1)[:, :need]
+                .reshape(2, 1, need).contiguous(),) for p in planes]
+        out.append((f"F.conv1d K={k}", lambda x, w=op.weight, m=op.M:
+                    torch.nn.functional.conv1d(x, w, stride=m), lhs))
+    for mode in ("dsd", "single"):
+        mono = MonoChain(mode, "cu8", channel=5,
+                         audio_gain=C.SDR_DEFAULT_AUDIO_GAIN, device=dev)
+        st, n0 = cs.random_mono_state(mono, rng, dev)
+        ins = [(w, *st) for w in wires(16, "cu8", cs.mono_signal(
+            mode, 16 * C.SUBCHUNK_IN, 0))]
+        out.append((f"K4 {mode} cu8 K=16",
+                    lambda *a, m=mono, n0=n0: m.kernel(*a, n0=n0), ins))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", type=Path, default=None,
+                    help="checkout whose sdr_pmr446_tpu_torch to time")
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--reps", type=int, default=cs.REPS)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if args.tree is not None:
+        sys.path.insert(0, str(args.tree.resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device available", file=sys.stderr)
+        return 2
+    import sdr_pmr446_tpu_torch
+    from sdr_pmr446_tpu_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    sync = lambda: torch.cuda.synchronize(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    cs.log(f"{args.label}: {Path(sdr_pmr446_tpu_torch.__file__).parent}, "
+           f"{card}")
+    build.library()
+    res = {}
+    for name, fn, inputs in cases(dev, args.reps):
+        res[name] = r = measure(fn, inputs, sync)
+        cs.log(f"  {name}: event {r['event_ms']:.4f} ms, device "
+               f"{r['device_ms']:.4f} ms: " + ", ".join(
+                   f"{k} {v:.4f}" for k, v in sorted(
+                       r["by_kernel"].items(), key=lambda kv: -kv[1])))
+    doc = {"label": args.label, "card": card, "cases": res}
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(doc))
+    print(json.dumps(doc))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

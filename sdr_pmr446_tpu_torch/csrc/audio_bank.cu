@@ -189,9 +189,8 @@ static bool ab_bad_args(int F, int H, int La, int Ll) {
 static int ab_fir_dc(const void* demod, int F, const void* hist, int H,
                      const void* dc_x, const void* dc_y, const void* gain,
                      const void* ta, int La, const void* tl, int Ll, double p,
-                     double g, double pL, double pSeg, int seg, void* lp,
-                     void* lplocal, void* yend, void* carry, void* audio,
-                     cudaStream_t s) {
+                     double g, double pL, void* lp, void* lplocal, void* yend,
+                     void* carry, void* audio, cudaStream_t s) {
   const int chunks = (F + DC_L - 1) / DC_L;
   ab_fir<<<dim3((F + AB_TILE - 1) / AB_TILE, NCH), AB_TILE, 0, s>>>(
       (const float*)demod, F, (const float*)hist, H, (const float*)ta, La,
@@ -202,8 +201,7 @@ static int ab_fir_dc(const void* demod, int F, const void* hist, int H,
       (float*)yend, chunks);
   SDR_CHECK_LAUNCH();
   dc_carry_kernel<<<NCH, CARRY_THREADS, 0, s>>>(
-      (const float*)yend, (float*)carry, (const float*)dc_y, chunks, pL, pSeg,
-      seg);
+      (const float*)yend, (float*)carry, (const float*)dc_y, chunks, pL);
   SDR_CHECK_LAUNCH();
   return 0;
 }
@@ -213,8 +211,7 @@ extern "C" int audio_bank_run(const void* demod, int F, const void* hist,
                               const void* gain, const void* b_arr,
                               const void* sel, int K, int ns, const void* ta,
                               int La, const void* tl, int Ll, const void* pj,
-                              double p, double g, double pL, double pSeg,
-                              int seg,
+                              double p, double g, double pL,
                               const void* f10, void* lp, void* lplocal,
                               void* yend, void* carry, void* audio,
                               void* hist_out, void* dc_x_out, void* dc_y_out,
@@ -224,8 +221,7 @@ extern "C" int audio_bank_run(const void* demod, int F, const void* hist,
   cudaStream_t s = (cudaStream_t)stream;
   const int chunks = (F + DC_L - 1) / DC_L;
   const int e = ab_fir_dc(demod, F, hist, H, dc_x, dc_y, gain, ta, La, tl, Ll,
-                          p, g, pL, pSeg, seg, lp, lplocal, yend, carry, audio,
-                          s);
+                          p, g, pL, lp, lplocal, yend, carry, audio, s);
   if (e != 0) return e;
   ab_ctcss<<<dim3(K, NTONES), RED_THREADS, 0, s>>>(
       (const float*)lplocal, (const float*)carry, (const float*)pj, F, chunks,
@@ -264,9 +260,9 @@ extern "C" int audio_bank_apply_dc(const void* demod, int F, const void* hist,
                                    int H, const void* dc_x, const void* dc_y,
                                    const void* gain, const void* ta, int La,
                                    const void* tl, int Ll, const void* pj,
-                                   double p, double g, double pL, double pSeg,
-                                   int seg, void* lp, void* lplocal,
-                                   void* yend, void* carry, void* audio,
+                                   double p, double g, double pL, void* lp,
+                                   void* lplocal, void* yend, void* carry,
+                                   void* audio,
                                    void* hist_out, void* dc_x_out,
                                    void* dc_y_out, void* lp_dcb,
                                    void* stream) {
@@ -274,8 +270,7 @@ extern "C" int audio_bank_apply_dc(const void* demod, int F, const void* hist,
   cudaStream_t s = (cudaStream_t)stream;
   const int chunks = (F + DC_L - 1) / DC_L;
   const int e = ab_fir_dc(demod, F, hist, H, dc_x, dc_y, gain, ta, La, tl, Ll,
-                          p, g, pL, pSeg, seg, lp, lplocal, yend, carry, audio,
-                          s);
+                          p, g, pL, lp, lplocal, yend, carry, audio, s);
   if (e != 0) return e;
   ab_dc_plane<<<dim3((F + 255) / 256, NCH), 256, 0, s>>>(
       (const float*)lplocal, (const float*)carry, (const float*)pj, F, chunks,

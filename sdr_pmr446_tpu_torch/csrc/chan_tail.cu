@@ -287,8 +287,8 @@ static int mono_launch(int mode, const uint8_t* wire, long long n,
                        const float* dc_x, const float* dc_y, const float* fhist,
                        int H, const float* bhist, int HB, const float* sig_prev,
                        const float* dhist, int DH, const int* n0,
-                       const float* kc, const float* pj, double p, double g,
-                       double pL, double pSeg, int seg, float inv_cu8,
+                       const float* kt, const float* pj, double p, double g,
+                       double pL, float inv_cu8,
                        const float* kd, int P, const float* tab,
                        const float* kpost, int post_taps, float dscale,
                        float* ylocal, float* yend, float* carry, float* band,
@@ -298,9 +298,9 @@ static int mono_launch(int mode, const uint8_t* wire, long long n,
                        float* out, cudaStream_t s) {
   const int chunks = (int)((n + DC_L - 1) / DC_L);
   const long long nb = n / RES_M * RES_L;
-  const int fe = front_end_launch<FMT>(wire, n, dc_x, dc_y, fhist, H, kc, pj,
-                                       p, g, pL, pSeg, seg, inv_cu8, ylocal,
-                                       yend, carry, band, s);
+  const int fe = front_end_launch<FMT>(wire, n, dc_x, dc_y, fhist, H, kt, pj,
+                                       p, g, pL, inv_cu8, ylocal, yend,
+                                       carry, band, s);
   if (fe != 0) return fe;
   const int tail = H > HB ? H : HB;
   mono_state<FMT><<<(tail + 255) / 256, 256, 0, s>>>(
@@ -317,8 +317,8 @@ extern "C" int mono_run(int fmt, int mode, const void* wire, long long n,
                         const void* dc_x, const void* dc_y, const void* fhist,
                         int H, const void* bhist, int HB, const void* sig_prev,
                         const void* dhist, int DH, const void* n0,
-                        const void* kc, const void* pj, double p, double g,
-                        double pL, double pSeg, int seg, float inv_cu8,
+                        const void* kt, const void* pj, double p, double g,
+                        double pL, float inv_cu8,
                         const void* kd, int P, const void* tab,
                         const void* kpost, int post_taps, float dscale,
                         void* ylocal, void* yend, void* carry, void* band,
@@ -333,7 +333,7 @@ extern "C" int mono_run(int fmt, int mode, const void* wire, long long n,
   mode, (const uint8_t*)wire, n, (const float*)dc_x, (const float*)dc_y,     \
       (const float*)fhist, H, (const float*)bhist, HB,                       \
       (const float*)sig_prev, (const float*)dhist, DH, (const int*)n0,       \
-      (const float*)kc, (const float*)pj, p, g, pL, pSeg, seg, inv_cu8,      \
+      (const float*)kt, (const float*)pj, p, g, pL, inv_cu8,                 \
       (const float*)kd, P, (const float*)tab, (const float*)kpost,           \
       post_taps, dscale, (float*)ylocal, (float*)yend, (float*)carry,        \
       (float*)band, (float*)sig, (float*)dem, (float*)dc_x_out,              \

@@ -11,8 +11,9 @@
 //      fe_dc_local<FMT>, dc_carry_kernel and fe_resample — decode, DC
 //      blocker, 25/128 resampler;
 //   4. duo_tail<FMT>: the carried state (front history, PFB history, DC x/y);
-//   5. pfb_filter: 416-tap complex PFB, one thread per (frame, channel), then
-//      the (-1)^(parity + frame) mixer flip (pfb_demod.cuh, shared with K7);
+//   5. pfb_filter: the 416-tap complex PFB as 26-tap branch sums, a twiddle
+//      and a 16-point DFT, then the (-1)^(parity + frame) mixer flip
+//      (pfb_demod.cuh, shared with K7);
 //   6. pfb_demod_mag: discriminator (native atan2f) and the per-(sub-chunk,
 //      channel) |y| sums as a deterministic block reduction.
 // Device memory between launches: the chunk-local DC response [2][n], the
@@ -44,9 +45,9 @@ template <int FMT>
 static int duo_launch(const uint8_t* wire, long long n, const float* dc_x,
                       const float* dc_y, const float* fhist, int H,
                       const float* phist, const int* parity, const float* prev,
-                      const float* kc, const float* ck_re, const float* ck_im,
-                      const float* pj, double p, double g, double pL,
-                      double pSeg, int seg, float inv_cu8, float dscale, int K, int ns,
+                      const float* kt, const float* pg, const float* pc,
+                      const float* pw, const float* pj, double p, double g,
+                      double pL, float inv_cu8, float dscale, int K, int ns,
                       float* ylocal, float* yend, float* carry, float* band,
                       float* chan, float* dc_x_out, float* dc_y_out,
                       float* fhist_out, float* phist_out, float* demod,
@@ -54,41 +55,42 @@ static int duo_launch(const uint8_t* wire, long long n, const float* dc_x,
   const int chunks = (int)((n + DC_L - 1) / DC_L);
   const int res_frames = (int)(n / RES_M);
   const long long nb = (long long)res_frames * RES_L;
-  const int fe = front_end_launch<FMT>(wire, n, dc_x, dc_y, fhist, H, kc, pj,
-                                      p, g, pL, pSeg, seg, inv_cu8, ylocal,
-                                      yend, carry, band, s);
+  const int fe = front_end_launch<FMT>(wire, n, dc_x, dc_y, fhist, H, kt, pj,
+                                      p, g, pL, inv_cu8, ylocal, yend, carry,
+                                      band, s);
   if (fe != 0) return fe;
   const int tail = H > PFB_HIST ? H : PFB_HIST;
   duo_tail<FMT><<<(tail + 255) / 256, 256, 0, s>>>(
       wire, n, inv_cu8, ylocal, carry, pj, chunks, fhist, H, fhist_out, phist,
       band, nb, phist_out, dc_x_out, dc_y_out);
   SDR_CHECK_LAUNCH();
-  return pfb_demod_launch(band, nb, phist, parity, prev, ck_re, ck_im, dscale,
+  return pfb_demod_launch(band, nb, phist, parity, prev, pg, pc, pw, dscale,
                           K, ns, chan, demod, mag, prev_out, s);
 }
 
 extern "C" int duo_run(int fmt, const void* wire, long long n,
                        const void* dc_x, const void* dc_y, const void* fhist,
                        int H, const void* phist, const void* parity,
-                       const void* prev, const void* kc, const void* ck_re,
-                       const void* ck_im, const void* pj, double p, double g,
-                       double pL, double pSeg, int seg, float inv_cu8,
-                       float dscale, int K, int ns, void* ylocal, void* yend,
-                       void* carry, void* band, void* chan, void* dc_x_out,
-                       void* dc_y_out, void* fhist_out, void* phist_out,
-                       void* demod, void* mag, void* prev_out, void* stream) {
+                       const void* prev, const void* kt, const void* pg,
+                       const void* pc, const void* pw, const void* pj,
+                       double p, double g, double pL, float inv_cu8,
+                       float dscale, int K, int ns,
+                       void* ylocal, void* yend, void* carry, void* band,
+                       void* chan, void* dc_x_out, void* dc_y_out,
+                       void* fhist_out, void* phist_out, void* demod,
+                       void* mag, void* prev_out, void* stream) {
   if (n <= 0 || n % (RES_M * NCH) != 0 || H < RS_P - 1 || K <= 0 ||
       (long long)K * ns * NCH * RES_M != n * RES_L)
     return (int)cudaErrorInvalidValue;
 #define SDR_DUO_ARGS                                                        \
   (const uint8_t*)wire, n, (const float*)dc_x, (const float*)dc_y,          \
       (const float*)fhist, H, (const float*)phist, (const int*)parity,      \
-      (const float*)prev, (const float*)kc, (const float*)ck_re,            \
-      (const float*)ck_im, (const float*)pj, p, g, pL, pSeg, seg, inv_cu8,  \
-      dscale, K, ns, (float*)ylocal, (float*)yend, (float*)carry,           \
-      (float*)band, (float*)chan, (float*)dc_x_out, (float*)dc_y_out,       \
-      (float*)fhist_out, (float*)phist_out, (float*)demod, (float*)mag,     \
-      (float*)prev_out, (cudaStream_t)stream
+      (const float*)prev, (const float*)kt, (const float*)pg,               \
+      (const float*)pc, (const float*)pw, (const float*)pj, p, g, pL,       \
+      inv_cu8, dscale, K, ns, (float*)ylocal, (float*)yend,                 \
+      (float*)carry, (float*)band, (float*)chan, (float*)dc_x_out,          \
+      (float*)dc_y_out, (float*)fhist_out, (float*)phist_out,               \
+      (float*)demod, (float*)mag, (float*)prev_out, (cudaStream_t)stream
   switch (fmt) {
     case FMT_CU8: return duo_launch<FMT_CU8>(SDR_DUO_ARGS);
     case FMT_CS8: return duo_launch<FMT_CS8>(SDR_DUO_ARGS);

@@ -14,10 +14,11 @@
 // 346-tap resampler on two planes, 25 outputs per 128 inputs, and the DC
 // blocker) against a 2-8 byte read and a 1.6 byte band write — operations
 // bound, ~17 us at K = 40 cu8.  The design keeps the resampler's inputs in
-// shared memory: each block loads its 2,388-sample window once (1.17x the
-// 2,048 samples it consumes) and every tap reads it from there.  The
-// chunk-local DC response still goes through device memory between
-// launches; fusing them is later work.
+// shared memory: each block loads its 8,538-sample window once (1.04x the
+// 8,192 samples it consumes) and the staged taps, and runs the resampler
+// as a register-tiled product over them (front_end.cuh).  The chunk-local
+// DC response still goes through device memory between launches; fusing
+// them is later work.
 #include "front_end.cuh"
 
 // 4. front_hist', dc_x', dc_y'
@@ -38,15 +39,15 @@ static __global__ void fe_state(const uint8_t* __restrict__ wire, long long n,
 template <int FMT>
 static int fe_launch(const uint8_t* wire, long long n, const float* dc_x,
                      const float* dc_y, const float* fhist, int H,
-                     const float* kc, const float* pj, double p, double g,
-                     double pL, double pSeg, int seg, float inv_cu8,
-                     float* ylocal, float* yend, float* carry, float* band,
+                     const float* kt, const float* pj, double p, double g,
+                     double pL, float inv_cu8, float* ylocal, float* yend,
+                     float* carry, float* band,
                      float* dc_x_out, float* dc_y_out, float* fhist_out,
                      cudaStream_t s) {
   const int chunks = (int)((n + DC_L - 1) / DC_L);
-  const int fe = front_end_launch<FMT>(wire, n, dc_x, dc_y, fhist, H, kc, pj,
-                                       p, g, pL, pSeg, seg, inv_cu8, ylocal,
-                                       yend, carry, band, s);
+  const int fe = front_end_launch<FMT>(wire, n, dc_x, dc_y, fhist, H, kt, pj,
+                                       p, g, pL, inv_cu8, ylocal, yend,
+                                       carry, band, s);
   if (fe != 0) return fe;
   fe_state<FMT><<<(H + 255) / 256, 256, 0, s>>>(
       wire, n, inv_cu8, ylocal, carry, pj, chunks, fhist, H, fhist_out,
@@ -57,17 +58,17 @@ static int fe_launch(const uint8_t* wire, long long n, const float* dc_x,
 
 extern "C" int fe_run(int fmt, const void* wire, long long n, const void* dc_x,
                       const void* dc_y, const void* fhist, int H,
-                      const void* kc, const void* pj, double p, double g,
-                      double pL, double pSeg, int seg, float inv_cu8,
-                      void* ylocal, void* yend, void* carry, void* band,
+                      const void* kt, const void* pj, double p, double g,
+                      double pL, float inv_cu8, void* ylocal, void* yend,
+                      void* carry, void* band,
                       void* dc_x_out, void* dc_y_out, void* fhist_out,
                       void* stream) {
   if (n <= 0 || n % RES_M != 0 || H < RS_P - 1)
     return (int)cudaErrorInvalidValue;
 #define SDR_FE_ARGS                                                          \
   (const uint8_t*)wire, n, (const float*)dc_x, (const float*)dc_y,          \
-      (const float*)fhist, H, (const float*)kc, (const float*)pj, p, g, pL, \
-      pSeg, seg, inv_cu8, (float*)ylocal, (float*)yend, (float*)carry,      \
+      (const float*)fhist, H, (const float*)kt, (const float*)pj, p, g, pL, \
+      inv_cu8, (float*)ylocal, (float*)yend, (float*)carry,                 \
       (float*)band, (float*)dc_x_out, (float*)dc_y_out, (float*)fhist_out,  \
       (cudaStream_t)stream
   switch (fmt) {

@@ -8,18 +8,21 @@
 // carried band history), pfb_filter (the PFB into the channel planes) and
 // pfb_demod_mag (|y| sums a sub-chunk) or pfb_demod_plane (the |y| plane),
 // all in pfb_demod.cuh, shared with K1.  What bounds it on the H100: per
-// frame the filterbank counted as 416 complex taps plus a 16-point FFT and
-// the mixer (~2,100 f32 operations) and per channel sample an atan2 and
-// |y| — ~0.14 GFLOP at K = 40, against a 6.3 MB band read and a 3.1 MB
-// demod write: bytes bound at ~3 us.  The design loads each block's window
-// of 16 frames (656 band samples for 256 new ones) into shared memory once
-// and reads the taps through the read-only cache; the channel planes go
-// through device memory between launches.
+// frame the filterbank as 16 branch sums of 26 real taps, the 16 branch
+// twiddles and a 16-point FFT (~2,100 f32 operations) and per channel
+// sample an atan2 and |y| — ~0.14 GFLOP at K = 40, against a 6.3 MB band
+// read and a 3.1 MB demod write: bytes bound at ~3 us.  The design runs the
+// filterbank in that factored form (pfb_demod.cuh): each block loads its
+// window of 64 frames (1,424 band samples for 1,024 new ones) into shared
+// memory once, each thread holds its branch's 26 taps in registers and
+// slides them over 4 frames, the DFT runs in shuffles, and the channel
+// planes go out in coalesced rows and through device memory between
+// launches.
 #include "pfb_demod.cuh"
 
 extern "C" int pfb_demod_run(const void* band, long long nb, const void* phist,
                              const void* parity, const void* prev,
-                             const void* ck_re, const void* ck_im,
+                             const void* pg, const void* pc, const void* pw,
                              float dscale, int K, int ns, void* chan,
                              void* phist_out, void* demod, void* mag,
                              void* prev_out, void* stream) {
@@ -32,7 +35,8 @@ extern "C" int pfb_demod_run(const void* band, long long nb, const void* phist,
   SDR_CHECK_LAUNCH();
   return pfb_demod_launch((const float*)band, nb, (const float*)phist,
                           (const int*)parity, (const float*)prev,
-                          (const float*)ck_re, (const float*)ck_im, dscale, K,
+                          (const float*)pg, (const float*)pc,
+                          (const float*)pw, dscale, K,
                           ns, (float*)chan, (float*)demod, (float*)mag,
                           (float*)prev_out, s);
 }

@@ -1,30 +1,51 @@
 // The 16-channel PFB and the discriminator, shared by K1 (csrc/duo.cu) and
 // K7 (csrc/pfb_demod.cu).  What they compute is documented beside K7's
 // plain PyTorch version, kernels/pfb_demod.py::PfbDemod.
-//   pfb_filter: 416-tap complex PFB, one thread per (frame, channel), over a
+//   pfb_filter: the 416-tap complex PFB in its factored form (below) over a
 //     shared-memory window of [pfb_hist | band], then the (-1)^(parity +
 //     frame) mixer flip -> the channel planes [2][16][F];
 //   pfb_demod_mag: discriminator (native atan2f) and the per-(sub-chunk,
 //     channel) |y| sums as a deterministic block reduction;
 //   pfb_demod_plane: discriminator and the |y| plane, one thread a sample;
 //   pfb_state: pfb_hist', the last 400 samples of [pfb_hist | band].
+//
+// The fused kernel CK[t][k] = h[415 - t] e^{j w (t - 400)} W16^{k t} (w the
+// mixer, 16 w = 15 pi) factors at t = 16 m + r into g[m][r] c_r W16^{k r}:
+// g[m][r] = h[415 - 16 m - r] (-1)^m real [26][16], c_r = e^{j w (r - 400)}
+// (kernels/pfb_demod.py::pfb_factors, float64 on the host, f32 here).  So a
+// frame is 16 branch sums of 26 real taps on complex samples, a twiddle c_r
+// each, and one 16-point DFT: ~2,100 operations where CK takes 53,000.
+// Thread (frame group, branch r) keeps its 26 taps in registers and runs
+// PFB_FT frames f, f + 2, ... (the two half-warps take neighbouring
+// frames): the frames share 24 of their 26 window rows, so a frame costs
+// ~8 shared loads per plane and branch.  The DFT is a radix-2 decimation in
+// frequency across the 16 lanes of a frame (shuffles; lane r ends with bin
+// bitrev(r)); the bins go out through shared memory in coalesced rows.  A
+// fixed order throughout, no atomics: a call is bit-equal to itself.
 #pragma once
 
 #include "sdr_common.cuh"
 
 #define PFB_TAPS 416
 #define PFB_HIST 400
-#define PFB_FB 16         // channel frames per block
+#define PFB_M (PFB_TAPS / NCH)   // taps per branch (26)
+#define PFB_FT 4                 // frames per thread
+#define PFB_THREADS 256
+#define PFB_FB (PFB_THREADS / NCH * PFB_FT)  // frames per block (64)
 #define PFB_WIN (NCH * (PFB_FB - 1) + PFB_TAPS)
+#define PFB_ROW (PFB_FB + 2)     // staged bin row: the two half-warps' stores
+//                                  fall on distinct banks
 
 // chan[k][f] = (-1)^(parity + f) sum_t CK[t][k] xe[16 f + t],
-//    xe = [pfb_hist (400) | band]
-static __global__ void pfb_filter(const float* __restrict__ band, long long nb,
-                                  const float* __restrict__ phist,
-                                  const float* __restrict__ ck_re,
-                                  const float* __restrict__ ck_im,
-                                  const int* __restrict__ parity,
-                                  float* __restrict__ chan, int frames) {
+//    xe = [pfb_hist (400) | band]; pg [26][16] the branch taps, pc [16] the
+//    branch twiddles c_r and pw [16] the roots W16^e = e^{-2 pi j e / 16}
+//    (complex as float2)
+static __global__ void __launch_bounds__(PFB_THREADS)
+pfb_filter(const float* __restrict__ band, long long nb,
+           const float* __restrict__ phist, const float* __restrict__ pg,
+           const float2* __restrict__ pc, const float2* __restrict__ pw,
+           const int* __restrict__ parity, float* __restrict__ chan,
+           int frames) {
   __shared__ float xr[PFB_WIN];
   __shared__ float xi[PFB_WIN];
   const int f0 = blockIdx.x * PFB_FB;
@@ -41,23 +62,90 @@ static __global__ void pfb_filter(const float* __restrict__ band, long long nb,
     xr[j] = vr;
     xi[j] = vi;
   }
-  __syncthreads();
-  const int fl = threadIdx.x / NCH;
-  const int k = threadIdx.x % NCH;
-  const int f = f0 + fl;
-  if (fl >= PFB_FB || f >= frames) return;
-  float ar = 0.f, ai = 0.f;
-  for (int t = 0; t < PFB_TAPS; ++t) {
-    const float cr = __ldg(ck_re + t * NCH + k);
-    const float ci = __ldg(ck_im + t * NCH + k);
-    const float vr = xr[NCH * fl + t];
-    const float vi = xi[NCH * fl + t];
-    ar += cr * vr - ci * vi;
-    ai += cr * vi + ci * vr;
+  const int r = threadIdx.x % NCH;
+  // local frames fb + 2 t: a warp's two halves take fb and fb + 1
+  const int fb = (threadIdx.x / (2 * NCH)) * (2 * PFB_FT) +
+                 (threadIdx.x / NCH) % 2;
+  float g[PFB_M];
+#pragma unroll
+  for (int m = 0; m < PFB_M; ++m) g[m] = __ldg(pg + m * NCH + r);
+  const float2 c = __ldg(pc + r);
+  // the butterflies' twiddles: stage span hs, upper lanes W16^((r % hs) 8/hs)
+  float2 tw[3];
+#pragma unroll
+  for (int st = 0; st < 3; ++st) {
+    const int hs = 8 >> st;
+    tw[st] = (r & hs) ? __ldg(pw + (r & (hs - 1)) * (8 / hs))
+                      : make_float2(1.f, 0.f);
   }
-  const float sgn = ((f + parity[0]) & 1) ? -1.f : 1.f;
-  chan[(long long)k * frames + f] = sgn * ar;
-  chan[(long long)(NCH + k) * frames + f] = sgn * ai;
+  __syncthreads();
+  float ur[PFB_FT], ui[PFB_FT];
+#pragma unroll
+  for (int t = 0; t < PFB_FT; ++t) ur[t] = ui[t] = 0.f;
+#pragma unroll
+  for (int mm = 0; mm < PFB_M + 2 * (PFB_FT - 1); ++mm) {
+    const float vr = xr[NCH * (fb + mm) + r];
+    const float vi = xi[NCH * (fb + mm) + r];
+#pragma unroll
+    for (int t = 0; t < PFB_FT; ++t) {
+      const int m = mm - 2 * t;
+      if (m >= 0 && m < PFB_M) {
+        ur[t] = fmaf(g[m], vr, ur[t]);
+        ui[t] = fmaf(g[m], vi, ui[t]);
+      }
+    }
+  }
+  // branch twiddle, then the DFT over the 16 lanes of each frame
+#pragma unroll
+  for (int t = 0; t < PFB_FT; ++t) {
+    const float a = ur[t] * c.x - ui[t] * c.y;
+    const float b = ur[t] * c.y + ui[t] * c.x;
+    ur[t] = a;
+    ui[t] = b;
+  }
+#pragma unroll
+  for (int st = 0; st < 4; ++st) {
+    const int hs = 8 >> st;
+    const bool upper = (r & hs) != 0;
+#pragma unroll
+    for (int t = 0; t < PFB_FT; ++t) {
+      const float pr = __shfl_xor_sync(0xffffffffu, ur[t], hs);
+      const float pi = __shfl_xor_sync(0xffffffffu, ui[t], hs);
+      if (upper) {
+        const float dr = pr - ur[t], di = pi - ui[t];
+        if (st < 3) {
+          ur[t] = dr * tw[st].x - di * tw[st].y;
+          ui[t] = dr * tw[st].y + di * tw[st].x;
+        } else {
+          ur[t] = dr;
+          ui[t] = di;
+        }
+      } else {
+        ur[t] += pr;
+        ui[t] += pi;
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the window: stage the bins
+  const int k = ((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) | (r >> 3);
+  const int sp = parity[0];
+#pragma unroll
+  for (int t = 0; t < PFB_FT; ++t) {
+    const int fl = fb + 2 * t;
+    const float sgn = ((f0 + fl + sp) & 1) ? -1.f : 1.f;
+    xr[k * PFB_ROW + fl] = sgn * ur[t];
+    xi[k * PFB_ROW + fl] = sgn * ui[t];
+  }
+  __syncthreads();
+  const int nf = min(PFB_FB, frames - f0);
+  for (int i = threadIdx.x; i < 2 * NCH * PFB_FB; i += blockDim.x) {
+    const int p = i / (NCH * PFB_FB);
+    const int kk = (i / PFB_FB) % NCH;
+    const int fl = i % PFB_FB;
+    if (fl >= nf) continue;
+    chan[(long long)(p * NCH + kk) * frames + f0 + fl] =
+        (p ? xi : xr)[kk * PFB_ROW + fl];
+  }
 }
 
 // Sample n of channel c: demod[c][n] = atan2(x[n] conj(x[n-1])) * dscale
@@ -125,13 +213,15 @@ static __global__ void pfb_state(const float* __restrict__ phist_in,
 // plane mag [16][F].  chan is scratch [2][16][F].
 static int pfb_demod_launch(const float* band, long long nb,
                             const float* phist, const int* parity,
-                            const float* prev, const float* ck_re,
-                            const float* ck_im, float dscale, int K, int ns,
+                            const float* prev, const float* pg,
+                            const float* pc, const float* pw, float dscale,
+                            int K, int ns,
                             float* chan, float* demod, float* mag,
                             float* prev_out, cudaStream_t s) {
   const int frames = (int)(nb / NCH);
-  pfb_filter<<<(frames + PFB_FB - 1) / PFB_FB, NCH * PFB_FB, 0, s>>>(
-      band, nb, phist, ck_re, ck_im, parity, chan, frames);
+  pfb_filter<<<(frames + PFB_FB - 1) / PFB_FB, PFB_THREADS, 0, s>>>(
+      band, nb, phist, pg, reinterpret_cast<const float2*>(pc),
+      reinterpret_cast<const float2*>(pw), parity, chan, frames);
   SDR_CHECK_LAUNCH();
   if (K > 0)
     pfb_demod_mag<<<dim3(K, NCH), RED_THREADS, 0, s>>>(

@@ -62,7 +62,7 @@ from torch import nn
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.taps import design as D
 from sdr_pmr446_tpu_torch.kernels import build
-from sdr_pmr446_tpu_torch.kernels.front_end import DC_L, dc_powers, scan_constants
+from sdr_pmr446_tpu_torch.kernels.front_end import DC_L, P_L, dc_powers
 from sdr_pmr446_tpu_torch.ops import fir, iir
 
 NCH = C.NUM_CHANNELS
@@ -264,13 +264,13 @@ class AudioBank(nn.Module):
         return f
 
     def _dc_scratch(self, f, dev):
-        """(lp, lplocal, yend, carry) device scratch and the carry scan's
-        constants (p^L, p^(L*seg), seg) for an F-sample block."""
+        """(lp, lplocal, yend, carry) device scratch for an F-sample
+        block."""
         chunks = -(-f // DC_L)
         f32 = dict(dtype=torch.float32, device=dev)
-        return ((torch.empty((NCH, f), **f32), torch.empty((NCH, f), **f32),
-                 torch.empty((NCH, chunks), **f32),
-                 torch.empty((NCH, chunks), **f32)), scan_constants(chunks))
+        return (torch.empty((NCH, f), **f32), torch.empty((NCH, f), **f32),
+                torch.empty((NCH, chunks), **f32),
+                torch.empty((NCH, chunks), **f32))
 
     def kernel(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
                ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
@@ -284,8 +284,7 @@ class AudioBank(nn.Module):
         build.require(b_arr, "b_arr", torch.int32, (k,), dev)
         build.require(sel, "sel", torch.int32, (k,), dev)
         build.require(self.f10, "f10", torch.int32, None, dev)
-        (lp, lplocal, yend, carry), (p_l, p_seg, seg) = self._dc_scratch(f,
-                                                                          dev)
+        lp, lplocal, yend, carry = self._dc_scratch(f, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         c64 = dict(dtype=torch.complex64, device=dev)
         out = AudioOut(torch.empty((NCH, h), **f32), torch.empty(NCH, **f32),
@@ -298,7 +297,7 @@ class AudioBank(nn.Module):
             b_arr.data_ptr(), sel.data_ptr(), k, ns,
             self.taps_audio.data_ptr(), self.taps_audio.shape[0],
             self.taps_lp.data_ptr(), self.taps_lp.shape[0],
-            self.pj.data_ptr(), _P, _G, p_l, p_seg, seg,
+            self.pj.data_ptr(), _P, _G, P_L,
             self.f10.data_ptr(),
             lp.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
             carry.data_ptr(),
@@ -336,8 +335,7 @@ class AudioBank(nn.Module):
         global APPLY_DC_LAUNCHES
         dev = demod.device
         f = self._check(hist, demod, gain, dev, (dc_x, dc_y))
-        (lp, lplocal, yend, carry), (p_l, p_seg, seg) = self._dc_scratch(f,
-                                                                          dev)
+        lp, lplocal, yend, carry = self._dc_scratch(f, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         out = BankDcOut(torch.empty((NCH, self.hist), **f32),
                         torch.empty(NCH, **f32), torch.empty(NCH, **f32),
@@ -348,7 +346,7 @@ class AudioBank(nn.Module):
             dc_x.data_ptr(), dc_y.data_ptr(), gain.data_ptr(),
             self.taps_audio.data_ptr(), self.taps_audio.shape[0],
             self.taps_lp.data_ptr(), self.taps_lp.shape[0],
-            self.pj.data_ptr(), _P, _G, p_l, p_seg, seg,
+            self.pj.data_ptr(), _P, _G, P_L,
             lp.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
             carry.data_ptr(), out.audio.data_ptr(), out.hist.data_ptr(),
             out.dc_x.data_ptr(), out.dc_y.data_ptr(), out.lp_dcb.data_ptr(),

@@ -50,8 +50,8 @@ SIGNATURES = {
     "duo_run": [
         _I, _P, _LL,                      # fmt, wire, n_samples
         _P, _P, _P, _I, _P, _P, _P,       # dc_x, dc_y, fhist, H, phist, parity, prev
-        _P, _P, _P, _P,                   # kc, ck_re, ck_im, pj
-        _D, _D, _D, _D, _I, _F, _F,       # p, g, pL, pSeg, seg, inv_cu8, dscale
+        _P, _P, _P, _P, _P,               # kt, pg, pc, pw, pj
+        _D, _D, _D, _F, _F,               # p, g, pL, inv_cu8, dscale
         _I, _I,                           # K, ns
         _P, _P, _P, _P, _P,               # ylocal, yend, carry, band, chan
         _P, _P, _P, _P, _P, _P, _P,       # outputs
@@ -61,7 +61,7 @@ SIGNATURES = {
         _I, _I, _P, _LL,                  # fmt, mode, wire, n_samples
         _P, _P, _P, _I, _P, _I,           # dc_x, dc_y, fhist, H, bhist, HB
         _P, _P, _I, _P,                   # sig_prev, dhist, DH, n0
-        _P, _P, _D, _D, _D, _D, _I, _F,   # kc, pj, p, g, pL, pSeg, seg, inv_cu8
+        _P, _P, _D, _D, _D, _F,           # kt, pj, p, g, pL, inv_cu8
         _P, _I, _P, _P, _I, _F,           # kd, P, tab, post taps, width, dscale
         _P, _P, _P, _P, _P, _P,           # ylocal, yend, carry, band, sig, dem
         _P, _P, _P, _P, _P, _P, _P, _P,   # outputs
@@ -70,19 +70,19 @@ SIGNATURES = {
     "fe_run": [
         _I, _P, _LL,                      # fmt, wire, n_samples
         _P, _P, _P, _I,                   # dc_x, dc_y, fhist, H
-        _P, _P, _D, _D, _D, _D, _I, _F,   # kc, pj, p, g, pL, pSeg, seg, inv_cu8
+        _P, _P, _D, _D, _D, _F,           # kt, pj, p, g, pL, inv_cu8
         _P, _P, _P, _P,                   # ylocal, yend, carry, band
         _P, _P, _P,                       # dc_x, dc_y, fhist outputs
         _P,                               # stream
     ],
     "pfb_demod_run": [
         _P, _LL, _P, _P, _P,              # band, nb, phist, parity, prev
-        _P, _P, _F, _I, _I,               # ck_re, ck_im, dscale, K, ns
+        _P, _P, _P, _F, _I, _I,           # pg, pc, pw, dscale, K, ns
         _P, _P, _P, _P, _P,               # chan, phist', demod, mag, prev'
         _P,                               # stream
     ],
     "resample_run": [
-        _P, _I, _P, _P, _LL, _P,          # hist, P - 1, xr, xi, n, kc
+        _P, _I, _P, _P, _LL, _P,          # hist, P - 1, xr, xi, n, kt
         _P, _P,                           # band, hist'
         _P,                               # stream
     ],
@@ -98,7 +98,7 @@ SIGNATURES = {
         _P, _I, _P, _I,                   # demod, F, hist, H
         _P, _P, _P, _P, _P, _I, _I,       # dc_x, dc_y, gain, b_arr, sel, K, ns
         _P, _I, _P, _I,                   # audio taps, La, lp taps, Ll
-        _P, _D, _D, _D, _D, _I, _P,       # pj, p, g, pL, pSeg, seg, f10
+        _P, _D, _D, _D, _P,               # pj, p, g, pL, f10
         _P, _P, _P, _P,                   # lp, lplocal, yend, carry
         _P, _P, _P, _P, _P, _P,           # outputs
         _P,                               # stream
@@ -113,7 +113,7 @@ SIGNATURES = {
         _P, _I, _P, _I,                   # demod, F, hist, H
         _P, _P, _P,                       # dc_x, dc_y, gain
         _P, _I, _P, _I,                   # audio taps, La, lp taps, Ll
-        _P, _D, _D, _D, _D, _I,           # pj, p, g, pL, pSeg, seg
+        _P, _D, _D, _D,                   # pj, p, g, pL
         _P, _P, _P, _P,                   # lp, lplocal, yend, carry
         _P, _P, _P, _P, _P,               # audio, hist', dc_x', dc_y', lp_dcb
         _P,                               # stream

@@ -27,11 +27,11 @@ device memory: the chunk-local DC response (8 B/input sample), the band
 planes and the channel planes (~1.6 B/input sample each).  The band planes
 are also an output (``DuoOut.band``), the waterfall's input (K3,
 kernels/waterfall.py).  What bounds it on the H100: the resampler (346
-MACs x 2 planes per band sample, ~135 FLOP per input sample) and the PFB
-(416 complex MACs per channel sample, ~130 FLOP per input sample) are
-compute at ~0.3 GFLOP per K=40 block, tiny against the card; the input
-read is 2-8 B/sample.  A first version is latency and launch bound; fusing
-the six launches is later work.
+MACs x 2 planes per band sample, ~135 FLOP per input sample), a
+register-tiled product over shared-memory taps, is compute at ~1.1 GFLOP
+per K = 40 block; the PFB, as 26-tap branch sums and a 16-point DFT
+(~2,100 FLOP a frame), and the 2-8 B/sample input read are small beside
+it.  Fusing the six launches is later work.
 """
 
 from __future__ import annotations
@@ -128,13 +128,13 @@ class ScannerDuo(nn.Module):
                      ((parity + f) % 2).to(torch.int32),
                      torch.empty(NCH, **c64), band)
         lib = build.library()
-        kc, pj, p, g, p_l, p_seg, seg, inv_cu8 = fe_args
+        kt, pj, p, g, p_l, inv_cu8 = fe_args
         code = lib.duo_run(
             FMT_CODE[self.fmt], wire.data_ptr(), n,
             dc_x.data_ptr(), dc_y.data_ptr(), front_hist.data_ptr(), h,
             pfb_hist.data_ptr(), parity.data_ptr(), prev.data_ptr(),
-            kc, self.pfb.ck_re.data_ptr(), self.pfb.ck_im.data_ptr(), pj,
-            p, g, p_l, p_seg, seg, inv_cu8,
+            kt, *self.pfb.factor_ptrs(), pj,
+            p, g, p_l, inv_cu8,
             DEMOD_SCALE, k, ns,
             ylocal.data_ptr(), yend.data_ptr(), carry.data_ptr(),
             band.data_ptr(), chan.data_ptr(),

@@ -23,14 +23,14 @@ The same front end runs inside K1 (kernels/duo.py) and K4
 (kernels/chan_tail.py).  The CUDA version (csrc/front_end.cu, on
 csrc/front_end.cuh) runs four launches: decode + chunk-local DC response,
 the chunk-carry scan, the resampler (the DC fix-up fused into its
-shared-memory window load) and the carried state.  What bounds it on the
-H100 is operations, ~280 f32 operations an input sample, most of them the
-346-tap resampler on two planes (~17 us at K = 40 cu8); see the source.
+shared-memory window load; a register-tiled product over the staged taps,
+``staged_taps``) and the carried state.  What bounds it on the H100 is
+operations, ~280 f32 operations an input sample, most of them the 346-tap
+resampler on two planes (~17 us at K = 40 cu8); see the source.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
@@ -45,10 +45,10 @@ from sdr_pmr446_tpu_torch.taps import design as D
 
 #: samples per chunk of the CUDA DC-blocker scan (csrc/sdr_common.cuh DC_L)
 DC_L = 64
-#: threads of the chunk-carry scan block (csrc/sdr_common.cuh CARRY_THREADS)
-CARRY_THREADS = 1024
 _P = 1.0 - C.DC_BLOCK_ALPHA
 _G = (1.0 + _P) / 2.0
+#: p^DC_L in float64: the chunk-carry scan's multiplier (dc_carry_kernel)
+P_L = _P ** DC_L
 FMT_CODE = {"cu8": 0, "cs8": 1, "cs16": 2, "cf32": 3}
 
 #: kernel launches of the CUDA version (one per call); the plain version
@@ -69,14 +69,6 @@ def front_hist_len(fmt: str) -> int:
     return 512 if fmt in ("cu8", "cs8") else 384
 
 
-def scan_constants(chunks: int):
-    """(pL, pSeg, seg) float64 host constants of the chunk-carry scan:
-    pL = p^DC_L, seg = chunks per carry thread, pSeg = pL^seg."""
-    seg = max(1, math.ceil(chunks / CARRY_THREADS))
-    p_l = _P ** DC_L
-    return p_l, p_l ** seg, seg
-
-
 def dc_powers() -> np.ndarray:
     """p^(j+1) for j < DC_L, float64 rounded once to f32."""
     return (_P ** (np.arange(DC_L, dtype=np.float64) + 1.0)).astype(np.float32)
@@ -84,18 +76,46 @@ def dc_powers() -> np.ndarray:
 
 def compact_phases(taps, L: int, M: int) -> np.ndarray:
     """f32 [L, P]: the rows of the polyphase kernel matrix without their zero
-    padding, row p starting at its offset (p * M) // L — the resampler
-    tables of the CUDA kernels (csrc/front_end.cuh, csrc/chan_tail.cu)."""
+    padding, row p starting at its offset (p * M) // L — the upsampler
+    table of csrc/chan_tail.cu, and what ``staged_taps`` stages."""
     kmat = _kernel_matrix(tuple(np.asarray(taps, np.float64).tolist()), L, M)
     p_taps = kmat.shape[1] - (L - 1) * M // L
     return np.stack([kmat[p, (p * M) // L:(p * M) // L + p_taps]
                      for p in range(L)]).astype(np.float32)
 
 
+#: the CUDA resampler's tile (csrc/front_end.cuh RS_Q, RS_QP, RS_SPLIT,
+#: RS_SEG, RS_OFF1): phases a thread, the staged row, row segments of a
+#: half, rows a segment, and the second half's first window offset
+RS_Q, RS_QP, RS_SPLIT, RS_SEG, RS_OFF1 = 13, 16, 4, 102, 66
+
+
+def staged_taps(kc: np.ndarray, M: int = C.RESAMP_M) -> np.ndarray:
+    """f32 [2, RS_SPLIT * RS_SEG, RS_QP]: the CUDA resampler's shared-memory
+    tap table from the compact phases ``kc`` [L, P].  The band is the product
+    band[f, q] = sum_j win[M f + j] B[j, q] with B[j, q] = kc[q, j - o_q],
+    o_q = (M q) // L; half h holds phases RS_Q h .. RS_Q h + RS_Q - 1 (a zero
+    column past the last), row i of it B[o_(RS_Q h) + i, :], zero outside
+    the taps.  The same f32 values as ``kc``, moved."""
+    L, P = kc.shape
+    offs = [(q * M) // L for q in range(L)]
+    if offs[RS_Q] != RS_OFF1:
+        raise ValueError(f"phase {RS_Q} starts at {offs[RS_Q]}, the kernel "
+                         f"expects {RS_OFF1}")
+    out = np.zeros((2, RS_SPLIT * RS_SEG, RS_QP), np.float32)
+    for q in range(L):
+        h, qq = divmod(q, RS_Q)
+        row = offs[q] - offs[RS_Q * h]
+        if row + P > out.shape[1]:
+            raise ValueError(f"phase {q} overruns the staged rows")
+        out[h, row:row + P, qq] = kc[q]
+    return out
+
+
 class FrontEnd(nn.Module):
     """K6 for one wire format: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  K1 and K4 run ``plain`` and read ``kc``
-    (compact resampler phases) and ``pj`` (DC fix-up powers) too."""
+    version for CPU tensors.  K1 and K4 run ``plain`` and read ``kt``
+    (the staged resampler taps) and ``pj`` (DC fix-up powers) too."""
 
     def __init__(self, fmt: str, *, device):
         super().__init__()
@@ -103,8 +123,8 @@ class FrontEnd(nn.Module):
         self.hist_len = front_hist_len(self.fmt)
         taps = D.resampler_taps()
         self.resampler = PolyResampler(taps, C.RESAMP_L, C.RESAMP_M, device)
-        self.register_buffer("kc", torch.as_tensor(
-            compact_phases(taps, C.RESAMP_L, C.RESAMP_M), device=device))
+        self.register_buffer("kt", torch.as_tensor(staged_taps(
+            compact_phases(taps, C.RESAMP_L, C.RESAMP_M)), device=device))
         self.register_buffer("pj", torch.as_tensor(dc_powers(), device=device))
 
     def samples(self, wire: torch.Tensor) -> int:
@@ -142,18 +162,16 @@ class FrontEnd(nn.Module):
 
     def kernel_args(self, n: int, dev):
         """The front-end launches' scratch (ylocal, yend, carry) for ``n``
-        input samples, and their C arguments (kc, pj, p, g, pL, pSeg, seg,
-        inv_cu8) as the entry points fe_run, duo_run and mono_run take
-        them."""
+        input samples, and their C arguments (kt, pj, p, g, pL, inv_cu8) as
+        the entry points fe_run, duo_run and mono_run take them."""
         chunks = -(-n // DC_L)
-        p_l, p_seg, seg = scan_constants(chunks)
         f32 = dict(dtype=torch.float32, device=dev)
         scratch = (torch.empty(2 * n, **f32), torch.empty(2 * chunks, **f32),
                    torch.empty(2 * chunks, **f32))
-        for name in ("kc", "pj"):
+        for name in ("kt", "pj"):
             build.require(getattr(self, name), name, torch.float32, None, dev)
-        return scratch, (self.kc.data_ptr(), self.pj.data_ptr(), _P, _G, p_l,
-                         p_seg, seg, float(np.float32(1.0 / 127.5)))
+        return scratch, (self.kt.data_ptr(), self.pj.data_ptr(), _P, _G, P_L,
+                         float(np.float32(1.0 / 127.5)))
 
     def check_state(self, wire, dc_x, dc_y, front_hist) -> None:
         """Raise unless the wire and the carried state suit the kernels."""

@@ -7,7 +7,9 @@ or K9 (kernels/resample_kernel.py) it computes
 
   1. the 16-channel PFB: 416-tap prototype x DFT16 x the -93.75 kHz mixer
      folded into one [416, 16] complex kernel, with the (-1)^(parity +
-     frame) flip (ops/pfb.py);
+     frame) flip (ops/pfb.py); the CUDA version runs it factored
+     (``pfb_factors``): 16 branch sums of 26 real taps, a twiddle each and
+     one 16-point DFT a frame;
   2. the NBFM discriminator (kf = 0.5) against the carried previous frame;
   3. |y|: per-sub-chunk sums [K, 16] (``mag="sums"``, call_planes_rssi and
      call_group) or the plane [16, F] (``mag="plane"``, call_planes).
@@ -59,6 +61,31 @@ def _kernel_planes(device: str):
             torch.as_tensor(ck.imag.astype(np.float32), device=device))
 
 
+def pfb_factors(prototype: np.ndarray, num_channels: int = NCH,
+                mix_omega: float = C.MIX_OMEGA):
+    """The factors of ``make_pfb_kernel``'s CK, float64: (g [P / M, M] real,
+    c [M], w [M]) with CK[M m + r, k] = g[m, r] c[r] w[(k r) % M].
+
+    t = M m + r splits CK[t, k] = h[P-1-t] e^{j(-2 pi k t / M + w_mix (t -
+    (P - M)))} into h[P-1-M m-r] e^{j M w_mix m} (real: M w_mix is an odd
+    multiple of pi, so e^{j M w_mix m} = (-1)^m), c[r] = e^{j w_mix (r -
+    (P - M))} and the DFT roots w[e] = e^{-2 pi j e / M}."""
+    h = np.asarray(prototype, dtype=np.float64)
+    n = h.shape[0]
+    turns = num_channels * mix_omega / np.pi
+    if n % num_channels or abs(turns - round(turns)) > 1e-9 \
+            or round(turns) % 2 != 1:
+        raise ValueError("the PFB factors need whole branches and an odd "
+                         "multiple of pi for M * mix_omega")
+    t = np.arange(n).reshape(-1, num_channels)              # t = M m + r
+    m = np.arange(t.shape[0])[:, None]
+    g = h[n - 1 - t] * (1.0 - 2.0 * (m % 2))
+    r = np.arange(num_channels)
+    c = np.exp(1j * mix_omega * (r - (n - num_channels)))
+    w = np.exp(-2j * np.pi * r / num_channels)
+    return g, c, w
+
+
 def last_frame_output(tail_r: torch.Tensor, tail_i: torch.Tensor,
                       sign: torch.Tensor) -> torch.Tensor:
     """The 16 channel outputs of the final PFB frame, c64 [..., 16], from
@@ -91,11 +118,14 @@ class PfbDemod(nn.Module):
         super().__init__()
         self.pfb = PFBChannelizer(D.pfb_prototype(), device=device)
         self.hist_len = self.pfb.hist_len
-        ck = make_pfb_kernel(D.pfb_prototype())
-        self.register_buffer("ck_re", torch.as_tensor(
-            ck.real.astype(np.float32), device=device))
-        self.register_buffer("ck_im", torch.as_tensor(
-            ck.imag.astype(np.float32), device=device))
+        g, c, w = pfb_factors(D.pfb_prototype())
+        # the CUDA filterbank's tables: branch taps, twiddles, DFT roots
+        self.register_buffer("pfb_g", torch.as_tensor(g.astype(np.float32),
+                                                      device=device))
+        self.register_buffer("pfb_c", torch.as_tensor(c.astype(np.complex64),
+                                                      device=device))
+        self.register_buffer("pfb_w", torch.as_tensor(w.astype(np.complex64),
+                                                      device=device))
 
     def geometry(self, band: torch.Tensor, ns: int, mag: str):
         """(band samples nb, frames F, sub-chunks K; K = 0 for the plane)."""
@@ -142,8 +172,15 @@ class PfbDemod(nn.Module):
                       (self.hist_len,), dev)
         build.require(parity, "parity", torch.int32, (), dev)
         build.require(prev, "prev", torch.complex64, (NCH,), dev)
-        for name in ("ck_re", "ck_im"):
-            build.require(getattr(self, name), name, torch.float32, None, dev)
+        build.require(self.pfb_g, "pfb_g", torch.float32, None, dev)
+        for name in ("pfb_c", "pfb_w"):
+            build.require(getattr(self, name), name, torch.complex64, (NCH,),
+                          dev)
+
+    def factor_ptrs(self):
+        """The C arguments (pg, pc, pw) of the factored filterbank."""
+        return (self.pfb_g.data_ptr(), self.pfb_c.data_ptr(),
+                self.pfb_w.data_ptr())
 
     def kernel(self, band, pfb_hist, parity, prev,
                ns: int = C.SUBCHUNK_AUDIO, mag: str = "sums") -> PfbOut:
@@ -164,8 +201,7 @@ class PfbDemod(nn.Module):
                      torch.empty(NCH, **c64))
         code = build.library().pfb_demod_run(
             band.data_ptr(), nb, pfb_hist.data_ptr(), parity.data_ptr(),
-            prev.data_ptr(), self.ck_re.data_ptr(), self.ck_im.data_ptr(),
-            DEMOD_SCALE, k, ns, chan.data_ptr(), out.pfb_hist.data_ptr(),
+            prev.data_ptr(), *self.factor_ptrs(), DEMOD_SCALE, k, ns, chan.data_ptr(), out.pfb_hist.data_ptr(),
             out.demod.data_ptr(), out.mag.data_ptr(), out.prev.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(code, "pfb_demod_run")

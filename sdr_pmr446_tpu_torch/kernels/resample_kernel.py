@@ -11,8 +11,10 @@ JAX kernel's ``len(resampler_taps) // 25 - 1``).
 The plain version is ops/resample.PolyResampler: one strided
 ``F.conv1d``, which is also the kernel's library yardstick.  The CUDA
 version (csrc/resample_kernel.cu) runs two launches: the resampler, each
-block over a shared-memory window of [hist | x] with the arithmetic of the
-front end's resampler (csrc/front_end.cuh), and the new history.
+block over a shared-memory window of [hist | x] and the staged taps
+(``front_end.staged_taps``) with the arithmetic of the front end's
+resampler (csrc/front_end.cuh, a register-tiled product), and the new
+history.
 Operations bound on the H100 (~16 us at K = 40); see the source.
 """
 
@@ -23,7 +25,8 @@ from torch import nn
 
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.kernels import build
-from sdr_pmr446_tpu_torch.kernels.front_end import compact_phases
+from sdr_pmr446_tpu_torch.kernels.front_end import (compact_phases,
+                                                   staged_taps)
 from sdr_pmr446_tpu_torch.ops.resample import PolyResampler
 from sdr_pmr446_tpu_torch.taps import design as D
 
@@ -41,8 +44,8 @@ class Resampler(nn.Module):
         taps = D.resampler_taps()
         self.op = PolyResampler(taps, C.RESAMP_L, C.RESAMP_M, device)
         self.hist_len = self.op.hist_len
-        self.register_buffer("kc", torch.as_tensor(
-            compact_phases(taps, C.RESAMP_L, C.RESAMP_M), device=device))
+        self.register_buffer("kt", torch.as_tensor(staged_taps(
+            compact_phases(taps, C.RESAMP_L, C.RESAMP_M)), device=device))
 
     def samples(self, xr: torch.Tensor, xi: torch.Tensor) -> int:
         if xr.dim() != 1 or xr.shape != xi.shape:
@@ -78,13 +81,13 @@ class Resampler(nn.Module):
         build.require(hist, "hist", torch.complex64, (self.hist_len,), dev)
         build.require(xr, "xr", torch.float32, (n,), dev)
         build.require(xi, "xi", torch.float32, (n,), dev)
-        build.require(self.kc, "kc", torch.float32, None, dev)
+        build.require(self.kt, "kt", torch.float32, None, dev)
         band = torch.empty((2, n * C.RESAMP_L // C.RESAMP_M),
                            dtype=torch.float32, device=dev)
         new_h = torch.empty(self.hist_len, dtype=torch.complex64, device=dev)
         code = build.library().resample_run(
             hist.data_ptr(), self.hist_len, xr.data_ptr(), xi.data_ptr(), n,
-            self.kc.data_ptr(), band.data_ptr(), new_h.data_ptr(),
+            self.kt.data_ptr(), band.data_ptr(), new_h.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(code, "resample_run")
         LAUNCHES += 1

@@ -252,10 +252,11 @@ def test_front_end_kernel_matches_plain_on_card(fmt, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [40, 10])
+@pytest.mark.parametrize("k", [40, 10, 3, 1])
 def test_resampler_kernel_matches_plain_on_card(k):
     """K9 vs its plain version (F.conv1d): band SNR > 100 dB, history
-    exact."""
+    exact, a second call bit-equal to the first (K = 3 and 1 end in a
+    partial block of frames)."""
     dev = _cuda_or_skip()
     rng = np.random.default_rng(k)
     rs = resample_kernel.Resampler(device=dev)
@@ -270,3 +271,4 @@ def test_resampler_kernel_matches_plain_on_card(k):
     assert resample_kernel.LAUNCHES == launches + 1
     assert snr_db(rb.cpu().numpy(), gb.cpu().numpy()) > 100.0
     np.testing.assert_array_equal(gh.cpu().numpy(), rh.cpu().numpy())
+    assert torch.equal(rs(hist, xr, xi)[1], gb)

@@ -2,7 +2,8 @@
 
 The card's machine has no JAX, and the port keeps its own copies of the
 JAX-free modules it needs.  An AST scan of every module of
-``sdr_pmr446_tpu_torch`` and of ``chip_smoke.py`` rejects any import of
+``sdr_pmr446_tpu_torch``, of ``chip_smoke.py`` and of ``kernel_times.py``
+(the card's scripts) rejects any import of
 ``jax`` or ``sdr_pmr446_tpu`` (the ``_torch`` package itself is allowed);
 a fresh interpreter that imports every module of the port must not have
 either in ``sys.modules``.
@@ -21,7 +22,8 @@ FORBIDDEN = ("jax", "jaxlib", "sdr_pmr446_tpu")
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "kernel_times.py"]
 
 
 def port_modules():

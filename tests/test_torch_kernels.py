@@ -164,7 +164,8 @@ def _cuda_or_skip():
                                    ("cf32", 3)])
 def test_duo_kernel_matches_plain_on_card(fmt, k):
     """The CUDA kernel vs its plain version: demod SNR > 100 dB (the JAX
-    kernel gate), |y| sums rtol 1e-5, carries to 5e-5 of their peak."""
+    kernel gate), |y| sums rtol 1e-5, carries to 5e-5 of their peak; a
+    second call bit-equal to the first."""
     dev = _cuda_or_skip()
     rng = np.random.default_rng(k)
     d = duo.ScannerDuo(fmt, device=dev)
@@ -187,6 +188,9 @@ def test_duo_kernel_matches_plain_on_card(fmt, k):
         assert rel_err(getattr(got, name).cpu().numpy(),
                        getattr(ref, name).cpu().numpy()) < 5e-5, name
     assert int(got.parity) == int(ref.parity)
+    again = d(wire, *state, ns=NS)
+    for name, t in got._asdict().items():
+        assert torch.equal(getattr(again, name), t), name
 
 
 @pytest.mark.cuda

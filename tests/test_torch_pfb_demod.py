@@ -135,7 +135,8 @@ def _cuda_or_skip():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,mag", [(40, "sums"), (10, "sums"), (3, "plane")])
+@pytest.mark.parametrize("k,mag", [(40, "sums"), (10, "sums"), (3, "plane"),
+                                   (3, "sums"), (1, "sums")])
 def test_pfb_demod_kernel_matches_plain_on_card(k, mag):
     """K7 vs its plain version over two blocks: demod SNR > 100 dB, |y|
     rtol 1e-5, parity exact, carries to 5e-5 of their peak."""
