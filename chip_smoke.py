@@ -12,8 +12,11 @@ on its own lines; any failure raises and ends the run:
      sdr_pmr446_tpu_torch/csrc/*.cu;
   2. K1 (duo) and K2 (audio bank) against their plain PyTorch versions on
      the card, at K = 40 (cu8) and K = 10 (cs16), a second K1 call equal
-     to the first bit for bit, with their times (CUDA events and device
-     time under torch.profiler);
+     to the first bit for bit; K2 in each of its four tap configurations
+     (lowpass, fir_deemph), a second call equal to the first and K8
+     apply's and apply_dc's audio equal to K2's, bit for bit; with their
+     times (CUDA events and device time under torch.profiler, K2's by
+     CUDA kernel);
   3. the scanner through ScannerDriver on a synthetic cu8 capture at K = 10
      (~3 s): active-channel trace exact and audio SNR > 40 dB against the
      float64 reference oracle (the port's copy, oracle/chain.py), tune and
@@ -72,9 +75,11 @@ on its own lines; any failure raises and ends the run:
      profiled step.
  12. the scanner's op-path switches: (a) K8 (the audio bank without its
      CTCSS epilogue: apply and apply_dc) against its plain versions at
-     K = 40 and 10 on the demod of K6 -> K7, over two calls from a random
-     state, its audio equal bit for bit to K2's, with its times and, for
-     apply, F.conv1d's (the library yardstick, never called by the port);
+     K = 40 and 10 on the demod of K6 -> K7, in each of the four tap
+     configurations, over two calls from a random state, each call
+     repeated and its audio equal to K2's, bit for bit, with its times
+     and, for apply, F.conv1d's (the library yardstick, never called by
+     the port), by event and on the device by CUDA kernel;
      (b) the fuse_ctcss=False, fuse_lp_dc=False and fuse_rssi=False engines
      through ScannerDriver against the oracle at K = 10 (decisions also
      equal to phase 3's run), then at K = 40 in turns with the trio (trio,
@@ -358,6 +363,90 @@ def resample_work(n: int):
     return 8 * n + 2 * 8 * 345 + 8 * nb + 4 * 25 * 346, nb * 346 * 4
 
 
+#: the audio bank's four tap configurations, (lowpass, fir_deemph): the
+#: composed audio FIR of 408, 477, 510 and 579 taps (history 512, 512,
+#: 512, 640), the lp FIR of 377 in each
+TAP_CONFIGS = ((False, False), (False, True), (True, False), (True, True))
+
+
+def bank_state(bank, rng, k: int):
+    """A random non-zero K2 state and FSM schedule on the bank's device:
+    (hist, dc_x, dc_y, gain, b_arr, sel), b_arr[0] the whole sub-chunk."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    dev = bank.taps_audio.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    hist = torch.as_tensor(0.1 * rng.standard_normal((16, bank.hist)), **f32)
+    dcx = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
+    dcy = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
+    gain = torch.tensor(C.SDR_DEFAULT_AUDIO_GAIN, **f32)
+    b_arr = torch.as_tensor(rng.integers(0, C.CTCSS_BLOCK_SIZE, k),
+                            dtype=torch.int32, device=dev)
+    b_arr[0] = NS - 1
+    sel = torch.as_tensor(rng.integers(0, 16, k), dtype=torch.int32,
+                          device=dev)
+    return hist, dcx, dcy, gain, b_arr, sel
+
+
+def bank_case(dev, case, rng, k: int, demod) -> float:
+    """K2 in one tap configuration against its plain version on ``demod``
+    from a random state: audio within TOL_AUDIO_ATOL, tone sums within
+    TOL_TONE_REL of their peak, history exact, carries within
+    TOL_CARRY_REL; a second call equal to the first bit for bit, and K8
+    apply's and apply_dc's audio equal to K2's bit for bit (one FIR
+    device function).  Returns the audio's max |err|."""
+    import torch
+    from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
+    bank = AudioBank(*case, device=dev)
+    hist, dcx, dcy, gain, b_arr, sel = bank_state(bank, rng, k)
+    args = (hist, dcx, dcy, demod, gain, b_arr, sel, NS)
+    ref = bank.plain(*args)
+    got = bank.kernel(*args)
+    again = bank.kernel(*args)
+    k8a = bank.apply_kernel(hist, demod, gain)
+    k8d = bank.apply_dc_kernel(hist, dcx, dcy, demod, gain)
+    torch.cuda.synchronize(dev)
+    what = (f"K2 K={k} lowpass={int(case[0])} fir_deemph={int(case[1])} "
+            f"(La {bank.taps_audio.shape[0]}, H {bank.hist})")
+    a_err = max_err(ref.audio, got.audio)
+    tone = max(max_err(ref.raw_pre, got.raw_pre),
+               max_err(ref.raw_mem, got.raw_mem)) / peak(ref.raw_mem)
+    carries = {name: max_err(getattr(ref, name), getattr(got, name)) / max(
+        peak(getattr(ref, name)), 1e-30) for name in ("dc_x", "dc_y")}
+    log(f"  {what}: audio max|err| {a_err:.3g} (peak {peak(ref.audio):.3g}),"
+        f" tone sums rel {tone:.3g}, carries rel "
+        + ", ".join(f"{nm} {v:.3g}" for nm, v in carries.items()))
+    check(a_err < TOL_AUDIO_ATOL, f"{what} audio")
+    check(tone < TOL_TONE_REL, f"{what} tone sums")
+    check(max_err(ref.hist, got.hist) == 0.0, f"{what} history")
+    for name, val in carries.items():
+        check(val < TOL_CARRY_REL, f"{what} carry {name}")
+    check(all(torch.equal(a, b) for a, b in zip(again, got)),
+          f"{what}: a second call differs from the first")
+    check(torch.equal(k8a.audio, got.audio)
+          and torch.equal(k8d.audio, got.audio),
+          f"{what}: K8's audio differs from K2's")
+    log(f"  {what}: a second call equal to the first, K8 apply's and "
+        "apply_dc's audio equal to K2's, bit for bit")
+    return a_err
+
+
+def k8_conv(bank, hist, gain, demods):
+    """K8 apply's library yardstick, never called by the port: one F.conv1d
+    (cuDNN, f32, TF32 off) of [hist | demod] against the two composed FIRs,
+    the gain folded into the audio row.  Returns (fn, inputs), one input a
+    demod; fn(x)[:, 0] is the audio, [:, 1] the lp branch."""
+    import torch
+    la, ll = bank.taps_audio.shape[0], bank.taps_lp.shape[0]
+    n_taps = max(la, ll)
+    w = torch.zeros((2, 1, n_taps), dtype=torch.float32, device=hist.device)
+    w[0, 0, n_taps - la:] = torch.flip(bank.taps_audio, [0]) * gain
+    w[1, 0, n_taps - ll:] = torch.flip(bank.taps_lp, [0])
+    xs = [(torch.cat([hist[:, bank.hist - (n_taps - 1):], dm], dim=-1)
+           .reshape(16, 1, -1).contiguous(),) for dm in demods]
+    return (lambda x: torch.nn.functional.conv1d(x, w)), xs
+
+
 def phase_kernels(dev, fmt: str, k: int, timer, reps: int = REPS):
     """K1 and K2 vs their plain versions on ``dev``; returns the K1/K2 rows."""
     import torch
@@ -395,39 +484,13 @@ def phase_kernels(dev, fmt: str, k: int, timer, reps: int = REPS):
           "K1: a second call differs from the first")
     log("  K1: a second call equal to the first bit for bit")
 
-    bank = AudioBank(device=dev)
-    hist = torch.as_tensor(0.1 * rng.standard_normal((16, bank.hist)),
-                           dtype=torch.float32, device=dev)
-    dcx = torch.as_tensor(0.01 * rng.standard_normal(16), dtype=torch.float32,
-                          device=dev)
-    dcy = torch.as_tensor(0.01 * rng.standard_normal(16), dtype=torch.float32,
-                          device=dev)
-    gain = torch.tensor(C.SDR_DEFAULT_AUDIO_GAIN, dtype=torch.float32,
-                        device=dev)
-    b_arr = torch.as_tensor(rng.integers(0, C.CTCSS_BLOCK_SIZE, k),
-                            dtype=torch.int32, device=dev)
-    b_arr[0] = NS - 1
-    sel = torch.as_tensor(rng.integers(0, 16, k), dtype=torch.int32,
-                          device=dev)
     demods = [duo.plain(w, *state, ns=NS).demod for w in wires]
-    aref = bank.plain(hist, dcx, dcy, demods[0], gain, b_arr, sel, NS)
-    agot = bank.kernel(hist, dcx, dcy, demods[0], gain, b_arr, sel, NS)
-    a_err = max_err(aref.audio, agot.audio)
-    tone = max(max_err(aref.raw_pre, agot.raw_pre),
-               max_err(aref.raw_mem, agot.raw_mem)) / peak(aref.raw_mem)
-    log(f"  K2 K={k}: audio max|err| {a_err:.3g} (peak {peak(aref.audio):.3g}),"
-        f" tone sums rel {tone:.3g}")
-    check(a_err < TOL_AUDIO_ATOL, "K2 audio")
-    check(tone < TOL_TONE_REL, "K2 tone sums")
-    check(max_err(aref.hist, agot.hist) == 0.0, "K2 history")
-    for name in ("dc_x", "dc_y"):
-        rel = max_err(getattr(aref, name), getattr(agot, name)) / max(
-            peak(getattr(aref, name)), 1e-30)
-        log(f"    carry {name}: rel err {rel:.3g}")
-        check(rel < TOL_CARRY_REL, f"K2 carry {name}")
-
-    duo_in = [(w,) + state for w in wires]
+    a_err = max(bank_case(dev, case, rng, k, demods[0])
+                for case in TAP_CONFIGS)
+    bank = AudioBank(device=dev)
+    hist, dcx, dcy, gain, b_arr, sel = bank_state(bank, rng, k)
     bank_in = [(hist, dcx, dcy, dm, gain, b_arr, sel, NS) for dm in demods]
+    duo_in = [(w,) + state for w in wires]
     times = {
         "duo_plain": timed(timer, lambda *a: duo.plain(*a, ns=NS), duo_in),
         "duo": timed(timer, lambda *a: duo.kernel(*a, ns=NS), duo_in),
@@ -439,7 +502,8 @@ def phase_kernels(dev, fmt: str, k: int, timer, reps: int = REPS):
     sync = lambda: torch.cuda.synchronize(dev)
     log(f"  device ms K={k} {fmt}: duo "
         f"{device_ms(lambda *a: duo.kernel(*a, ns=NS), duo_in, sync)}, bank "
-        f"{device_ms(bank.kernel, bank_in, sync)}")
+        f"{device_ms(bank.kernel, bank_in, sync)}: "
+        f"{split_str(device_split(bank.kernel, bank_in, sync))}")
     f = k * NS
     return [
         {"name": "duo", "route": "cuda",
@@ -947,6 +1011,26 @@ def device_ms(fn, inputs, sync) -> str:
                      for e in evs) / 1e3 / len(inputs)
             return f"{ms:.4f} ({len(evs)} events for {len(inputs)} calls)"
     return f"not recorded ({PROFILE_ATTEMPTS} profiler sessions)"
+
+
+def device_split(fn, inputs, sync) -> dict:
+    """Device ms of one fn(*args) call over ``inputs``, by CUDA kernel name
+    (template arguments dropped), from a profiled run of all of them."""
+    for _ in range(PROFILE_ATTEMPTS):
+        evs, _, _, _ = profile_session(lambda: [fn(*a) for a in inputs],
+                                       sync)
+        if evs:
+            break
+    by: dict = {}
+    for e in evs:
+        name = kernel_name(e.name).split("<")[0]
+        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {name: ms / len(inputs) for name, ms in by.items()}
+
+
+def split_str(split: dict) -> str:
+    return ", ".join(f"{name} {ms:.4f}" for name, ms in sorted(
+        split.items(), key=lambda kv: -kv[1])) or "no device event recorded"
 
 
 def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
@@ -1538,16 +1622,15 @@ def k8_work(f: int, hist: int, la: int, ll: int, dc: bool):
 
 
 def k8_case(dev, k: int, timer, reps: int = REPS):
-    """K8 apply and apply_dc vs their plain versions over two consecutive
-    calls from a random non-zero state, on the demod of K6 -> K7 of two
-    consecutive bench blocks; K8's audio equal bit for bit to K2's on the
-    same input (the same ab_fir launch); then the times of each kernel, its
-    plain version and, for apply, one F.conv1d (cuDNN, f32, TF32 off) of
-    [hist | demod] against the two composed FIRs, the gain folded into the
-    audio row (the library yardstick, never called by the port), on
-    ``reps`` fresh inputs.  Returns the two K8 rows."""
+    """K8 apply and apply_dc vs their plain versions in each tap
+    configuration over two consecutive calls from a random non-zero state,
+    on the demod of K6 -> K7 of two consecutive bench blocks; each call
+    repeated bit for bit, and K8's audio equal bit for bit to K2's on the
+    same input (one FIR device function); then, in the default
+    configuration, the times of each kernel, its plain version and, for
+    apply, F.conv1d (k8_conv), by event and on the device by CUDA kernel,
+    on ``reps`` fresh inputs.  Returns the two K8 rows."""
     import torch
-    from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
     from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
     from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod
@@ -1564,53 +1647,60 @@ def k8_case(dev, k: int, timer, reps: int = REPS):
         po = pd.kernel(fo.band, *pst, ns=NS)
         demods.append(po.demod)
         fst, pst = fo[:3], po[2:]
-    bank = AudioBank(device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    hist = torch.as_tensor(0.1 * rng.standard_normal((16, bank.hist)), **f32)
-    dcx = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
-    dcy = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
-    gain = torch.tensor(C.SDR_DEFAULT_AUDIO_GAIN, **f32)
-    b_arr = torch.full((k,), NS - 1, dtype=torch.int32, device=dev)
-    sel = torch.zeros(k, dtype=torch.int32, device=dev)
-    ref_a = got_a = hist
-    ref_d = got_d = (hist, dcx, dcy)
     errs = {"apply": [], "apply_dc": []}
-    for step, dm in enumerate(demods):
-        ra = bank.apply_plain(ref_a, dm, gain)
-        ga = bank.apply_kernel(got_a, dm, gain)
-        rd = bank.apply_dc_plain(*ref_d, dm, gain)
-        gd = bank.apply_dc_kernel(*got_d, dm, gain)
-        k2 = bank.kernel(*got_d, dm, gain, b_arr, sel, NS)
-        torch.cuda.synchronize(dev)
-        # the bench block's noise channels demodulate to +-1 and their audio
-        # peaks near 6, where f32 rounding of the ~600-tap sums alone
-        # reaches 7e-6 against float64: the audio gate scales with the peak
-        a_tol = TOL_AUDIO_ATOL * max(1.0, peak(ra.audio))
-        res = {name: (r, g, plane, max_err(r.audio, g.audio),
-                      rel(getattr(r, plane), getattr(g, plane)))
-               for name, r, g, plane in (("apply", ra, ga, "lp"),
-                                         ("apply_dc", rd, gd, "lp_dcb"))}
-        carries = {nm: rel(getattr(rd, nm), getattr(gd, nm))
-                   for nm in ("dc_x", "dc_y")}
-        log(f"  K8 K={k} block {step}: "
-            + "; ".join(f"{name} audio max|err| {a_err:.3g}, {plane} rel "
-                        f"{p_rel:.3g}"
-                        for name, (_, _, plane, a_err, p_rel) in res.items())
-            + f" (audio peak {peak(ra.audio):.3g}, gate {a_tol:.3g}); "
-            "carries rel "
-            + ", ".join(f"{nm} {val:.3g}" for nm, val in carries.items()))
-        for name, (r, g, plane, a_err, p_rel) in res.items():
-            errs[name].append(a_err)
-            check(max_err(r.hist, g.hist) == 0.0, f"K8 {name} K={k} history")
-            check(a_err < a_tol, f"K8 {name} K={k} audio")
-            check(p_rel < TOL_CARRY_REL, f"K8 {name} K={k} {plane}")
-            check(torch.equal(g.audio, k2.audio),
-                  f"K8 {name} K={k} audio vs K2's")
-        for nm, val in carries.items():
-            check(val < TOL_CARRY_REL, f"K8 apply_dc K={k} carry {nm}")
-        log(f"  K8 K={k} block {step}: within the gates; audio == K2's bit "
-            "for bit")
-        ref_a, got_a, ref_d, got_d = ra.hist, ga.hist, rd[:3], gd[:3]
+    for case in TAP_CONFIGS:
+        bank = AudioBank(*case, device=dev)
+        what = (f"K8 K={k} lowpass={int(case[0])} fir_deemph={int(case[1])}")
+        hist, dcx, dcy, gain, _, _ = bank_state(bank, rng, k)
+        b_arr = torch.full((k,), NS - 1, dtype=torch.int32, device=dev)
+        sel = torch.zeros(k, dtype=torch.int32, device=dev)
+        ref_a = got_a = hist
+        ref_d = got_d = (hist, dcx, dcy)
+        for step, dm in enumerate(demods):
+            ra = bank.apply_plain(ref_a, dm, gain)
+            ga = bank.apply_kernel(got_a, dm, gain)
+            rd = bank.apply_dc_plain(*ref_d, dm, gain)
+            gd = bank.apply_dc_kernel(*got_d, dm, gain)
+            again = (bank.apply_kernel(got_a, dm, gain),
+                     bank.apply_dc_kernel(*got_d, dm, gain))
+            k2 = bank.kernel(*got_d, dm, gain, b_arr, sel, NS)
+            torch.cuda.synchronize(dev)
+            # the bench block's noise channels demodulate to +-1 and their
+            # audio peaks near 6, where f32 rounding of the ~600-tap sums
+            # alone reaches 7e-6 against float64: the audio gate scales with
+            # the peak
+            a_tol = TOL_AUDIO_ATOL * max(1.0, peak(ra.audio))
+            res = {name: (r, g, plane, max_err(r.audio, g.audio),
+                          rel(getattr(r, plane), getattr(g, plane)))
+                   for name, r, g, plane in (("apply", ra, ga, "lp"),
+                                             ("apply_dc", rd, gd, "lp_dcb"))}
+            carries = {nm: rel(getattr(rd, nm), getattr(gd, nm))
+                       for nm in ("dc_x", "dc_y")}
+            log(f"  {what} block {step}: "
+                + "; ".join(f"{name} audio max|err| {a_err:.3g}, {plane} rel "
+                            f"{p_rel:.3g}" for name, (_, _, plane, a_err,
+                                                      p_rel) in res.items())
+                + f" (audio peak {peak(ra.audio):.3g}, gate {a_tol:.3g}); "
+                "carries rel "
+                + ", ".join(f"{nm} {val:.3g}" for nm, val in carries.items()))
+            for (name, (r, g, plane, a_err, p_rel)), g2 in zip(res.items(),
+                                                                again):
+                errs[name].append(a_err)
+                check(max_err(r.hist, g.hist) == 0.0,
+                      f"{what} {name} history")
+                check(a_err < a_tol, f"{what} {name} audio")
+                check(p_rel < TOL_CARRY_REL, f"{what} {name} {plane}")
+                check(all(torch.equal(x, y) for x, y in zip(g2, g)),
+                      f"{what} {name}: a second call differs from the first")
+                check(torch.equal(g.audio, k2.audio),
+                      f"{what} {name} audio vs K2's")
+            for nm, val in carries.items():
+                check(val < TOL_CARRY_REL, f"{what} apply_dc carry {nm}")
+            log(f"  {what} block {step}: within the gates; a second call "
+                "equal to the first and audio == K2's, bit for bit")
+            ref_a, got_a, ref_d, got_d = ra.hist, ga.hist, rd[:3], gd[:3]
+    bank = AudioBank(device=dev)
+    hist, dcx, dcy, gain, _, _ = bank_state(bank, rng, k)
     dms = [torch.roll(demods[0], 97 * s_, dims=1).contiguous()
            for s_ in range(reps)]
     ins_a = [(hist, dm, gain) for dm in dms]
@@ -1619,18 +1709,12 @@ def k8_case(dev, k: int, timer, reps: int = REPS):
          "apply_plain": timed(timer, bank.apply_plain, ins_a),
          "apply_dc": timed(timer, bank.apply_dc_kernel, ins_d),
          "apply_dc_plain": timed(timer, bank.apply_dc_plain, ins_d)}
-    la, ll = bank.taps_audio.shape[0], bank.taps_lp.shape[0]
-    n_taps = max(la, ll)
-    w = torch.zeros((2, 1, n_taps), **f32)
-    w[0, 0, n_taps - la:] = torch.flip(bank.taps_audio, [0]) * gain
-    w[1, 0, n_taps - ll:] = torch.flip(bank.taps_lp, [0])
-    xs = [(torch.cat([hist[:, bank.hist - (n_taps - 1):], dm], dim=-1)
-           .reshape(16, 1, -1).contiguous(),) for dm in dms]
-    conv = lambda x: torch.nn.functional.conv1d(x, w)
+    conv, xs = k8_conv(bank, hist, gain, dms)
     t_lib = timed(timer, conv, xs)
     lib, ga = conv(*xs[0]), bank.apply_kernel(*ins_a[0])
     lib_err = max(rel(ga.audio, lib[:, 0]), rel(ga.lp, lib[:, 1]))
     check(lib_err < 1e-4, f"K8: F.conv1d differs by {lib_err:.3g} of the peak")
+    la, ll = bank.taps_audio.shape[0], bank.taps_lp.shape[0]
     f = k * NS
     b_a = bound(*k8_work(f, bank.hist, la, ll, dc=False))
     b_d = bound(*k8_work(f, bank.hist, la, ll, dc=True))
@@ -1640,6 +1724,12 @@ def k8_case(dev, k: int, timer, reps: int = REPS):
         f"{t['apply_dc']:.4f}, plain {t['apply_dc_plain']:.4f}, bound "
         f"{b_d['bound_ms']:.5f} ({b_d['bound_by']}); F.conv1d within "
         f"{lib_err:.3g} of the kernel's peak")
+    sync = lambda: torch.cuda.synchronize(dev)
+    for name, fn, ins in (("apply", bank.apply_kernel, ins_a),
+                          ("apply_dc", bank.apply_dc_kernel, ins_d),
+                          ("F.conv1d", conv, xs)):
+        log(f"  K8 K={k} device ms, {name}: "
+            f"{split_str(device_split(fn, ins, sync))}")
     src = dict(route="cuda", source="sdr_pmr446_tpu_torch/csrc/audio_bank.cu")
     return [{"name": "audio_bank_apply", **src,
              "replaces": "sdr_pmr446_tpu/kernels/audio_bank.py:390",

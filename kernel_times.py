@@ -3,11 +3,14 @@
 
     python3 kernel_times.py [--tree DIR] [--label NAME] [--reps N] [--out FILE]
 
-Runs, on one CUDA card, the kernels that hold the resampler or the PFB of
+Runs, on one CUDA card, the kernels that hold a filter bank (the resampler,
+the PFB or the audio FIRs) of
 the ``sdr_pmr446_tpu_torch`` package found in DIR (default: this
 checkout), after building that tree's kernels from its own sources:
 
-  K1 (duo, cu8, K = 40), K6 (front end, cu8 K = 40 and cs16 K = 10), K7
+  K1 (duo, cu8, K = 40), K2 and K8 (the audio bank: apply_dc_ctcss,
+  apply and apply_dc, K = 40 and 10, with F.conv1d, K8 apply's library
+  yardstick, beside them), K6 (front end, cu8 K = 40 and cs16 K = 10), K7
   (PFB + discriminator, |y| sums, K = 40 and 10, on the plain front end's
   band), K9 (resampler, K = 40 and 10, with F.conv1d, its library
   yardstick, beside it) and K4 (mono chain, dsd and single, cu8, K = 16),
@@ -35,22 +38,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import chip_smoke as cs  # noqa: E402  (helpers; the package loads lazily)
 
 
-def device_split(fn, inputs, sync) -> dict:
-    """Device ms a call of fn over ``inputs``, by CUDA kernel name."""
-    for _ in range(cs.PROFILE_ATTEMPTS):
-        evs, _, _, _ = cs.profile_session(lambda: [fn(*a) for a in inputs],
-                                          sync)
-        if evs:
-            break
-    by: dict = {}
-    for e in evs:
-        name = cs.kernel_name(e.name).split("<")[0]
-        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return {name: ms / len(inputs) for name, ms in by.items()}
-
-
 def measure(fn, inputs, sync) -> dict:
-    split = device_split(fn, inputs, sync)
+    split = cs.device_split(fn, inputs, sync)
     return {"event_ms": cs.timed(cs.cuda_timer, fn, inputs),
             "device_ms": sum(split.values()), "by_kernel": split}
 
@@ -59,6 +48,7 @@ def cases(dev, reps: int):
     """(name, fn, inputs) of every case, built on ``dev``."""
     import torch
     from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
     from sdr_pmr446_tpu_torch.kernels.chan_tail import MonoChain
     from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
     from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
@@ -77,6 +67,20 @@ def cases(dev, reps: int):
     st = cs.random_duo_state(duo, rng, dev)
     out.append(("K1 cu8 K=40", lambda *a: duo.kernel(*a, ns=cs.NS),
                 [(w,) + st for w in wires(40, "cu8")]))
+    for k in (40, 10):
+        # phase 2's inputs: the plain K1's demod of the occupied band
+        demods = [duo.plain(w, *st, ns=cs.NS).demod for w in wires(k, "cu8")]
+        bank = AudioBank(device=dev)
+        hist, dcx, dcy, gain, b_arr, sel = cs.bank_state(bank, rng, k)
+        out.append((f"K2 K={k}", bank.kernel,
+                    [(hist, dcx, dcy, d, gain, b_arr, sel, cs.NS)
+                     for d in demods]))
+        out.append((f"K8 apply K={k}", bank.apply_kernel,
+                    [(hist, d, gain) for d in demods]))
+        out.append((f"K8 apply_dc K={k}", bank.apply_dc_kernel,
+                    [(hist, dcx, dcy, d, gain) for d in demods]))
+        conv, xs = cs.k8_conv(bank, hist, gain, demods)
+        out.append((f"F.conv1d (K8) K={k}", conv, xs))
     bands = {}
     for fmt, k in (("cu8", 40), ("cs16", 10)):
         fe = FrontEnd(fmt, device=dev)
@@ -151,9 +155,7 @@ def main(argv=None) -> int:
     for name, fn, inputs in cases(dev, args.reps):
         res[name] = r = measure(fn, inputs, sync)
         cs.log(f"  {name}: event {r['event_ms']:.4f} ms, device "
-               f"{r['device_ms']:.4f} ms: " + ", ".join(
-                   f"{k} {v:.4f}" for k, v in sorted(
-                       r["by_kernel"].items(), key=lambda kv: -kv[1])))
+               f"{r['device_ms']:.4f} ms: {cs.split_str(r['by_kernel'])}")
     doc = {"label": args.label, "card": card, "cases": res}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -164,24 +164,6 @@ static __device__ __forceinline__ float2 ye_sample(
 // Slot of window sample j (the pad every 128 samples).
 static __device__ __forceinline__ int rs_slot(int j) { return j + (j >> 7); }
 
-// Asynchronous copy of B (4, 8 or 16) bytes from device to shared memory;
-// with valid false the B bytes are zero-filled and nothing is read.
-template <int B>
-static __device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                                bool valid = true) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-               "l"(src), "n"(B), "r"(valid ? B : 0)
-               : "memory");
-}
-
-// Wait for this thread's asynchronous copies (then __syncthreads for the
-// block's).
-static __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
 // The staged taps and the window into shared memory by cp.async (no
 // register holds a sample in flight): window sample j < RS_WIN is xe[e0 +
 // j] of xe = [hist (P complex, interleaved) | planes (pr, pi) of n samples],

@@ -39,14 +39,22 @@ Carried state: the last H (512, or 640 for lowpass + fir_deemph) demod
 samples per channel and the lp DC blocker's (x[-1], y[-1]) per channel.
 
 The CUDA versions (csrc/audio_bank.cu) share their launches: the composed
-FIR pair over a shared-memory window of [hist | demod], the chunk-local lp
-DC response, the chunk-carry scan, then K2's CTCSS sums (one block per
-(k, tone), DC fix-up fused into the load) or K8 apply_dc's DC-blocked lp
-plane, and the state tail; K8 apply runs the FIR pair and the history
-alone.  Intermediates in device memory: lp and its chunk-local DC response
-(2 x 4 B per channel sample).  What bounds it: the FIRs are ~800 MACs per
-channel sample (~1.6 GFLOP per K=40 block) — compute, and small for the
-card; the CTCSS pass is 38 sincos per selected-channel sample.
+FIR pair over one shared-memory window of [hist | demod] with, for K2 and
+K8 apply_dc, the lp DC blocker's chunk-local response in its epilogue
+(the lp plane never reaches device memory), the chunk-carry scan, then
+K2's CTCSS sums (one block per (k, 4 tones), 4 warps a tone, the
+sub-chunk's DC-fixed samples staged once) or K8 apply_dc's DC-blocked lp
+plane, and the state tail: 4 launches; K8 apply runs the FIR pair
+(writing the lp plane) and the history alone.  Intermediates in device memory: the chunk-local lp DC
+response (4 B per channel sample) and its chunk ends.
+
+What bounds it: the FIRs, ~800 multiply-adds per channel sample (0.63 G,
+0.0188 ms at the card's f32 peak, at K = 40); the rest moves ~10 bytes per
+channel sample, and the CTCSS pass is 38 sincos per selected-channel
+sample.  The FIR pair is a register-tiled product: a thread keeps AB_R
+consecutive audio and lp sums and a sliding window of samples in
+registers, and per group of 4 taps makes one float4 window load and one or
+two broadcast float4 tap loads (``staged_taps``) for 32 or 64 FFMAs.
 """
 
 from __future__ import annotations
@@ -70,6 +78,12 @@ LANES = 128
 #: longest composed FIR the CUDA kernel's shared-memory window takes
 #: (csrc/audio_bank.cu MAX_TAPS)
 MAX_TAPS = 640
+#: the CUDA FIR pair's tile (csrc/audio_bank.cu, test-enforced): AB_R
+#: consecutive outputs a thread, AB_TILE a block (whole DC_L chunks), the
+#: staged tap regions padded to whole AB_G (four groups of 4 taps)
+AB_R = 8
+AB_TILE = 1024
+AB_G = 16
 #: CTCSS phase period in units of 0.1 Hz * sample: 10 * audio rate
 PHASE_PERIOD = 10 * C.AUDIO_SAMPLERATE
 _P = 1.0 - C.DC_BLOCK_ALPHA
@@ -119,6 +133,32 @@ def _kernel_columns(lowpass: bool, fir_deemph: bool):
     lp = -hp.copy()
     lp[C.CTCSS_DELAY] += 1.0            # delta_188 - hp
     return audio, lp
+
+
+def _pad(n: int) -> int:
+    return -(-n // AB_G) * AB_G
+
+
+def staged_taps(audio: np.ndarray, lp: np.ndarray):
+    """(table f32 [PA + 2 PB], PA, PB): the CUDA FIR pair's shared-memory
+    tap table from the composed FIRs (La > Ll taps).  Reversed and aligned
+    so that output n of a tile sums table tap q against window sample
+    n + q, window sample 0 being xe[n0 + H - (PA + Ll - 1)]: the audio tap
+    at q is ta[PA + Ll - 1 - q], the lp tap tl[...] likewise, zero outside
+    the taps.  Region A (q < PA = La - Ll padded to AB_G): the audio taps
+    the lp FIR does not reach; region B (PB = Ll padded): per group of 4,
+    4 audio taps then 4 lp taps.  The same f32 values, moved."""
+    la, ll = audio.shape[0], lp.shape[0]
+    if la <= ll:
+        raise ValueError(f"the kernel needs the audio FIR ({la} taps) longer "
+                         f"than the lp FIR ({ll})")
+    pa, pb = _pad(la - ll), _pad(ll)
+    m = pa + ll - 1 - np.arange(pa + pb)          # tap index at position q
+    ta = np.where((m >= 0) & (m < la), audio[np.clip(m, 0, la - 1)], 0.0)
+    tl = np.where((m >= 0) & (m < ll), lp[np.clip(m, 0, ll - 1)], 0.0)
+    region_b = np.stack([ta[pa:].reshape(-1, 4), tl[pa:].reshape(-1, 4)], 1)
+    table = np.concatenate([ta[:pa], region_b.reshape(-1)])
+    return table.astype(np.float32), pa, pb
 
 
 def hist_len(lowpass: bool, fir_deemph: bool) -> int:
@@ -171,13 +211,16 @@ class AudioBank(nn.Module):
     def __init__(self, lowpass: bool = False, fir_deemph: bool = False,
                  *, device):
         super().__init__()
-        audio, lp = _kernel_columns(lowpass, fir_deemph)
+        audio, lp = (t.astype(np.float32)
+                     for t in _kernel_columns(lowpass, fir_deemph))
         self.hist = hist_len(lowpass, fir_deemph)
         assert max(audio.shape[0], lp.shape[0]) <= min(MAX_TAPS, self.hist)
-        self.register_buffer("taps_audio", torch.as_tensor(
-            audio.astype(np.float32), device=device))
-        self.register_buffer("taps_lp", torch.as_tensor(
-            lp.astype(np.float32), device=device))
+        self.register_buffer("taps_audio", torch.as_tensor(audio,
+                                                           device=device))
+        self.register_buffer("taps_lp", torch.as_tensor(lp, device=device))
+        table, self.pa, self.pb = staged_taps(audio, lp)
+        self.register_buffer("taps_staged", torch.as_tensor(table,
+                                                            device=device))
         self.register_buffer("pj", torch.as_tensor(dc_powers(), device=device))
         self.register_buffer("f10", torch.as_tensor(tone_units(),
                                                     device=device))
@@ -257,20 +300,26 @@ class AudioBank(nn.Module):
         build.require(demod, "demod", torch.float32, (NCH, f), dev)
         build.require(hist, "hist", torch.float32, (NCH, self.hist), dev)
         build.require(gain, "gain", torch.float32, (), dev)
-        for name in ("taps_audio", "taps_lp", "pj"):
+        for name in ("taps_staged", "pj"):
             build.require(getattr(self, name), name, torch.float32, None, dev)
         for name, t in zip(("dc_x", "dc_y"), dc or ()):
             build.require(t, name, torch.float32, (NCH,), dev)
         return f
 
     def _dc_scratch(self, f, dev):
-        """(lp, lplocal, yend, carry) device scratch for an F-sample
-        block."""
+        """(lp_last, lplocal, yend, carry) device scratch for an F-sample
+        block: lp[:, F-1], the chunk-local lp DC response, its chunk ends
+        and the chunk carries."""
         chunks = -(-f // DC_L)
         f32 = dict(dtype=torch.float32, device=dev)
-        return (torch.empty((NCH, f), **f32), torch.empty((NCH, f), **f32),
+        return (torch.empty(NCH, **f32), torch.empty((NCH, f), **f32),
                 torch.empty((NCH, chunks), **f32),
                 torch.empty((NCH, chunks), **f32))
+
+    def _taps(self):
+        """The staged tap table's C arguments: (table, La, Ll)."""
+        return (self.taps_staged.data_ptr(), self.taps_audio.shape[0],
+                self.taps_lp.shape[0])
 
     def kernel(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
                ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
@@ -284,7 +333,7 @@ class AudioBank(nn.Module):
         build.require(b_arr, "b_arr", torch.int32, (k,), dev)
         build.require(sel, "sel", torch.int32, (k,), dev)
         build.require(self.f10, "f10", torch.int32, None, dev)
-        lp, lplocal, yend, carry = self._dc_scratch(f, dev)
+        lp_last, lplocal, yend, carry = self._dc_scratch(f, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         c64 = dict(dtype=torch.complex64, device=dev)
         out = AudioOut(torch.empty((NCH, h), **f32), torch.empty(NCH, **f32),
@@ -294,12 +343,9 @@ class AudioBank(nn.Module):
         code = build.library().audio_bank_run(
             demod.data_ptr(), f, hist.data_ptr(), h,
             dc_x.data_ptr(), dc_y.data_ptr(), gain.data_ptr(),
-            b_arr.data_ptr(), sel.data_ptr(), k, ns,
-            self.taps_audio.data_ptr(), self.taps_audio.shape[0],
-            self.taps_lp.data_ptr(), self.taps_lp.shape[0],
-            self.pj.data_ptr(), _P, _G, P_L,
-            self.f10.data_ptr(),
-            lp.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
+            b_arr.data_ptr(), sel.data_ptr(), k, ns, *self._taps(),
+            self.pj.data_ptr(), _P, _G, P_L, self.f10.data_ptr(),
+            lp_last.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
             carry.data_ptr(),
             out.audio.data_ptr(), out.hist.data_ptr(), out.dc_x.data_ptr(),
             out.dc_y.data_ptr(), out.raw_pre.data_ptr(),
@@ -321,9 +367,8 @@ class AudioBank(nn.Module):
                       torch.empty((NCH, f), **f32))
         code = build.library().audio_bank_apply(
             demod.data_ptr(), f, hist.data_ptr(), self.hist, gain.data_ptr(),
-            self.taps_audio.data_ptr(), self.taps_audio.shape[0],
-            self.taps_lp.data_ptr(), self.taps_lp.shape[0],
-            out.lp.data_ptr(), out.audio.data_ptr(), out.hist.data_ptr(),
+            *self._taps(), out.lp.data_ptr(), out.audio.data_ptr(),
+            out.hist.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(code, "audio_bank_apply")
         APPLY_LAUNCHES += 1
@@ -335,7 +380,7 @@ class AudioBank(nn.Module):
         global APPLY_DC_LAUNCHES
         dev = demod.device
         f = self._check(hist, demod, gain, dev, (dc_x, dc_y))
-        lp, lplocal, yend, carry = self._dc_scratch(f, dev)
+        lp_last, lplocal, yend, carry = self._dc_scratch(f, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         out = BankDcOut(torch.empty((NCH, self.hist), **f32),
                         torch.empty(NCH, **f32), torch.empty(NCH, **f32),
@@ -343,11 +388,9 @@ class AudioBank(nn.Module):
                         torch.empty((NCH, f), **f32))
         code = build.library().audio_bank_apply_dc(
             demod.data_ptr(), f, hist.data_ptr(), self.hist,
-            dc_x.data_ptr(), dc_y.data_ptr(), gain.data_ptr(),
-            self.taps_audio.data_ptr(), self.taps_audio.shape[0],
-            self.taps_lp.data_ptr(), self.taps_lp.shape[0],
+            dc_x.data_ptr(), dc_y.data_ptr(), gain.data_ptr(), *self._taps(),
             self.pj.data_ptr(), _P, _G, P_L,
-            lp.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
+            lp_last.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
             carry.data_ptr(), out.audio.data_ptr(), out.hist.data_ptr(),
             out.dc_x.data_ptr(), out.dc_y.data_ptr(), out.lp_dcb.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

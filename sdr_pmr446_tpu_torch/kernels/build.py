@@ -97,24 +97,24 @@ SIGNATURES = {
     "audio_bank_run": [
         _P, _I, _P, _I,                   # demod, F, hist, H
         _P, _P, _P, _P, _P, _I, _I,       # dc_x, dc_y, gain, b_arr, sel, K, ns
-        _P, _I, _P, _I,                   # audio taps, La, lp taps, Ll
+        _P, _I, _I,                       # staged taps, La, Ll
         _P, _D, _D, _D, _P,               # pj, p, g, pL, f10
-        _P, _P, _P, _P,                   # lp, lplocal, yend, carry
+        _P, _P, _P, _P,                   # lp_last, lplocal, yend, carry
         _P, _P, _P, _P, _P, _P,           # outputs
         _P,                               # stream
     ],
     "audio_bank_apply": [
         _P, _I, _P, _I, _P,               # demod, F, hist, H, gain
-        _P, _I, _P, _I,                   # audio taps, La, lp taps, Ll
+        _P, _I, _I,                       # staged taps, La, Ll
         _P, _P, _P,                       # lp, audio, hist'
         _P,                               # stream
     ],
     "audio_bank_apply_dc": [
         _P, _I, _P, _I,                   # demod, F, hist, H
         _P, _P, _P,                       # dc_x, dc_y, gain
-        _P, _I, _P, _I,                   # audio taps, La, lp taps, Ll
+        _P, _I, _I,                       # staged taps, La, Ll
         _P, _D, _D, _D,                   # pj, p, g, pL
-        _P, _P, _P, _P,                   # lp, lplocal, yend, carry
+        _P, _P, _P, _P,                   # lp_last, lplocal, yend, carry
         _P, _P, _P, _P, _P,               # audio, hist', dc_x', dc_y', lp_dcb
         _P,                               # stream
     ],

@@ -113,3 +113,26 @@ def test_entry_points_default_to_cuda(entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make[entry]()
     assert make[entry](device="cpu").device == torch.device("cpu")
+
+
+def test_app_exits_cleanly_on_a_closed_pipe(tmp_path):
+    """dsd_in pipes into dsd / play and exits 0 when the consumer hangs up
+    (the reference ignores SIGPIPE, src/sdr_pmr446.c:190-199).  20
+    sub-chunks give 188 KB of PCM, more than the 64 KB pipe buffer and one
+    read of `head` together, so the writer meets EPIPE whenever `head -c
+    100` exits."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    cap = tmp_path / "cap.cs16"
+    write_fm_capture(cap, blocks=4)              # 4 blocks of K = 5
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    cmd = (f"{sys.executable} -m sdr_pmr446_tpu_torch.apps.dsd_in "
+           f"--input {cap} --output - --subchunks-per-step {K} "
+           f"--device cpu | head -c 100 >/dev/null; exit ${{PIPESTATUS[0]}}")
+    proc = subprocess.run(["/bin/bash", "-c", cmd], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "downstream pipe closed" in proc.stderr

@@ -193,21 +193,28 @@ def test_duo_kernel_matches_plain_on_card(fmt, k):
         assert torch.equal(getattr(again, name), t), name
 
 
+#: the audio bank's four tap configurations (lowpass, fir_deemph)
+TAP_CONFIGS = [(False, False), (False, True), (True, False), (True, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lowpass,fir_deemph", [(False, False), (True, True)])
-def test_audio_bank_kernel_matches_plain_on_card(lowpass, fir_deemph):
+@pytest.mark.parametrize("k", [1, 3, 10, 40])
+@pytest.mark.parametrize("lowpass,fir_deemph", TAP_CONFIGS)
+def test_audio_bank_kernel_matches_plain_on_card(lowpass, fir_deemph, k):
     """The CUDA kernel vs its plain version: audio atol 1e-5, tone sums to
-    3e-5 of their peak, history exact, DC carries to 5e-5 of their peak."""
+    3e-5 of their peak, history exact, DC carries to 5e-5 of their peak; a
+    second call equal to the first bit for bit.  K = 1 and 3 end in a
+    partial FIR tile."""
     dev = _cuda_or_skip()
     rng = np.random.default_rng(5)
-    k = 10
     bank = audio_bank.AudioBank(lowpass, fir_deemph, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     hist = torch.as_tensor(0.1 * rng.standard_normal((16, bank.hist)), **f32)
     dcx = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
     dcy = torch.as_tensor(0.01 * rng.standard_normal(16), **f32)
     demod = torch.as_tensor(0.2 * rng.standard_normal((16, k * NS)), **f32)
-    b = torch.as_tensor([2440, NS - 1, 0, 700, 2000, NS, 1, 1300, 5, 1224],
+    b = torch.as_tensor(np.resize([2440, NS - 1, 0, 700, 2000, NS, 1, 1300,
+                                   5, 1224], k),
                         dtype=torch.int32, device=dev)
     sel = torch.as_tensor(rng.integers(0, 16, k), dtype=torch.int32,
                           device=dev)
@@ -215,8 +222,9 @@ def test_audio_bank_kernel_matches_plain_on_card(lowpass, fir_deemph):
     launches = audio_bank.LAUNCHES
     ref = bank.plain(hist, dcx, dcy, demod, gain, b, sel, NS)
     got = bank(hist, dcx, dcy, demod, gain, b, sel, NS)
+    again = bank(hist, dcx, dcy, demod, gain, b, sel, NS)
     torch.cuda.synchronize(dev)
-    assert audio_bank.LAUNCHES == launches + 1
+    assert audio_bank.LAUNCHES == launches + 2
     np.testing.assert_allclose(got.audio.cpu().numpy(),
                                ref.audio.cpu().numpy(), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(got.hist.cpu().numpy(),
@@ -229,19 +237,22 @@ def test_audio_bank_kernel_matches_plain_on_card(lowpass, fir_deemph):
     for name in ("dc_x", "dc_y"):
         assert rel_err(getattr(got, name).cpu().numpy(),
                        getattr(ref, name).cpu().numpy()) < 5e-5, name
+    for name, t in got._asdict().items():
+        assert torch.equal(getattr(again, name), t), name
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lowpass,fir_deemph", [(False, False), (True, True)])
-def test_audio_bank_k8_kernels_match_plain_on_card(lowpass, fir_deemph):
+@pytest.mark.parametrize("k", [1, 3, 10, 40])
+@pytest.mark.parametrize("lowpass,fir_deemph", TAP_CONFIGS)
+def test_audio_bank_k8_kernels_match_plain_on_card(lowpass, fir_deemph, k):
     """K8 (``apply``, ``apply_dc``) vs its plain versions over two calls
     from a random non-zero state: history exact, audio atol 1e-5, lp and
-    lp_dcb within 5e-5 of their peak, DC carries to 5e-5 of their peak; the
-    audio equal bit for bit to K2's on the same input (the same FIR
-    launch); one launch a call on each counter."""
+    lp_dcb within 5e-5 of their peak, DC carries to 5e-5 of their peak;
+    each call equal bit for bit to a second one, the audio equal bit for
+    bit to K2's on the same input (one FIR device function), dc_x to K2's;
+    one launch a call on each counter."""
     dev = _cuda_or_skip()
     rng = np.random.default_rng(6)
-    k = 10
     bank = audio_bank.AudioBank(lowpass, fir_deemph, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     hist = torch.as_tensor(0.1 * rng.standard_normal((16, bank.hist)), **f32)
@@ -259,10 +270,15 @@ def test_audio_bank_k8_kernels_match_plain_on_card(lowpass, fir_deemph):
         ga = bank.apply(got_a, demod, gain)
         rd = bank.apply_dc_plain(*ref_d, demod, gain)
         gd = bank.apply_dc(*got_d, demod, gain)
+        again = (bank.apply(got_a, demod, gain),
+                 bank.apply_dc(*got_d, demod, gain))
         k2 = bank.kernel(*got_d, demod, gain, b, sel, NS)
         torch.cuda.synchronize(dev)
         assert (audio_bank.APPLY_LAUNCHES, audio_bank.APPLY_DC_LAUNCHES) == (
-            counts[0] + 1, counts[1] + 1)
+            counts[0] + 2, counts[1] + 2)
+        for first, second in zip((ga, gd), again):
+            for name, t in first._asdict().items():
+                assert torch.equal(getattr(second, name), t), name
         for r, g in ((ra, ga), (rd, gd)):
             np.testing.assert_array_equal(g.hist.cpu().numpy(),
                                           r.hist.cpu().numpy())
