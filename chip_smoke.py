@@ -30,7 +30,8 @@ on its own lines; any failure raises and ends the run:
   6. K4 (the dsd_in / single mono chain) against its plain version on the
      card in both modes, two consecutive blocks each at K = 16 (cu8), 15
      (cs16, an odd number of group rows) and 10 (cu8, the app's K), with
-     its times (events and device);
+     its times (events, and device time by CUDA kernel: the front end's
+     three and the tail's two, and the span of a call on the device);
   7. dsd_in end to end through its CLI (apps/dsd_in.main, --device cuda)
      on a synthetic cu8 FM capture at the app's K = 10: SNR > 50 dB
      against the float64 DsdInOracle, within 1 LSB of the port's CPU run,
@@ -40,7 +41,8 @@ on its own lines; any failure raises and ends the run:
      count over that run;
   9. each chain at K = 16 cu8 over four distinct blocks: throughput, one
      step with host reads made errors, and one step under torch.profiler
-     (device busy share, device time by part and by device function);
+     (device busy share, device time by part and by device function; K4
+     five CUDA kernels a step, none of the retired tail kernels);
  10. the waterfall: K3 against its plain version on the card, on K1's band
      of two consecutive cu8 blocks from a random history and counter, each
      call repeated bit for bit, at K = 40 with w = 80, 120, 840 and at K =
@@ -63,7 +65,9 @@ on its own lines; any failure raises and ends the run:
      F.conv1d's event and device times beside its own (the library
      yardstick, never called by the port), K5 (channel tail) in both modes
      on K6's band at K = 16 cu8 and K = 15 cs16, each against its plain
-     version with its times (K6, K7 and K9 also on the device); (b) the
+     version with its times (K6, K7 and K9 also on the device; K5 on the
+     device by CUDA kernel, beside F.conv1d's: the dsd decimator, stride
+     16, and the single audio FIR, its yardsticks); (b) the
      scanner's trio (fuse_band=False: K6 -> K7) and fuse_dc=False (plain
      DC blocker -> K9 -> K7) engines against the oracle at K = 10
      (decisions also equal to phase 3's run), then at K = 40 in turns
@@ -72,7 +76,7 @@ on its own lines; any failure raises and ends the run:
      dsd_in and single on the two-kernel engine (mono=False: K6 -> K5) at
      K = 16 against the mono engine on the same bytes, throughput in turns
      (mono, two, two, mono), a step with host reads made errors, one
-     profiled step.
+     profiled step (K5 two CUDA kernels, K6 four; in phase 9's, K4 five).
  12. the scanner's op-path switches: (a) K8 (the audio bank without its
      CTCSS epilogue: apply and apply_dc) against its plain versions at
      K = 40 and 10 on the demod of K6 -> K7, in each of the four tap
@@ -619,10 +623,11 @@ def phase_mono(dev, fmt: str, k: int, timer, reps: int = REPS):
         t_plain = timer(plain, inputs)
         t_kernel = timer(kernel, inputs)
         b = bound(*mono_work(mono, n, decode.BYTES_PER_SAMPLE[fmt]))
+        split, span = device_profile(kernel, inputs, torch.cuda.synchronize)
         log(f"  K4 {mode} {fmt} K={k} times (median of {reps}, ms): kernel "
             f"{t_kernel:.3f}, plain {t_plain:.3f}, bound {b['bound_ms']:.4f} "
-            f"({b['bound_by']}); device "
-            f"{device_ms(kernel, inputs, torch.cuda.synchronize)}")
+            f"({b['bound_by']}); device {sum(split.values()):.4f}, span "
+            f"{span_str(span)}: {split_str(split)}")
         rows.append({"name": f"mono_{mode}", "route": "cuda",
                      "source": "sdr_pmr446_tpu_torch/csrc/chan_tail.cu",
                      "replaces": "sdr_pmr446_tpu/kernels/chan_tail.py:600",
@@ -868,12 +873,16 @@ TRIO_PARTS = (("K6 front end", ("fe_",)), ("K9 resampler", ("rs_",)),
               ("DC carry scan (K6 and K2)", ("dc_carry",)),
               ("copies", ("Memcpy", "Memset")))
 #: the parts of a dsd_in / single step
-CHAIN_PARTS = (("K4 mono chain (7 kernels)", ("fe_", "dc_carry", "mono_")),
+CHAIN_PARTS = (("K4 mono chain (5 kernels)", ("fe_", "dc_carry", "tail_")),
                ("copies", ("Memcpy", "Memset")))
 #: ... and of one on the two-kernel engine
 TWO_KERNEL_PARTS = (("K6 front end (4 kernels)", ("fe_", "dc_carry")),
-                    ("K5 chan tail (4 kernels)", ("tail_", "mono_")),
+                    ("K5 chan tail (2 kernels)", ("tail_",)),
                     ("copies", ("Memcpy", "Memset")))
+#: CUDA kernels a step of each part, checked in the profiled step
+CHAIN_LAUNCHES = {"K4 mono chain (5 kernels)": 5}
+TWO_KERNEL_LAUNCHES = {"K6 front end (4 kernels)": 4,
+                       "K5 chan tail (2 kernels)": 2}
 
 
 def kernel_name(name: str) -> str:
@@ -950,7 +959,9 @@ def phase_profile_chain(dev, mode: str, k: int, sync, mono: bool = True):
         out.cpu()
     return 1 + profile_step(step, sync,
                             CHAIN_PARTS if mono else TWO_KERNEL_PARTS,
-                            "other (int16 cast, small ops)", by_kernel=True)
+                            "other (int16 cast, small ops)", by_kernel=True,
+                            launches=CHAIN_LAUNCHES if mono
+                            else TWO_KERNEL_LAUNCHES)
 
 
 def wf_work(k: int, w: int, hops: int):
@@ -1013,9 +1024,19 @@ def device_ms(fn, inputs, sync) -> str:
     return f"not recorded ({PROFILE_ATTEMPTS} profiler sessions)"
 
 
-def device_split(fn, inputs, sync) -> dict:
-    """Device ms of one fn(*args) call over ``inputs``, by CUDA kernel name
-    (template arguments dropped), from a profiled run of all of them."""
+#: device gap (us) that separates two calls' events in device_profile:
+#: a call's launches queue back to back, the wrapper's host work between
+#: calls takes tens of microseconds
+SPAN_GAP_US = 10.0
+
+
+def device_profile(fn, inputs, sync):
+    """(device ms of one fn(*args) call over ``inputs`` by CUDA kernel name
+    (template arguments dropped), the median span of a call: its first
+    device event's start to its last one's end, in ms) from a profiled run
+    of all of them.  A call's events are those that start within
+    SPAN_GAP_US of the call's latest end; the span is None when that does
+    not give one group a call."""
     for _ in range(PROFILE_ATTEMPTS):
         evs, _, _, _ = profile_session(lambda: [fn(*a) for a in inputs],
                                        sync)
@@ -1025,7 +1046,25 @@ def device_split(fn, inputs, sync) -> dict:
     for e in evs:
         name = kernel_name(e.name).split("<")[0]
         by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return {name: ms / len(inputs) for name, ms in by.items()}
+    groups = []
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        if groups and s - groups[-1][1] < SPAN_GAP_US:
+            groups[-1][1] = max(groups[-1][1], e)
+        else:
+            groups.append([s, e])
+    span = (statistics.median(e - s for s, e in groups) / 1e3
+            if len(groups) == len(inputs) else None)
+    return {name: ms / len(inputs) for name, ms in by.items()}, span
+
+
+def device_split(fn, inputs, sync) -> dict:
+    """Device ms of one fn(*args) call over ``inputs``, by CUDA kernel name
+    (device_profile)."""
+    return device_profile(fn, inputs, sync)[0]
+
+
+def span_str(span) -> str:
+    return "not separable" if span is None else f"{span:.4f}"
 
 
 def split_str(split: dict) -> str:
@@ -1489,20 +1528,75 @@ def chan_tail_case(dev, fmt: str, k: int, timer, reps: int = REPS):
             base * np.exp(0.37j * s_), fmt), device=dev), *st[:3]).band
             for s_ in range(reps)]
         inputs = [(b_,) + tuple(st[3:]) for b_ in bands]
-        t_kernel = timed(timer, lambda *a: tail.kernel(*a, n0=n0), inputs)
+        kernel = lambda *a: tail.kernel(*a, n0=n0)
+        t_kernel = timed(timer, kernel, inputs)
         t_plain = timed(timer, lambda *a: tail.plain(*a, n0=n0), inputs)
+        conv, xs = tail_conv(tail, st[3:], n0, bands)
+        t_lib = timed(timer, conv, xs)
         nb = n * 25 // 128
         tb, to = tail_work(tail, nb)
         b = bound(tb + 8 * nb, to)
+        split, span = device_profile(kernel, inputs, torch.cuda.synchronize)
+        lib_split = device_split(conv, xs, torch.cuda.synchronize)
+        what = "decimator" if mode == "dsd" else "audio FIR"
         log(f"  K5 {mode} {fmt} K={k} times (median of {reps}, ms): kernel "
-            f"{t_kernel:.4f}, plain {t_plain:.4f}, bound {b['bound_ms']:.5f} "
-            f"({b['bound_by']})")
+            f"{t_kernel:.4f}, plain {t_plain:.4f}, F.conv1d ({what}) "
+            f"{t_lib:.4f}, bound {b['bound_ms']:.5f} ({b['bound_by']}); "
+            f"device {sum(split.values()):.4f}, span {span_str(span)}: "
+            f"{split_str(split)}; F.conv1d device "
+            f"{sum(lib_split.values()):.4f}")
         rows.append({"name": f"chan_tail_{mode}", "route": "cuda",
                      "source": "sdr_pmr446_tpu_torch/csrc/chan_tail.cu",
                      "replaces": "sdr_pmr446_tpu/kernels/chan_tail.py:308",
                      "max_abs_err": max(errs), "ms": t_kernel,
-                     "plain_ms": t_plain, **b, "library_ms": None})
+                     "plain_ms": t_plain, **b, "library_ms": t_lib})
     return rows
+
+
+def tail_demod(tail, band, band_hist, sig_prev, n0):
+    """The demod [F] that K5's plain version computes on the way (its
+    steps 1-3: the mixer for single, the decimator, the discriminator)."""
+    import torch
+    from sdr_pmr446_tpu_torch.kernels.chan_tail import PHASE_PERIOD
+    from sdr_pmr446_tpu_torch.ops import fm
+    hb, nb = band_hist.shape[0], band.shape[1]
+    be = torch.cat([torch.view_as_real(band_hist).T, band], dim=-1)
+    if tail.mode == "single":
+        i = torch.arange(-hb, nb, device=be.device)
+        be = torch.view_as_real(torch.complex(be[0], be[1]) * tail.tab[
+            torch.remainder(i + n0, PHASE_PERIOD)]).T
+    _, y = tail.decim(be[:, :hb], be[:, hb:])
+    return fm.fm_demod(sig_prev, torch.complex(y[0], y[1]))[1]
+
+
+def tail_conv(tail, state, n0, bands):
+    """K5's library yardstick, never called by the port: one F.conv1d
+    (cuDNN, f32, TF32 off) for its heaviest filter.  dsd: the 477-tap
+    decimator, stride 16, on the two band planes (with the band history);
+    single: the 408-tap audio FIR on [demod_hist | demod], the demod of
+    each band as the plain version makes it.  ``state`` is (band_hist,
+    sig_prev, demod_hist).  Returns (fn, inputs), one input a band."""
+    import torch
+    conv = torch.nn.functional.conv1d
+    band_hist, sig_prev, demod_hist = state
+    if tail.mode == "dsd":
+        dec, hb = tail.decim, band_hist.shape[0]
+        xs = []
+        for band in bands:
+            need = (band.shape[1] // dec.M - 1) * dec.M + dec.W
+            be = torch.cat([torch.view_as_real(band_hist).T, band], dim=-1)
+            xs.append((be[:, hb - dec.hist_len:][:, :need]
+                       .reshape(2, 1, need).contiguous(),))
+        return (lambda x, w=dec.weight, m=dec.M: conv(x, w, stride=m)), xs
+    w = torch.flip(tail.post_taps, [0]).reshape(1, 1, -1)
+    nt = w.shape[-1]
+    xs = []
+    for band in bands:
+        dem = tail_demod(tail, band, band_hist, sig_prev, n0)
+        de = torch.cat([demod_hist, dem])
+        xs.append((de[de.shape[0] - dem.shape[0] - (nt - 1):]
+                   .reshape(1, 1, -1).contiguous(),))
+    return (lambda x: conv(x, w)), xs
 
 
 def phase_new_kernels(dev, timer):
@@ -1866,11 +1960,13 @@ def profile_session(run, sync):
     return evs, before, len(device), wall_ms
 
 
-def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
+def profile_step(run, sync, parts, other: str, by_kernel: bool = False,
+                 launches: dict | None = None):
     """``run()`` under torch.profiler: the device's busy share (the union
     of its events' intervals) and its time by part of the step (profiling
     adds host overhead to the wall time); with ``by_kernel``, also by
-    device function.  Returns how many times it called ``run()``.
+    device function; ``launches`` maps a part's label to the device events
+    it must have in the step.  Returns how many times it called ``run()``.
 
     A small device op, one run() and a synchronize come first: the
     device's first activities in a profiler session are sometimes not
@@ -1905,6 +2001,10 @@ def profile_step(run, sync, parts, other: str, by_kernel: bool = False):
         f"{len(evs)} device events")
     for name, (us, n) in sorted(groups.items(), key=lambda g: -g[1][0]):
         log(f"    {us / 1e3:8.3f} ms  x{n:<5d} {name}")
+    for label, n in (launches or {}).items():
+        got = groups.get(label, [0.0, 0])[1]
+        check(got == n, f"{label}: {got} device events in the profiled "
+              f"step, expected {n}")
     if by_kernel:
         fns: dict = {}
         for e in evs:

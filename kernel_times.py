@@ -13,12 +13,19 @@ checkout), after building that tree's kernels from its own sources:
   yardstick, beside them), K6 (front end, cu8 K = 40 and cs16 K = 10), K7
   (PFB + discriminator, |y| sums, K = 40 and 10, on the plain front end's
   band), K9 (resampler, K = 40 and 10, with F.conv1d, its library
-  yardstick, beside it) and K4 (mono chain, dsd and single, cu8, K = 16),
+  yardstick, beside it), K4 (mono chain, dsd and single, cu8, K = 16) and
+  K5 (channel tail, dsd and single, cu8 K = 16 and cs16 K = 15, on K6's
+  band as chip_smoke.py's chan_tail_case builds it), with K5's two
+  F.conv1d yardsticks beside it: the dsd decimator (477 taps, stride 16)
+  on the two band planes and the single audio FIR (408 taps) on the
+  demod (chip_smoke.py's tail_conv),
 
 each on chip_smoke.py's inputs (the same helpers): CUDA events around one
 call (median over N fresh inputs, after a warm-up call), and the device
 time of the same N calls under torch.profiler, in all and by CUDA kernel,
-per call.  Two trees compare on one card when one job runs this for each
+per call, with the median span of a call on the device (its first
+kernel's start to its last one's end: launch gaps and overlaps
+included).  Two trees compare on one card when one job runs this for each
 in turns (parent, change, change, parent).  Prints a line per case and, last,
 one JSON object {"label", "card", "cases": {...}}; writes that object to
 FILE too when given.  Needs a CUDA device and nvcc; imports nothing of JAX.
@@ -39,9 +46,10 @@ import chip_smoke as cs  # noqa: E402  (helpers; the package loads lazily)
 
 
 def measure(fn, inputs, sync) -> dict:
-    split = cs.device_split(fn, inputs, sync)
+    split, span = cs.device_profile(fn, inputs, sync)
     return {"event_ms": cs.timed(cs.cuda_timer, fn, inputs),
-            "device_ms": sum(split.values()), "by_kernel": split}
+            "device_ms": sum(split.values()), "span_ms": span,
+            "by_kernel": split}
 
 
 def cases(dev, reps: int):
@@ -123,6 +131,21 @@ def cases(dev, reps: int):
             mode, 16 * C.SUBCHUNK_IN, 0))]
         out.append((f"K4 {mode} cu8 K=16",
                     lambda *a, m=mono, n0=n0: m.kernel(*a, n0=n0), ins))
+    for fmt, k in (("cu8", 16), ("cs16", 15)):
+        for mode in ("dsd", "single"):
+            mono = MonoChain(mode, fmt, channel=5,
+                             audio_gain=C.SDR_DEFAULT_AUDIO_GAIN, device=dev)
+            st, n0 = cs.random_mono_state(mono, rng, dev)
+            bands = [mono.front.kernel(w, *st[:3]).band
+                     for w in wires(k, fmt, cs.mono_signal(
+                         mode, k * C.SUBCHUNK_IN, 0))]
+            out.append((f"K5 {mode} {fmt} K={k}",
+                        lambda *a, t=mono.tail, n0=n0: t.kernel(*a, n0=n0),
+                        [(b,) + tuple(st[3:]) for b in bands]))
+            if fmt == "cu8":
+                conv, xs = cs.tail_conv(mono.tail, st[3:], n0, bands)
+                what = "decimator" if mode == "dsd" else "audio FIR"
+                out.append((f"F.conv1d (K5 {mode} {what}) K={k}", conv, xs))
     return out
 
 
@@ -154,8 +177,10 @@ def main(argv=None) -> int:
     res = {}
     for name, fn, inputs in cases(dev, args.reps):
         res[name] = r = measure(fn, inputs, sync)
+        span = "n/a" if r["span_ms"] is None else f"{r['span_ms']:.4f} ms"
         cs.log(f"  {name}: event {r['event_ms']:.4f} ms, device "
-               f"{r['device_ms']:.4f} ms: {cs.split_str(r['by_kernel'])}")
+               f"{r['device_ms']:.4f} ms, span {span}: "
+               f"{cs.split_str(r['by_kernel'])}")
     doc = {"label": args.label, "card": card, "cases": res}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -62,8 +62,8 @@ SIGNATURES = {
         _P, _P, _P, _I, _P, _I,           # dc_x, dc_y, fhist, H, bhist, HB
         _P, _P, _I, _P,                   # sig_prev, dhist, DH, n0
         _P, _P, _D, _D, _D, _F,           # kt, pj, p, g, pL, inv_cu8
-        _P, _I, _P, _P, _I, _F,           # kd, P, tab, post taps, width, dscale
-        _P, _P, _P, _P, _P, _P,           # ylocal, yend, carry, band, sig, dem
+        _P, _I, _P, _P, _I, _F,           # kd, J, tab, post taps, width, dscale
+        _P, _P, _P, _P, _P,               # ylocal, yend, carry, band, dem
         _P, _P, _P, _P, _P, _P, _P, _P,   # outputs
         _P,                               # stream
     ],
@@ -89,8 +89,8 @@ SIGNATURES = {
     "tail_run": [
         _I, _P, _LL, _P, _I,              # mode, band, nb, bhist, HB
         _P, _P, _I, _P,                   # sig_prev, dhist, DH, n0
-        _P, _I, _P, _P, _I, _F,           # kd, P, tab, post taps, width, dscale
-        _P, _P,                           # sig, dem
+        _P, _I, _P, _P, _I, _F,           # kd, J, tab, post taps, width, dscale
+        _P,                               # dem
         _P, _P, _P, _P, _P,               # bhist', sig_prev', dhist', n0', out
         _P,                               # stream
     ],

@@ -37,22 +37,26 @@ of 400-sample group rows (K % 8 == 0), and K5 takes the rotation ``rot``
 where the port carries ``n0``.  Here the mixer is applied exactly, by
 index, so every K is served.
 
-The CUDA version (csrc/chan_tail.cu) runs seven launches on the current
-stream: the three front-end launches of K1 (csrc/front_end.cuh), the state
-tail, the decimator (one warp per decimated output; the taps and each
-block's window, mixed once per sample, in shared memory), the
-discriminator and the post-FIR.  The band planes (2.5 MB at K = 16) and
-the decimated signal go through device memory; on the TPU the band never
-left VMEM.  What bounds it on the H100: at K = 16 it does ~0.49 GFLOP
-(dsd) or ~0.53 GFLOP (single), most of it the front end's resampler,
-against a 3.2 MB cu8 read — operations bound, ~7-8 us at the card's f32
-rate (chip_smoke.py counts it).  It runs far above that: seven
-small launches make it latency and launch bound; fusing them and keeping
-the band on chip is later work.
+The CUDA version (csrc/chan_tail.cu) runs five launches on the current
+stream: the three front-end launches of K1 (csrc/front_end.cuh), then the
+tail in two.  Launch A (``tail_decim``) writes the carried state, stages
+its window of [band_hist | band] and the decimator taps by ``cp.async``,
+mixes each sample once (single), and runs the 16x decimator as a
+register-tiled polyphase product (a warp a phase, a lane 4 consecutive
+outputs of both planes, the taps staged by phase: ``staged_decim_taps``)
+with the discriminator in its epilogue; only the demod reaches device
+memory.  Launch B (``tail_post``) runs the upsampler (dsd, its [96][43]
+table staged once a block) or the audio FIR (single, the same tiled FIR
+over ``staged_fir_taps``, 4 tap segments a block).  What bounds K4 on the
+H100: at K = 16 it does ~0.49 GFLOP (dsd) or ~0.53 GFLOP (single), most
+of it the front end's resampler, against a 3.2 MB cu8 read — operations
+bound, ~7-8 us at the card's f32 rate (chip_smoke.py counts it).  The
+tail alone reads the 2.5 MB band and does 45-84 MFLOP: ~1 us.  Small
+launches are most of its time, so it has two.
 
-K5's CUDA version (``tail_run`` in csrc/chan_tail.cu) runs a state launch
-(band_hist', n0') and K4's last three launches on K6's band: bytes bound
-for dsd, operations bound for single, ~1 us at K = 16; see the source.
+K5's CUDA version (``tail_run`` in csrc/chan_tail.cu) runs launches A and
+B on K6's band; K4 runs the same two kernels, so its outputs equal K6 ->
+K5's bit for bit.  See the source for the design.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ from sdr_pmr446_tpu_torch.kernels.front_end import (FMT_CODE, FrontEnd,
                                                     compact_phases)
 from sdr_pmr446_tpu_torch.kernels.pfb_demod import DEMOD_SCALE
 from sdr_pmr446_tpu_torch.ops import fm
-from sdr_pmr446_tpu_torch.ops.resample import PolyResampler
+from sdr_pmr446_tpu_torch.ops.resample import PolyResampler, _kernel_matrix
 from sdr_pmr446_tpu_torch.taps import design as D
 
 GL = 400                      # band samples per JAX group row
@@ -81,6 +85,13 @@ MODES = ("dsd", "single")
 MODE_CODE = {"dsd": 0, "single": 1}
 #: (history group rows hb, demod history rows dh, outputs per group row)
 GEOMETRY = {"dsd": (2, 2, 96), "single": (3, 17, 25)}
+#: the CUDA tail's tiles (csrc/chan_tail.cu TILE_R, TILE_G, DEC_TILE,
+#: DEC_JMAX, FIR_SPLIT, FIR_TILE, MAX_FIR_TAPS): outputs a thread, staged
+#: taps padded to whole TILE_G, decimated outputs a block, most staged taps
+#: a phase, the audio FIR's tap segments, outputs a block and longest
+#: staged FIR
+TILE_R, TILE_G, DEC_TILE, DEC_JMAX = 4, 8, 128, 56
+FIR_SPLIT, FIR_TILE, MAX_FIR_TAPS = 4, 128, 512
 
 #: kernel launches of K4's CUDA version (one per chain step); the plain
 #: version never counts
@@ -124,6 +135,41 @@ def audio_fir_taps(audio_gain: float) -> np.ndarray:
         np.float32)
 
 
+def _whole(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def staged_decim_taps(kd: np.ndarray) -> np.ndarray:
+    """f32 [DEC, J]: the CUDA decimator's taps by phase.  ``kd`` [P] is the
+    decimator as applied (y[f] = sum_w kd[w] x[16 f + w - (P - 1)], the
+    PolyResampler weight); front-padded with zeros to P' = 16 J taps (J =
+    ceil(P / 16) to a whole TILE_G), row p holds kd'[16 j + p] over j.  The
+    same f32 values, moved."""
+    kd = np.asarray(kd, np.float32).reshape(-1)
+    j = _whole(-(-kd.shape[0] // DEC), TILE_G)
+    if j > DEC_JMAX:
+        raise ValueError(f"{kd.shape[0]} decimator taps exceed the kernel's "
+                         f"{DEC * DEC_JMAX}")
+    kp = np.zeros(DEC * j, np.float32)
+    kp[DEC * j - kd.shape[0]:] = kd
+    return np.ascontiguousarray(kp.reshape(j, DEC).T)
+
+
+def staged_fir_taps(h: np.ndarray) -> np.ndarray:
+    """f32 [NTP]: the CUDA audio FIR's taps, reversed and front-padded with
+    zeros to NTP = FIR_SPLIT segments of a whole TILE_G: out[n] = sum_q
+    hs[q] de[DH - (NTP - 1) + n + q] is the FIR out[n] = sum_k h[k] de[DH +
+    n - k]."""
+    h = np.asarray(h, np.float32)
+    ntp = FIR_SPLIT * _whole(-(-h.shape[0] // FIR_SPLIT), TILE_G)
+    if ntp > MAX_FIR_TAPS:
+        raise ValueError(f"{h.shape[0]} FIR taps exceed the kernel's "
+                         f"{MAX_FIR_TAPS}")
+    out = np.zeros(ntp, np.float32)
+    out[ntp - h.shape[0]:] = h[::-1]
+    return out
+
+
 class ChanTail(nn.Module):
     """K5 for one mode.  ``module(band, band_hist, sig_prev, demod_hist,
     n0)`` -> TailOut: the CUDA kernel for CUDA tensors, the plain version
@@ -155,6 +201,14 @@ class ChanTail(nn.Module):
         self.decim = PolyResampler(dec_taps, 1, DEC, device)
         if self.hb * GL < self.decim.hist_len:
             raise ValueError("band history shorter than the decimator")
+        # the CUDA kernels' staged tables (the same f32 values, moved)
+        kd = _kernel_matrix(tuple(np.asarray(dec_taps, np.float64).tolist()),
+                            1, DEC).astype(np.float32)[0]
+        self.register_buffer("kd_staged", torch.as_tensor(
+            staged_decim_taps(kd), device=device))
+        self.register_buffer("post_staged", self.post_taps if mode == "dsd"
+                             else torch.as_tensor(staged_fir_taps(
+                                 audio_fir_taps(audio_gain)), device=device))
 
     def init_state(self, device) -> tuple:
         """Zero (band_hist, sig_prev, demod_hist)."""
@@ -229,23 +283,23 @@ class ChanTail(nn.Module):
         build.require(sig_prev, "sig_prev", torch.complex64, (), dev)
         build.require(demod_hist, "demod_hist", torch.float32,
                       (self.dh * DPS,), dev)
-        build.require(self.decim.weight, "decimator taps", torch.float32,
+        build.require(self.kd_staged, "decimator taps", torch.float32,
                       None, dev)
-        build.require(self.post_taps, "post taps", torch.float32, None, dev)
+        build.require(self.post_staged, "post taps", torch.float32, None,
+                      dev)
         if self.mode == "single":
             build.require(n0, "n0", torch.int32, (), dev)
             build.require(self.tab, "mixer table", torch.complex64,
                           (PHASE_PERIOD,), dev)
 
     def c_args(self) -> tuple:
-        """(kd, P, tab, post taps, post width, scale) as tail_run and
-        mono_run take them."""
+        """(staged decimator taps, J, tab, post table, its width, scale) as
+        tail_run and mono_run take them."""
         single = self.mode == "single"
-        width = (self.post_taps.shape[0] if single
-                 else self.post_taps.shape[1])
-        return (self.decim.weight.data_ptr(), self.decim.P,
+        return (self.kd_staged.data_ptr(), self.kd_staged.shape[1],
                 self.tab.data_ptr() if single else None,
-                self.post_taps.data_ptr(), width, DEMOD_SCALE)
+                self.post_staged.data_ptr(), self.post_staged.shape[-1],
+                DEMOD_SCALE)
 
     def outputs(self, g: int, dev) -> TailOut:
         """Empty outputs for ``g`` group rows."""
@@ -269,13 +323,12 @@ class ChanTail(nn.Module):
         dev = band.device
         build.require(band, "band", torch.float32, (2, nb), dev)
         self.check_state(band_hist, sig_prev, demod_hist, n0, dev)
-        f32 = dict(dtype=torch.float32, device=dev)
-        sig, dem = torch.empty(2 * f, **f32), torch.empty(f, **f32)
+        dem = torch.empty(f, dtype=torch.float32, device=dev)
         out = self.outputs(g, dev)
         code = build.library().tail_run(
             MODE_CODE[self.mode], band.data_ptr(), nb, band_hist.data_ptr(),
             self.hb * GL, sig_prev.data_ptr(), demod_hist.data_ptr(),
-            self.dh * DPS, _ptr(n0), *self.c_args(), sig.data_ptr(),
+            self.dh * DPS, _ptr(n0), *self.c_args(),
             dem.data_ptr(), out.band_hist.data_ptr(), out.sig_prev.data_ptr(),
             out.demod_hist.data_ptr(), _ptr(out.n0), out.out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -346,8 +399,7 @@ class MonoChain(nn.Module):
         self.tail.check_state(band_hist, sig_prev, demod_hist, n0, dev)
         (ylocal, yend, carry), fe_args = self.front.kernel_args(n, dev)
         f32 = dict(dtype=torch.float32, device=dev)
-        band = torch.empty(2 * nb, **f32)
-        sig, dem = torch.empty(2 * f, **f32), torch.empty(f, **f32)
+        band, dem = torch.empty(2 * nb, **f32), torch.empty(f, **f32)
         c64 = dict(dtype=torch.complex64, device=dev)
         t = self.tail.outputs(g, dev)
         out = MonoOut(torch.empty((), **c64), torch.empty((), **c64),
@@ -359,7 +411,7 @@ class MonoChain(nn.Module):
             demod_hist.data_ptr(), self.dh * DPS, _ptr(n0), *fe_args,
             *self.tail.c_args(),
             ylocal.data_ptr(), yend.data_ptr(), carry.data_ptr(),
-            band.data_ptr(), sig.data_ptr(), dem.data_ptr(),
+            band.data_ptr(), dem.data_ptr(),
             out.dc_x.data_ptr(), out.dc_y.data_ptr(),
             out.front_hist.data_ptr(), out.band_hist.data_ptr(),
             out.sig_prev.data_ptr(), out.demod_hist.data_ptr(),

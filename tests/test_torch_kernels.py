@@ -353,12 +353,14 @@ def random_mono_state(mono, rng, dev, n0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["dsd", "single"])
-@pytest.mark.parametrize("fmt,k", [("cu8", 16), ("cs16", 15)])
+@pytest.mark.parametrize("fmt,k", [("cu8", 16), ("cs16", 15), ("cu8", 1),
+                                   ("cs16", 3)])
 def test_mono_kernel_matches_plain_on_card(mode, fmt, k):
     """K4 vs its plain version over two consecutive blocks (the carried
-    state included; K = 15 gives an odd number of group rows): dsd PCM
-    within 1 LSB after the int16 truncation, single audio SNR > 100 dB,
-    carries to 5e-5 of their peak, the mixer phase exact."""
+    state included; K = 15 gives an odd number of group rows, K = 1 and 3
+    a partial last tile in both launches of the tail): dsd PCM within 1 LSB
+    after the int16 truncation, single audio SNR > 100 dB, carries to 5e-5
+    of their peak, the mixer phase exact."""
     from sdr_pmr446_tpu_torch.kernels import chan_tail
     dev = _cuda_or_skip()
     rng = np.random.default_rng(k)
@@ -419,12 +421,13 @@ def test_mono_chain_step_makes_no_host_reads_on_card(mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["dsd", "single"])
-@pytest.mark.parametrize("fmt,k", [("cu8", 16), ("cs16", 15)])
+@pytest.mark.parametrize("fmt,k", [("cu8", 16), ("cs16", 15), ("cu8", 1),
+                                   ("cs16", 3)])
 def test_chan_tail_kernel_matches_plain_on_card(mode, fmt, k):
     """K5 vs its plain version on K6's band of two consecutive blocks (the
-    carried state included; K = 15 gives an odd number of group rows): dsd
-    PCM within 1 LSB, single audio SNR > 100 dB, carries to 5e-5 of their
-    peak, the mixer phase exact."""
+    carried state included; K = 15 gives an odd number of group rows, K = 1
+    and 3 a partial last tile): dsd PCM within 1 LSB, single audio SNR >
+    100 dB, carries to 5e-5 of their peak, the mixer phase exact."""
     from sdr_pmr446_tpu_torch.kernels import chan_tail
     dev = _cuda_or_skip()
     rng = np.random.default_rng(k)
@@ -458,6 +461,56 @@ def test_chan_tail_kernel_matches_plain_on_card(mode, fmt, k):
         fe_st = list(fe[:3])
         ref, n0_ref = list(r[:3]), r.n0
         got, n0_got = list(g[:3]), g.n0
+
+
+def assert_bit_equal(got, want, what):
+    for name, g, w in zip(got._fields, got, want):
+        if g is not None:
+            assert torch.equal(g, w), f"{what}: {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dsd", "single"])
+@pytest.mark.parametrize("fmt,k", [("cu8", 16), ("cs16", 3)])
+def test_tail_kernels_repeat_bit_for_bit_on_card(mode, fmt, k):
+    """K4 and K5 called twice on the same inputs give the same outputs bit
+    for bit (every sum in one fixed order, no atomics)."""
+    from sdr_pmr446_tpu_torch.kernels import chan_tail
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(k + 1)
+    mono = chan_tail.MonoChain(mode, fmt, channel=5, audio_gain=2.0,
+                               device=dev)
+    st, n0 = random_mono_state(mono, rng, dev, 11)
+    wire = torch.as_tensor(decode.quantize_iq(
+        mono_input(mode, k * C.SUBCHUNK_IN, 1), fmt), device=dev)
+    assert_bit_equal(mono(wire, *st, n0=n0), mono(wire, *st, n0=n0), "K4")
+    band = mono.front(wire, *st[:3]).band
+    assert_bit_equal(mono.tail(band, *st[3:], n0=n0),
+                     mono.tail(band, *st[3:], n0=n0), "K5")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dsd", "single"])
+@pytest.mark.parametrize("fmt,k", [("cu8", 16), ("cs16", 15), ("cu8", 1)])
+def test_mono_equals_front_then_tail_on_card(mode, fmt, k):
+    """K4's outputs equal K6 -> K5's on the same wire and state, bit for
+    bit, over two consecutive blocks: both run one copy of the front end's
+    and the tail's device code."""
+    from sdr_pmr446_tpu_torch.kernels import chan_tail
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(k + 2)
+    mono = chan_tail.MonoChain(mode, fmt, channel=5, audio_gain=2.0,
+                               device=dev)
+    two = chan_tail.TwoKernelChain(mode, fmt, channel=5, audio_gain=2.0,
+                                   device=dev)
+    st, n0 = random_mono_state(mono, rng, dev, 7)
+    a, na, b, nb_ = list(st), n0, list(st), n0
+    for step in range(2):
+        wire = torch.as_tensor(decode.quantize_iq(
+            mono_input(mode, k * C.SUBCHUNK_IN, step), fmt), device=dev)
+        ra, rb = mono(wire, *a, n0=na), two(wire, *b, n0=nb_)
+        assert_bit_equal(ra, rb, f"block {step}")
+        a, na, b, nb_ = list(ra[:6]), ra.n0, list(rb[:6]), rb.n0
 
 
 @pytest.mark.cuda
