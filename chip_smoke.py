@@ -95,9 +95,11 @@ on its own lines; any failure raises and ends the run:
      config 5: (a) K10 (the pre-pass's wire-direct DC summary) against its
      plain version over one config-5 step's wire (4 streams x K = 40, one
      launch) in each format, w within 1e-5 of its peak, xl exact, with its
-     times; (b) K11 (the halo ring shift) against torch.roll (its plain
-     version and library yardstick) on the plane path's real tails, bit
-     for bit, with both times by event and on the device; (c) the sharded
+     times: by event, and on the device with L2 cold (7 fresh wires, 225
+     MB) and in the path's order (right after the wire's upload); (b) K11
+     (the halo ring shift) against torch.roll (its plain version and
+     library yardstick) on the plane path's real tails, bit for bit, with
+     both times by event and on the device; (c) the sharded
      duo at (4, 5), K = 40, cu8, over 4 captures of 4 occupied blocks and
      a hang block (the transmission ends half-way, receiver noise
      follows), against 4
@@ -127,9 +129,11 @@ on its own lines; any failure raises and ends the run:
      printed, both switches restored; (c) K12b's three modes against their
      plain versions on seeded random [128, 256] x [256, 128] inputs (within
      1e-5 of the output's peak), with their times beside torch.matmul's
-     (the library yardstick, never called by a mode); (d) K12a's eight
-     moves bit for bit against their plain versions, with their times and
-     their library moves', by event and on the device.
+     (the library yardstick, never called by a mode), by event and on the
+     device; (d) K12a's eight moves bit for bit against their plain
+     versions, with their times and their library moves' (each held bit
+     for bit to the plain version too), by event and on the device, each
+     bound by the bytes the move must move (probe_layout.min_bytes).
  15. faithful mode (scanner/faithful.py, no kernel of its own: plain ops on
      the card) at K = 10 on tests/test_faithful.py's busy scenario (tune,
      a lock_mode max switch, a detune, CTCSS): against the float64 oracle
@@ -2107,16 +2111,28 @@ def summary_case(dev, timer, blocks, reps: int = REPS):
             f"{'exact' if torch.equal(xl, xr) else 'DIFFERS'}")
         check(err <= TOL_SUMMARY_REL * pk, f"K10 {fmt} w")
         check(torch.equal(xl, xr), f"K10 {fmt} xl")
-    # fresh inputs: the cu8 bytes rolled by whole samples
+    # fresh inputs: the cu8 bytes rolled by whole samples; together (225
+    # MB) they exceed the 50 MB L2, so each call finds its wire cold
     wires = [(torch.roll(torch.as_tensor(cu8, device=dev), 2 * 977 * r),)
              for r in range(reps)]
-    t_k = timed(timer, lambda w: summary.zero_summary_kernel(w, "cu8"), wires)
+    kernel = lambda w: summary.zero_summary_kernel(w, "cu8")  # noqa: E731
+    t_k = timed(timer, kernel, wires)
     t_p = timed(timer, lambda w: summary.zero_summary_plain(w, "cu8"), wires)
     b = bound(*summary_work(n, 2))
+    sync = lambda: torch.cuda.synchronize(dev)  # noqa: E731
+    zs_ms = lambda split: sum(  # noqa: E731  (K10's own kernel, no copy)
+        ms for name, ms in split.items() if name.startswith("zs_"))
+    cold = zs_ms(device_split(kernel, wires, sync))
+    # the sharded path's order: the step's wire uploaded, then K10 (L2 may
+    # still hold part of it: a time below the bound is L2, not the kernel)
+    warm = zs_ms(device_split(lambda h: kernel(torch.as_tensor(h, device=dev)),
+                              [(cu8,)] * reps, sync))
     log(f"  K10 cu8 times (median of {reps}, ms): kernel {t_k:.4f}, plain "
-        f"{t_p:.4f}, bound {b['bound_ms']:.5f} ({b['bound_by']}); library "
-        "call: none (the decode and the [R, 128] x [128] product are two "
-        "calls, and the decoded planes would cost 8 B a sample more)")
+        f"{t_p:.4f}, bound {b['bound_ms']:.5f} ({b['bound_by']}); device ms "
+        f"a call: L2 cold {cold:.4f}, right after the wire's upload "
+        f"{warm:.4f}; library call: none (the decode and the [R, 128] x "
+        "[128] product are two calls, and the decoded planes would cost 8 B "
+        "a sample more)")
     return {"name": "zero_summary", "route": "cuda",
             "source": "sdr_pmr446_tpu_torch/csrc/summary.cu",
             "replaces": "sdr_pmr446_tpu/kernels/summary.py:97",
@@ -2772,14 +2788,19 @@ def phase_probes(dev, timer, reps: int = REPS):
                     ins)
         t_p = timed(timer, lambda x, y: K12b.probe_dot_plain(x, y, mode),
                     ins)
+        sync = lambda: torch.cuda.synchronize(dev)  # noqa: E731
+        dev_k = device_ms(lambda x, y: K12b.probe_dot_kernel(x, y, mode),
+                          ins, sync)
         with precision.tf32_switches(False, False):
             t_lib = timed(timer, torch.matmul, ins)
+            dev_lib = device_ms(torch.matmul, ins, sync)
         b_ = (bound(nbytes, flops) if mode == "ffma" else bound(
             nbytes, flops * (1 if mode == "tf32" else 3),
             PEAK_TF32_OPS_PER_S))
         log(f"  K12b {mode}: max|err| {err:.3g} ({rel_err:.3g} of the peak); "
             f"times (ms) kernel {t_k:.4f}, plain {t_p:.4f}, torch.matmul "
-            f"{t_lib:.4f}, bound {b_['bound_ms']:.6f} ({b_['bound_by']})")
+            f"{t_lib:.4f}, bound {b_['bound_ms']:.6f} ({b_['bound_by']}); "
+            f"device ms kernel {dev_k}, torch.matmul (TF32 off) {dev_lib}")
         rows.append({"name": f"probe_dot_{mode}", "route": "cuda",
                      "source": "sdr_pmr446_tpu_torch/csrc/probe_precision.cu",
                      "replaces": "tools/probe_precision.py:37",
@@ -2787,37 +2808,37 @@ def phase_probes(dev, timer, reps: int = REPS):
                      "ms": t_k, "plain_ms": t_p, **b_, "library_ms": t_lib})
 
     log("  (d) K12a's moves vs their plain versions, bit for bit")
-    library = {"scratch_read_off16": lambda x: x[:, 16:144].contiguous(),
+    library = {"scratch_store_off16": lambda x: torch.cat(
+                   (x[:, :16], x[:, :16], x[:, 32:128]), 1),
+               "scratch_read_off16": lambda x: x[:, 16:144].contiguous(),
                "scratch_read_narrow": lambda x: x[:, 16:32].contiguous(),
                "value_lane_off16": lambda x: x[:, 16:144].contiguous(),
                "value_stride_sub": lambda x: x[0::16, :].contiguous(),
                "reshape_rows_wide": lambda x: torch.reshape(x, (8, 2048)),
                "reshape_25_16": lambda x: torch.reshape(x, (200, 16)),
                "transpose_16": lambda x: x.T.contiguous()}
-    for move, (shape_in, shape_out) in K12a.MOVES.items():
+    for move, (shape_in, _) in K12a.MOVES.items():
         ins = [(torch.as_tensor(rng.standard_normal(shape_in).astype(
             np.float32), device=dev),) for _ in range(reps)]
         got = K12a.probe_move_kernel(ins[0][0], move)
         plain = K12a.probe_move_plain(ins[0][0], move)
         torch.cuda.synchronize(dev)
         check(layout_tool.bits_equal(got, plain), f"K12a {move} bit for bit")
+        check(layout_tool.bits_equal(library[move](ins[0][0]), plain),
+              f"K12a {move}'s library call computes the move")
         t_k = timed(timer, lambda x: K12a.probe_move_kernel(x, move), ins)
         t_p = timed(timer, lambda x: K12a.probe_move_plain(x, move), ins)
-        t_lib = (timed(timer, library[move], ins) if move in library
-                 else None)
-        b_ = bound(4 * (math.prod(shape_in) + math.prod(shape_out)), 0)
-        lib = "none" if t_lib is None else f"{t_lib:.4f}"
-        sync = lambda: torch.cuda.synchronize(dev)
-        if move not in library:
-            dev_lib = "none"
-        elif library[move](ins[0][0]).data_ptr() == ins[0][0].data_ptr():
+        t_lib = timed(timer, library[move], ins)
+        b_ = bound(K12a.min_bytes(move), 0)
+        sync = lambda: torch.cuda.synchronize(dev)  # noqa: E731
+        if library[move](ins[0][0]).data_ptr() == ins[0][0].data_ptr():
             dev_lib = "a view, no device work"
         else:
             dev_lib = device_ms(library[move], ins, sync)
         dev_k = device_ms(lambda x: K12a.probe_move_kernel(x, move), ins,
                           sync)
         log(f"  K12a {move}: == plain bit for bit; times (ms) kernel "
-            f"{t_k:.4f}, plain {t_p:.4f}, library {lib}, bound "
+            f"{t_k:.4f}, plain {t_p:.4f}, library {t_lib:.4f}, bound "
             f"{b_['bound_ms']:.7f} ({b_['bound_by']}); device ms kernel "
             f"{dev_k}, library {dev_lib}")
         rows.append({"name": f"probe_layout_{move}", "route": "cuda",

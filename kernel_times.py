@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Times of the filter-bank kernels of one tree of the port, by CUDA kernel.
+"""Times of the port's kernels of one tree, by CUDA kernel.
 
     python3 kernel_times.py [--tree DIR] [--label NAME] [--reps N] [--out FILE]
 
-Runs, on one CUDA card, the kernels that hold a filter bank (the resampler,
-the PFB or the audio FIRs) of
-the ``sdr_pmr446_tpu_torch`` package found in DIR (default: this
-checkout), after building that tree's kernels from its own sources:
+Runs, on one CUDA card, kernels of the ``sdr_pmr446_tpu_torch`` package
+found in DIR (default: this checkout), after building that tree's kernels
+from its own sources.  The kernels that hold a filter bank (the resampler,
+the PFB or the audio FIRs):
 
   K1 (duo, cu8, K = 40), K2 and K8 (the audio bank: apply_dc_ctcss,
   apply and apply_dc, K = 40 and 10, with F.conv1d, K8 apply's library
@@ -18,7 +18,15 @@ checkout), after building that tree's kernels from its own sources:
   band as chip_smoke.py's chan_tail_case builds it), with K5's two
   F.conv1d yardsticks beside it: the dsd decimator (477 taps, stride 16)
   on the two band planes and the single audio FIR (408 taps) on the
-  demod (chip_smoke.py's tail_conv),
+  demod (chip_smoke.py's tail_conv);
+
+then K10 (the zero summary) on the cu8 wire of one config-5 step
+(4 streams x K = 40, 32.1 MB), with L2 cold (N wires rolled apart, more
+than the 50 MB L2 together) and in the sharded path's order (the wire
+uploaded, then K10: its copy and the kernel apart in the split), on two
+steps' wire with L2 cold (the second point of time against bytes), and a
+read-rate yardstick (``sum`` of the cold wire viewed as f32: one read of
+the same bytes), and K12a's eight layout moves on seeded random inputs,
 
 each on chip_smoke.py's inputs (the same helpers): CUDA events around one
 call (median over N fresh inputs, after a warm-up call), and the device
@@ -52,8 +60,40 @@ def measure(fn, inputs, sync) -> dict:
             "by_kernel": split}
 
 
-def cases(dev, reps: int):
-    """(name, fn, inputs) of every case, built on ``dev``."""
+def k10_k12a_cases(dev, reps: int):
+    """(name, fn, inputs) of K10 and K12a's cases, built on ``dev``."""
+    import torch
+    from sdr_pmr446_tpu_torch.kernels import probe_layout as K12a
+    from sdr_pmr446_tpu_torch.kernels import summary
+    (n_s, _), k = cs.CONFIG5["duo"]
+    streams = cs.config5_streams(n_s, k, 2)
+    cu8 = np.concatenate([s[0] for s in streams])
+    kernel = lambda w: summary.zero_summary_kernel(w, "cu8")  # noqa: E731
+
+    def cold(x):  # reps wires rolled apart: each call finds its own cold
+        return [(torch.roll(torch.as_tensor(x, device=dev), 2 * 977 * r),)
+                for r in range(reps)]
+
+    out = [("K10 cu8 config-5 step, L2 cold", kernel, cold(cu8)),
+           ("K10 cu8 config-5 step, after its upload",
+            lambda h: kernel(torch.as_tensor(h, device=dev)),
+            [(cu8,)] * reps),
+           ("K10 cu8 two config-5 steps, L2 cold", kernel,
+            cold(np.concatenate([cu8] + [s[1] for s in streams]))),
+           ("read yardstick: the cold wire as f32, summed",
+            lambda w: w.view(torch.float32).sum(), cold(cu8))]
+    rng = np.random.default_rng(14)
+    for move, (shape, _) in K12a.MOVES.items():
+        out.append((f"K12a {move}",
+                    lambda x, m=move: K12a.probe_move_kernel(x, m),
+                    [(torch.as_tensor(rng.standard_normal(shape).astype(
+                        np.float32), device=dev),) for _ in range(reps)]))
+    return out
+
+
+def bank_cases(dev, reps: int):
+    """(name, fn, inputs) of the filter-bank kernels' cases, built on
+    ``dev``."""
     import torch
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
@@ -175,7 +215,8 @@ def main(argv=None) -> int:
            f"{card}")
     build.library()
     res = {}
-    for name, fn, inputs in cases(dev, args.reps):
+    cases = bank_cases(dev, args.reps) + k10_k12a_cases(dev, args.reps)
+    for name, fn, inputs in cases:
         res[name] = r = measure(fn, inputs, sync)
         span = "n/a" if r["span_ms"] is None else f"{r['span_ms']:.4f} ms"
         cs.log(f"  {name}: event {r['event_ms']:.4f} ms, device "

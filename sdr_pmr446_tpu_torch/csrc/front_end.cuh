@@ -56,22 +56,33 @@
 
 enum { FMT_CU8 = 0, FMT_CS8 = 1, FMT_CS16 = 2, FMT_CF32 = 3 };
 
+// One wire component decoded exactly as ops/decode.py (bit-exact), from the
+// component's integer value as a float: the one float expression of each
+// format, shared by load_iq and K10's 16-byte unpacking (csrc/summary.cu).
+static __device__ __forceinline__ float dec_cu8(float b, float inv_cu8) {
+  return (b - 127.5f) * inv_cu8;
+}
+static __device__ __forceinline__ float dec_cs8(float b) {
+  return b * (1.0f / 128.0f);
+}
+static __device__ __forceinline__ float dec_cs16(float s) {
+  return s * (1.0f / 32768.0f);
+}
+
 // Sample n of the wire, decoded exactly as ops/decode.py (bit-exact).
 template <int FMT>
 static __device__ __forceinline__ float2 load_iq(const uint8_t* __restrict__ w,
                                                  long long n, float inv_cu8) {
   if (FMT == FMT_CU8) {
     const uchar2 b = reinterpret_cast<const uchar2*>(w)[n];
-    return make_float2(((float)b.x - 127.5f) * inv_cu8,
-                       ((float)b.y - 127.5f) * inv_cu8);
+    return make_float2(dec_cu8((float)b.x, inv_cu8),
+                       dec_cu8((float)b.y, inv_cu8));
   } else if (FMT == FMT_CS8) {
     const char2 b = reinterpret_cast<const char2*>(w)[n];
-    return make_float2((float)b.x * (1.0f / 128.0f),
-                       (float)b.y * (1.0f / 128.0f));
+    return make_float2(dec_cs8((float)b.x), dec_cs8((float)b.y));
   } else if (FMT == FMT_CS16) {
     const short2 s = reinterpret_cast<const short2*>(w)[n];
-    return make_float2((float)s.x * (1.0f / 32768.0f),
-                       (float)s.y * (1.0f / 32768.0f));
+    return make_float2(dec_cs16((float)s.x), dec_cs16((float)s.y));
   } else {
     return reinterpret_cast<const float2*>(w)[n];
   }

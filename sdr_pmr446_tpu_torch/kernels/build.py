@@ -250,6 +250,13 @@ def require(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+def check_aligned(addr: int, name: str) -> None:
+    """Raise unless the device address ``addr`` starts on 16 bytes: the
+    kernels that load or copy 16 B at a time refuse anything else."""
+    if addr % 16:
+        raise ValueError(f"{name}: address {addr:#x} is not 16-byte aligned")
+
+
 def check(code: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if code != 0:

@@ -21,11 +21,14 @@ the JAX tool's names, input -> output shape (all f32):
   transpose_16          [128, 16]     [16, 128]    x.T
   ====================  ============  ===========  ===========================
 
-The CUDA version (csrc/probe_layout.cu) is one launch of one block a move:
-every move but ``value_lane_off16`` stages its input in shared memory (the
-VMEM scratch's counterpart) and writes the output from there;
-``value_lane_off16`` slices in registers with warp shuffles, the move the
-JAX tool expects Mosaic to refuse.
+The CUDA version (csrc/probe_layout.cu) is one launch a move (8 blocks for
+``value_stride_sub`` and ``reshape_rows_wide``, one block for the rest):
+every move but ``value_lane_off16`` stages in shared memory (the VMEM
+scratch's counterpart) only what its output reads, by bulk copies on one
+mbarrier (``transpose_16`` by 16-byte ``cp.async`` into a swizzled tile),
+and writes the output from there in float4; ``value_lane_off16`` slices in
+registers with warp shuffles, the move the JAX tool expects Mosaic to
+refuse.  ``x`` and the output start on 16 bytes (``build.check_aligned``).
 """
 
 from __future__ import annotations
@@ -70,6 +73,16 @@ _PLAIN = {
 }
 
 
+def min_bytes(move: str) -> int:
+    """Bytes ``move`` must move: each input word its output reads, once
+    (the plain version run on the words' own indices), and its output."""
+    shape_in, shape_out = MOVES[move]
+    n = shape_in[0] * shape_in[1]
+    index = torch.arange(n, dtype=torch.float32).reshape(shape_in)
+    read = probe_move_plain(index, move).unique().numel()
+    return 4 * (read + shape_out[0] * shape_out[1])
+
+
 def _check(x: torch.Tensor, move: str) -> None:
     if move not in MOVES:
         raise ValueError(f"unknown move {move!r}; moves: {list(MOVES)}")
@@ -102,6 +115,7 @@ def probe_move_kernel(x: torch.Tensor, move: str) -> torch.Tensor:
     _check(x, move)
     dev = x.device
     build.require(x, "x", torch.float32, MOVES[move][0], dev)
+    build.check_aligned(x.data_ptr(), "x")
     out = torch.empty(MOVES[move][1], dtype=torch.float32, device=dev)
     code = build.library().probe_layout_run(
         MOVE_CODE[move], x.data_ptr(), out.data_ptr(),

@@ -19,10 +19,14 @@ time shard of a step goes through one call: a row never straddles a shard.
 
 The plain version decodes to planes (ops/decode.py) and takes one
 [R, 128] @ v product per plane and the column 127.  The CUDA version
-(csrc/summary.cu) is one launch, one warp per row, decoding with K1's
-``load_iq``; it never writes the decoded planes.  Bytes bound on the
-H100: the wire read once, 16 B written per 128 samples (~10 us for the
-33.7 MB of 4 streams at K = 40 cu8); see the source.
+(csrc/summary.cu) is one launch of a persistent grid that streams the wire
+in 16-byte loads (16 or 32 lanes a row, the weights in registers), decodes
+with K1's expressions and sums in a fixed order (each lane's samples in
+turn, then a shuffle tree over the row's lanes), so a call is bit-equal to
+the last; it never writes the decoded planes.  Bytes bound on the H100:
+the wire read once, 16 B written per 128 samples (0.0102 ms for the 32.1
+MB of 4 streams at K = 40 cu8); see the source.  The wire must start on 16
+bytes (``build.check_aligned``).
 """
 
 from __future__ import annotations
@@ -85,10 +89,10 @@ def zero_summary_kernel(wire: torch.Tensor, fmt: str):
     r = rows(wire, fmt)
     dev = wire.device
     build.require(wire, "wire", torch.uint8, (wire.numel(),), dev)
+    build.check_aligned(wire.data_ptr(), "wire")
     v = _weights(str(dev))
     build.require(v, "v", torch.float32, (ROW,), dev)
-    w = torch.empty((2, r), dtype=torch.float32, device=dev)
-    xl = torch.empty((2, r), dtype=torch.float32, device=dev)
+    w, xl = torch.empty((2, 2, r), dtype=torch.float32, device=dev)
     code = build.library().zero_summary_run(
         FMT_CODE[fmt], wire.data_ptr(), r * ROW, v.data_ptr(),
         float(np.float32(1.0 / 127.5)), w.data_ptr(), xl.data_ptr(),

@@ -238,7 +238,10 @@ def front_zero_summary_wire(wire: torch.Tensor, fmt: str, t_local: int,
     to per-row summaries, which ``fold_row_summaries`` folds per shard; the
     RAW tail is decoded from each shard's last tail_len samples (raw bytes,
     so no whole-row rounding as in JAX).  Returns (y00, y_pre, x_pre,
-    xlast, tail_x [..., tail_len] c64)."""
+    xlast, tail_x [..., tail_len] c64).  On the card K10 reads the wire in
+    16-byte pieces, so ``wire`` must start on 16 bytes: the step's own
+    upload does (the allocator's blocks start on 512 B); a view at another
+    offset raises."""
     from sdr_pmr446_tpu_torch.kernels.summary import zero_summary_wire
     bps = decode.BYTES_PER_SAMPLE[fmt]
     lead = wire.shape[:-1]

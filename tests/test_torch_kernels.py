@@ -536,6 +536,60 @@ def test_zero_summary_kernel_matches_plain_on_card(fmt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["cu8", "cs8", "cs16", "cf32"])
+def test_zero_summary_kernel_ragged_rows_repeat_on_card(fmt):
+    """K10 at row counts that leave a block's group ragged (1, 7 and 784 +
+    3 rows), full-scale samples included: w within 1e-5 of its peak, xl
+    exact, and a second call bit-equal to the first (a fixed order)."""
+    from sdr_pmr446_tpu_torch.kernels import summary
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(13)
+    for rows in (1, 7, 784 + 3):
+        n = rows * 128
+        x = 0.5 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        x[::5] = np.sign(x[::5].real) + 1j * np.sign(x[::5].imag)
+        wire = torch.as_tensor(decode.quantize_iq(x, fmt), device=dev)
+        w, xl = summary.zero_summary_kernel(wire, fmt)
+        w2, xl2 = summary.zero_summary_kernel(wire, fmt)
+        wr, xr = summary.zero_summary_plain(wire, fmt)
+        torch.cuda.synchronize(dev)
+        assert w.shape == xl.shape == (2, rows)
+        assert rel_err(w.cpu().numpy(), wr.cpu().numpy()) <= 1e-5, rows
+        assert torch.equal(xl, xr), rows
+        assert torch.equal(w.view(torch.int32), w2.view(torch.int32)), rows
+        assert torch.equal(xl, xl2), rows
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        summary.zero_summary_kernel(torch.zeros(2 * 256 + 8, dtype=torch.uint8,
+                                                device=dev)[8:], "cu8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("move", ["scratch_store_off16", "scratch_read_off16",
+                                  "scratch_read_narrow", "value_lane_off16",
+                                  "value_stride_sub", "reshape_rows_wide",
+                                  "reshape_25_16", "transpose_16"])
+def test_layout_move_repeats_on_a_side_stream_on_card(move):
+    """Each K12a move twice on a non-default stream: both calls equal the
+    plain version bit for bit, one launch each."""
+    from sdr_pmr446_tpu_torch.kernels import probe_layout as K12a
+    dev = _cuda_or_skip()
+    shape = K12a.MOVES[move][0]
+    x = torch.as_tensor(np.random.default_rng(21).standard_normal(
+        shape).astype(np.float32), device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    launches = K12a.LAUNCHES[move]
+    with torch.cuda.stream(side):
+        a = K12a.probe_move_kernel(x, move)
+        b = K12a.probe_move_kernel(x, move)
+    side.synchronize()
+    assert K12a.LAUNCHES[move] == launches + 2
+    want = K12a.probe_move_plain(x, move).view(torch.int32)
+    assert torch.equal(a.view(torch.int32), want)
+    assert torch.equal(b.view(torch.int32), want)
+
+
+@pytest.mark.cuda
 def test_ring_shift_kernel_matches_roll_on_card():
     """K11 vs torch.roll, bit for bit: complex and real tails, contiguous
     and as slices of longer planes (per-shard strides), and
