@@ -97,9 +97,14 @@ on its own lines; any failure raises and ends the run:
      launch) in each format, w within 1e-5 of its peak, xl exact, with its
      times: by event, and on the device with L2 cold (7 fresh wires, 225
      MB) and in the path's order (right after the wire's upload); (b) K11
-     (the halo ring shift) against torch.roll (its plain version and
-     library yardstick) on the plane path's real tails, bit for bit, with
-     both times by event and on the device; (c) the sharded
+     (the halo of a time shard in one launch, straight from the planes)
+     against its plain version (torch.complex of the tails, then the
+     collective's shift) on the planes the plane path's two halos got in
+     one step, bit for bit, with both times by event and on the device,
+     the ring shift alone against torch.roll on the same tails, and the
+     two halos of a step profiled: their CUDA kernels and device time, K11
+     (one launch a halo) beside the earlier composition (torch.complex,
+     the ring shift, the carry copy); (c) the sharded
      duo at (4, 5), K = 40, cu8, over 4 captures of 4 occupied blocks and
      a hang block (the transmission ends half-way, receiver noise
      follows), against 4
@@ -130,10 +135,12 @@ on its own lines; any failure raises and ends the run:
      plain versions on seeded random [128, 256] x [256, 128] inputs (within
      1e-5 of the output's peak), with their times beside torch.matmul's
      (the library yardstick, never called by a mode), by event and on the
-     device; (d) K12a's eight moves bit for bit against their plain
-     versions, with their times and their library moves' (each held bit
-     for bit to the plain version too), by event and on the device, each
-     bound by the bytes the move must move (probe_layout.min_bytes).
+     device, and the built library's SASS (cuobjdump -sass) holding HGMMA
+     in both tensor-core kernels (probe_wgmma); (d) K12a's eight moves bit
+     for bit against their plain versions, with their times and their
+     library moves' (each held bit for bit to the plain version too), by
+     event and on the device, each bound by the bytes the move must move
+     (probe_layout.min_bytes).
  15. faithful mode (scanner/faithful.py, no kernel of its own: plain ops on
      the card) at K = 10 on tests/test_faithful.py's busy scenario (tune,
      a lock_mode max switch, a detune, CTCSS): against the float64 oracle
@@ -627,7 +634,8 @@ def phase_mono(dev, fmt: str, k: int, timer, reps: int = REPS):
         t_plain = timer(plain, inputs)
         t_kernel = timer(kernel, inputs)
         b = bound(*mono_work(mono, n, decode.BYTES_PER_SAMPLE[fmt]))
-        split, span = device_profile(kernel, inputs, torch.cuda.synchronize)
+        split, span, _ = device_profile(kernel, inputs,
+                                        torch.cuda.synchronize)
         log(f"  K4 {mode} {fmt} K={k} times (median of {reps}, ms): kernel "
             f"{t_kernel:.3f}, plain {t_plain:.3f}, bound {b['bound_ms']:.4f} "
             f"({b['bound_by']}); device {sum(split.values()):.4f}, span "
@@ -1037,10 +1045,10 @@ SPAN_GAP_US = 10.0
 def device_profile(fn, inputs, sync):
     """(device ms of one fn(*args) call over ``inputs`` by CUDA kernel name
     (template arguments dropped), the median span of a call: its first
-    device event's start to its last one's end, in ms) from a profiled run
-    of all of them.  A call's events are those that start within
-    SPAN_GAP_US of the call's latest end; the span is None when that does
-    not give one group a call."""
+    device event's start to its last one's end, in ms, and the device
+    events a call) from a profiled run of all of them.  A call's events
+    are those that start within SPAN_GAP_US of the call's latest end; the
+    span is None when that does not give one group a call."""
     for _ in range(PROFILE_ATTEMPTS):
         evs, _, _, _ = profile_session(lambda: [fn(*a) for a in inputs],
                                        sync)
@@ -1058,7 +1066,8 @@ def device_profile(fn, inputs, sync):
             groups.append([s, e])
     span = (statistics.median(e - s for s, e in groups) / 1e3
             if len(groups) == len(inputs) else None)
-    return {name: ms / len(inputs) for name, ms in by.items()}, span
+    return ({name: ms / len(inputs) for name, ms in by.items()}, span,
+            len(evs) / len(inputs))
 
 
 def device_split(fn, inputs, sync) -> dict:
@@ -1540,7 +1549,8 @@ def chan_tail_case(dev, fmt: str, k: int, timer, reps: int = REPS):
         nb = n * 25 // 128
         tb, to = tail_work(tail, nb)
         b = bound(tb + 8 * nb, to)
-        split, span = device_profile(kernel, inputs, torch.cuda.synchronize)
+        split, span, _ = device_profile(kernel, inputs,
+                                        torch.cuda.synchronize)
         lib_split = device_split(conv, xs, torch.cuda.synchronize)
         what = "decimator" if mode == "dsd" else "audio FIR"
         log(f"  K5 {mode} {fmt} K={k} times (median of {reps}, ms): kernel "
@@ -2140,53 +2150,93 @@ def summary_case(dev, timer, blocks, reps: int = REPS):
             "library_ms": None}
 
 
-def capture_ring_tails(chain, wire, params):
+def capture_halo_planes(chain, wire, params):
     """One step of a halo_dma=True plane-path chain from its zero state,
-    recording the tails its two ring shifts move."""
+    recording the (carried, planes, h) its two halos hand K11."""
     from sdr_pmr446_tpu_torch.kernels import halo_dma
-    tails, orig = [], halo_dma.ring_shift_right
+    calls, orig = [], halo_dma.shard_hist_planes
 
-    def record(t):
-        tails.append(t.clone())
-        return orig(t)
-    halo_dma.ring_shift_right = record
+    def record(carried, planes, h):
+        calls.append((carried.clone(), planes.clone(), h))
+        return orig(carried, planes, h)
+    halo_dma.shard_hist_planes = record
     try:
         chain.step(chain.init_state(), wire, params)
     finally:
-        halo_dma.ring_shift_right = orig
-    return tails
+        halo_dma.shard_hist_planes = orig
+    return calls
 
 
-def ring_shift_case(dev, timer, tails, reps: int = REPS):
-    """Phase 13(b): K11 against torch.roll (its plain version and library
-    yardstick) on the plane path's real tails, bit for bit, with both
-    times.  Returns its row (timed on the resampler-history tail)."""
+def halo_composition(carried, planes, h):
+    """The plane path's halo before K11 took the planes: torch.complex of
+    the tails, the ring shift, the carry copy (three CUDA launches)."""
+    import torch
+    from sdr_pmr446_tpu_torch.parallel import halo
+    t = planes.shape[-1]
+    return halo.shard_hist(carried, torch.complex(
+        planes[..., 0, t - h:], planes[..., 1, t - h:]), h, dma=True)
+
+
+def halo_case(dev, timer, calls, reps: int = REPS):
+    """Phase 13(b): K11 against its plain version on the planes the plane
+    path's two halos got, bit for bit, with both times; the ring shift
+    alone against torch.roll on the same tails; the two halos profiled
+    as a step runs them (K11, then the earlier composition).  Returns
+    K11's row (timed on the resampler history)."""
     import torch
     from sdr_pmr446_tpu_torch.kernels import halo_dma
+    bits = lambda t: torch.view_as_real(t).view(torch.int32)  # noqa: E731
+    sync = lambda: torch.cuda.synchronize(dev)  # noqa: E731
+    check(len(calls) == 2, f"the plane path's step called K11 {len(calls)} "
+          "times, expected 2")
     rows = []
-    for name, t in zip(("resampler history", "PFB tail"), tails):
-        got = halo_dma.ring_shift_kernel(t)
-        want = halo_dma.ring_shift_plain(t)
-        torch.cuda.synchronize(dev)
-        check(torch.equal(got, want), f"K11 {name}")
-        ins = [(t,)] * reps
-        t_k = timed(timer, halo_dma.ring_shift_kernel, ins)
-        t_p = timed(timer, halo_dma.ring_shift_plain, ins)
-        t_lib = timed(timer, lambda x: torch.roll(x, 1, dims=1), ins)
-        nbytes = 2 * t.numel() * t.element_size()
+    for name, (carried, planes, h) in zip(("resampler history", "PFB tail"),
+                                          calls):
+        got = halo_dma.shard_hist_planes_kernel(carried, planes, h)
+        want = halo_dma.shard_hist_planes_plain(carried, planes, h)
+        sync()
+        for a, b, what in zip(got, want, ("hist", "carry")):
+            check(torch.equal(bits(a), bits(b)), f"K11 {name} {what}")
+        t_ = planes.shape[-1]
+        tail = torch.complex(planes[..., 0, t_ - h:], planes[..., 1, t_ - h:])
+        check(torch.equal(halo_dma.ring_shift_kernel(tail),
+                          torch.roll(tail, 1, dims=1)),
+              f"K11 ring shift {name}")
+        ins = [(carried, planes, h)] * reps
+        t_k = timed(timer, halo_dma.shard_hist_planes_kernel, ins)
+        t_p = timed(timer, halo_dma.shard_hist_planes_plain, ins)
+        n_s, n_t = planes.shape[:2]
+        # the D tails read, the carry read, hist and the carry written
+        nbytes = 8 * h * (n_s * n_t + n_s + n_s * n_t + n_s)
         b = bound(nbytes, 0)
-        sync = lambda: torch.cuda.synchronize(dev)
-        log(f"  K11 {name} {tuple(t.shape)} {t.dtype}: == torch.roll bit for "
-            f"bit; times (ms) kernel {t_k:.4f}, plain {t_p:.4f}, torch.roll "
-            f"{t_lib:.4f}, bound {b['bound_ms']:.6f} ({b['bound_by']}, "
-            f"{nbytes} B); device ms kernel "
-            f"{device_ms(halo_dma.ring_shift_kernel, ins, sync)}, torch.roll "
-            f"{device_ms(lambda x: torch.roll(x, 1, dims=1), ins, sync)}")
-        rows.append({"name": "ring_shift", "route": "cuda",
+        roll_ins = [(tail,)] * reps
+        log(f"  K11 {name} planes {tuple(planes.shape)}, h = {h}: == plain "
+            f"bit for bit, the ring shift == torch.roll; times (ms) kernel "
+            f"{t_k:.4f}, plain {t_p:.4f}, bound {b['bound_ms']:.6f} "
+            f"({b['bound_by']}, {nbytes} B); device ms kernel "
+            f"{device_ms(halo_dma.shard_hist_planes_kernel, ins, sync)}, "
+            f"plain {device_ms(halo_dma.shard_hist_planes_plain, ins, sync)}"
+            f", the ring shift alone "
+            f"{device_ms(halo_dma.ring_shift_kernel, roll_ins, sync)}, "
+            "torch.roll of the complex tail "
+            f"{device_ms(lambda x: torch.roll(x, 1, dims=1), roll_ins, sync)}"
+            "; library call: none (a complex tail, a shift and a carry)")
+        rows.append({"name": "shard_hist_planes", "route": "cuda",
                      "source": "sdr_pmr446_tpu_torch/csrc/halo_dma.cu",
                      "replaces": "sdr_pmr446_tpu/kernels/halo_dma.py:64",
-                     "max_abs_err": max_err(got, want), "ms": t_k,
-                     "plain_ms": t_p, **b, "library_ms": t_lib})
+                     "max_abs_err": max(max_err(a, b_)
+                                        for a, b_ in zip(got, want)),
+                     "ms": t_k, "plain_ms": t_p, **b, "library_ms": None})
+    for what, fn in (("K11", halo_dma.shard_hist_planes_kernel),
+                     ("the earlier composition", halo_composition)):
+        pair = lambda fn=fn: [fn(*c) for c in calls]  # noqa: E731
+        split, span, per_call = device_profile(pair, [()] * reps, sync)
+        log(f"  the two halos of a halo_dma step, {what}: {per_call:g} CUDA "
+            f"kernels, device {sum(split.values()):.4f} ms, span "
+            f"{span_str(span)} ms: {split_str(split)}")
+        if what == "K11":
+            check(per_call == 2, f"K11's halos ran {per_call} CUDA kernels "
+                  "a step, expected 2")
     return rows[0]
 
 
@@ -2463,7 +2513,7 @@ def phase_config5_duo(dev, sync):
 
 def phase_config5_plane(dev, sync, timer):
     """Phase 13(b) and (d): the plane path at (4, 4), K = 40 (K_local =
-    10): K11 on the tails of one warm-up step; then, with the counts reset
+    10): K11 on the planes of one warm-up step; then, with the counts reset
     by the caller, the chain with halo_dma=True and with halo_dma=False in
     turns with the (4, 5) duo of (c) over the same 4 blocks (each warmed
     up), the two plane chains equal field for field and held against
@@ -2487,8 +2537,8 @@ def phase_config5_plane(dev, sync, timer):
     chain = {dma: ShardedScannerChain(mesh, C.BlockConfig(k), halo_dma=dma)
              for dma in (True, False)}
     check(not chain[True].fused, "config 5 plane path")
-    row = ring_shift_case(dev, timer, capture_ring_tails(chain[True],
-                                                         wires[0], params))
+    row = halo_case(dev, timer, capture_halo_planes(chain[True], wires[0],
+                                                    params))
     run_sharded(chain[False], wires[:1], params)           # warm-up
     sync()
 
@@ -2674,7 +2724,8 @@ def phase_sharded(dev, sync, timer):
     k10_row = summary_case(dev, timer, [s[0] for s in config5_streams(
         n_s, k, 4)])
     t_a = time.perf_counter()
-    log("  (b) K11 (ring shift) vs torch.roll on the plane path's tails")
+    log("  (b) K11 (the halo from the planes) vs its plain version on the "
+        "plane path's planes")
     k11_row, plane_counted = phase_config5_plane(dev, sync, timer)
     t_b = time.perf_counter()
     log(f"  (c) config 5: the sharded duo at {CONFIG5['duo'][0]}, K={k}, cu8")
@@ -2737,6 +2788,7 @@ def phase_probes(dev, timer, reps: int = REPS):
     K12 rows."""
     import torch
     from sdr_pmr446_tpu_torch import precision
+    from sdr_pmr446_tpu_torch.kernels import build
     from sdr_pmr446_tpu_torch.kernels import probe_layout as K12a
     from sdr_pmr446_tpu_torch.kernels import probe_precision as K12b
     from sdr_pmr446_tpu_torch.tools import probe_layout as layout_tool
@@ -2806,6 +2858,18 @@ def phase_probes(dev, timer, reps: int = REPS):
                      "replaces": "tools/probe_precision.py:37",
                      "launches": launches[mode], "max_abs_err": err,
                      "ms": t_k, "plain_ms": t_p, **b_, "library_ms": t_lib})
+    # the tensor-core modes must run on wgmma: a compiler that lowered them
+    # to anything else would still pass the checks above
+    tc = {name: text for name, text in build.sass_by_function().items()
+          if "probe_wgmma" in name}
+    check(len(tc) == 2, f"{len(tc)} tensor-core probe kernels (probe_wgmma) "
+          "in the SASS, expected 2")
+    for name, text in sorted(tc.items()):
+        hgmma = [ln.split(";")[0].split("*/")[-1].strip()
+                 for ln in text.splitlines() if "HGMMA" in ln]
+        log(f"  SASS of {name}: {len(hgmma)} HGMMA"
+            + (f" ({hgmma[0]}, ...)" if hgmma else ""))
+        check(len(hgmma) > 0, f"{name}: no HGMMA in its SASS")
 
     log("  (d) K12a's moves vs their plain versions, bit for bit")
     library = {"scratch_store_off16": lambda x: torch.cat(

@@ -27,16 +27,25 @@ uploaded, then K10: its copy and the kernel apart in the split), on two
 steps' wire with L2 cold (the second point of time against bytes), and a
 read-rate yardstick (``sum`` of the cold wire viewed as f32: one read of
 the same bytes), and K12a's eight layout moves on seeded random inputs,
+then K12b's three modes and torch.matmul (TF32 off, the library
+yardstick) on seeded random [128, 256] x [256, 128] f32, and the plane
+path's two halos of one config-5 step ((4, 4), K = 40: the resampler
+history, h = 345, of the [4, 4, 2, 1003520] DC-blocked planes, and the
+PFB tail, h = 400, of the [4, 4, 2, 416] tails) from the planes to (hist,
+carry) with halo_dma (K11 from the planes where the tree has it, else the
+tree's composition: torch.complex, the ring shift, the carry copy) and
+with the collectives (torch.complex, the shift),
 
 each on chip_smoke.py's inputs (the same helpers): CUDA events around one
 call (median over N fresh inputs, after a warm-up call), and the device
 time of the same N calls under torch.profiler, in all and by CUDA kernel,
-per call, with the median span of a call on the device (its first
-kernel's start to its last one's end: launch gaps and overlaps
-included).  Two trees compare on one card when one job runs this for each
-in turns (parent, change, change, parent).  Prints a line per case and, last,
-one JSON object {"label", "card", "cases": {...}}; writes that object to
-FILE too when given.  Needs a CUDA device and nvcc; imports nothing of JAX.
+per call, with the CUDA kernels a call and the median span of a call on
+the device (its first kernel's start to its last one's end: launch gaps
+and overlaps included).  Two trees compare on one card when one job runs
+this for each in turns (parent, change, change, parent).
+Prints a line per case and, last, one JSON object {"label", "card",
+"cases": {...}}; writes that object to FILE too when given.  Needs a CUDA
+device and nvcc; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -54,10 +63,48 @@ import chip_smoke as cs  # noqa: E402  (helpers; the package loads lazily)
 
 
 def measure(fn, inputs, sync) -> dict:
-    split, span = cs.device_profile(fn, inputs, sync)
+    split, span, kernels = cs.device_profile(fn, inputs, sync)
     return {"event_ms": cs.timed(cs.cuda_timer, fn, inputs),
             "device_ms": sum(split.values()), "span_ms": span,
-            "by_kernel": split}
+            "kernels": kernels, "by_kernel": split}
+
+
+def k12b_k11_cases(dev, reps: int):
+    """(name, fn, inputs) of K12b's modes beside torch.matmul and of the
+    plane path's halo pair, built on ``dev``."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels import probe_precision as K12b
+    from sdr_pmr446_tpu_torch.parallel import halo
+    rng = np.random.default_rng(14)
+    ab = [tuple(torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32), device=dev) for shape in ((128, 256), (256, 128)))
+        for _ in range(reps)]
+    out = [(f"K12b {mode}", lambda x, y, m=mode: K12b.probe_dot_kernel(
+        x, y, m), ab) for mode in K12b.MODES]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out.append(("torch.matmul (TF32 off)", torch.matmul, ab))
+    (n_s, n_t), k = cs.CONFIG5["plane"]
+    t_local = k // n_t * C.SUBCHUNK_IN
+    g = torch.Generator(device=dev).manual_seed(14)
+    y = torch.randn(n_s, n_t, 2, t_local, device=dev, generator=g)
+    rh, ph = 345, 400   # the resampler history, the PFB history
+    ins = [(torch.randn(n_s, rh, dtype=torch.complex64, device=dev,
+                        generator=g), y,
+            torch.randn(n_s, ph, dtype=torch.complex64, device=dev,
+                        generator=g),
+            torch.randn(n_s, n_t, 2, 416, device=dev, generator=g))
+           for _ in range(reps)]
+    if hasattr(halo, "shard_hist_planes"):
+        dma = lambda c, p, h: halo.shard_hist_planes(c, p, h, True)  # noqa
+    else:  # the tree before K11 took the planes
+        dma = cs.halo_composition
+    collective = lambda c, p, h: halo.shard_hist(c, torch.complex(  # noqa
+        p[..., 0, p.shape[-1] - h:], p[..., 1, p.shape[-1] - h:]), h)
+    for name, fn in (("halo_dma", dma), ("collectives", collective)):
+        out.append((f"halo pair, {name}", lambda cr, yy, cp, tl, fn=fn: (
+            fn(cr, yy, rh), fn(cp, tl, ph)), ins))
+    return out
 
 
 def k10_k12a_cases(dev, reps: int):
@@ -215,13 +262,14 @@ def main(argv=None) -> int:
            f"{card}")
     build.library()
     res = {}
-    cases = bank_cases(dev, args.reps) + k10_k12a_cases(dev, args.reps)
+    cases = (bank_cases(dev, args.reps) + k10_k12a_cases(dev, args.reps)
+             + k12b_k11_cases(dev, args.reps))
     for name, fn, inputs in cases:
         res[name] = r = measure(fn, inputs, sync)
         span = "n/a" if r["span_ms"] is None else f"{r['span_ms']:.4f} ms"
         cs.log(f"  {name}: event {r['event_ms']:.4f} ms, device "
-               f"{r['device_ms']:.4f} ms, span {span}: "
-               f"{cs.split_str(r['by_kernel'])}")
+               f"{r['device_ms']:.4f} ms, {r['kernels']:g} CUDA kernels, "
+               f"span {span}: {cs.split_str(r['by_kernel'])}")
     doc = {"label": args.label, "card": card, "cases": res}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -58,10 +58,6 @@
 
 // ------------------------------------------------ the async copy engine
 
-static __device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 static __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile(
       "mbarrier.init.shared::cta.b64 [%0], 1;\n"

@@ -199,6 +199,20 @@ static __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
+// A shared-memory pointer's 32-bit shared address.
+static __device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Raises a kernel's dynamic shared-memory limit when it needs more than
+// the default 48 KB.
+template <class Kernel>
+static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 #define SDR_CHECK_LAUNCH()                      \
   do {                                          \
     cudaError_t e_ = cudaGetLastError();        \

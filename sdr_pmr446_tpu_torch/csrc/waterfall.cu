@@ -590,15 +590,6 @@ static bool smooth(long long x) {
 // Transforms of length L a four-step block runs at once.
 static int batch(int L) { return L >= WF_BATCH ? 1 : WF_BATCH / L; }
 
-// Raises a kernel's dynamic shared-memory limit when it needs more than
-// the default 48 KB.
-template <class Kernel>
-static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 typedef void (*HopsKernel)(const float*, long long, const float2*, int,
                            const int*, const double2*, const double2*,
                            const double2*, int, int, int, int, int, double*);

@@ -22,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -140,6 +141,14 @@ SIGNATURES = {
         _LL, _LL, _LL, _LL,               # src / dst stream and shard strides
         _P,                               # stream
     ],
+    "shard_hist_planes_run": [
+        _P, _LL, _LL, _LL,                # re tail, im offset, strides
+        _P, _LL,                          # carried, its stream stride
+        _P, _LL, _LL,                     # hist, its stream / shard strides
+        _P, _LL,                          # new_carried, its stream stride
+        _I, _I, _I,                       # n_stream, n_time, h
+        _P,                               # stream
+    ],
     "probe_dot_run": [
         _P, _P, _P, _I, _I, _I, _I,       # a, b, out, M, N, K, mode
         _P,                               # stream
@@ -218,6 +227,30 @@ def build(verbose: bool = False) -> Path:
         print(f"built {lib} in {time.perf_counter() - t0:.1f} s\n"
               + "".join(logs))
     return lib
+
+
+def parse_sass(text: str) -> dict:
+    """``cuobjdump -sass`` output -> {mangled function name: its SASS}."""
+    out: dict = {}
+    name = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m[1]
+            out[name] = ""
+        elif name is not None:
+            out[name] += line + "\n"
+    return out
+
+
+def sass_by_function(lib: Path | None = None) -> dict:
+    """The SASS of each function in the built library, read by the
+    toolkit's cuobjdump beside nvcc (parse_sass)."""
+    lib = build() if lib is None else lib
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    return parse_sass(subprocess.run(
+        [str(tool), "-sass", str(lib)], capture_output=True, text=True,
+        check=True, timeout=300).stdout)
 
 
 @functools.lru_cache(maxsize=None)

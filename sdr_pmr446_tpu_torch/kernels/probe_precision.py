@@ -12,20 +12,28 @@ TF32 keeps 10 mantissa bits, rounds 1 + 2^-12 to 1.0 and gives 256.0.
 three contraction precisions:
 
   - ``ffma``: true f32.  Plain version: ``torch.matmul`` with both TF32
-    switches off (precision.py's policy); kernel: one thread per output,
-    ``fmaf`` over k in order;
+    switches off (precision.py's policy); kernel: ``fmaf`` over k in order
+    for each output, 2 x 2 outputs a thread from operands staged in shared
+    memory;
   - ``tf32``: one TF32 pass, the counterpart of the TPU's default
     precision.  Plain version: both inputs rounded to TF32 by int32 bit
     operations (``tf32_round``), then a true-f32 product; kernel:
-    ``mma.sync ... tf32`` on ``cvt.rna.tf32.f32``-rounded inputs;
+    ``wgmma ... tf32`` on ``cvt.rna.tf32.f32``-rounded inputs;
   - ``3xtf32``: three TF32 passes, the counterpart of HIGHEST: hi =
     tf32(x), lo = tf32(x - hi), a_lo b_hi + a_hi b_lo + a_hi b_hi.  Plain
     version: the same split and three true-f32 products; kernel: three
-    ``mma.sync`` a k-step into one accumulator.
+    ``wgmma`` a k-step into one accumulator.
 
-The CUDA version (csrc/probe_precision.cu) is a simple ``mma.sync`` kernel,
-one warp per 16 x 8 output tile; its tensor-core modes need M % 16 == 0,
-N % 8 == 0 and K % 8 == 0.  ``library_readings`` reads the same probe
+The CUDA version (csrc/probe_precision.cu) runs the tensor-core modes on
+``wgmma``: a cluster of four blocks a 64 x 16 output tile, each block one
+warpgroup over a quarter of the depth (A's slice staged by ``cp.async`` and
+rounded in registers, B's rounded and stored transposed in the 128-byte
+swizzled K-major layout its descriptor names), the partial tiles added in
+block 0 in rank order.  ffma runs on the CUDA cores, a 16 x 16 tile a block
+over the whole depth in k's order.  Every mode needs N % 16 == 0 and K %
+128 == 0 with K <= 512, ffma M % 16 == 0 and the tensor-core modes M % 64
+== 0, and contiguous operands on 16 bytes (``probe_dot_kernel`` raises
+ValueError otherwise).  ``library_readings`` reads the same probe
 through ``torch.matmul`` and ``F.conv1d`` (the product as a conv with 256
 input channels and kernel size 1) under the policy and with each TF32
 switch on; the port never computes a mode with them.
@@ -49,6 +57,12 @@ MODE_CODE = {m: i for i, m in enumerate(MODES)}
 #: the verdict each kernel mode must read on the probe input
 EXPECTED = {"ffma": "f32-contract", "tf32": "tf32-contract",
             "3xtf32": "f32-contract"}
+
+#: the kernel's tiles (csrc/probe_precision.cu PD_KMULT, PD_KMAX, TC_N,
+#: FM_BM, TC_M): K a multiple of K_MULT (the tensor-core modes split it four
+#: ways, each slice whole 128-byte rows), at most K_MAX
+K_MULT, K_MAX, N_TILE = 128, 512, 16
+M_TILE = {"ffma": 16, "tf32": 64, "3xtf32": 64}
 
 #: kernel launches of the CUDA version by mode (one per call); the plain
 #: versions never count
@@ -135,12 +149,16 @@ def probe_dot_kernel(a: torch.Tensor, b: torch.Tensor,
     _check(a, b, mode)
     m, k = a.shape
     n = b.shape[1]
+    if (m % M_TILE[mode] or n % N_TILE or k % K_MULT or not 0 < k <= K_MAX
+            or m <= 0 or n <= 0):
+        raise ValueError(f"mode {mode}: needs M % {M_TILE[mode]} == N % "
+                         f"{N_TILE} == K % {K_MULT} == 0 and 0 < K <= "
+                         f"{K_MAX}, got M={m}, N={n}, K={k}")
     dev = a.device
     build.require(a, "a", torch.float32, (m, k), dev)
     build.require(b, "b", torch.float32, (k, n), dev)
-    if mode != "ffma" and (m % 16 or n % 8 or k % 8):
-        raise ValueError(f"mode {mode}: needs M % 16 == N % 8 == K % 8 == 0, "
-                         f"got M={m}, N={n}, K={k}")
+    build.check_aligned(a.data_ptr(), "a")
+    build.check_aligned(b.data_ptr(), "b")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     code = build.library().probe_dot_run(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, MODE_CODE[mode],

@@ -16,9 +16,10 @@ neighbour's shard by ``ppermute``.  Here all S x D shards of a mesh
 
 Nothing indexes dynamically or reads the host, so a step stays
 asynchronous.  The names and carried-state meanings are JAX's, and every
-collective of the port's sharded chains is in this module; the ring shift
-of kernels/halo_dma.py (K11) is ``shard_hist``'s transport with ``dma``,
-so a multi-card transport replaces these two alone.
+collective of the port's sharded chains is in this module; K11
+(kernels/halo_dma.py) is the transport of ``shard_hist`` and
+``shard_hist_planes`` with ``dma``, so a multi-card transport replaces
+these alone.
 
 One-pole IIRs cannot use a finite halo: ``shard_biquad1`` solves the
 recurrence from zero state per shard and composes the carries over the
@@ -57,6 +58,23 @@ def shard_hist(carried_hist: torch.Tensor, x_shard: torch.Tensor,
     hist = halo_dma.ring_shift_right(tail)
     hist[:, 0] = carried_hist
     return hist, tail[:, -1]
+
+
+def shard_hist_planes(carried_hist: torch.Tensor, planes: torch.Tensor,
+                      hist_len: int, dma: bool = False):
+    """``shard_hist`` of the complex signal whose re and im planes are
+    ``planes`` [S, D, 2, T] f32: (hist [S, D, hist_len] c64, new_carried
+    [S, hist_len]).  Without ``dma`` the tails are made complex and
+    shifted by the collective; with ``dma``, K11 reads them from the
+    planes and writes the history and the carry in one launch (JAX's
+    ``shard_hist_dma``, the same values bit for bit), which launches
+    nothing with one time shard."""
+    if not dma or planes.shape[1] == 1:
+        t = planes.shape[-1]
+        return shard_hist(carried_hist, torch.complex(
+            planes[..., 0, t - hist_len:], planes[..., 1, t - hist_len:]),
+            hist_len)
+    return halo_dma.shard_hist_planes(carried_hist, planes, hist_len)
 
 
 def shard_scalar_prev(carried_prev: torch.Tensor, x_shard: torch.Tensor):

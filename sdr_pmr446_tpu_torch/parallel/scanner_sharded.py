@@ -6,7 +6,8 @@ captures (the 'stream' axis), each block cut into D time shards (the 'time'
 axis).  In JAX the mesh's shards are devices and the halos move by
 collectives; here all S x D shards live on one card (``make_mesh``) and
 the collectives are tensor operations along the time dim
-(parallel/halo.py), or K11's ring shift (kernels/halo_dma.py) for the two
+(parallel/halo.py), or K11 (kernels/halo_dma.py: one launch a halo,
+straight from the signal's re / im planes) for the plane path's two
 front-end halos with ``halo_dma=True``.
 
 ``ShardedScannerChain(mesh, block).step(state, wire uint8 [S,
@@ -313,19 +314,16 @@ class ShardedScannerChain:
             (torch.view_as_real(st.dc_x), torch.view_as_real(st.dc_y)), x,
             C.DC_BLOCK_ALPHA)
         h = self.resamp_hist_len
-        rhist, r_carry = halo.shard_hist(
-            st.resamp_hist, torch.complex(y[..., 0, -h:], y[..., 1, -h:]), h,
-            self.halo_dma)
+        rhist, r_carry = halo.shard_hist_planes(st.resamp_hist, y, h,
+                                                self.halo_dma)
         bands = [[self.resampler(rhist[s, d], y[s, d, 0], y[s, d, 1])[1]
                   for d in range(n_t)] for s in range(n_s)]
         # a shard's band (>= 19,600 samples) holds its whole last frame
         tails = torch.stack([torch.stack([b[:, -PFB_TAPS:] for b in row])
                              for row in bands])            # [S, D, 2, 416]
         hl = self.pfb_hist_len
-        phist, p_carry = halo.shard_hist(
-            st.pfb_hist, torch.complex(tails[..., 0, -hl:],
-                                       tails[..., 1, -hl:]), hl,
-            self.halo_dma)
+        phist, p_carry = halo.shard_hist_planes(st.pfb_hist, tails, hl,
+                                                self.halo_dma)
         f_local = bands[0][0].shape[-1] // NCH
         par, lsign, new_par = frame_parities(st.frame_parity, n_t, f_local)
         cand = last_frame_output(tails[..., 0, :], tails[..., 1, :], lsign)

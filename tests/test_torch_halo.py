@@ -16,7 +16,10 @@ numpy inputs:
   - K11's plain ``ring_shift_right`` and ``halo.shard_hist(dma=True)``
     (JAX's ``shard_hist_dma``) against JAX's
     remote-DMA ring shift in interpret mode on (1, 4) and (2, 4) meshes, bit
-    for bit (tests/test_halo_dma.py:28,48);
+    for bit (tests/test_halo_dma.py:28,48); K11's plain halo from the
+    planes (``shard_hist_planes``, with and without ``dma``, on contiguous
+    and sliced planes) against JAX's ``shard_hist_dma`` on the complex of
+    the same planes, bit for bit, launching nothing on the CPU;
   - the host constants bit-equal to JAX's, the last-frame dot within 1e-6
     of its peak, and the FSM's tone-sum ``period`` against JAX's.
 """
@@ -254,6 +257,46 @@ def test_one_time_shard_moves_nothing():
         hist, new_c = halo.shard_hist(carried, x, 3, dma)
         assert torch.equal(hist, carried[:, None])
         assert torch.equal(new_c, x[:, 0, -3:])
+    # the halo from the planes [S, 1, 2, T], also by K11's own entry
+    planes = torch.arange(24.0).reshape(2, 1, 2, 6)
+    carried = carried.to(torch.complex64)
+    tail = torch.complex(planes[:, 0, 0, -3:], planes[:, 0, 1, -3:])
+    for hist, new_c in (halo.shard_hist_planes(carried, planes, 3, False),
+                        halo.shard_hist_planes(carried, planes, 3, True),
+                        halo_dma.shard_hist_planes(carried, planes, 3)):
+        assert torch.equal(hist, carried[:, None])
+        assert torch.equal(new_c, tail)
+
+
+@pytest.mark.parametrize("n_s", [1, 2])
+def test_shard_hist_planes_matches_jax_shard_hist_dma(n_s):
+    """K11's halo from the planes [S, D, 2, T] vs JAX's shard_hist_dma
+    (remote DMA, interpreted) on the complex of the same planes, on a
+    (n_s, 4) mesh, bit for bit: the kernel module's entry and
+    halo.shard_hist_planes with dma and without, on contiguous planes and
+    on planes sliced out of longer ones; nothing launches on the CPU."""
+    from sdr_pmr446_tpu.kernels import halo_dma as jdma
+    rng = np.random.default_rng(11)
+    t, h = 12, 5
+    longer = rng.standard_normal((n_s, D, 3, t + 7)).astype(np.float32)
+    planes = np.ascontiguousarray(longer[:, :, 1:, 3:3 + t])
+    carried = cplx(rng, n_s, h)
+    x = (planes[:, :, 0] + 1j * planes[:, :, 1]).astype(np.complex64)
+    jh, jc = (np.asarray(a) for a in sharded(
+        functools.partial(jdma.shard_hist_dma, hist_len=h, axis="time",
+                          interpret=True), (ST, SD), (SD, ST),
+        jax_mesh(n_s, D))(carried, x.reshape(n_s, D * t)))
+    launches = halo_dma.LAUNCHES
+    ct = torch.from_numpy(carried)
+    for pt in (torch.from_numpy(planes),
+               torch.from_numpy(longer)[:, :, 1:, 3:3 + t]):
+        for hist, new_c in (halo_dma.shard_hist_planes(ct, pt, h),
+                            halo.shard_hist_planes(ct, pt, h, dma=True),
+                            halo.shard_hist_planes(ct, pt, h)):
+            np.testing.assert_array_equal(hist.numpy(),
+                                          jh.reshape(n_s, D, h))
+            np.testing.assert_array_equal(new_c.numpy(), jc)
+    assert halo_dma.LAUNCHES == launches == 0
 
 
 @pytest.mark.parametrize("t_local,hist_len", [(8 * 2048, 384),
@@ -381,6 +424,20 @@ def test_k10_k11_wrappers_reject_bad_inputs():
         halo_dma.ring_shift_right(torch.zeros(5))
     with pytest.raises(ValueError, match="no ring shift"):
         halo_dma.ring_shift_right(torch.zeros(2, 2, device="meta"))
+    c = torch.zeros(2, 3, dtype=torch.complex64)
+    for planes, h in ((torch.zeros(2, 2, 3, 4), 3),     # 3 planes
+                      (torch.zeros(2, 2, 2, 2), 3),     # T < h
+                      (torch.zeros(2, 2, 2, 4, dtype=torch.float64), 3)):
+        with pytest.raises(ValueError, match=r"f32 \[S, D, 2, T\]"):
+            halo_dma.shard_hist_planes(c, planes, h)
+    with pytest.raises(ValueError, match=r"carried must be c64 \[2, 3\]"):
+        halo_dma.shard_hist_planes(c[:1], torch.zeros(2, 2, 2, 4), 3)
+    with pytest.raises(ValueError, match="no halo for device"):
+        halo_dma.shard_hist_planes(c.to("meta"),
+                                   torch.zeros(2, 2, 2, 4, device="meta"), 3)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        halo_dma.shard_hist_planes_kernel(
+            c, torch.zeros(2, 2, 4, 2).transpose(2, 3), 3)
     with pytest.raises(ValueError, match="a shard is"):
         FH.front_zero_summary_wire(torch.zeros(1, 2, 300, dtype=torch.uint8),
                                    "cu8", 128, 128)

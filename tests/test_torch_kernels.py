@@ -615,3 +615,39 @@ def test_ring_shift_kernel_matches_roll_on_card():
     for a, b in zip(halo.shard_hist(carried, planes, 345, dma=True),
                     halo.shard_hist(carried, planes, 345)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_shard_hist_planes_kernel_matches_plain_on_card():
+    """K11's one-launch halo from the planes vs its plain version
+    (torch.complex of the tails, then the collective's shift), bit for
+    bit: the plane path's two halos (h = 345 of long planes, 400 of [4, 4,
+    2, 416] tails), planes sliced out of longer ones at even and odd
+    offsets (paired loads with and without a peeled sample, one sample a
+    thread), a carried history with a stream stride, one time shard; one
+    launch a call; halo.shard_hist_planes with dma == without."""
+    from sdr_pmr446_tpu_torch.kernels import halo_dma
+    from sdr_pmr446_tpu_torch.parallel import halo
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(1)
+    big = torch.randn(4, 4, 2, 1003, device=dev, generator=g)
+    wide = torch.randn(3, 5, 3, 20, device=dev, generator=g)
+    cases = [(big, 345), (big[..., :416].contiguous(), 400),
+             (big[..., 3:420], 400), (big[..., 1:], 345), (big[..., :-1], 8),
+             (wide[:, 1:4, 1:], 7), (big[:, :1], 9)]
+    bits = lambda t: torch.view_as_real(t).view(torch.int32)  # noqa: E731
+    for i, (planes, h) in enumerate(cases):
+        s, d = planes.shape[:2]
+        carried = torch.randn(s, d + 1, h, dtype=torch.complex64,
+                              device=dev, generator=g)
+        carried = carried[:, -1] if i % 2 else carried[:, -1].contiguous()
+        launches = halo_dma.LAUNCHES
+        got = halo_dma.shard_hist_planes(carried, planes, h)
+        torch.cuda.synchronize(dev)
+        assert halo_dma.LAUNCHES == launches + 1
+        want = halo_dma.shard_hist_planes_plain(carried, planes, h)
+        for a, b in zip(got, want):
+            assert torch.equal(bits(a), bits(b)), (i, tuple(planes.shape), h)
+        for a, b in zip(halo.shard_hist_planes(carried, planes, h, True),
+                        halo.shard_hist_planes(carried, planes, h)):
+            assert torch.equal(bits(a), bits(b)), (i, "dma")

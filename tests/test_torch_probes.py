@@ -172,6 +172,17 @@ def test_wrappers_reject_bad_inputs():
         K12b.probe_dot(a, b, "bf16")
     with pytest.raises(ValueError, match="contract"):
         K12b.probe_dot(a, a, "ffma")
+    # the kernel's tiles and its 16-byte staging, refused before any launch
+    for mode, (m, n, k) in (("tf32", (100, 128, 256)),
+                            ("3xtf32", (128, 120, 256)),
+                            ("ffma", (8, 128, 256)),
+                            ("ffma", (128, 128, 1024)),
+                            ("tf32", (128, 128, 72))):
+        with pytest.raises(ValueError, match=f"mode {mode}: needs"):
+            K12b.probe_dot_kernel(torch.zeros(m, k), torch.zeros(k, n), mode)
+    flat = torch.zeros(128 * 256 + 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K12b.probe_dot_kernel(flat[1:].view(128, 256), b, "tf32")
     with pytest.raises(ValueError, match="transpose_16"):
         K12a.probe_move(torch.zeros(16, 128), "transpose_16")
     with pytest.raises(ValueError, match="unknown move"):
