@@ -155,12 +155,34 @@ on its own lines; any failure raises and ends the run:
      that runs the rest: decisions, events and audio of the two parts
      equal to the uninterrupted run's bit for bit; K1 and K2 launched once
      a step.
+ 17. multi-block dispatch (runtime/fuse.py: S steps captured once into a
+     CUDA graph, replayed a megastep), the launch counts set to 0 before
+     each part and checked after: (a) on the duo, the trio and -w 80
+     scanners at K = 40, fuse_ctcss=False at K = 10, dsd_in and single
+     (mono and two-kernel) at K = 16, faithful mode at K = 10, the sharded
+     duo at (4, 5) and the plane path with halo_dma at (4, 4), K = 40,
+     and the sharded dsd at (2, 2), K = 16: multi_step at S = 4 from a
+     carried state equal to 4 step() calls bit for bit, every output and
+     state field, then again from the returned state, the states held
+     unchanged, each kernel's launches = per-step x (steps + replays x
+     S); (b) the driver at K = 40 over 10 blocks: S = 4 (two megasteps, a
+     2-block tail) equal to S = 1 bit for bit with prefetch_depth 1 and
+     3, and a run with a checkpoint every 4 blocks stopped after its first
+     megastep and restored equal to the uninterrupted run; (c) on each
+     path a megastep under set_sync_debug_mode("error") and its launches
+     = per-step x S; on the duo scanner, dsd_in mono, faithful and the
+     sharded duo, one replay under torch.profiler holding each device
+     function S times its count in one eager step, the device-busy share
+     of a megastep and its host ms; (d) on those four, Msamples/s at S =
+     1, 4 and 8 in turns (median of 3 runs, 2 for the sharded duo), with
+     each graph's capture ms and memory.
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
 scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
 switched engines of 12(b), each sharded path of 13, the probe tools of
-14, faithful mode in 15, the driver's runs in 16) runs with the launch
-counts set to 0 just before it and read just after.  Each
+14, faithful mode in 15, the driver's runs in 16, each path and the
+driver in 17) runs with the launch counts set to 0 just before it and
+read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
 H100 SXM's HBM3 rate and f32 rate outside the tensor cores).  The
@@ -1974,6 +1996,15 @@ def profile_session(run, sync):
     return evs, before, len(device), wall_ms
 
 
+def busy_ms(evs) -> float:
+    """The union of the events' device intervals, ms."""
+    busy, end = 0.0, -float("inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
 def profile_step(run, sync, parts, other: str, by_kernel: bool = False,
                  launches: dict | None = None):
     """``run()`` under torch.profiler: the device's busy share (the union
@@ -2000,10 +2031,7 @@ def profile_step(run, sync, parts, other: str, by_kernel: bool = False,
         log(f"  profiler session {attempt}: no device event in the step's "
             f"range ({n_device} device events in the session)")
     check(len(evs) > 0, "the profiler recorded no device events")
-    busy_us, end = 0.0, -float("inf")
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in evs):
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
+    busy_us = busy_ms(evs) * 1e3
     groups: dict = {}
     for e in evs:
         label = device_group(e.name, parts)
@@ -3076,6 +3104,548 @@ def phase_driver_checkpoint(dev, k: int, n_blocks: int):
     return n_blocks + stop_at + (n_blocks - stop_at)
 
 
+# ------------------------------------------------------- phase 17: megasteps
+#: S of phase 17(a)-(c), and the S timed in (d)
+MEGA_S = 4
+MEGA_TIMED_S = (1, 4, 8)
+#: K of phase 17's unsharded paths (the sharded ones: CONFIG5)
+MEGA_K = {"scanner": 40, "ctcss_off": 10, "mono": 16, "faithful": 10}
+#: short names of the kernel modules' launch counters (runtime/fuse.py)
+COUNTER_PREFIX = "sdr_pmr446_tpu_torch.kernels."
+
+
+def counter_name(key) -> str:
+    mod, attr = key
+    short = mod.removeprefix(COUNTER_PREFIX)
+    return short if attr == "LAUNCHES" else f"{short}.{attr}"
+
+
+def launches_now() -> dict:
+    """Every kernel's launch count, by short name."""
+    from sdr_pmr446_tpu_torch.runtime import fuse
+    return {counter_name(k): v for k, v in fuse.launch_counts().items()}
+
+
+def settled_reserved() -> int:
+    """Device memory the allocator holds once garbage (an earlier path's
+    chains and graphs, which hold their own pools) is collected and its
+    free cache returned: a graph's memory is the rise of this across its
+    capture."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def reset_launches() -> None:
+    from sdr_pmr446_tpu_torch.runtime import fuse
+    fuse.set_launch_counts({k: 0 for k in fuse.launch_counts()})
+
+
+def bits(t):
+    """A tensor's bits, comparable with torch.equal (NaN == NaN)."""
+    import torch
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    if t.dtype.is_floating_point:
+        t = t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                 8: torch.int64}[t.element_size()])
+    return t
+
+
+def tree_leaves(tree) -> list:
+    return list(tree) if isinstance(tree, tuple) else [tree]
+
+
+def check_bits(got, want, what: str) -> None:
+    """Every leaf of ``got`` equal to ``want``'s bit for bit."""
+    import torch
+    names = getattr(want, "_fields", None)
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        name = names[i] if names else str(i)
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{what} {name}: {g.dtype} {tuple(g.shape)} vs {w.dtype} "
+              f"{tuple(w.shape)}")
+        check(torch.equal(bits(g), bits(w)), f"{what} {name} differs")
+
+
+class MegaPath:
+    """One path of phase 17: a chain on the card, the extra step arguments
+    (runtime params or none), its host blocks (one array a step: [bytes],
+    [S, bytes] for a sharded chain, c64 [T] in faithful mode), the dim its
+    megastep concatenates along, the launch counters a step must move, the
+    parts of its profile and the input samples a block."""
+
+    def __init__(self, name, chain, args, blocks, dim, kernels, parts,
+                 samples):
+        import torch
+        self.name, self.chain, self.args = name, chain, args
+        self.host = blocks
+        self.dev = [torch.as_tensor(b, device=chain.device) for b in blocks]
+        self.dim, self.kernels, self.parts = dim, kernels, parts
+        self.samples = samples
+
+    def xs(self, i: int, n: int):
+        import torch
+        return torch.stack(self.dev[i:i + n])
+
+    def steps(self, state, i: int, n: int):
+        """n eager steps from ``state`` on blocks i..; outputs concatenated
+        as the megastep's."""
+        from sdr_pmr446_tpu_torch.runtime import fuse
+        outs = []
+        for x in self.dev[i:i + n]:
+            state, o = self.chain.step(state, x, *self.args)
+            outs.append(o)
+        return state, fuse._concat(outs, self.dim)
+
+    def mega(self, state, i: int, n: int):
+        return self.chain.multi_step(state, self.xs(i, n), *self.args)
+
+
+def faithful_blocks(k: int, n_blocks: int) -> list:
+    """The busy scenario's blocks, then channel 5 with CTCSS 12, c64."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import synth
+    n = k * C.SUBCHUNK_IN
+    iq = busy_scenario()
+    blocks = [iq[i * n:(i + 1) * n] for i in range(len(iq) // n)]
+    need = n_blocks - len(blocks)
+    if need > 0:
+        more = synth.make_scanner_iq(need * n, channel=5, ctcss_code=12,
+                                     seed=9, start_sample=len(iq))
+        blocks += [more[i * n:(i + 1) * n] for i in range(need)]
+    return [b.astype(np.complex64) for b in blocks[:n_blocks]]
+
+
+def mega_paths(dev, n_blocks: int) -> dict:
+    """Phase 17's paths, each over ``n_blocks`` distinct blocks: name ->
+    a function that builds its MegaPath."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.parallel.dsd_sharded import ShardedDsdInChain
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    from sdr_pmr446_tpu_torch.scanner.faithful import FaithfulScannerChain
+    scan = lambda k: k * C.SUBCHUNK_IN  # noqa: E731
+
+    def scanner(name, k, kernels, parts, waterfall=0, **kw):
+        return lambda: MegaPath(
+            name, ScannerChain(C.BlockConfig(k), device=dev,
+                               waterfall=waterfall, **kw),
+            (make_runtime_params(C.ScannerArgs(waterfall=waterfall), dev),),
+            bench_blocks(k, n_blocks), 0, kernels, parts, scan(k))
+
+    def mono(mode, two):
+        k = MEGA_K["mono"]
+        return lambda: MegaPath(
+            f"{mode}{' two-kernel' if two else ' mono'} K={k}",
+            make_chain(mode, k, dev, mono=not two), (),
+            chain_blocks(mode, k, n_blocks), 0,
+            {"front_end", "chan_tail.TAIL_LAUNCHES"} if two else
+            {"chan_tail"}, TWO_KERNEL_PARTS if two else CHAIN_PARTS,
+            scan(k))
+
+    def sharded(name, key, kernels, **kw):
+        (n_s, n_t), k = CONFIG5[key]
+        streams = config5_streams(n_s, k, n_blocks - 1, hang=True)
+        return lambda: MegaPath(
+            name, ShardedScannerChain(make_mesh(n_s, n_t),
+                                      C.BlockConfig(k), **kw),
+            (make_runtime_params(C.ScannerArgs(), dev),),
+            [np.stack(b) for b in zip(*streams)], 1, kernels,
+            SHARDED_PARTS, n_s * scan(k))
+
+    def sharded_dsd():
+        (n_s, n_t), k = CONFIG5["mono"]
+        blocks = chain_blocks("dsd", k, n_blocks + n_s - 1)
+        return MegaPath(
+            f"sharded dsd ({n_s}, {n_t}) K={k}",
+            ShardedDsdInChain(make_mesh(n_s, n_t), k), (),
+            [np.stack([blocks[i + s] for s in range(n_s)])
+             for i in range(n_blocks)], 1, {"summary", "chan_tail"},
+            CHAIN_PARTS, n_s * scan(k))
+
+    def faithful():
+        k = MEGA_K["faithful"]
+        return MegaPath(
+            f"faithful K={k}", FaithfulScannerChain(k, device=dev),
+            (make_runtime_params(C.ScannerArgs(lock_mode="max"), dev),),
+            faithful_blocks(k, n_blocks), 0, set(),
+            (("copies", ("Memcpy", "Memset")),), scan(k))
+
+    k, k10 = MEGA_K["scanner"], MEGA_K["ctcss_off"]
+    return {
+        "duo": scanner(f"duo K={k}", k, {"duo", "audio_bank"},
+                       SCANNER_PARTS),
+        "trio": scanner(f"trio K={k}", k,
+                        {"front_end", "pfb_demod", "audio_bank"},
+                        TRIO_PARTS, fuse_band=False),
+        "ctcss_off": scanner(f"fuse_ctcss=False K={k10}", k10,
+                             {"front_end", "pfb_demod",
+                              "audio_bank.APPLY_DC_LAUNCHES"},
+                             TRIO_PARTS, fuse_ctcss=False),
+        "wf": scanner(f"-w 80 K={k}", k, {"duo", "audio_bank", "waterfall"},
+                      SCANNER_PARTS, waterfall=80),
+        "dsd": mono("dsd", False), "dsd_two": mono("dsd", True),
+        "single": mono("single", False), "single_two": mono("single", True),
+        "faithful": faithful,
+        "sharded": sharded("sharded duo {} K={}".format(*CONFIG5["duo"]),
+                           "duo", {"summary", "duo", "audio_bank"}),
+        "plane": sharded("plane path {} K={} halo_dma".format(
+                             *CONFIG5["plane"]), "plane",
+                         {"resample_kernel", "pfb_demod",
+                          "audio_bank.APPLY_LAUNCHES", "halo_dma"},
+                         halo_dma=True),
+        "sharded_dsd": sharded_dsd,
+    }
+
+
+def megastep_equals_steps(p: MegaPath, sync) -> dict:
+    """17(a): from a carried state (one step on block 0), multi_step at
+    MEGA_S on blocks 1.. equals MEGA_S steps bit for bit, every output and
+    state field; a second call from the returned state equals the steps
+    that continue from theirs; the state the first call returned, and the
+    one it was given, are unchanged after it.  The launch counts, reset
+    before, equal the per-step counts x (steps + replays x S) after.
+    Returns (the first call's state, the per-step counts, the graph's
+    capture record)."""
+    s = MEGA_S
+    reset_launches()
+    st0, _ = p.chain.step(p.chain.init_state(), p.dev[0], *p.args)
+    per_step = {n: v for n, v in launches_now().items() if v}
+    check(set(per_step) == p.kernels, f"{p.name}: kernels a step "
+          f"{per_step}, expected {sorted(p.kernels)}")
+    held0 = [t.clone() for t in tree_leaves(st0)]
+    st_a, want = p.steps(st0, 1, s)
+    reserved = settled_reserved()
+    st_b, got = p.mega(st0, 1, s)
+    pool = settled_reserved() - reserved
+    graph = graph_of(p, s)
+    check_bits(got, want, f"{p.name} megastep outputs")
+    check_bits(st_b, st_a, f"{p.name} megastep state")
+    held = [t.clone() for t in tree_leaves(st_b)]
+    st_a2, want2 = p.steps(st_a, 1 + s, s)
+    st_b2, got2 = p.mega(st_b, 1 + s, s)
+    check_bits(got2, want2, f"{p.name} second megastep outputs")
+    check_bits(st_b2, st_a2, f"{p.name} second megastep state")
+    check_bits(st_b, type(st_b)(*held) if isinstance(st_b, tuple)
+               else held[0], f"{p.name} held state")
+    check_bits(st0, type(st0)(*held0) if isinstance(st0, tuple)
+               else held0[0], f"{p.name} state given")
+    n_steps = 1 + 2 * s + 2 * s
+    got_l = {n: v for n, v in launches_now().items() if v}
+    want_l = {n: v * n_steps for n, v in per_step.items()}
+    check(got_l == want_l, f"{p.name}: launches {got_l}, expected {want_l} "
+          f"({n_steps} steps, {2 * s} of them in 2 replays)")
+    rec = {"warmup_ms": graph.warmup_ms, "capture_ms": graph.capture_ms,
+           "pool_mb": pool / 2 ** 20}
+    log(f"  (a) {p.name}: multi_step S={s} == {s} steps bit for bit, twice "
+        f"from a carried state, held states unchanged; launches {got_l} "
+        f"for {n_steps} steps; first call: warm-up {rec['warmup_ms']:.1f} "
+        f"ms, capture {rec['capture_ms']:.1f} ms, graph memory "
+        f"{rec['pool_mb']:.1f} MB")
+    return st_b, per_step, rec
+
+
+def device_family(name: str) -> str:
+    """A device function's name without template arguments, PyTorch's
+    vectorized and unrolled elementwise kernels as one (which of the two
+    runs depends on the operands' alignment: a graph's first step reads
+    its static buffers, a chained step the views its predecessor made)."""
+    fn = kernel_name(name).split("<")[0]
+    return ("elementwise_kernel" if fn.endswith("elementwise_kernel")
+            else fn)
+
+
+def graph_of(p: MegaPath, s: int):
+    """The chain's captured graph (runtime/fuse.py) of S = s."""
+    return next(g for g in p.chain.megastep.graphs.values()
+                if g.xs.shape[0] == s)
+
+
+def replay_ms(graph, sync, reps: int = 5) -> float:
+    """Device ms of one replay of a captured graph (CUDA events, median)."""
+    import torch
+    raw = graph.graph.recorder.graph
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sync()
+        a.record()
+        raw.replay()
+        b.record()
+        sync()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def replay_checks(p: MegaPath, state, per_step: dict, sync,
+                  profile: bool) -> dict:
+    """17(c): one multi_step under set_sync_debug_mode("error") (no host
+    read in the copies in, the replay or the copies out), its launch
+    counts == per step x S; with ``profile``, the graph's replay alone
+    under torch.profiler: each device function S times its count in one
+    eager step (device_family), the replay's device-busy share by part,
+    and the host ms of a whole megastep.  Returns the readings."""
+    import collections
+    import torch
+    s = MEGA_S
+    xs = p.xs(1, s)
+    sync()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p.chain.multi_step(state, xs, *p.args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    got_l = {n: v for n, v in launches_now().items() if v}
+    want_l = {n: v * s for n, v in per_step.items()}
+    check(got_l == want_l, f"{p.name} one replay: launches {got_l}, "
+          f"expected {want_l}")
+    log(f"  (c) {p.name}: a megastep under set_sync_debug_mode('error'): no "
+        f"host reads; launches {got_l} == per step x {s}")
+    if not profile:
+        return {}
+    graph = graph_of(p, s)
+    evs, _, _, wall = profile_session(graph.graph.recorder.graph.replay,
+                                      sync)
+    step_evs = profile_session(
+        lambda: p.chain.step(state, p.dev[1], *p.args), sync)[0]
+    count = lambda es: collections.Counter(  # noqa: E731
+        device_family(e.name) for e in es)
+    replay, step = count(evs), count(step_evs)
+    bad = {n: (replay.get(n, 0), step.get(n, 0))
+           for n in set(replay) | set(step)
+           if replay.get(n, 0) != s * step.get(n, 0)}
+    check(not bad, f"{p.name} replay vs {s} x step, by device function "
+          f"(replay, step): {bad}")
+    parts: dict = {}
+    for e in evs:
+        label = device_group(e.name, p.parts)
+        parts[label] = parts.get(label, 0.0) + e.time_range.elapsed_us()
+    busy = busy_ms(evs)
+    span = replay_ms(graph, sync)
+    log(f"  (c) {p.name}: one replay (S={s}) under torch.profiler: "
+        f"{len(evs)} device events in {len(replay)} device functions, each "
+        f"{s} x its count in one eager step ({len(step_evs)} events); "
+        f"device busy {busy:.3f} ms, {100 * busy / wall:.1f} % of the "
+        f"profiled wall {wall:.3f} ms, {100 * busy / span:.1f} % of a "
+        f"replay's {span:.3f} ms unprofiled (CUDA events); by part (ms): "
+        + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in sorted(
+            parts.items(), key=lambda kv: -kv[1])))
+    host = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        p.chain.multi_step(state, xs, *p.args)
+        host.append((time.perf_counter() - t0) * 1e3)
+    sync()
+    h = statistics.median(host)
+    log(f"  (c) {p.name}: host ms a megastep (copies in, replay, copies "
+        f"out; median of 5) {h:.3f}")
+    return {"replay_busy_ms": busy, "replay_profiled_wall_ms": wall,
+            "replay_ms": span, "host_ms_megastep": h}
+
+
+def megastep_rates(p: MegaPath, n_timed: int, rounds: int, sync) -> dict:
+    """17(d): Msamples/s at each S of MEGA_TIMED_S in turns (1, 4, 8, 8,
+    4, 1, ...), ``rounds`` runs each, over ``n_timed`` blocks (blocks 1..
+    again as needed): host wall around work that ends in a synchronize,
+    the uploads inside (the driver's pinned ring, runtime/driver.py
+    device_prefetch), each dispatch's outputs read back after the next is
+    queued, a warm dispatch first.  S = 1 is step().  Also each graph's
+    replay on the device (CUDA events) a block.  Returns the medians and
+    each S's graph record."""
+    import torch
+    from sdr_pmr446_tpu_torch.runtime.driver import device_prefetch
+    blocks = [p.host[1 + i % (len(p.host) - 1)] for i in range(n_timed)]
+    shape, dtype = p.dev[0].shape, p.dev[0].dtype
+    st0, _ = p.chain.step(p.chain.init_state(), p.dev[0], *p.args)
+    graphs = {}
+
+    def run(s):
+        st, pending, group = st0, None, []
+        for wire in device_prefetch(blocks, p.chain.device, 2):
+            group.append(wire.view(dtype).reshape(shape))
+            if len(group) < s:
+                continue
+            if s == 1:
+                st, out = p.chain.step(st, group[0], *p.args)
+            else:
+                st, out = p.chain.multi_step(st, torch.stack(group),
+                                             *p.args)
+            group = []
+            if pending is not None:
+                [t.cpu() for t in tree_leaves(pending)]
+            pending = out
+        [t.cpu() for t in tree_leaves(pending)]
+        sync()
+
+    for s in MEGA_TIMED_S:              # warm: S = 1's tables, the graphs
+        reserved = settled_reserved()
+        run(s)
+        if s > 1:
+            g = graph_of(p, s)
+            graphs[s] = {"capture_ms": g.capture_ms,
+                         "warmup_ms": g.warmup_ms,
+                         "replay_ms_per_block": replay_ms(g, sync) / s}
+            if s != MEGA_S:             # captured here, not in (a)
+                graphs[s]["pool_mb"] = (settled_reserved() - reserved
+                                        ) / 2 ** 20
+    order = []
+    for r in range(rounds):
+        order += list(MEGA_TIMED_S if r % 2 == 0 else MEGA_TIMED_S[::-1])
+    rates = {s: [] for s in MEGA_TIMED_S}
+    for s in order:
+        sync()
+        t0 = time.perf_counter()
+        run(s)
+        rates[s].append(n_timed * p.samples / (time.perf_counter() - t0)
+                        / 1e6)
+    med = {s: statistics.median(v) for s, v in rates.items()}
+    log(f"  (d) {p.name}, {n_timed} blocks, turns {order}: Msamples/s "
+        + ", ".join(f"S={s} {med[s]:.2f} (" + ", ".join(
+            f"{x:.2f}" for x in rates[s]) + ")" for s in MEGA_TIMED_S)
+        + "; graphs: " + ", ".join(
+            f"S={s} warm-up {g['warmup_ms']:.1f} ms, capture "
+            f"{g['capture_ms']:.1f} ms, a replay {g['replay_ms_per_block']:.3f}"
+            f" device ms a block" + (f", {g['pool_mb']:.1f} MB" if "pool_mb"
+                                     in g else "")
+            for s, g in graphs.items()))
+    return {"msamples_per_s": {str(s): med[s] for s in MEGA_TIMED_S},
+            "runs": {str(s): rates[s] for s in MEGA_TIMED_S},
+            "graphs": {str(s): g for s, g in graphs.items()}}
+
+
+def megastep_driver(dev, k: int, n_blocks: int) -> int:
+    """17(b): ScannerDriver over n_blocks at K = k: S = 4 (two megasteps
+    and a 2-block tail) equal to S = 1 bit for bit with prefetch_depth 1
+    and 3; then a run with a checkpoint every 4 blocks stopped after its
+    first megastep and a restore that runs the rest, equal to the
+    uninterrupted run.  Returns the blocks run."""
+    import os
+    import tempfile
+    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
+    blocks = bench_blocks(k, n_blocks)
+    make = lambda **kw: ScannerDriver(subchunks_per_step=k,  # noqa: E731
+                                      device=dev, **kw)
+    names = ("active_trace", "rssi_trace", "rel_rssi", "ct_detected",
+             "ct_max_idx", "audio", "audio_subchunks")
+
+    def same(got, want, what):
+        for name in names:
+            check(np.array_equal(getattr(got, name), getattr(want, name)),
+                  f"{what}: {name} differs from S = 1")
+        check(got.events == want.events, f"{what}: events")
+
+    ref = make().run(blocks)
+    run = n_blocks
+    for depth in (1, 3):
+        drv = make(steps_per_dispatch=MEGA_S, prefetch_depth=depth)
+        same(drv.run(blocks), ref, f"S={MEGA_S}, prefetch_depth {depth}")
+        check(drv.block_index == n_blocks, "block index")
+        run += n_blocks
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "state.npz")
+        first = make(steps_per_dispatch=MEGA_S, checkpoint_path=ckpt,
+                     checkpoint_every=MEGA_S)
+
+        def stopping(blocks):
+            for i, b in enumerate(blocks):
+                if i == MEGA_S - 1:     # the first megastep's last block
+                    first.request_stop()
+                yield b
+        part1 = first.run(stopping(blocks))
+        check(first.stopped and first.block_index == MEGA_S,
+              f"stopped at block {first.block_index}, wanted {MEGA_S}")
+        second = make(steps_per_dispatch=MEGA_S, checkpoint_path=ckpt)
+        check(second.restore() == MEGA_S, "restored block index")
+        part2 = second.run(blocks)
+        check(second.block_index == n_blocks, "resumed block index")
+    for name in names:
+        got = np.concatenate([getattr(part1, name), getattr(part2, name)])
+        check(np.array_equal(got, getattr(ref, name)),
+              f"stop + resume at S={MEGA_S}: {name}")
+    check(part1.events + part2.events == ref.events, "stop + resume events")
+    log(f"  (b) the driver, K={k}, {n_blocks} blocks: S={MEGA_S} (two "
+        f"megasteps, a 2-block tail) == S=1 bit for bit with prefetch_depth "
+        f"1 and 3; a checkpoint every {MEGA_S} blocks, stopped after the "
+        f"first megastep and restored == the uninterrupted run; events "
+        f"{ref.events}")
+    return run + n_blocks
+
+
+def driver_rates(dev, k: int, n_timed: int, rounds: int, sync) -> dict:
+    """17(d): ScannerDriver.run (its pinned uploads, drains and event
+    lines inside) at each S of MEGA_TIMED_S in turns over ``n_timed``
+    distinct blocks, one driver an S, warmed up by a first run (which
+    captures its graph).  Returns the medians."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
+    blocks = bench_blocks(k, n_timed)
+    drivers = {s: ScannerDriver(subchunks_per_step=k, device=dev,
+                                steps_per_dispatch=s)
+               for s in MEGA_TIMED_S}
+    for drv in drivers.values():
+        drv.run(blocks)
+    order = []
+    for r in range(rounds):
+        order += list(MEGA_TIMED_S if r % 2 == 0 else MEGA_TIMED_S[::-1])
+    rates = {s: [] for s in MEGA_TIMED_S}
+    for s in order:
+        sync()
+        t0 = time.perf_counter()
+        drivers[s].run(blocks)
+        sync()
+        rates[s].append(n_timed * k * C.SUBCHUNK_IN
+                        / (time.perf_counter() - t0) / 1e6)
+    med = {s: statistics.median(v) for s, v in rates.items()}
+    log(f"  (d) ScannerDriver K={k}, {n_timed} blocks, turns {order}: "
+        "Msamples/s " + ", ".join(f"S={s} {med[s]:.2f} (" + ", ".join(
+            f"{x:.2f}" for x in rates[s]) + ")" for s in MEGA_TIMED_S))
+    return {"msamples_per_s": {str(s): med[s] for s in MEGA_TIMED_S},
+            "runs": {str(s): rates[s] for s in MEGA_TIMED_S}}
+
+
+def phase_megastep(dev, sync) -> dict:
+    """Phase 17: multi-block dispatch (runtime/fuse.py's CUDA graphs) on
+    every chain.  Returns the timings for the bench record."""
+    from sdr_pmr446_tpu_torch.kernels import audio_bank, duo
+    t0 = time.perf_counter()
+    n_blocks = 1 + 2 * MEGA_S
+    paths = mega_paths(dev, n_blocks)
+    timed = {"duo": (16, 3), "dsd": (16, 3), "faithful": (16, 3),
+             "sharded": (8, 2)}
+    bench = {}
+    for key, build in paths.items():
+        t_p = time.perf_counter()
+        p = build()
+        st, per_step, rec = megastep_equals_steps(p, sync)
+        rec.update(replay_checks(p, st, per_step, sync,
+                                 profile=key in timed))
+        if key in timed:
+            rec.update(megastep_rates(p, *timed[key], sync))
+            bench[f"megastep_{key}"] = rec
+        log(f"  {p.name} took {time.perf_counter() - t_p:.1f} s")
+        del p
+    t_b = time.perf_counter()
+    reset_launches()
+    n = megastep_driver(dev, MEGA_K["scanner"], 10)
+    dl = {"K1": duo.LAUNCHES, "K2": audio_bank.LAUNCHES}
+    log(f"  (b) launches over the driver's {n} blocks: {dl}")
+    check(dl["K1"] == dl["K2"] == n, "K1 / K2 launches in phase 17(b)")
+    bench["megastep_driver"] = driver_rates(dev, MEGA_K["scanner"], 16, 3,
+                                            sync)
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s ((b) "
+        f"{time.perf_counter() - t_b:.1f})")
+    return bench
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3282,6 +3852,10 @@ def main() -> int:
     log(f"  phases 14-16 took {time.perf_counter() - t14:.1f} s (14 "
         f"{t15 - t14:.1f}, 15 {t16 - t15:.1f}, 16 "
         f"{time.perf_counter() - t16:.1f})")
+    log("phase 17: multi-block dispatch (runtime/fuse.py, CUDA graphs) on "
+        "every chain")
+    log(smi)
+    bench.update(phase_megastep(dev, sync))
     log(f"  the run {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))

@@ -4,11 +4,12 @@ Counterpart of sdr_pmr446_tpu/apps/dsd_in.py (the reference's
 src/dsd_in.c:40-48): reads an IQ capture at 1.024 Msps and writes 48 kHz
 s16le mono to stdout (pipe it into ``dsd -i -`` or ``play``) or to a file.
 Flags: -g/--gain, -f/--frequency, --input, --input-format, --output,
---subchunks-per-step, --device (which alone chooses between the CUDA
-kernel and its plain version) and --device-decode (accepted; the port
-always ships the raw wire bytes to the device and decodes there).
-rtl_tcp:// inputs and --steps-per-dispatch other than 1 are not yet ported
-and exit 2.
+--subchunks-per-step, --steps-per-dispatch (S blocks a dispatch: a CUDA
+graph of S steps on the card, captured at the first megastep; the output
+is the same bytes), --device (which alone chooses between the CUDA kernel
+and its plain version) and --device-decode (accepted; the port always
+ships the raw wire bytes to the device and decodes there).  rtl_tcp://
+inputs are not yet ported and exit 2.
 
     python -m sdr_pmr446_tpu_torch.apps.dsd_in --input cap.cu8 --output - | dsd -i -
 """
@@ -50,7 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="output path for 48 kHz s16le audio ('-' = stdout)")
     p.add_argument("--subchunks-per-step", type=int, default=10)
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="blocks per dispatch (only 1 is ported)")
+                   help="blocks fused into one dispatch (a CUDA graph of "
+                        "that many steps on the card; the output is the "
+                        "same bytes)")
     p.add_argument("--device-decode", action="store_true",
                    help="accepted for compatibility and does nothing: the "
                         "port always ships the raw wire bytes to the device "
@@ -66,8 +69,6 @@ def _unported(ns) -> list[str]:
     found = []
     if ns.input.startswith("rtl_tcp://"):
         found.append("rtl_tcp:// input")
-    if ns.steps_per_dispatch != 1:
-        found.append("--steps-per-dispatch")
     return found
 
 
@@ -110,21 +111,36 @@ def main(argv=None) -> int:
                 pass
     state = chain.init_state()
     pending = None
+    n_fuse = max(1, ns.steps_per_dispatch)
 
     def drain(pcm):
         out.write(pcm.cpu().numpy().astype("<i2").tobytes())
         out.flush()
 
+    def dispatch(wires):
+        nonlocal state, pending
+        if len(wires) == 1:
+            state, pcm = chain.step(state, wires[0])
+        else:
+            state, pcm = chain.multi_step(state, torch.stack(wires))
+        if pending is not None:
+            drain(pending)
+        pending = pcm
+
     try:
-        # block i+1 is queued on the device before block i's PCM is read
+        # the JAX app's grouping loop (n_fuse blocks a dispatch, the tail
+        # singly); dispatch i+1 is queued on the device before dispatch
+        # i's PCM is read
+        group = []
         for blk in wire_blocks(raw, fmt, chain.step_arg_len):
             if stop["flag"]:
                 break
-            wire = torch.from_numpy(blk).to(chain.device)
-            state, pcm = chain.step(state, wire)
-            if pending is not None:
-                drain(pending)
-            pending = pcm
+            group.append(torch.from_numpy(blk).to(chain.device))
+            if len(group) == n_fuse:
+                dispatch(group)
+                group = []
+        for wire in (() if stop["flag"] else group):
+            dispatch([wire])
         if pending is not None:
             drain(pending)
     except BrokenPipeError:

@@ -4,7 +4,10 @@ Counterpart of sdr_pmr446_tpu/apps/sdr_pmr446.py with the flags of the
 ported slice: -g/--gain, -s/--squelch, -w/--waterfall, -l/--lowpass,
 -m/--mask, -a/--audio-gain, -p/--lock-mode, --fir-deemph, --input,
 --input-format, --device-decode, --output (WAV), --seconds,
---subchunks-per-step, --faithful, --checkpoint, --checkpoint-every,
+--subchunks-per-step, --steps-per-dispatch (S blocks a dispatch through
+the driver: a CUDA graph of S steps on the card, captured at the first
+megastep; ignored with --faithful, as in JAX), --faithful, --checkpoint,
+--checkpoint-every,
 --checkpoint-backend npz, --resume and --device (cuda: the kernels, cpu:
 their plain versions).  With -w W each sub-chunk prints its ASCII
 waterfall line and the channel footer (the reference's terminal UI) on
@@ -15,9 +18,8 @@ flush a final checkpoint (with --checkpoint) and write the partial WAV
 capture decoded to complex64; with --device-decode it exits 1, as in JAX.
 --resume without --checkpoint, or from a missing or unreadable
 checkpoint, exits 1.  Flags of parts not yet ported (-b,
---steps-per-dispatch, --checkpoint-backend orbax, rtl_tcp:// inputs,
---output live) exit with a "not yet ported" error instead of being
-ignored.
+--checkpoint-backend orbax, rtl_tcp:// inputs, --output live) exit with a
+"not yet ported" error instead of being ignored.
 
     python -m sdr_pmr446_tpu_torch.apps.sdr_pmr446 --input cap.cu8 -w 120
 """
@@ -84,6 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seconds", type=float, default=5.0,
                    help="synthetic source duration")
     p.add_argument("--subchunks-per-step", type=int, default=10)
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="blocks fused into one dispatch (a CUDA graph of "
+                        "that many steps on the card; decisions and audio "
+                        "equal to 1)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: 'cuda' runs the CUDA kernels, 'cpu' "
                         "their plain PyTorch versions (default: cuda; "
@@ -103,7 +109,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restore --checkpoint and continue mid-capture")
     # parts of the JAX app that this package does not have yet
     p.add_argument("-b", "--audio-api", type=str, default=None)
-    p.add_argument("--steps-per-dispatch", type=int, default=1)
     return p
 
 
@@ -112,8 +117,6 @@ def _unported(ns) -> list[str]:
     found = []
     if ns.audio_api is not None:
         found.append("-b/--audio-api")
-    if ns.steps_per_dispatch != 1:
-        found.append("--steps-per-dispatch")
     if ns.checkpoint_backend == "orbax":
         found.append("--checkpoint-backend orbax (a JAX library)")
     if ns.input and ns.input.startswith("rtl_tcp://"):
@@ -204,7 +207,8 @@ def main(argv=None) -> int:
             device=ns.device,
             on_subchunk=on_subchunk if args.waterfall > 0 else None,
             checkpoint_path=ns.checkpoint,
-            checkpoint_every=ns.checkpoint_every)
+            checkpoint_every=ns.checkpoint_every,
+            steps_per_dispatch=ns.steps_per_dispatch)
     except (ValueError, RuntimeError) as e:
         logging.error("%s", e)
         return 1

@@ -14,7 +14,10 @@ kernel needs no correction.
 (state', pcm int16 [S, T * 3 / 64])``, the state DsdState with every field
 [S, ...] (the JAX sharded mono state's layout).  A geometry without the
 mono engine (K_local % 8 != 0), whose JAX counterpart is the op engine,
-raises (ROADMAP queue 1 item 7); so does ``multi_step`` (item 9).
+raises (ROADMAP queue 1: the JAX op engines).  ``multi_step(state, wires
+uint8 [S_steps, S, step_arg_len])`` runs S_steps blocks in one dispatch
+(runtime/fuse.py), the pcm [S, S_steps * T * 3 / 64], equal to the steps
+bit for bit.
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.kernels.chan_tail import MonoChain
 from sdr_pmr446_tpu_torch.ops import decode, fm
 from sdr_pmr446_tpu_torch.parallel import fused_halo as FH
-from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (NOT_PORTED, Mesh,
-                                                           mesh_device,
+from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (Mesh, mesh_device,
                                                            stacked,
                                                            time_shards)
+from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import stack_state
 from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdState
 
@@ -45,7 +48,8 @@ def mono_geometry(subchunks_per_step: int, mesh: Mesh) -> int:
         raise ValueError(
             f"the sharded mono engine needs subchunks_per_step / n_time % 8 "
             f"== 0 (got K_local={k_local}); the JAX op engine that serves "
-            f"the rest is not ported (ROADMAP queue 1 item 7)")
+            f"the rest is not ported (ROADMAP queue 1: the JAX op "
+            f"engines)")
     return k_local
 
 
@@ -69,6 +73,7 @@ class ShardedDsdInChain:
         self.t_local = self.input_len // mesh.n_time
         self.output_len = self.input_len * 3 // 64
         self.mono = MonoChain("dsd", self.input_format, device=self.device)
+        self.megastep = fuse.fused_sharded_steps(self.step)
 
     @property
     def step_arg_len(self) -> int:
@@ -79,8 +84,10 @@ class ShardedDsdInChain:
         return stack_state(DsdState(*self.mono.init_state(self.device)),
                            self.mesh.n_stream)
 
-    def multi_step(self, state, wires):
-        raise NotImplementedError(f"multi_step is {NOT_PORTED}")
+    def multi_step(self, state: DsdState, wires: torch.Tensor):
+        """S_steps blocks of every stream in one dispatch (module
+        docstring)."""
+        return self.megastep(state, wires)
 
     def step(self, state: DsdState, wire: torch.Tensor):
         wire3 = time_shards(wire, self.mesh, self.step_arg_len)

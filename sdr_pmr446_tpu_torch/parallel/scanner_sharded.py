@@ -42,8 +42,11 @@ zero lp-DC state, and its tone sums are corrected (fused_halo.
 correct_raw_sums) before phase C, with the kernel phase restarting every
 K_local sub-chunks (fsm.raw_sums_to_ctcss ``period``).
 
-Not yet ported (ROADMAP queue 1 item 9): the sharded waterfall
-(``waterfall > 0``) and ``multi_step``.  JAX's op engine (``use_pallas=
+``multi_step(state, wires uint8 [S_steps, S, step_arg_len], params)``
+runs S_steps blocks in one dispatch (runtime/fuse.py): a CUDA graph of
+the steps, every output leaf stream-major [S, S_steps * K, ...], equal to
+the steps bit for bit.  Not yet ported (ROADMAP queue 1: the sharded
+waterfall): ``waterfall > 0``.  JAX's op engine (``use_pallas=
 False``) has no counterpart: on the CPU the chain runs the plain versions
 of the same kernels.
 """
@@ -66,6 +69,7 @@ from sdr_pmr446_tpu_torch.ops import decode
 from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums, subchunk_rssi
 from sdr_pmr446_tpu_torch.parallel import fused_halo as FH
 from sdr_pmr446_tpu_torch.parallel import halo
+from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import (ScannerState,
                                                 init_scanner_state,
                                                 stack_state)
@@ -80,7 +84,8 @@ NCH = C.NUM_CHANNELS
 #: 416-sample band span of the PFB row and the last frame
 DUO_TAIL = 2560
 PFB_TAPS = 416
-NOT_PORTED = "not yet ported to the one-card mesh (ROADMAP queue 1 item 9)"
+NOT_PORTED = ("not yet ported to the one-card mesh (ROADMAP queue 1: the "
+              "sharded waterfall)")
 
 
 class Mesh(NamedTuple):
@@ -196,6 +201,7 @@ class ShardedScannerChain:
         self.audio_bank = AudioBank(lowpass, fir_deemph, device=dev)
         deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
         self.deemph_hist_len = deemph.shape[0] - 1
+        self.megastep = fuse.fused_sharded_steps(self.step)
 
     def init_state(self) -> ScannerState:
         """The zero state of every stream, each field [S, ...]."""
@@ -209,8 +215,12 @@ class ShardedScannerChain:
         return self.block.input_len * decode.BYTES_PER_SAMPLE[
             self.input_format]
 
-    def multi_step(self, state, wires, params):
-        raise NotImplementedError(f"multi_step is {NOT_PORTED}")
+    def multi_step(self, state: ScannerState, wires: torch.Tensor,
+                   params: RuntimeParams):
+        """S_steps blocks of every stream in one dispatch: ``wires`` uint8
+        [S_steps, S, step_arg_len].  Returns (state', StepOutputs [S,
+        S_steps * K, ...]), per stream equal to the steps bit for bit."""
+        return self.megastep(state, wires, params)
 
     # ------------------------------------------------------------ engines
     def _duo_front(self, st: ScannerState, wire3, ns: int) -> _Front:

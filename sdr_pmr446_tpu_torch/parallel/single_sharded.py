@@ -17,7 +17,9 @@ equals the stream's, as JAX's shared ``rot`` assumes.
 ``ShardedSingleChain(mesh, channel, K).step(state, wire uint8 [S,
 step_arg_len]) -> (state', audio f32 [S, T * 25 / 2048])``, the state
 SingleState with every field [S, ...].  K_local % 8 != 0 raises (ROADMAP
-queue 1 item 7), and so does ``multi_step`` (item 9).
+queue 1: the JAX op engines).  ``multi_step(state, wires uint8 [S_steps,
+S, step_arg_len])`` runs S_steps blocks in one dispatch (runtime/fuse.py),
+the audio [S, S_steps * T * 25 / 2048], equal to the steps bit for bit.
 """
 
 from __future__ import annotations
@@ -32,10 +34,10 @@ from sdr_pmr446_tpu_torch.kernels.chan_tail import (DPS, GL, PHASE_PERIOD,
 from sdr_pmr446_tpu_torch.ops import decode, fm
 from sdr_pmr446_tpu_torch.parallel import fused_halo as FH
 from sdr_pmr446_tpu_torch.parallel.dsd_sharded import mono_geometry
-from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (NOT_PORTED, Mesh,
-                                                           mesh_device,
+from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (Mesh, mesh_device,
                                                            stacked,
                                                            time_shards)
+from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import stack_state
 from sdr_pmr446_tpu_torch.scanner.single import SingleState
 
@@ -67,6 +69,7 @@ class ShardedSingleChain:
         self.output_len = self.input_len * 25 // 2048
         self.mono = MonoChain("single", self.input_format, channel=channel,
                               audio_gain=audio_gain, device=self.device)
+        self.megastep = fuse.fused_sharded_steps(self.step)
 
     @property
     def step_arg_len(self) -> int:
@@ -79,8 +82,10 @@ class ShardedSingleChain:
                                      device=self.device))
         return stack_state(st, self.mesh.n_stream)
 
-    def multi_step(self, state, wires):
-        raise NotImplementedError(f"multi_step is {NOT_PORTED}")
+    def multi_step(self, state: SingleState, wires: torch.Tensor):
+        """S_steps blocks of every stream in one dispatch (module
+        docstring)."""
+        return self.megastep(state, wires)
 
     def step(self, state: SingleState, wire: torch.Tensor):
         n_s, n_t = self.mesh.n_stream, self.mesh.n_time

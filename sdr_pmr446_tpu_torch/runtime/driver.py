@@ -29,14 +29,26 @@ As in the JAX driver (driver.py:139-177, 189-306):
 
 The step is asynchronous on a CUDA device, so block i+1 is dispatched
 before block i's outputs are read back: the host-side drain overlaps the
-device's work.
+device's work.  As in the JAX driver (driver.py:41-60, 118-126, 195-250):
+
+  - ``steps_per_dispatch`` S: S blocks a dispatch (``chain.multi_step``, a
+    CUDA graph of S steps on the card, runtime/fuse.py), equal to S single
+    steps bit for bit; tail blocks that do not fill a megastep run as
+    single steps (and are skipped after a stop request), ``block_index``
+    advances by S, checkpoints land on megastep boundaries, and the resume
+    skip counts blocks;
+  - ``prefetch_depth``: the wire bytes go up through a ring of that many
+    pinned host buffers, each upload non-blocking on a copy stream that
+    runs up to ``prefetch_depth`` blocks ahead of the step that reads it
+    (``device_prefetch``); the values are the same.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -49,6 +61,58 @@ from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
 from sdr_pmr446_tpu_torch.utils.profiling import log_jsonl
 
 log = logging.getLogger("sdr_pmr446")
+
+
+def device_prefetch(blocks: Iterable[np.ndarray], device: torch.device,
+                    depth: int) -> Iterator[torch.Tensor]:
+    """Each block's bytes as a uint8 tensor on ``device``, uploaded up to
+    ``depth`` blocks ahead of the one yielded (JAX ``_device_prefetch``).
+
+    On a CUDA device a block goes through one of ``depth`` pinned host
+    buffers, by a non-blocking copy on a side stream; a buffer is not
+    rewritten before its last copy's event has completed, the current
+    stream waits on a block's event before the block is yielded, and the
+    block's memory is not reused before that stream is done with it.  On
+    the CPU the blocks are yielded as they come."""
+    if device.type != "cuda":
+        for blk in blocks:
+            yield torch.from_numpy(np.ascontiguousarray(blk).view(
+                np.uint8).reshape(-1))
+        return
+    depth = max(1, int(depth))
+    copy_stream = torch.cuda.Stream(device)
+    compute = torch.cuda.current_stream(device)
+    ring: list = [None] * depth          # (pinned buffer, its copy's event)
+    queue: collections.deque = collections.deque()
+
+    def ready(item):
+        wire, event = item
+        compute.wait_event(event)
+        wire.record_stream(compute)
+        return wire
+
+    for i, blk in enumerate(blocks):
+        raw = np.ascontiguousarray(blk).view(np.uint8).reshape(-1)
+        slot = i % depth
+        if ring[slot] is not None:
+            ring[slot][1].synchronize()
+        if ring[slot] is None or ring[slot][0].numel() != raw.size:
+            ring[slot] = (torch.empty(raw.size, dtype=torch.uint8,
+                                      pin_memory=True), None)
+        pinned = ring[slot][0]
+        pinned.numpy()[:] = raw
+        with torch.cuda.stream(copy_stream):
+            wire = torch.empty(raw.size, dtype=torch.uint8, device=device)
+            wire.copy_(pinned, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(copy_stream)
+        ring[slot] = (pinned, event)
+        queue.append((wire, event))
+        if len(queue) >= depth:
+            yield ready(queue.popleft())
+    while queue:
+        yield ready(queue.popleft())
+
 
 @dataclasses.dataclass
 class ScanResult:
@@ -67,7 +131,9 @@ class ScannerDriver:
     """``device`` alone chooses the implementation: a CUDA device runs the
     hand-written kernels, the CPU their plain versions (device.resolve).
     ``fuse_band``, ``fuse_dc``, ``fuse_rssi``, ``fuse_lp_dc`` and
-    ``fuse_ctcss`` choose the chain's engine (scanner/chain.py)."""
+    ``fuse_ctcss`` choose the chain's engine (scanner/chain.py);
+    ``steps_per_dispatch`` and ``prefetch_depth`` as in JAX (module
+    docstring)."""
 
     def __init__(self, args: Optional[C.ScannerArgs] = None,
                  subchunks_per_step: int = 10, input_format: str = "cu8",
@@ -77,7 +143,8 @@ class ScannerDriver:
                  fuse_ctcss: bool = True,
                  metrics_path: Optional[str] = None,
                  checkpoint_path: Optional[str] = None,
-                 checkpoint_every: int = 0):
+                 checkpoint_every: int = 0, steps_per_dispatch: int = 1,
+                 prefetch_depth: int = 2):
         self.args = args or C.ScannerArgs()
         self.chain = ScannerChain(
             C.BlockConfig(subchunks_per_step), lowpass=self.args.lowpass,
@@ -94,6 +161,8 @@ class ScannerDriver:
         self.metrics_path = metrics_path
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
+        self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        self.prefetch_depth = max(1, int(prefetch_depth))
         self._resume_skip = 0            # armed by restore(), one-shot
         # the reference's exit_via_sig flag (src/sdr_pmr446.c:190-199)
         self._stop_requested = False
@@ -146,13 +215,34 @@ class ScannerDriver:
         # one-shot: only the run() right after restore() skips the blocks
         # the checkpoint covers; a later run() consumes its whole input
         skip, self._resume_skip = self._resume_skip, 0
+        n_fuse = self.steps_per_dispatch
+        wires = device_prefetch(
+            (blk for i, blk in enumerate(blocks) if i >= skip), self.device,
+            self.prefetch_depth)
+        group: List[torch.Tensor] = []   # blocks awaiting one megastep
         self.stopped = False
         try:
-            for i, blk in enumerate(blocks):
-                if i < skip:
-                    continue
-                raw = np.ascontiguousarray(blk).view(np.uint8).reshape(-1)
-                wire = torch.from_numpy(raw).to(self.device)
+            for wire in wires:
+                if n_fuse > 1:
+                    group.append(wire)
+                    if len(group) < n_fuse:
+                        continue
+                    self.state, out = self.chain.multi_step(
+                        self.state, torch.stack(group), self.params)
+                    group = []
+                else:
+                    self.state, out = self.chain.step(self.state, wire,
+                                                      self.params)
+                if pending is not None:
+                    self._drain(pending, acc)
+                pending = out
+                self.block_index += n_fuse
+                self._maybe_checkpoint()
+                if self._stop_requested:
+                    break
+            # tail blocks that do not fill a megastep run as single steps
+            # (skipped on a stop request: they resume from the checkpoint)
+            for wire in (() if self._stop_requested else group):
                 self.state, out = self.chain.step(self.state, wire,
                                                   self.params)
                 if pending is not None:
@@ -160,8 +250,6 @@ class ScannerDriver:
                 pending = out
                 self.block_index += 1
                 self._maybe_checkpoint()
-                if self._stop_requested:
-                    break
             if pending is not None:
                 self._drain(pending, acc)
         except KeyboardInterrupt:

@@ -152,7 +152,7 @@ def check_kernel_layout(state: ScannerState) -> None:
     """Raise ValueError if ``state`` carries the JAX op engine's layout (a
     non-zero FIR history of OP_ENGINE_HISTORIES): the port's chains would
     read its audio path wrongly, so such a checkpoint is refused, never
-    reinterpreted (ROADMAP queue 1 item 7 ports that engine)."""
+    reinterpreted (ROADMAP queue 1: the JAX op engines)."""
     for name in OP_ENGINE_HISTORIES:
         v = getattr(state, name)
         if v is not None and bool(torch.any(v != 0)):

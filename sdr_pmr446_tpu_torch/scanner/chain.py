@@ -77,6 +77,7 @@ from sdr_pmr446_tpu_torch.kernels.resample_kernel import Resampler
 from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
 from sdr_pmr446_tpu_torch.ops import decode, iir, spectrogram
 from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums, subchunk_rssi
+from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import ScannerState, init_scanner_state
 from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_ctcss_scan_v3,
                                               fsm_phase_a, fsm_phase_c,
@@ -170,6 +171,7 @@ class ScannerChain(nn.Module):
                    if self.waterfall else None)
         deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
         self.deemph_hist_len = deemph.shape[0] - 1
+        self.megastep = fuse.fused_steps(self.step)
 
     def init_state(self) -> ScannerState:
         return init_scanner_state(self.resamp_hist_len, self.pfb_hist_len,
@@ -285,6 +287,14 @@ class ScannerChain(nn.Module):
             ev_ct_changed=fo.ev_ct_changed, ev_ct_lost=fo.ev_ct_lost,
             waterfall=wf)
         return new_state, outputs
+
+    def multi_step(self, state: ScannerState, wires: torch.Tensor,
+                   params: RuntimeParams):
+        """S blocks in one dispatch (runtime/fuse.py): ``wires`` uint8 [S,
+        step_arg_len] on the device.  Returns (state', StepOutputs) with
+        every output leaf [S*K, ...], in order equal to S step() calls
+        (bit for bit: a CUDA graph of those steps, on the CPU the loop)."""
+        return self.megastep(state, wires, params)
 
 
 def outputs_to_numpy(out: StepOutputs) -> dict:

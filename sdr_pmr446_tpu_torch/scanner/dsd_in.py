@@ -27,6 +27,7 @@ from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.ops import decode
+from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.taps import design as D
 
 DSD_AUDIO_RATE = 48_000
@@ -79,6 +80,7 @@ class DsdInChain:
         self.mono = mono
         self.engine = (MonoChain if mono else TwoKernelChain)(
             "dsd", self.input_format, device=self.device)
+        self.megastep = fuse.fused_steps(self.step)
 
     @property
     def step_arg_len(self) -> int:
@@ -97,3 +99,9 @@ class DsdInChain:
         # the JAX chain's astype(jnp.int16) does
         return (DsdState(o.dc_x, o.dc_y, o.front_hist, o.band_hist,
                          o.sig_prev, o.demod_hist), o.out.to(torch.int16))
+
+    def multi_step(self, state: DsdState, wires: torch.Tensor):
+        """S blocks in one dispatch (runtime/fuse.py): ``wires`` uint8 [S,
+        step_arg_len]; the pcm comes back [S * output_len], equal to S
+        step() calls bit for bit."""
+        return self.megastep(state, wires)

@@ -42,6 +42,7 @@ from sdr_pmr446_tpu_torch.ops import fir, fm, iir
 from sdr_pmr446_tpu_torch.ops.pfb import PFBChannelizer
 from sdr_pmr446_tpu_torch.ops.resample import PolyResampler
 from sdr_pmr446_tpu_torch.ops.rssi import subchunk_rssi
+from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.scanner.chain import RuntimeParams
 from sdr_pmr446_tpu_torch.scanner.fsm import (_pick, ctcss_detect,
                                               ctcss_subchunk_sums,
@@ -110,6 +111,7 @@ class FaithfulScannerChain(nn.Module):
         self.register_buffer("lp_flip", flip(D.audio_lp_taps()))
         b, a = D.deemph_iir_coeffs()
         self.de_coeffs = (float(b[0]), float(b[1]), float(a[1]))
+        self.megastep = fuse.fused_steps(self.step)
 
     @property
     def input_len(self) -> int:
@@ -169,10 +171,13 @@ class FaithfulScannerChain(nn.Module):
             frame_parity=parity, rssi=outs.rel_rssi[-1], **carry)
         return new_state, outs
 
-    def multi_step(self, state, iqs, params):
-        raise NotImplementedError(
-            "FaithfulScannerChain.multi_step: not yet ported (ROADMAP queue "
-            "1 item 2, multi-block dispatch)")
+    def multi_step(self, state: FaithfulState, iqs: torch.Tensor,
+                   params: RuntimeParams):
+        """S blocks in one dispatch (runtime/fuse.py): ``iqs`` complex64
+        [S, input_len]; outputs [S*K, ...], equal to S step() calls bit
+        for bit (a CUDA graph of the steps' many small ops, on the CPU the
+        loop)."""
+        return self.megastep(state, iqs, params)
 
 
 def faithful_scan(state: FaithfulState, rssi_k: torch.Tensor,

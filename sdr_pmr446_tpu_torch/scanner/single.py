@@ -30,6 +30,7 @@ from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.ops import decode
+from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.taps import design as D
 
 
@@ -75,6 +76,7 @@ class SingleChannelChain:
         self.engine = (MonoChain if mono else TwoKernelChain)(
             "single", self.input_format, channel=channel,
             audio_gain=audio_gain, device=self.device)
+        self.megastep = fuse.fused_steps(self.step)
 
     @property
     def step_arg_len(self) -> int:
@@ -93,3 +95,9 @@ class SingleChannelChain:
         o = self.engine(wire, *state[:-1], n0=state.n0)
         return (SingleState(o.dc_x, o.dc_y, o.front_hist, o.band_hist,
                             o.sig_prev, o.demod_hist, o.n0), o.out)
+
+    def multi_step(self, state: SingleState, wires: torch.Tensor):
+        """S blocks in one dispatch (runtime/fuse.py): ``wires`` uint8 [S,
+        step_arg_len]; the audio comes back [S * output_len], equal to S
+        step() calls bit for bit."""
+        return self.megastep(state, wires)

@@ -55,6 +55,23 @@ def test_app_matches_jax_app(capture, tmp_path):
     assert np.mean(d <= 1) >= 0.999
 
 
+@pytest.mark.parametrize("steps", ["2", "3"])
+def test_app_steps_per_dispatch_writes_the_same_pcm(steps, capture,
+                                                    tmp_path):
+    """--steps-per-dispatch S over the 3 blocks (a megastep and a 1-block
+    tail at S = 2, one megastep at S = 3) writes the S = 1 run's PCM byte
+    for byte."""
+    from sdr_pmr446_tpu_torch.apps import dsd_in as app
+    outs = []
+    for s in ("1", steps):
+        outs.append(tmp_path / f"s{s}.raw")
+        assert app.main(["--input", str(capture), "--subchunks-per-step",
+                         str(K), "--steps-per-dispatch", s, "--device",
+                         "cpu", "--output", str(outs[-1])]) == 0
+    assert outs[0].stat().st_size == 3 * K * C.SUBCHUNK_IN * 3 // 64 * 2
+    assert outs[0].read_bytes() == outs[1].read_bytes()
+
+
 def test_app_device_decode_is_accepted(capture, tmp_path):
     """--device-decode does nothing in the port (the wire is always decoded
     on the device): the output is byte-identical."""
@@ -69,7 +86,6 @@ def test_app_device_decode_is_accepted(capture, tmp_path):
 
 @pytest.mark.parametrize("argv,rc", [
     (["--input", "rtl_tcp://localhost:1234"], 2),
-    (["--steps-per-dispatch", "3"], 2),
     (["--device", "meta"], 1),
     ([], 1),
 ])

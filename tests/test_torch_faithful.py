@@ -12,8 +12,9 @@ port's at K = 5 (CPU, plain ops), computed once per module:
   - the lowpass variant (channel 5 alone): the same gates; audio is gated
     on the active sub-chunks only, as JAX does (a noise-only sub-chunk's
     audio is f32 rounding through atan2);
-  - the state's shapes, multi_step raises "not yet ported", and
-    dc_blocker_apply's chunk= changes only f32 rounding;
+  - the state's shapes, multi_step equal to its steps bit for bit (the
+    loop on the CPU), and dc_blocker_apply's chunk= changes only f32
+    rounding;
   - ``cuda``: on the card a step reads nothing back to the host (torch's
     sync debug mode) and the decisions equal the CPU run's;
   - the CLI's --faithful equals the chain on the same capture, and with
@@ -135,8 +136,19 @@ def test_faithful_step_shapes_and_unported_multi_step():
     assert out.audio.shape == (2, TC.SUBCHUNK_AUDIO)
     assert st.hp_hist.shape == (TC.HP_AUDIO_FILT_TAPS - 1,)
     assert st.resamp_hist.shape == (345,) and st.lp_hist.shape == (102,)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        chain.multi_step(st, None, params)
+    iqs = torch.from_numpy(synth.make_scanner_iq(
+        2 * chain.input_len, channel=5, start_sample=chain.input_len
+    ).astype(np.complex64)).reshape(2, -1)
+    st_a, outs = st, []
+    for x in iqs:
+        st_a, o = chain.step(st_a, x, params)
+        outs.append(o)
+    st_b, fused = chain.multi_step(st, iqs, params)
+    for f, got in zip(fused._fields, fused):
+        assert torch.equal(got, torch.cat([getattr(o, f) for o in outs])), f
+    assert fused.audio.shape == (4, TC.SUBCHUNK_AUDIO)
+    for f, a, b in zip(st_a._fields, st_a, st_b):
+        assert torch.equal(a, b), f
     with pytest.raises(ValueError, match="complex64"):
         chain.step(st, torch.from_numpy(iq[:-16]), params)
 

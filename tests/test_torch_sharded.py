@@ -368,12 +368,14 @@ def test_constructors_reject_what_is_not_ported():
         ShardedScannerChain(mesh, C.BlockConfig(8), waterfall=64,
                             device="cpu")
     chain = ShardedScannerChain(mesh, C.BlockConfig(4), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        chain.multi_step(chain.init_state(), None, None)
+    wire = torch.full((2, 1, chain.step_arg_len), 127, dtype=torch.uint8)
+    _, out = chain.multi_step(chain.init_state(), wire,
+                              make_runtime_params(C.ScannerArgs(), "cpu"))
+    assert out.active_chan.shape == (1, 8)           # multi_step now runs
     for cls, args in ((ShardedDsdInChain, ()), (ShardedSingleChain, (5,))):
         with pytest.raises(ValueError, match="divide"):
             cls(mesh, *args, 6, device="cpu")
-        with pytest.raises(ValueError, match="queue 1 item 7"):
+        with pytest.raises(ValueError, match="queue 1: the JAX op engines"):
             cls(mesh, *args, 16, device="cpu")          # K_local = 4
     with pytest.raises(ValueError, match="runs on 'cuda'"):
         ShardedScannerChain(mesh, C.BlockConfig(4), device="meta")
