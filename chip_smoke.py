@@ -176,13 +176,37 @@ on its own lines; any failure raises and ends the run:
      of a megastep and its host ms; (d) on those four, Msamples/s at S =
      1, 4 and 8 in turns (median of 3 runs, 2 for the sharded duo), with
      each graph's capture ms and memory.
+ 18. the batch server and live input: (a) apps/scan_batch.main on 8
+     synthetic captures (4 cu8, 2 cs16, 2 cf32; 4 blocks of K = 40, 15.68 s
+     of radio each) at --mesh 8,1, -w 80, --steps-per-dispatch 4, through
+     the default reader (io/native.BatchReader): each capture's events
+     equal to the unsharded ScannerChain's on the same host-decoded wire,
+     its WAV within 1e-4 and its rows (read where the CLI renders them)
+     within 2e-3 dB, capture 0 > 40 dB against the float64 oracle; (b)
+     --device-decode on the four cu8 captures at --mesh 4,5 (the duo with
+     K10's pre-pass) and 4,2 (the plane path), each against its unsharded
+     counterpart; (c) --stop-after 1 at S = 2, then --resume, every output
+     file equal to (a)'s byte for byte; the Msamples/s of capture at S =
+     1 and 4 (the default reader, and --device-decode over 12 blocks),
+     and one (8, 1) megastep profiled; (d) the sharded waterfall at (4,
+     5), w = 80, 120, 78400 and at (1, 2), K = 2, w = 78400 (a window
+     wider than a shard): rows equal to K3 over the shards' own bands
+     and within the unsharded chain's by ROW_GATES_DB (2e-3 dB within 60
+     dB of their peak, 0.5 within 80, 6 within 100), which a planted
+     carry fault fails; (e) ShardedFaithfulChain against the unsharded
+     faithful chain (JAX's scenario and gates at (2, 4), the busy
+     scenario at (2, 2) with its audio within 1e-4 of its peak, which
+     planted carry faults fail, its multi_step graph bit for bit); (f)
+     the scanner CLI over a localhost
+     rtl_tcp server against the oracle.  Launch counts == per part, the
+     graphs each run captured reported.
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
 scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
 switched engines of 12(b), each sharded path of 13, the probe tools of
 14, faithful mode in 15, the driver's runs in 16, each path and the
-driver in 17) runs with the launch counts set to 0 just before it and
-read just after.  Each
+driver in 17, each scan_batch run and sharded path in 18) runs with
+the launch counts set to 0 just before it and read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
 H100 SXM's HBM3 rate and f32 rate outside the tensor cores).  The
@@ -3646,6 +3670,716 @@ def phase_megastep(dev, sync) -> dict:
     return bench
 
 
+# ------------------------------------------------ phase 18: the batch server
+#: scan_batch's geometry in 18(a)-(c): K, blocks a capture (~15.7 s of
+#: radio), the captures' formats (the first four cu8: (b)'s), -w, S
+BATCH_K = 40
+BATCH_BLOCKS = 4
+BATCH_FORMATS = ("cu8", "cu8", "cu8", "cu8", "cs16", "cs16", "cf32", "cf32")
+BATCH_WF = 80
+BATCH_S = 4
+#: 18(d)'s ((streams, time shards), K, w): the widest width -w accepts
+#: at (4, 5), then at K_local = 1, where w/2 spans two shards' bands
+SHARDED_WF = (((4, 5), 40, 80), ((4, 5), 40, 120), ((4, 5), 40, 78400),
+              ((1, 2), 2, 78400))
+
+
+def batch_captures(d: str) -> list:
+    """The 8 captures of 18(a): capture s on STREAM_CODES[s] for
+    BATCH_BLOCKS blocks, block i turned by e^{0.37 j i} (as
+    config5_streams), quantized to BATCH_FORMATS[s]; returns the paths."""
+    import os
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import synth
+    from sdr_pmr446_tpu_torch.ops import decode
+    n = BATCH_K * C.SUBCHUNK_IN
+    paths = []
+    for s, fmt in enumerate(BATCH_FORMATS):
+        ch, code = STREAM_CODES[s]
+        iq = synth.make_scanner_iq(n, channel=ch, ctcss_code=code,
+                                   seed=200 + s)
+        paths.append(os.path.join(d, f"cap{s}.{fmt}"))
+        with open(paths[-1], "wb") as f:
+            for i in range(BATCH_BLOCKS):
+                f.write(decode.quantize_iq(iq * np.exp(0.37j * i),
+                                           fmt).tobytes())
+    return paths
+
+
+def batch_reference(dev, paths, w: int, **switches) -> list:
+    """Each capture through the unsharded ScannerChain (with ``switches``)
+    on the card (the host decode's cf32 wire, io/native.convert_iq, as
+    scan_batch's default reader gives it): per capture (event lines in
+    scan_batch's format, the valid audio, the waterfall rows)."""
+    import os
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.apps import scan_batch
+    from sdr_pmr446_tpu_torch.io import native
+    from sdr_pmr446_tpu_torch.ops import decode
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params,
+                                                    outputs_to_numpy)
+    chain = ScannerChain(C.BlockConfig(BATCH_K), input_format="cf32",
+                         device=dev, waterfall=w, **switches)
+    params = make_runtime_params(C.ScannerArgs(), dev)
+    refs = []
+    for path in paths:
+        fmt = os.path.splitext(path)[1][1:]
+        x = native.convert_iq(np.fromfile(path, decode.WIRE_DTYPE[fmt]),
+                              fmt)
+        wire = torch.from_numpy(x.view(np.uint8)).to(dev)
+        st, events, audio, rows, sub = chain.init_state(), [], [], [], 0
+        for blk in wire.reshape(-1, chain.step_arg_len):
+            st, o = chain.step(st, blk, params)
+            h = outputs_to_numpy(o)
+            one = {f: v[None] for f, v in h.items()}
+            for i in range(len(h["active_chan"])):
+                events += scan_batch._event_lines(one, 0, i, sub + i)
+            sub += len(h["active_chan"])
+            audio.append(h["audio"][h["audio_valid"]].reshape(-1))
+            rows.append(h["waterfall"])
+        refs.append((events, np.concatenate(audio), np.concatenate(rows)))
+    return refs
+
+
+def run_scan_batch(dev, argv: list):
+    """scan_batch.main(argv) on ``dev`` with every launch count set to 0
+    just before it; returns (the launches it made, the numeric rows it
+    rendered, in order, the run's stats)."""
+    from sdr_pmr446_tpu_torch.apps import scan_batch
+    from sdr_pmr446_tpu_torch.ui import waterfall as wf_ui
+    render = wf_ui.render_waterfall_line
+    rows, stats = [], {}
+
+    def recording(row, rel):
+        rows.append(np.array(row))
+        return render(row, rel)
+
+    wf_ui.render_waterfall_line = recording
+    reset_launches()
+    try:
+        rc = scan_batch.main(argv + ["--device", str(dev)], stats)
+    finally:
+        wf_ui.render_waterfall_line = render
+    check(rc == 0, f"scan_batch {' '.join(argv[-8:])} exited {rc}")
+    return launches_now(), rows, stats
+
+
+def check_batch_outputs(outd, stems, refs, rows, what: str) -> str:
+    """Each capture's events log equal to the unsharded chain's, its WAV
+    within 1e-4 of its audio and its rendered rows within TOL_WF_DB dB of
+    its rows (JAX's sharded gates, tests/test_sharding.py:494-513)."""
+    import os
+    from sdr_pmr446_tpu_torch.io import wav
+    n_rows = len(rows) // max(1, len(stems))
+    audio_err = row_err = 0.0
+    for s, (stem, (events, audio, ref_rows)) in enumerate(zip(stems, refs)):
+        got_ev = open(os.path.join(outd, f"{stem}.events.log")).read()
+        check(got_ev.splitlines() == events, f"{what} {stem}: events "
+              f"{got_ev.splitlines()} vs {events}")
+        a, _ = wav.read_wav(os.path.join(outd, f"{stem}.wav"))
+        check(len(a) == len(audio), f"{what} {stem}: {len(a)} audio "
+              f"samples, wanted {len(audio)}")
+        audio_err = max(audio_err, float(np.max(np.abs(a - audio))))
+        if rows:
+            got = np.stack(rows[s * n_rows:(s + 1) * n_rows])
+            check(got.shape == ref_rows.shape, f"{what} {stem} rows "
+                  f"{got.shape} vs {ref_rows.shape}")
+            row_err = max(row_err, float(np.max(np.abs(got - ref_rows))))
+            lines = open(os.path.join(outd, f"{stem}.waterfall.log")).read()
+            check(len(lines.splitlines()) == len(ref_rows),
+                  f"{what} {stem}: waterfall log lines")
+    check(audio_err < 1e-4, f"{what}: audio max|diff| {audio_err:.3g}")
+    check(row_err < TOL_WF_DB, f"{what}: rows max|diff| {row_err:.3g} dB")
+    return (f"events == the unsharded chain's, audio max|diff| "
+            f"{audio_err:.3g}, rows max|diff| {row_err:.3g} dB")
+
+
+def check_counts(got: dict, want: dict, what: str) -> None:
+    """Each named launch count == its wanted value; every other kernel 0."""
+    for name, n in got.items():
+        check(n == want.get(name, 0), f"{what}: {name} launched {n} times, "
+              f"wanted {want.get(name, 0)}")
+
+
+class FakeRtlTcp:
+    """A localhost rtl_tcp server: the 12-byte header, the client's four
+    tuning commands read, ``payload`` (cu8 bytes), then a clean close."""
+
+    def __init__(self, payload: bytes):
+        import socket
+        import threading
+        self.payload, self.commands = payload, []
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.port = self.sock.getsockname()[1]
+        self.thread = threading.Thread(target=self.serve, daemon=True)
+        self.thread.start()
+
+    def serve(self):
+        import socket
+        import struct
+        conn, _ = self.sock.accept()
+        try:
+            conn.settimeout(30.0)
+            conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+            buf = b""
+            while len(buf) < 20:
+                chunk = conn.recv(20 - len(buf))
+                if not chunk:
+                    break
+                buf += chunk
+            self.commands = [struct.unpack(">BI", buf[i:i + 5])
+                             for i in range(0, len(buf) - 4, 5)]
+            conn.sendall(self.payload)
+            conn.shutdown(socket.SHUT_WR)
+            while conn.recv(4096):
+                pass
+        except OSError:
+            pass
+        finally:
+            conn.close()
+            self.sock.close()
+
+
+def capture_wires(dev, paths, k: int, n_blocks: int) -> list:
+    """The first ``n_blocks`` blocks of K = k of the cu8 captures
+    ``paths``, as [S, bytes] wires on the card."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    n = 2 * k * C.SUBCHUNK_IN
+    raw = np.stack([np.fromfile(p, np.uint8, count=n * n_blocks)
+                    for p in paths])
+    return [torch.as_tensor(raw[:, i * n:(i + 1) * n], device=dev)
+            for i in range(n_blocks)]
+
+
+#: 18(d)'s row gates against the unsharded chain, (depth, limit): over the
+#: bins within ``depth`` dB of their row's peak the rows differ by at most
+#: ``limit`` dB.  The chains' bands differ by the rounding of the composed
+#: DC carries, which bins read the louder the deeper they lie (at w = 78400
+#: rows span 160 dB, to the f32 floor); each limit lies between the sound
+#: runs' reading and that of a carry fault of CARRY_FAULT (PERF.md §6), and
+#: the error at every depth of ROW_DEPTHS_DB is logged
+ROW_GATES_DB = ((60.0, TOL_WF_DB), (80.0, 0.5), (100.0, 6.0))
+ROW_DEPTHS_DB = (60.0, 80.0, 100.0, 120.0, 140.0)
+#: the planted fault (carry_fault) that 18(d)'s row gates and 18(e)'s
+#: gates must catch: the DC blocker's y carried into every time shard
+#: d >= 1 off by this share; and the larger one that 18(e)'s audio gate,
+#: BUSY_AUDIO_REL of the audio's peak, must catch alone
+CARRY_FAULT = 1e-3
+AUDIO_FAULT = 1e-2
+BUSY_AUDIO_REL = 1e-4
+
+
+@contextlib.contextmanager
+def carry_fault(rel: float):
+    """Plant a fault in the sharded chains' composed DC-blocker carries:
+    the y carried into every time shard d >= 1 off by a share ``rel`` --
+    the duo's pre-pass (fused_halo.exact_dc_state) scaled, the plane and
+    faithful paths' shard_dc_blocker given rel * y_end[d-1] * p^(n+1)."""
+    import torch
+    from sdr_pmr446_tpu_torch.parallel import fused_halo, halo
+    sound_dc, sound_pre = halo.shard_dc_blocker, fused_halo.exact_dc_state
+
+    def dc(state, x, alpha):
+        st, y = sound_dc(state, x, alpha)
+        n = y.shape[-1]
+        decay = torch.as_tensor(((1.0 - alpha) ** (np.arange(n) + 1.0))
+                                .astype(np.float32), device=y.device)
+        err = torch.zeros_like(y)
+        err[:, 1:] = rel * y[:, :-1, ..., -1:] * decay
+        return st, y + err
+
+    def pre(*args):
+        x_in, y_in, *rest = sound_pre(*args)
+        return (x_in, torch.cat([y_in[:, :1], y_in[:, 1:] * (1.0 + rel)],
+                                dim=1), *rest)
+
+    halo.shard_dc_blocker, fused_halo.exact_dc_state = dc, pre
+    try:
+        yield
+    finally:
+        halo.shard_dc_blocker, fused_halo.exact_dc_state = sound_dc, sound_pre
+
+
+def row_errors(rows, want) -> dict:
+    """The largest |rows - want| (dB) over the bins within each depth of
+    ROW_DEPTHS_DB of their row's peak in ``want``, and over all bins."""
+    diff = (rows - want).abs()
+    depth = want.amax(-1, keepdim=True) - want
+    out = {d: float(diff[depth <= d].max()) for d in ROW_DEPTHS_DB}
+    out["all"] = float(diff.max())
+    return out
+
+
+def rows_held(errs: dict) -> bool:
+    """Whether row_errors' readings meet every gate of ROW_GATES_DB."""
+    return all(errs[d] < limit for d, limit in ROW_GATES_DB)
+
+
+def fmt_depths(errs: dict) -> str:
+    """row_errors' readings as one log phrase."""
+    return ", ".join(f"{d if d == 'all' else f'{d:g} dB'}: {v:.3g}"
+                     for d, v in errs.items())
+
+
+def phase_sharded_waterfall(dev, paths) -> dict:
+    """18(d): the sharded waterfall at (4, 5), K = 40, w = SHARDED_WF, on
+    18(a)'s four cu8 captures, and at (1, 2), K = 2, w = 78400 (a shard's
+    band, 19,600 samples, shorter than the w/2 history: it reaches back
+    over both neighbours and the carry), each over two blocks: (1) the
+    halos and hop counters: the rows equal, within TOL_WF_DB in every bin,
+    K3 run once over each stream's bands as the shards got them,
+    concatenated; (2) against the unsharded chain per stream: decisions
+    exact, rows within ROW_GATES_DB (the largest difference at each depth
+    logged), and the same run with carry_fault(CARRY_FAULT) failing those
+    gates; K3 and the path's kernels S x D a step, K10 one
+    (SHARDED_WF)."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    params = make_runtime_params(C.ScannerArgs(), dev)
+    counts = {}
+    for (n_s, n_t), k, w in SHARDED_WF:
+        wires = capture_wires(dev, paths[:n_s], k, 2)
+        chain = ShardedScannerChain(make_mesh(n_s, n_t, dev),
+                                    C.BlockConfig(k), waterfall=w,
+                                    device=dev)
+        k3, bands = chain.wf, []
+
+        class Recording:
+            """K3, keeping each shard's band (in call order: step,
+            stream, shard)."""
+            wl = k3.wl
+
+            def __call__(self, band, hist, cnt):
+                bands.append(band)
+                return k3(band, hist, cnt)
+
+        chain.wf = Recording()
+        reset_launches()
+        _, got = run_sharded(chain, wires, params)
+        got_l = launches_now()
+        rows = torch.cat([o.waterfall for o in got], dim=1)   # [S, 2K, w]
+        per = [bands[i::n_s * n_t] for i in range(n_s * n_t)]
+        halo_err = 0.0
+        for s in range(n_s):
+            seq = torch.cat([b for step in zip(*per[s * n_t:(s + 1) * n_t])
+                             for b in step], dim=1)
+            one = Waterfall(w, device=dev)(
+                seq, torch.zeros(w // 2, dtype=torch.complex64, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+            halo_err = max(halo_err, float((rows[s] - one.rows).abs().max()))
+        check(halo_err < TOL_WF_DB, f"(d) ({n_s}, {n_t}) w={w}: rows vs K3 "
+              f"over the shards' bands {halo_err:.3g} dB")
+        ref = run_streams([ScannerChain(C.BlockConfig(k), device=dev,
+                                        waterfall=w) for _ in range(n_s)],
+                          wires, params)
+        summary = check_sharded(got, ref, f"(d) ({n_s}, {n_t}) w={w}")
+        want_rows = torch.cat([r.waterfall for r in ref], dim=1)
+        errs = row_errors(rows, want_rows)
+        check(rows_held(errs), f"(d) ({n_s}, {n_t}) w={w}: rows by depth "
+              f"{fmt_depths(errs)}, gates {ROW_GATES_DB}")
+        with carry_fault(CARRY_FAULT):
+            _, bad = run_sharded(chain, wires, params)
+        bad_errs = row_errors(torch.cat([o.waterfall for o in bad], dim=1),
+                              want_rows)
+        check(not rows_held(bad_errs), f"(d) ({n_s}, {n_t}) w={w}: a carry "
+              f"fault of {CARRY_FAULT:g} passed the row gates "
+              f"({fmt_depths(bad_errs)})")
+        want = n_s * n_t * len(wires)
+        if chain.fused_duo:
+            per_path = {"duo": want, "audio_bank": want}
+            if n_t > 1:
+                per_path["summary"] = len(wires)      # K10: one a step
+        else:                                         # K_local % 8 != 0
+            per_path = {"resample_kernel": want, "pfb_demod": want,
+                        "audio_bank.APPLY_LAUNCHES": want}
+        check_counts(got_l, {**per_path, "waterfall": want},
+                     f"(d) ({n_s}, {n_t}) w={w}")
+        counts[f"({n_s},{n_t}) w={w}"] = got_l["waterfall"]
+        log(f"  (d) ({n_s}, {n_t}) K={k} w={w} (w/2 = {w // 2}, a shard's "
+            f"band {k // n_t * C.SUBCHUNK_RESAMP}): rows vs K3 over the "
+            f"shards' bands {halo_err:.3g} dB; vs the unsharded chain by "
+            f"depth below the row's peak {fmt_depths(errs)} (rows from "
+            f"{float((want_rows - want_rows.amax(-1, keepdim=True)).min()):.1f}"
+            f" dB; gates {ROW_GATES_DB}); a carry fault of "
+            f"{CARRY_FAULT:g}: {fmt_depths(bad_errs)}; {summary}; launches "
+            f"{ {n: v for n, v in got_l.items() if v} }")
+    return counts
+
+
+def faithful_pair(dev, mesh, k: int, streams: np.ndarray):
+    """ShardedFaithfulChain on ``mesh`` and the unsharded faithful chain
+    per stream over ``streams`` (c64 [S, n]) in blocks of K = k, lock_mode
+    max: (the sharded chain, its blocks on the card, its state and
+    outputs, the first decision that differs or None, the largest
+    rel_rssi and audio differences, the audio's peak)."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.parallel.faithful_sharded import (
+        ShardedFaithfulChain)
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import make_mesh
+    from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
+    from sdr_pmr446_tpu_torch.scanner.faithful import FaithfulScannerChain
+    n = k * C.SUBCHUNK_IN
+    blocks = [torch.from_numpy(streams[:, i * n:(i + 1) * n].copy()).to(dev)
+              for i in range(streams.shape[1] // n)]
+    params = make_runtime_params(C.ScannerArgs(lock_mode="max"), dev)
+    chain = ShardedFaithfulChain(make_mesh(*mesh, dev), k, device=dev)
+    st, got = run_sharded(chain, blocks, params)
+    ref = FaithfulScannerChain(k, device=dev)
+    differs, rel, audio, peak = None, 0.0, 0.0, 0.0
+    for s in range(len(streams)):
+        rs = ref.init_state()
+        for i, blk in enumerate(blocks):
+            rs, o = ref.step(rs, blk[s], params)
+            for f in ("active_chan", "audio_valid", "ct_detected",
+                      "ct_max_idx"):
+                if differs is None and not torch.equal(
+                        getattr(got[i], f)[s], getattr(o, f)):
+                    differs = f"{mesh} stream {s} block {i} {f}"
+            rel = max(rel, float((got[i].rel_rssi[s] - o.rel_rssi).abs()
+                                 .max()))
+            audio = max(audio, float((got[i].audio[s] - o.audio).abs()
+                                     .max()))
+            peak = max(peak, float(o.audio.abs().max()))
+    return chain, blocks, params, st, got, differs, rel, audio, peak
+
+
+def faithful_reading(differs, rel: float, audio: float, peak: float) -> str:
+    """faithful_pair's readings as one log phrase."""
+    return (f"decisions {'differ at ' + differs if differs else 'exact'}, "
+            f"rel_rssi max|diff| {rel:.3g} dB, audio max|diff| {audio:.3g} "
+            f"(peak {peak:.3g}, {audio / peak:.3g} of it)")
+
+
+def phase_faithful_sharded(dev, sync) -> None:
+    """18(e): ShardedFaithfulChain against the unsharded faithful chain per
+    stream: (1) tests/test_sharding.py:323's scenario and geometry, a
+    transmission on channel 5 with CTCSS 12 for two blocks, then receiver
+    noise, at (1, 4), K = 4, two streams (the second a block behind), with
+    JAX's gates (decisions exact, rel_rssi within 5e-3 dB, audio within
+    1e-4); (2) the busy scenario (a lock_mode max switch between two
+    channels, a detune, a retune) at (2, 2), K = 10: decisions exact,
+    rel_rssi within 5e-3 dB, audio within BUSY_AUDIO_REL of its peak (the
+    gated discriminator and IIRs carry the composed DC carries' rounding;
+    JAX gates no such scenario), the same run with
+    carry_fault(CARRY_FAULT) failing those gates and with
+    carry_fault(AUDIO_FAULT) failing the audio gate; its multi_step over the 6
+    blocks (a CUDA graph) equal to the steps bit for bit; no kernel
+    launched."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import synth
+    from sdr_pmr446_tpu_torch.runtime import fuse
+    reset_launches()
+    step = 4 * C.SUBCHUNK_IN
+    sig = synth.make_scanner_iq(2 * step, channel=5, ctcss_code=12)
+    rng = np.random.default_rng(2)
+    iq = np.concatenate([sig, 1e-3 * (rng.standard_normal(step)
+                                      + 1j * rng.standard_normal(step))])
+    iq = iq.astype(np.complex64)
+    two = np.stack([iq, np.concatenate([np.zeros(step, np.complex64),
+                                        iq[:-step]])])
+    *_, differs, rel, audio, peak = faithful_pair(dev, (2, 4), 4, two)
+    check(differs is None and rel <= 5e-3 and audio < 1e-4, f"(e) JAX's "
+          f"scenario: {faithful_reading(differs, rel, audio, peak)}")
+    log(f"  (e) ShardedFaithfulChain (2, 4) K=4 on tests/test_sharding.py"
+        f":323's scenario: {faithful_reading(differs, rel, audio, peak)} "
+        f"(JAX's gates: audio < 1e-4)")
+    k = 10
+    busy = busy_scenario().astype(np.complex64)
+    n = k * C.SUBCHUNK_IN
+    streams = np.stack([busy, np.concatenate([np.zeros(n, np.complex64),
+                                              busy[:-n]])])
+
+    def held(differs, rel, audio, peak) -> bool:
+        return (differs is None and rel <= 5e-3
+                and audio <= BUSY_AUDIO_REL * peak)
+
+    chain, blocks, params, st, got, *sound = faithful_pair(
+        dev, (2, 2), k, streams)
+    check(held(*sound), f"(e) busy scenario: {faithful_reading(*sound)}")
+    st_m, o_m = chain.multi_step(chain.init_state(), torch.stack(blocks),
+                                 params)
+    check_bits(st_m, st, "(e) multi_step state")
+    check_bits(o_m, fuse._concat(got, 1), "(e) multi_step outputs")
+    counts = {n_: v for n_, v in launches_now().items() if v}
+    check(not counts, f"(e) faithful mode launched kernels: {counts}")
+    faults = []
+    for rel_f, audio_only in ((CARRY_FAULT, False), (AUDIO_FAULT, True)):
+        with carry_fault(rel_f):
+            *_, differs, rel, audio, peak = faithful_pair(dev, (2, 2), k,
+                                                          streams)
+        faults.append(f"a carry fault of {rel_f:g}: "
+                      f"{faithful_reading(differs, rel, audio, peak)}")
+        caught = (audio > BUSY_AUDIO_REL * peak if audio_only
+                  else not held(differs, rel, audio, peak))
+        check(caught, f"(e) {faults[-1]} passed the busy scenario's "
+              f"{'audio gate' if audio_only else 'gates'}")
+    log(f"  (e) ShardedFaithfulChain (2, 2) K={k}, {len(blocks)} blocks of "
+        f"the busy scenario: {faithful_reading(*sound)} (gates: decisions "
+        f"exact, rel_rssi <= 5e-3 dB, audio <= {BUSY_AUDIO_REL:g} of the "
+        f"peak); {'; '.join(faults)}; multi_step == the steps bit for bit "
+        f"({len(chain.megastep.graphs)} graph); no kernel launched")
+
+
+def phase_rtl_tcp(dev) -> None:
+    """18(f): the scanner CLI (--device cuda) over rtl_tcp://127.0.0.1 on
+    phase 3's 30-sub-chunk cu8 capture at K = 10: tune and CTCSS events,
+    the tuning commands, audio SNR > 40 dB against the float64 oracle, K1
+    and K2 one launch a block."""
+    import logging
+    import os
+    import tempfile
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.apps import sdr_pmr446 as app
+    from sdr_pmr446_tpu_torch.io import wav
+    raw, trace, audio = oracle_capture(30)
+    srv = FakeRtlTcp(raw.tobytes())
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines()
+    logging.getLogger("sdr_pmr446").addHandler(handler)
+    reset_launches()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "live.wav")
+            rc = app.main(["--input", f"rtl_tcp://127.0.0.1:{srv.port}",
+                           "--output", out, "--subchunks-per-step", "10",
+                           "--seconds", str(len(raw) // 2
+                                            / C.SDR_SAMPLERATE),
+                           "--device", str(dev)])
+            got = wav.read_wav(out)[0] if rc == 0 else None
+    finally:
+        logging.getLogger("sdr_pmr446").removeHandler(handler)
+    srv.thread.join(timeout=30)
+    counts = launches_now()
+    check(rc == 0, f"(f) the rtl_tcp scan exited {rc}")
+    check(srv.commands[:2] == [(0x02, C.SDR_SAMPLERATE),
+                               (0x01, int(C.SDR_FREQUENCY))],
+          f"(f) tuning commands {srv.commands}")
+    events = [m for m in lines if m.startswith(("Tuned", "Acquired"))]
+    check(any(e.startswith("Tuned to channel 5") for e in events)
+          and any(e.startswith("Acquired CTCSS code: 12") for e in events),
+          f"(f) events {events}")
+    snr = snr_db(audio[2:].ravel(), got.reshape(-1, NS)[2:].ravel())
+    check(snr > 40.0, f"(f) audio SNR {snr:.1f} dB vs the oracle")
+    check_counts(counts, {"duo": 3, "audio_bank": 3}, "(f)")
+    log(f"  (f) the scanner CLI over rtl_tcp://127.0.0.1:{srv.port} (cu8, "
+        f"30 sub-chunks, K=10): events {events}, audio SNR {snr:.1f} dB vs "
+        f"the oracle, launches {counts['duo']} K1 / {counts['audio_bank']} "
+        f"K2")
+
+
+def phase_batch(dev, sync) -> dict:
+    """Phase 18: the batch server (apps/scan_batch.py), the sharded
+    waterfall, the sharded faithful chain and live input, on the card.
+    Returns the timings for the bench record."""
+    import os
+    import tempfile
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.apps import scan_batch
+    t0 = time.perf_counter()
+    bench = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = batch_captures(tmp)
+        stems = scan_batch.unique_stems(paths)
+        refs = batch_reference(dev, paths, BATCH_WF)
+        # the plane path's unsharded counterpart (its resampler K9)
+        refs_plane = batch_reference(dev, paths[:4], BATCH_WF, fuse_dc=False)
+        t_a = time.perf_counter()
+        steps = BATCH_BLOCKS
+        base = ["--subchunks-per-step", str(BATCH_K), "-w", str(BATCH_WF)]
+        outd = os.path.join(tmp, "a")
+        got_l, rows, run = run_scan_batch(dev, paths + base + [
+            "--mesh", "8,1", "--steps-per-dispatch", str(BATCH_S),
+            "--out-dir", outd])
+        summary = check_batch_outputs(outd, stems, refs, rows, "(a)")
+        n8 = len(paths) * steps
+        check_counts(got_l, {"duo": n8, "audio_bank": n8, "waterfall": n8},
+                     "(a)")
+        check(run["graphs"] == 1, f"(a) {run['graphs']} graphs captured")
+        log(f"  (a) scan_batch, 8 captures ({', '.join(BATCH_FORMATS)}; "
+            f"{BATCH_BLOCKS} blocks of K={BATCH_K}, "
+            f"{BATCH_BLOCKS * BATCH_K * C.SUBCHUNK_IN / C.SDR_SAMPLERATE:.2f}"
+            f" s of radio each), --mesh 8,1, S={BATCH_S}, -w {BATCH_WF}, "
+            f"reader {run['reader']}, {run['engine']}: {summary}; launches "
+            f"{ {n: v for n, v in got_l.items() if v} }; graphs "
+            f"{run['graphs']}; {run['wall_s']:.3f} s")
+        # capture 0 (cu8, channel 5 CTCSS 12) against the float64 oracle
+        from sdr_pmr446_tpu_torch.io import native, wav
+        from sdr_pmr446_tpu_torch.oracle.chain import ScannerOracle
+        x = native.convert_iq(np.fromfile(paths[0], np.uint8), "cu8")
+        ora = ScannerOracle()
+        ora.process(x[:BATCH_K * C.SUBCHUNK_IN].astype(np.complex128))
+        a0, _ = wav.read_wav(os.path.join(outd, f"{stems[0]}.wav"))
+        want = np.stack(ora.audio)[2:]
+        snr = snr_db(want.ravel(), a0.reshape(-1, NS)[2:len(ora.audio)]
+                     .ravel())
+        check(snr > 40.0, f"(a) capture 0 vs the oracle: {snr:.1f} dB")
+        log(f"  (a) capture 0's first block vs the float64 oracle: audio "
+            f"SNR {snr:.1f} dB")
+
+        t_b = time.perf_counter()
+        for mesh, kind in (("4,5", "K10 pre-pass"), ("4,2", "plane path")):
+            outd = os.path.join(tmp, f"b{mesh[-1]}")
+            got_l, rows, run = run_scan_batch(dev, paths[:4] + base + [
+                "--mesh", mesh, "--device-decode", "--steps-per-dispatch",
+                str(BATCH_S), "--out-dir", outd])
+            summary = check_batch_outputs(
+                outd, stems[:4], refs[:4] if mesh == "4,5" else refs_plane,
+                rows, f"(b) {mesh}")
+            d = int(mesh[-1])
+            n4 = 4 * d * steps
+            want = ({"duo": n4, "audio_bank": n4, "summary": steps}
+                    if d == 5 else {"resample_kernel": n4, "pfb_demod": n4,
+                                    "audio_bank.APPLY_LAUNCHES": n4})
+            check_counts(got_l, {**want, "waterfall": n4}, f"(b) {mesh}")
+            check(run["graphs"] == 1, f"(b) {run['graphs']} graphs")
+            log(f"  (b) --device-decode cu8, --mesh {mesh} ({kind}, "
+                f"{run['engine']}): {summary}; launches "
+                f"{ {n: v for n, v in got_l.items() if v} }; graphs "
+                f"{run['graphs']}")
+
+        t_c = time.perf_counter()
+        ckpt = os.path.join(tmp, "ck.npz")
+        outs = [os.path.join(tmp, f"c{i}") for i in range(2)]
+        part = paths + base + ["--mesh", "8,1", "--steps-per-dispatch", "2",
+                               "--checkpoint", ckpt]
+        l1, _, r1 = run_scan_batch(dev, part + ["--stop-after", "1",
+                                                "--out-dir", outs[0]])
+        l2, _, r2 = run_scan_batch(dev, part + ["--resume", "--out-dir",
+                                                outs[1]])
+        for stem in stems:
+            for ext in ("wav", "events.log", "waterfall.log"):
+                got = open(os.path.join(outs[1], f"{stem}.{ext}"),
+                           "rb").read()
+                want = open(os.path.join(tmp, "a", f"{stem}.{ext}"),
+                            "rb").read()
+                check(got == want, f"(c) resumed {stem}.{ext} differs")
+        for counts, run, done in ((l1, r1, 2), (l2, r2, 4)):
+            check(run["blocks"] == done, f"(c) {run['blocks']} blocks done "
+                  f"after a part, wanted {done}")
+            check_counts(counts, {"duo": 16, "audio_bank": 16,
+                                  "waterfall": 16}, "(c)")
+        log(f"  (c) --stop-after 1 at S=2 (2 blocks, graphs "
+            f"{r1['graphs']}), then --resume (2 blocks, graphs "
+            f"{r2['graphs']}): every WAV, events and waterfall log == (a)'s "
+            f"byte for byte")
+
+        t_g = time.perf_counter()
+        bench.update(batch_rates(dev, tmp, paths))
+        t_p = time.perf_counter()
+        bench["scan_batch_megastep"] = profile_batch_megastep(dev, sync,
+                                                              paths)
+        t_d = time.perf_counter()
+        bench["sharded_wf_k3_launches"] = phase_sharded_waterfall(dev,
+                                                                  paths)
+    t_e = time.perf_counter()
+    phase_faithful_sharded(dev, sync)
+    t_f = time.perf_counter()
+    phase_rtl_tcp(dev)
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s (captures and "
+        f"references {t_a - t0:.1f}, (a) {t_b - t_a:.1f}, (b) "
+        f"{t_c - t_b:.1f}, (c) {t_g - t_c:.1f}, rates {t_p - t_g:.1f}, "
+        f"profile {t_d - t_p:.1f}, (d) {t_e - t_d:.1f}, (e) "
+        f"{t_f - t_e:.1f}, (f) {time.perf_counter() - t_f:.1f})")
+    return bench
+
+
+def batch_rates(dev, tmp: str, paths) -> dict:
+    """scan_batch's Msamples/s of capture (samples over the run's wall,
+    readers, uploads, drains and any graph capture inside) at S = 1 and
+    BATCH_S, --mesh 8,1, no -w: (1) 18(a)'s 8 captures through the default
+    reader (host conversion, the cf32 wire); (2) 8 cu8 captures of 3 x
+    BATCH_BLOCKS blocks (18(a)'s four, each written three times, twice
+    over) with --device-decode, where the run outlasts its first group."""
+    import os
+    tiled = []
+    for s in range(8):
+        tiled.append(os.path.join(tmp, f"tiled{s}.cu8"))
+        data = open(paths[s % 4], "rb").read()
+        with open(tiled[-1], "wb") as f:
+            f.write(data * 3)
+    bench = {}
+    for name, caps, extra in (("default", paths, []),
+                              ("device_decode", tiled, ["--device-decode"])):
+        for s_disp in (1, BATCH_S):
+            _, _, run = run_scan_batch(dev, caps + extra + [
+                "--subchunks-per-step", str(BATCH_K), "--mesh", "8,1",
+                "--steps-per-dispatch", str(s_disp), "--out-dir",
+                os.path.join(tmp, f"rate_{name}_{s_disp}")])
+            msps = run["samples"] / run["wall_s"] / 1e6
+            rest = (run["samples"] * (1 - s_disp / run["blocks"])
+                    / max(run["wall_s"] - run["first_s"], 1e-9) / 1e6
+                    if s_disp < run["blocks"] else None)
+            bench[f"scan_batch_{name}_S{s_disp}"] = {
+                "msamples_per_s": msps, "after_first_group": rest,
+                "wall_s": run["wall_s"], "first_group_s": run["first_s"],
+                "reader": run["reader"], "graphs": run["graphs"]}
+            log(f"  scan_batch S={s_disp}, 8 captures x {run['blocks']} "
+                f"blocks, --mesh 8,1, no -w, reader {run['reader']}: "
+                f"{msps:.1f} Msamples/s of capture ({run['samples']} "
+                f"samples in {run['wall_s']:.3f} s; first group "
+                f"{run['first_s']:.3f} s"
+                + (f", after it {rest:.1f} Msamples/s" if rest else "")
+                + f"); graphs {run['graphs']}")
+    return bench
+
+
+def profile_batch_megastep(dev, sync, paths) -> dict:
+    """One scan_batch megastep (the (8, 1) duo, K = 40, -w 80, S = 4, a
+    replay of its graph) on 18(a)'s captures as its default reader gives
+    them (the cf32 wire) under torch.profiler: the device's busy share and
+    its time by part."""
+    import os
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.io import native
+    from sdr_pmr446_tpu_torch.ops import decode
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
+    chain = ShardedScannerChain(make_mesh(8, 1, dev), C.BlockConfig(BATCH_K),
+                                waterfall=BATCH_WF, input_format="cf32",
+                                device=dev)
+    caps = []
+    for p in paths:
+        fmt = os.path.splitext(p)[1][1:]
+        caps.append(native.convert_iq(np.fromfile(
+            p, decode.WIRE_DTYPE[fmt]), fmt).view(np.uint8))
+    wires = torch.as_tensor(np.stack(caps).reshape(
+        len(paths), BATCH_S, -1).transpose(1, 0, 2).copy(), device=dev)
+    params = make_runtime_params(C.ScannerArgs(), dev)
+    st = chain.init_state()
+    chain.multi_step(st, wires, params)          # the capture
+    sync()
+    t0 = time.perf_counter()
+    chain.multi_step(st, wires, params)
+    sync()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    parts = SHARDED_PARTS + (("K3 waterfall", ("wf_",)),)
+    profile_step(lambda: chain.multi_step(st, wires, params), sync, parts,
+                 "other (FSMs, halo ops, graph copies)")
+    log(f"  the (8, 1) megastep, S={BATCH_S}: one replay {replay_ms:.1f} ms "
+        f"(CUDA graph of {BATCH_S} steps, {len(chain.megastep.graphs)} "
+        f"graph)")
+    return {"replay_ms": replay_ms, "graphs": len(chain.megastep.graphs)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3856,6 +4590,9 @@ def main() -> int:
         "every chain")
     log(smi)
     bench.update(phase_megastep(dev, sync))
+    log("phase 18: the batch server (apps/scan_batch.py), the sharded "
+        "waterfall and faithful chain, live input")
+    bench.update(phase_batch(dev, sync))
     log(f"  the run {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))

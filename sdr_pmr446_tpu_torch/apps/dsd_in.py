@@ -8,8 +8,11 @@ Flags: -g/--gain, -f/--frequency, --input, --input-format, --output,
 graph of S steps on the card, captured at the first megastep; the output
 is the same bytes), --device (which alone chooses between the CUDA kernel
 and its plain version) and --device-decode (accepted; the port always
-ships the raw wire bytes to the device and decodes there).  rtl_tcp://
-inputs are not yet ported and exit 2.
+ships the raw wire bytes to the device and decodes there).  An
+rtl_tcp://host[:port] input streams --seconds of live radio tuned to -f
+(io/rtl_tcp.py: cu8 over the network, converted on the host, then the cf32
+wire), as the reference's dsd_in reads its SDR (src/dsd_in.c:151);
+--device-decode with it exits 1.
 
     python -m sdr_pmr446_tpu_torch.apps.dsd_in --input cap.cu8 --output - | dsd -i -
 """
@@ -25,7 +28,9 @@ import sys
 import numpy as np
 import torch
 
+from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.io import iq as iq_io
+from sdr_pmr446_tpu_torch.io.rtl_tcp import RtlTcpSource
 from sdr_pmr446_tpu_torch.ops import decode
 from sdr_pmr446_tpu_torch.runtime.driver import wire_blocks
 from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdInChain
@@ -42,10 +47,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-f", "--frequency", type=float, default=160.0e6,
                    help="receive frequency (metadata for file sources)")
     p.add_argument("--input", type=str, required=True,
-                   help="IQ capture file at 1.024 Msps (cf32/cs16/cs8/cu8)")
+                   help="IQ capture file at 1.024 Msps (cf32/cs16/cs8/cu8) "
+                        "or rtl_tcp://host[:port] for a live network SDR")
     p.add_argument("--seconds", type=float, default=10.0,
-                   help="live capture duration (rtl_tcp inputs, not yet "
-                        "ported; unused for files)")
+                   help="live capture duration (rtl_tcp inputs; unused for "
+                        "files)")
     p.add_argument("--input-format", type=str, default=None, choices=FORMATS)
     p.add_argument("--output", type=str, default="-",
                    help="output path for 48 kHz s16le audio ('-' = stdout)")
@@ -65,35 +71,46 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _unported(ns) -> list[str]:
-    found = []
-    if ns.input.startswith("rtl_tcp://"):
-        found.append("rtl_tcp:// input")
-    return found
-
-
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     ns = build_parser().parse_args(argv)
-    unported = _unported(ns)
-    if unported:
-        logging.error("not yet ported to sdr_pmr446_tpu_torch: %s "
-                      "(use python -m sdr_pmr446_tpu.apps.dsd_in)",
-                      ", ".join(unported))
-        return 2
+    live = ns.input.startswith("rtl_tcp://")
+    if live and ns.device_decode:
+        logging.error("--device-decode needs a capture file, not a live "
+                      "rtl_tcp stream")
+        return 1
     try:
-        fmt = decode.wire_format(ns.input_format
-                                 or iq_io.detect_format(ns.input))
+        # the rtl_tcp source converts its cu8 on the host: the cf32 wire
+        fmt = "cf32" if live else decode.wire_format(
+            ns.input_format or iq_io.detect_format(ns.input))
         chain = DsdInChain(ns.subchunks_per_step, input_format=fmt,
                            device=ns.device)
     except (ValueError, RuntimeError) as e:
         logging.error("%s", e)
         return 1
-    raw = np.fromfile(ns.input, dtype=np.uint8)
-    bps = decode.BYTES_PER_SAMPLE[fmt]
-    raw = raw[:len(raw) // bps * bps]
-    logging.info("read %d IQ samples from %s (%s); device %s",
-                 len(raw) // bps, ns.input, fmt, chain.device)
+    live_source = None
+    if live:
+        n = chain.input_len
+        n_blocks = max(1, int(ns.seconds * C.SDR_SAMPLERATE) // n)
+        try:
+            live_source = RtlTcpSource(ns.input, n, frequency=ns.frequency,
+                                       gain_db=ns.gain,
+                                       max_samples=n_blocks * n)
+        except (OSError, RuntimeError) as e:
+            logging.error("cannot stream from %s: %s", ns.input, e)
+            return 1
+        logging.info("streaming live from %s (tuner: %s, %.3f MHz, %.0f s)"
+                     "; device %s", ns.input, live_source.client.tuner_name,
+                     ns.frequency / 1e6, ns.seconds, chain.device)
+        blocks = (np.ascontiguousarray(b).view(np.uint8)
+                  for b in live_source.blocks())
+    else:
+        raw = np.fromfile(ns.input, dtype=np.uint8)
+        bps = decode.BYTES_PER_SAMPLE[fmt]
+        raw = raw[:len(raw) // bps * bps]
+        logging.info("read %d IQ samples from %s (%s); device %s",
+                     len(raw) // bps, ns.input, fmt, chain.device)
+        blocks = wire_blocks(raw, fmt, chain.step_arg_len)
     out = sys.stdout.buffer if ns.output == "-" else open(ns.output, "wb")
     # TERM/QUIT end the loop at the next block boundary with the output
     # flushed (the reference's signal set, src/sdr_pmr446.c:779-786)
@@ -132,7 +149,7 @@ def main(argv=None) -> int:
         # singly); dispatch i+1 is queued on the device before dispatch
         # i's PCM is read
         group = []
-        for blk in wire_blocks(raw, fmt, chain.step_arg_len):
+        for blk in blocks:
             if stop["flag"]:
                 break
             group.append(torch.from_numpy(blk).to(chain.device))
@@ -155,6 +172,8 @@ def main(argv=None) -> int:
             pass
         return 0
     finally:
+        if live_source is not None:
+            live_source.close()
         if out is not sys.stdout.buffer:
             out.close()
     logging.info("Exiting")

@@ -3,7 +3,9 @@
 Counterpart of sdr_pmr446_tpu/apps/sdr_pmr446.py with the flags of the
 ported slice: -g/--gain, -s/--squelch, -w/--waterfall, -l/--lowpass,
 -m/--mask, -a/--audio-gain, -p/--lock-mode, --fir-deemph, --input,
---input-format, --device-decode, --output (WAV), --seconds,
+--input (a capture file, or rtl_tcp://host:port for a live network
+SDR: io/rtl_tcp.py), --input-format, --device-decode, --output (a WAV, or
+``live``: the audio player of -b/--audio-api, io/audio.py), --seconds,
 --subchunks-per-step, --steps-per-dispatch (S blocks a dispatch through
 the driver: a CUDA graph of S steps on the card, captured at the first
 megastep; ignored with --faithful, as in JAX), --faithful, --checkpoint,
@@ -17,9 +19,12 @@ flush a final checkpoint (with --checkpoint) and write the partial WAV
 --faithful runs the validation chain (scanner/faithful.py) on the
 capture decoded to complex64; with --device-decode it exits 1, as in JAX.
 --resume without --checkpoint, or from a missing or unreadable
-checkpoint, exits 1.  Flags of parts not yet ported (-b,
---checkpoint-backend orbax, rtl_tcp:// inputs, --output live) exit with a
-"not yet ported" error instead of being ignored.
+checkpoint, exits 1.  -b names the audio API as in JAX (unspecified, alsa,
+pulse, wav, dummy; an unknown or unavailable one exits 1); --output live
+needs a live one.  An rtl_tcp:// input streams --seconds of radio (cu8 over
+the network, converted on the host as a cf32 capture is, then the cf32
+wire); it exits 1 with --faithful or --device-decode.
+--checkpoint-backend orbax (a JAX library) exits 2, "not yet ported".
 
     python -m sdr_pmr446_tpu_torch.apps.sdr_pmr446 --input cap.cu8 -w 120
 """
@@ -36,8 +41,10 @@ import numpy as np
 import torch
 
 from sdr_pmr446_tpu_torch import config as C
+from sdr_pmr446_tpu_torch.io import audio as audio_io
 from sdr_pmr446_tpu_torch.io import iq as iq_io
 from sdr_pmr446_tpu_torch.io import synth, wav
+from sdr_pmr446_tpu_torch.io.rtl_tcp import RtlTcpSource
 from sdr_pmr446_tpu_torch.ops import decode, spectrogram
 from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver, wire_blocks
 from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
@@ -73,18 +80,23 @@ def build_parser() -> argparse.ArgumentParser:
                    default="start", help="channel lock mode")
     p.add_argument("--fir-deemph", action="store_true",
                    help="use the FIR de-emphasis variant")
+    p.add_argument("-b", "--audio-api", type=str, default="unspecified",
+                   help="audio API of --output live (unspecified, alsa, "
+                        "pulse; wav and dummy are not live)")
     p.add_argument("--input", type=str, default=None,
                    help="IQ capture file (cf32/cs16/cs8/cu8; 1.024 Msps at "
-                        "446.1 MHz); default: synthetic demo signal")
+                        "446.1 MHz) or rtl_tcp://host[:port] for a live "
+                        "network SDR; default: synthetic demo signal")
     p.add_argument("--input-format", type=str, default=None, choices=FORMATS)
     p.add_argument("--device-decode", action="store_true",
                    help="accepted as in the JAX CLI; the port always ships "
                         "the capture's raw wire bytes and decodes them on "
                         "the device (needs a capture file)")
     p.add_argument("--output", type=str, default="audio.wav",
-                   help="output WAV for the demodulated audio")
+                   help="output WAV for the demodulated audio, or 'live' "
+                        "for the audio player of -b")
     p.add_argument("--seconds", type=float, default=5.0,
-                   help="synthetic source duration")
+                   help="synthetic source / live rtl_tcp duration")
     p.add_argument("--subchunks-per-step", type=int, default=10)
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="blocks fused into one dispatch (a CUDA graph of "
@@ -107,23 +119,41 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint format; the port writes npz only")
     p.add_argument("--resume", action="store_true",
                    help="restore --checkpoint and continue mid-capture")
-    # parts of the JAX app that this package does not have yet
-    p.add_argument("-b", "--audio-api", type=str, default=None)
     return p
 
 
 def _unported(ns) -> list[str]:
-    """Flags given that the port does not implement yet."""
+    """Flags given that the port does not implement."""
     found = []
-    if ns.audio_api is not None:
-        found.append("-b/--audio-api")
     if ns.checkpoint_backend == "orbax":
         found.append("--checkpoint-backend orbax (a JAX library)")
-    if ns.input and ns.input.startswith("rtl_tcp://"):
-        found.append("rtl_tcp:// input")
-    if ns.output == "live":
-        found.append("--output live")
     return found
+
+
+def _live_sink(ns):
+    """(exit code or None, the live AudioSink of --output live or None),
+    -b checked against the compiled and available APIs as the reference
+    does (src/sdr_pmr446.c:234-257)."""
+    avail = audio_io.list_apis()
+    if ns.audio_api not in audio_io.COMPILED_APIS:
+        logging.error("Audio API '%s' not recognized (compiled APIs: %s)",
+                      ns.audio_api, ", ".join(audio_io.COMPILED_APIS[1:]))
+        return 1, None
+    if ns.audio_api != "unspecified" and ns.audio_api not in avail:
+        logging.error("Audio API '%s' not available on this host "
+                      "(available: %s)", ns.audio_api, ", ".join(avail))
+        return 1, None
+    if ns.output != "live":
+        return None, None
+    if ns.audio_api in ("wav", "dummy"):
+        logging.error("--output live needs a live API (-b alsa|pulse|"
+                      "unspecified), not '%s'", ns.audio_api)
+        return 1, None
+    if not audio_io.available(ns.audio_api):
+        logging.error("no live audio backend available (have: %s)",
+                      ", ".join(avail))
+        return 1, None
+    return None, audio_io.AudioSink(C.AUDIO_SAMPLERATE, api=ns.audio_api)
 
 
 def main(argv=None) -> int:
@@ -151,6 +181,28 @@ def main(argv=None) -> int:
     except ValueError as e:
         logging.error("%s", e)
         return 1
+    live = bool(ns.input and ns.input.startswith("rtl_tcp://"))
+    if live and ns.faithful:
+        logging.error("--faithful is offline-only (file/synthetic input), "
+                      "not usable with rtl_tcp")
+        return 1
+    if ns.device_decode and (not ns.input or live):
+        logging.error("--device-decode needs a capture FILE (synthetic/"
+                      "rtl_tcp inputs have no wire bytes to ship)")
+        return 1
+    code, live_sink = _live_sink(ns)
+    if code is not None:
+        return code
+    try:
+        return _scan(ns, mask, live, live_sink)
+    finally:
+        if live_sink is not None:
+            live_sink.close()
+
+
+def _scan(ns, mask: int, live: bool, live_sink) -> int:
+    """The scan after the flags' checks; writes the WAV or feeds
+    ``live_sink``."""
     args = C.ScannerArgs(
         gain=ns.gain, audio_gain=ns.audio_gain, squelch_level=ns.squelch,
         waterfall=ns.waterfall, lowpass=ns.lowpass, channel_mask=mask,
@@ -161,11 +213,10 @@ def main(argv=None) -> int:
              args.squelch_level, args.waterfall)
     log.info("audio lowpass: %s, channel mask: 0x%04X",
              "enabled" if args.lowpass else "disabled", args.channel_mask)
+    log.info("audio sinks available: %s (using: %s)",
+             ", ".join(audio_io.list_apis()),
+             ns.audio_api if live_sink is not None else "wav file")
 
-    if ns.device_decode and not ns.input:
-        logging.error("--device-decode needs a capture FILE (synthetic "
-                      "inputs have no wire bytes to ship)")
-        return 1
     if ns.device_decode and ns.faithful:
         logging.error("--device-decode is not available with --faithful "
                       "(the validation chain takes complex64 input)")
@@ -173,7 +224,10 @@ def main(argv=None) -> int:
     if ns.resume and not ns.checkpoint:
         logging.error("--resume needs --checkpoint")
         return 1
-    if ns.input:
+    raw = None
+    if live:
+        fmt = "cf32"       # the rtl_tcp source converts cu8 on the host
+    elif ns.input:
         fmt = decode.wire_format(ns.input_format
                                  or iq_io.detect_format(ns.input))
         raw = np.fromfile(ns.input, dtype=np.uint8)
@@ -190,9 +244,13 @@ def main(argv=None) -> int:
         log.info("using synthetic NBFM demo signal on channel 5, CTCSS 12")
 
     if ns.faithful:
-        return _run_faithful(ns, args, raw, fmt, log)
+        return _run_faithful(ns, args, raw, fmt, log, live_sink)
 
     def on_subchunk(sub, o):
+        if live_sink is not None and o["audio_valid"]:
+            live_sink.write(o["audio"])
+        if args.waterfall <= 0:
+            return
         print(wf_ui.render_waterfall_line(o["waterfall"],
                                           float(o["rel_rssi"])))
         print(wf_ui.render_footer(
@@ -205,7 +263,8 @@ def main(argv=None) -> int:
         driver = ScannerDriver(
             args, subchunks_per_step=ns.subchunks_per_step, input_format=fmt,
             device=ns.device,
-            on_subchunk=on_subchunk if args.waterfall > 0 else None,
+            on_subchunk=(on_subchunk if args.waterfall > 0
+                         or live_sink is not None else None),
             checkpoint_path=ns.checkpoint,
             checkpoint_every=ns.checkpoint_every,
             steps_per_dispatch=ns.steps_per_dispatch)
@@ -235,23 +294,50 @@ def main(argv=None) -> int:
                 signal.signal(getattr(signal, name), handler)
             except (ValueError, OSError):
                 pass                    # not the main thread / unsupported
+    live_source = None
+    if live:
+        block_len = driver.chain.block.input_len
+        n_blocks = max(1, int(ns.seconds * C.SDR_SAMPLERATE) // block_len)
+        try:
+            live_source = RtlTcpSource(ns.input, block_len, gain_db=ns.gain,
+                                       max_samples=n_blocks * block_len)
+        except (OSError, RuntimeError) as e:
+            logging.error("cannot stream from %s: %s", ns.input, e)
+            return 1
+        log.info("streaming live from %s (tuner: %s, %.1f MHz, %.0f s)",
+                 ns.input, live_source.client.tuner_name,
+                 C.SDR_FREQUENCY / 1e6, ns.seconds)
+        blocks = live_source.blocks()
+    else:
+        blocks = wire_blocks(raw, fmt, driver.feed_len)
     try:
-        result = driver.run(wire_blocks(raw, fmt, driver.feed_len))
+        result = driver.run(blocks)
     except KeyboardInterrupt:
         log.info("Signal caught, exiting!")
         driver.checkpoint_now()
         return 130
-    wav.write_wav(ns.output, result.audio, C.AUDIO_SAMPLERATE)
-    log.info("wrote %d audio samples (%.2f s) to %s", len(result.audio),
-             len(result.audio) / C.AUDIO_SAMPLERATE, ns.output)
+    finally:
+        # release the rtl_tcp socket also on a reader or driver error
+        if live_source is not None:
+            live_source.close()
+    n = len(result.audio)
+    if live_sink is not None:
+        log.info("streamed %d audio samples (%.2f s) live", n,
+                 n / C.AUDIO_SAMPLERATE)
+    else:
+        wav.write_wav(ns.output, result.audio, C.AUDIO_SAMPLERATE)
+        log.info("wrote %d audio samples (%.2f s) to %s", n,
+                 n / C.AUDIO_SAMPLERATE, ns.output)
     log.info("Exiting")
     return 0
 
 
-def _run_faithful(ns, args, raw: np.ndarray, fmt: str, log) -> int:
+def _run_faithful(ns, args, raw: np.ndarray, fmt: str, log,
+                  live_sink=None) -> int:
     """--faithful: the validation chain over the whole blocks of the
     capture (a short tail is dropped, as in JAX), decoded to complex64 on
-    the device; writes the valid sub-chunks' audio."""
+    the device; writes the valid sub-chunks' audio (or streams it to
+    ``live_sink``)."""
     try:
         chain = FaithfulScannerChain(ns.subchunks_per_step, args.lowpass,
                                      device=ns.device)
@@ -268,10 +354,15 @@ def _run_faithful(ns, args, raw: np.ndarray, fmt: str, log) -> int:
         st, o = chain.step(st, decode.decode_complex(
             wire.to(chain.device), fmt), params)
         audio.append(o.audio[o.audio_valid].reshape(-1).cpu().numpy())
+        if live_sink is not None:
+            live_sink.write(audio[-1])
     out = np.concatenate(audio) if audio else np.zeros(0, np.float32)
-    wav.write_wav(ns.output, out, C.AUDIO_SAMPLERATE)
-    log.info("wrote %d audio samples (faithful mode) to %s", len(out),
-             ns.output)
+    if live_sink is not None:
+        log.info("streamed %d audio samples (faithful mode) live", len(out))
+    else:
+        wav.write_wav(ns.output, out, C.AUDIO_SAMPLERATE)
+        log.info("wrote %d audio samples (faithful mode) to %s", len(out),
+                 ns.output)
     log.info("Exiting")
     return 0
 

@@ -77,6 +77,22 @@ def shard_hist_planes(carried_hist: torch.Tensor, planes: torch.Tensor,
     return halo_dma.shard_hist_planes(carried_hist, planes, hist_len)
 
 
+def shard_hist_reach(carried_hist: torch.Tensor, planes: torch.Tensor,
+                     hist_len: int):
+    """``shard_hist_planes`` for any ``hist_len``, also one longer than a
+    shard's T samples: shard d's history is the ``hist_len`` samples of
+    [carried | shard 0 | ... | shard D-1] before its first, which reach
+    back over ceil(hist_len / T) left neighbours (JAX's ``shard_hist``
+    takes one neighbour's tail and fails there).  ``carried_hist`` c64 [S,
+    hist_len], ``planes`` f32 [S, D, 2, T].  Returns (hist [S, D,
+    hist_len] c64, each [s, d] row contiguous, new_carried [S,
+    hist_len])."""
+    n_s, n_t, _, t = planes.shape
+    seq = torch.cat([carried_hist, torch.complex(
+        planes[:, :, 0], planes[:, :, 1]).reshape(n_s, n_t * t)], dim=-1)
+    return seq.unfold(-1, hist_len, t)[:, :n_t], seq[:, n_t * t:]
+
+
 def shard_scalar_prev(carried_prev: torch.Tensor, x_shard: torch.Tensor):
     """1-sample halo (the discriminator's previous sample): (prev [S, D,
     ...], new_carried [S, ...])."""

@@ -45,10 +45,24 @@ K_local sub-chunks (fsm.raw_sums_to_ctcss ``period``).
 ``multi_step(state, wires uint8 [S_steps, S, step_arg_len], params)``
 runs S_steps blocks in one dispatch (runtime/fuse.py): a CUDA graph of
 the steps, every output leaf stream-major [S, S_steps * K, ...], equal to
-the steps bit for bit.  Not yet ported (ROADMAP queue 1: the sharded
-waterfall): ``waterfall > 0``.  JAX's op engine (``use_pallas=
-False``) has no counterpart: on the CPU the chain runs the plain versions
-of the same kernels.
+the steps bit for bit.
+
+The waterfall (``waterfall=w``, JAX scanner_sharded.py:265-284, 340-359,
+487-516) runs K3 (kernels/waterfall.py) once a shard, on the band planes
+of that shard's engine: K1's ``DuoOut.band`` (after the pre-pass when D >
+1), the trio's corrected planes, or K9's on the plane path.  A shard's
+window history is the w/2 band samples before its first one
+(``halo.shard_hist_reach``): the tail of its left neighbour's band, or,
+when w/2 is longer than a shard's band (w = 78400 at K_local = 1), the
+tails of as many left neighbours as it takes and the carried history.
+Shard 0 reads the stream's carried history as the unsharded chain does
+(the last w/2 samples of ``pfb_hist`` for w <= 800, else ``wf_hist``).
+Each shard's hop counter is analytic, (wf_cnt + d * K_local * 19600) mod
+(w/4), and the carried ``wf_hist`` / ``wf_cnt`` are the last shard's.  Rows
+come back [S, K, w], per stream the unsharded chain's within 2e-3 dB.
+
+JAX's op engine (``use_pallas=False``) has no counterpart: on the CPU the
+chain runs the plain versions of the same kernels.
 """
 
 from __future__ import annotations
@@ -65,7 +79,8 @@ from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
 from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
 from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod, last_frame_output
 from sdr_pmr446_tpu_torch.kernels.resample_kernel import Resampler
-from sdr_pmr446_tpu_torch.ops import decode
+from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
+from sdr_pmr446_tpu_torch.ops import decode, spectrogram
 from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums, subchunk_rssi
 from sdr_pmr446_tpu_torch.parallel import fused_halo as FH
 from sdr_pmr446_tpu_torch.parallel import halo
@@ -84,8 +99,6 @@ NCH = C.NUM_CHANNELS
 #: 416-sample band span of the PFB row and the last frame
 DUO_TAIL = 2560
 PFB_TAPS = 416
-NOT_PORTED = ("not yet ported to the one-card mesh (ROADMAP queue 1: the "
-              "sharded waterfall)")
 
 
 class Mesh(NamedTuple):
@@ -148,6 +161,7 @@ class _Front(NamedTuple):
     prev: torch.Tensor        # c64 [S, 16]
     demod: list               # [S][D] f32 [16, F_local]
     rssi: torch.Tensor        # f32 [S, D, K_local, 16]
+    band: list                # [S][D] f32 [2, nb_local] band planes (K3's)
 
 
 class ShardedScannerChain:
@@ -171,8 +185,8 @@ class ShardedScannerChain:
         self.device = mesh_device(mesh, device)
         self.block = block or C.BlockConfig()
         self.input_format = decode.wire_format(input_format)
-        if waterfall > 0:
-            raise NotImplementedError(f"the sharded waterfall is {NOT_PORTED}")
+        spectrogram.validate_width(waterfall)
+        self.waterfall = max(waterfall, 0)
         self.n_time, self.n_stream = mesh.n_time, mesh.n_stream
         k = self.block.subchunks_per_step
         if k % self.n_time:
@@ -201,13 +215,16 @@ class ShardedScannerChain:
         self.audio_bank = AudioBank(lowpass, fir_deemph, device=dev)
         deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
         self.deemph_hist_len = deemph.shape[0] - 1
+        self.wf = (Waterfall(self.waterfall, device=dev)
+                   if self.waterfall else None)
         self.megastep = fuse.fused_sharded_steps(self.step)
 
     def init_state(self) -> ScannerState:
         """The zero state of every stream, each field [S, ...]."""
         return stack_state(init_scanner_state(
             self.resamp_hist_len, self.pfb_hist_len, self.deemph_hist_len,
-            self.audio_bank.hist, self.device), self.n_stream)
+            self.audio_bank.hist, self.device, waterfall=self.waterfall),
+            self.n_stream)
 
     @property
     def step_arg_len(self) -> int:
@@ -235,7 +252,8 @@ class ShardedScannerChain:
             return _Front(last("dc_x"), last("dc_y"), last("front_hist"),
                           last("pfb_hist"), last("parity"), last("prev"),
                           [[o.demod for o in row] for row in outs],
-                          rssi_from_sums(stacked(outs, "mag_sums"), ns))
+                          rssi_from_sums(stacked(outs, "mag_sums"), ns),
+                          [[o.band for o in row] for row in outs])
         t_local = self.t_local
         dcx_in, y_in, dcx_carry, dcy_carry, dc_tail = FH.exact_dc_state(
             wire3, self.input_format, t_local, DUO_TAIL, st.dc_x, st.dc_y)
@@ -262,7 +280,8 @@ class ShardedScannerChain:
                  for d in range(n_t)] for s in range(n_s)]
         return _Front(dcx_carry, dcy_carry, rh_carry, ph_carry, new_par,
                       fm_carry, [[o.demod for o in row] for row in outs],
-                      rssi_from_sums(stacked(outs, "mag_sums"), ns))
+                      rssi_from_sums(stacked(outs, "mag_sums"), ns),
+                      [[o.band for o in row] for row in outs])
 
     def _last_samples(self, wire3) -> torch.Tensor:
         """Each shard's last input sample, c64 [S, D]."""
@@ -310,7 +329,8 @@ class ShardedScannerChain:
                  for d in range(n_t)] for s in range(n_s)]
         return _Front(dcx_carry, dcy_carry, rh_carry, ph_carry, new_par,
                       fm_carry, [[o.demod for o in row] for row in outs],
-                      rssi_from_sums(stacked(outs, "mag"), ns))
+                      rssi_from_sums(stacked(outs, "mag"), ns),
+                      [list(row) for row in band])
 
     def _plane_front(self, st: ScannerState, wire3, ns: int) -> _Front:
         """(c): the plain DC blocker over shards, then K9 and K7's plane
@@ -347,7 +367,7 @@ class ShardedScannerChain:
         return _Front(torch.complex(ndx[..., 0], ndx[..., 1]),
                       torch.complex(ndy[..., 0], ndy[..., 1]), r_carry,
                       p_carry, new_par, fm_carry,
-                      [[o.demod for o in row] for row in outs], rssi)
+                      [[o.demod for o in row] for row in outs], rssi, bands)
 
     # --------------------------------------------------------------- step
     def step(self, state: ScannerState, wire: torch.Tensor,
@@ -423,6 +443,8 @@ class ShardedScannerChain:
                     carries[s], rssi_all[s], None, params.channel_mask,
                     params.squelch_level, params.lock_max, lp_cm=lp_cm))
 
+        wf_hist, wf_cnt, wf_rows = self._waterfall(state, fr.band)
+
         # 8. each stream's selected audio
         ks = torch.arange(k, device=self.device)
         outputs = []
@@ -438,8 +460,7 @@ class ShardedScannerChain:
                 ct_detected=fo.ct_detected, ct_max_idx=fo.ct_max_idx,
                 ct_freq=fo.ct_freq, ev_ct_acquired=fo.ev_ct_acquired,
                 ev_ct_changed=fo.ev_ct_changed, ev_ct_lost=fo.ev_ct_lost,
-                waterfall=torch.zeros((k, 0), dtype=torch.float32,
-                                      device=self.device)))
+                waterfall=wf_rows[s]))
         out = StepOutputs(*(torch.stack(v) for v in zip(*outputs)))
         fsm = FsmCarry(*(torch.stack(v) for v in zip(*(c for c, _ in res))))
         new_state = state._replace(
@@ -450,5 +471,31 @@ class ShardedScannerChain:
             fsm_state=fsm.fsm_state, active_chan=fsm.active_chan,
             rssi=fsm.rssi, ct_count=fsm.ct_count, ct_carry=fsm.ct_carry,
             ct_detected=fsm.ct_detected, ct_max_idx=fsm.ct_max_idx,
-            ct_freq=fsm.ct_freq)
+            ct_freq=fsm.ct_freq, wf_hist=wf_hist, wf_cnt=wf_cnt)
         return ScannerState(*(v.contiguous() for v in new_state)), out
+
+    def _waterfall(self, state: ScannerState, band: list):
+        """K3 once a shard on its band planes ``band`` [S][D] f32 [2,
+        nb_local]: (wf_hist' [S, w/2], wf_cnt' [S], rows [S, K, w]), the
+        carries the last shard's (module docstring)."""
+        n_s, n_t, k = self.n_stream, self.n_time, self.block.subchunks_per_step
+        if self.wf is None:
+            return state.wf_hist, state.wf_cnt, torch.zeros(
+                (n_s, k, 0), dtype=torch.float32, device=self.device)
+        wl = self.wf.wl
+        hist0 = (state.pfb_hist if wl <= state.pfb_hist.shape[-1]
+                 else state.wf_hist)
+        # the halo reads the last min(w/2, nb) samples of each shard
+        nb = band[0][0].shape[-1]
+        keep = min(wl, nb)
+        tails = torch.stack([torch.stack([b[:, nb - keep:] for b in row])
+                             for row in band])
+        hist, _ = halo.shard_hist_reach(hist0[..., -wl:], tails, wl)
+        d = torch.arange(n_t, dtype=torch.int32, device=self.device)
+        cnt = (state.wf_cnt[:, None] + d * nb) % (self.waterfall // 4)
+        outs = [[self.wf(band[s][j], hist[s, j], cnt[s, j])
+                 for j in range(n_t)] for s in range(n_s)]
+        return (torch.stack([row[-1].hist for row in outs]),
+                torch.stack([row[-1].cnt for row in outs]),
+                torch.stack([torch.cat([o.rows for o in row])
+                             for row in outs]))

@@ -41,6 +41,7 @@ result, whether eagerly or in a replay.
 
 from __future__ import annotations
 
+import gc
 import sys
 import time
 from typing import Callable, Dict, Tuple
@@ -86,8 +87,19 @@ class CudaGraphRecorder:
         self.graph = torch.cuda.CUDAGraph()
 
     def capture(self, fn: Callable):
-        with torch.cuda.graph(self.graph, stream=self.stream):
-            return fn()
+        # a chain is a reference cycle (its megastep holds its step), so
+        # a dead chain's graphs die when the cycle collector runs; one
+        # that ran inside a capture would reset a graph there and void
+        # the capture: collect first, and not during the capture
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                return fn()
+        finally:
+            if enabled:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()
@@ -112,7 +124,10 @@ class CountedGraph:
             result = self.recorder.capture(fn)
             end = launch_counts()
         finally:
-            set_launch_counts(before)
+            # a kernel module first imported by the warm-up or the capture
+            # counted from 0 before it existed
+            set_launch_counts({**{key: 0 for key in launch_counts()},
+                               **before})
         self.delta = {key: n - start.get(key, 0) for key, n in end.items()
                       if n != start.get(key, 0)}
         return result

@@ -2,7 +2,8 @@
 
 The port imports nothing of the JAX package; it keeps its own copies of
 ``config``, ``taps/design``, ``io/iq``, ``io/synth``, ``io/wav``,
-``oracle/chain`` and ``ui/waterfall``.  Each case here holds one piece of a copy bit-equal to the
+``oracle/chain``, ``ui/waterfall``, ``io/native``, ``runtime/stream``,
+``io/rtl_tcp`` and ``io/audio``.  Each case here holds one piece of a copy bit-equal to the
 original (one parametrised test, a case per piece), so a copy that drifts
 fails.
 """
@@ -34,7 +35,9 @@ def modules(pkg: str) -> SimpleNamespace:
     return SimpleNamespace(C=mod("config"), D=mod("taps.design"),
                            iq=mod("io.iq"), synth=mod("io.synth"),
                            wav=mod("io.wav"), oracle=mod("oracle.chain"),
-                           wf=mod("ui.waterfall"))
+                           wf=mod("ui.waterfall"), native=mod("io.native"),
+                           stream=mod("runtime.stream"),
+                           rtl=mod("io.rtl_tcp"), audio=mod("io.audio"))
 
 
 PORT, JAX = modules("sdr_pmr446_tpu_torch"), modules("sdr_pmr446_tpu")
@@ -161,10 +164,84 @@ def waterfall_ui(m, tmp):
             m.wf.render_footer(80, 0x00FF, 9, False, 3, 71.9))
 
 
+def native_io(m, tmp, fallback=False):
+    """The converters, the ring buffer, the capture and batch readers and
+    the WAV writer, through libsdrio.so or the NumPy fallbacks."""
+    lib = m.native._lib
+    if fallback:
+        m.native._lib = None
+    try:
+        rng = np.random.default_rng(9)
+        out = [tuple(sorted(m.native._FMT_CODES.items()))]
+        for fmt, dt in (("cs16", np.int16), ("cu8", np.uint8),
+                        ("cs8", np.int8), ("cf32", np.float32)):
+            raw = (rng.integers(np.iinfo(dt).min, np.iinfo(dt).max, 801,
+                                dtype=dt) if dt != np.float32
+                   else rng.standard_normal(801).astype(dt))
+            out += [m.native.convert_iq(raw, fmt),
+                    m.native.convert_iq(raw.view(np.uint8), fmt)]
+        ring = m.native.RingBuffer(10)
+        out += [ring.write(np.arange(7, dtype=np.float32)), ring.read(4),
+                ring.write(np.arange(9, dtype=np.float32)), ring.size(),
+                ring.read(12, zero_fill=True)]
+        iq = 0.3 * JAX.synth.make_scanner_iq(3000, channel=2, seed=4)
+        paths = []
+        for s, fmt in enumerate(("cs16", "cu8")):
+            paths.append(str(tmp / f"b{s}.{fmt}"))
+            JAX.iq.write_iq(paths[-1], iq[s * 500:], fmt)
+        rd = m.native.CaptureReader(paths[0], "cs16")
+        out += [rd.read_block(1700), rd.read_block(1700)]
+        rd.close()
+        br = m.native.BatchReader(paths, ["cs16", "cu8"])
+        out += [br.read_block(1000), br.read_block(2000)]
+        br.close()
+        w = m.native.WavWriter(str(tmp / "w.wav"), 12500, s16=True)
+        w.write(np.sin(np.arange(900) * 0.2).astype(np.float32))
+        w.close()
+        out.append(np.fromfile(str(tmp / "w.wav"), np.uint8))
+        return tuple(out)
+    finally:
+        m.native._lib = lib
+
+
+def native_fallback(m, tmp):
+    return native_io(m, tmp, fallback=True)
+
+
+def stream_source(m, tmp):
+    """StreamingSource's blocks over a cf32 capture (short reads, a
+    zero-padded tail)."""
+    iq = 0.2 * JAX.synth.make_scanner_iq(7000, channel=6, seed=5)
+    path = str(tmp / "s.cf32")
+    JAX.iq.write_iq(path, iq)
+    src = m.stream.StreamingSource(path, block_len=2048, read_chunk=900)
+    blocks = tuple(src.blocks())
+    src.close()
+    return blocks
+
+
+def rtl_tcp_protocol(m, tmp):
+    r = m.rtl
+    return (r.MAGIC, r.CMD_SET_FREQ, r.CMD_SET_SAMPLE_RATE,
+            r.CMD_SET_GAIN_MODE, r.CMD_SET_GAIN, r.CMD_SET_AGC_MODE,
+            tuple(sorted(r.TUNER_NAMES.items())),
+            r.parse_url("rtl_tcp://radio.lan:2345"),
+            r.parse_url("rtl_tcp://10.0.0.7"))
+
+
+def audio_apis(m, tmp):
+    a = m.audio
+    return (a.COMPILED_APIS, tuple(sorted(a._API_EXES.items())),
+            tuple(a.list_apis()), a.available(), a.available("alsa"),
+            str(a._backend("unspecified")), str(a._backend("pulse")))
+
+
 CASES = {f.__name__: f for f in (config_constants, config_dataclasses,
                                  config_channel_mask, design_names, synth,
                                  iq_files, wav_file, scanner_oracle,
-                                 dsd_oracle, chain_taps, waterfall_ui)}
+                                 dsd_oracle, chain_taps, waterfall_ui,
+                                 native_io, native_fallback, stream_source,
+                                 rtl_tcp_protocol, audio_apis)}
 CASES.update({f"design_{name}": (lambda fn: lambda m, tmp: fn(m.D))(fn)
               for name, fn in DESIGNS.items()})
 

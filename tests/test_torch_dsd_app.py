@@ -85,13 +85,14 @@ def test_app_device_decode_is_accepted(capture, tmp_path):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["--input", "rtl_tcp://localhost:1234"], 2),
+    (["--input", "rtl_tcp://localhost:1234", "--device-decode"], 1),
     (["--device", "meta"], 1),
     ([], 1),
 ])
 def test_app_rejects_unported_and_unavailable(argv, rc, capture, tmp_path):
-    """Unported inputs and flags exit 2; a device the port cannot run on,
-    and the default device on a host without CUDA, exit 1 with no output."""
+    """--device-decode on a live rtl_tcp input (a file-only flag, as in
+    JAX), a device the port cannot run on, and the default device on a
+    host without CUDA, exit 1 with no output."""
     if not argv and torch.cuda.is_available():
         pytest.skip("the default device is available here")
     from sdr_pmr446_tpu_torch.apps import dsd_in as app

@@ -362,6 +362,62 @@ def test_capture_counts_nothing_and_each_replay_adds_its_launches():
         fuse.set_launch_counts(saved)
 
 
+def test_a_kernel_module_first_imported_in_the_warm_up_counts_no_warm_up():
+    """A kernel module whose first import is in the warm-up (a lazy import
+    inside a step, as fused_halo's of kernels/summary.py) counts only the
+    replays, like every other."""
+    import sys
+    import types
+    name = "sdr_pmr446_tpu_torch.kernels._lazy_for_test"
+    key = (name, "LAUNCHES")
+
+    def step():
+        mod = sys.modules.get(name)
+        if mod is None:
+            mod = sys.modules[name] = types.ModuleType(name)
+            mod.LAUNCHES = 0
+        mod.LAUNCHES += 1
+
+    try:
+        graph = fuse.CountedGraph(FakeRecorder())
+        graph.capture(lambda: [step() for _ in range(4)],
+                      lambda: [step() for _ in range(4)])
+        assert sys.modules[name].LAUNCHES == 0
+        assert graph.delta[key] == 4
+        graph.replay()
+        assert sys.modules[name].LAUNCHES == 4
+    finally:
+        sys.modules.pop(name, None)
+
+
+def test_capture_collects_dead_cycles_first_and_none_during(monkeypatch):
+    """A dead reference cycle (a chain and its megastep) is collected
+    before a capture begins, and the collector does not run inside it: a
+    graph freed there resets during the capture and voids it."""
+    import contextlib
+    import gc
+    seen = {}
+
+    @contextlib.contextmanager
+    def graph(cuda_graph, stream=None):
+        seen["gc inside"] = gc.isenabled()
+        yield
+
+    class Dead:
+        def __del__(self):
+            seen["freed before"] = "gc inside" not in seen
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    rec = fuse.CudaGraphRecorder.__new__(fuse.CudaGraphRecorder)
+    rec.graph, rec.stream = object(), None
+    dead = Dead()
+    dead.cycle = dead
+    del dead
+    assert rec.capture(lambda: 7) == 7
+    assert seen == {"freed before": True, "gc inside": False}
+    assert gc.isenabled()
+
+
 class CudaLike:
     """The attributes of a CUDA tensor that a megastep reads first."""
     device = torch.device("cuda", 0)

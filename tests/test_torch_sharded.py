@@ -31,6 +31,7 @@ from sdr_pmr446_tpu import config as C
 from sdr_pmr446_tpu.io import synth
 from sdr_pmr446_tpu.ops import decode as jdecode
 from sdr_pmr446_tpu_torch.kernels import halo_dma, summary
+from sdr_pmr446_tpu_torch.ops import decode as tdecode
 from sdr_pmr446_tpu_torch.parallel.dsd_sharded import ShardedDsdInChain
 from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (ShardedScannerChain,
                                                            make_mesh)
@@ -361,12 +362,16 @@ def test_sharded_mono_matches_jax(mode):
 
 
 def test_constructors_reject_what_is_not_ported():
+    """The constructors' errors; the waterfall is ported (an invalid
+    width is an error, as in the unsharded chain)."""
     mesh = make_mesh(1, 4, "cpu")
     with pytest.raises(ValueError, match="divide"):
         ShardedScannerChain(mesh, C.BlockConfig(6), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ShardedScannerChain(mesh, C.BlockConfig(8), waterfall=64,
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ShardedScannerChain(mesh, C.BlockConfig(8), waterfall=6,
                             device="cpu")
+    assert ShardedScannerChain(mesh, C.BlockConfig(8), waterfall=64,
+                               device="cpu").wf.w == 64   # ported now
     chain = ShardedScannerChain(mesh, C.BlockConfig(4), device="cpu")
     wire = torch.full((2, 1, chain.step_arg_len), 127, dtype=torch.uint8)
     _, out = chain.multi_step(chain.init_state(), wire,
@@ -397,3 +402,178 @@ def test_entry_points_default_to_the_card():
                  lambda: ShardedSingleChain(mesh, 5, 16)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+# ------------------------------------------------------ the sharded waterfall
+def wf_wires(k, n_steps, fmt):
+    """One stream of tests/test_sharding.py:452's capture, as the port's
+    ``fmt`` wire bytes a step."""
+    step_len = k * C.SUBCHUNK_IN
+    iq = synth.make_scanner_iq(n_steps * step_len, channel=5, ctcss_code=12)
+    raw = tdecode.quantize_iq(np.asarray(iq), fmt)
+    per = raw.shape[0] // n_steps
+    return iq, [raw[i * per:(i + 1) * per] for i in range(n_steps)]
+
+
+def wf_pair(k, n_t, w, n_steps=1, fmt="cf32", **sw):
+    """(the unsharded port chain's rows and carries, the (1, n_t) sharded
+    chain's), step by step, on the same bytes."""
+    params = make_runtime_params(C.ScannerArgs(), "cpu")
+    ref = ScannerChain(C.BlockConfig(k), input_format=fmt, device="cpu",
+                       waterfall=w, **sw)
+    chain = ShardedScannerChain(make_mesh(1, n_t, "cpu"), C.BlockConfig(k),
+                                input_format=fmt, device="cpu", waterfall=w,
+                                **sw)
+    _, wires = wf_wires(k, n_steps, fmt)
+    st1, st2, pairs = ref.init_state(), chain.init_state(), []
+    for wire in wires:
+        x = torch.from_numpy(wire)
+        st1, o1 = ref.step(st1, x, params)
+        st2, o2 = chain.step(st2, x[None], params)
+        pairs.append((o1, st1, o2, st2))
+    return chain, pairs
+
+
+def assert_rows(pairs, what):
+    """JAX's sharded waterfall gate tightened to the port's 2e-3 dB, the
+    hop counter exact, the carried history to f32 rounding."""
+    for i, (o1, st1, o2, st2) in enumerate(pairs):
+        assert o2.waterfall.shape == (1,) + tuple(o1.waterfall.shape)
+        np.testing.assert_allclose(o2.waterfall[0].numpy(),
+                                   o1.waterfall.numpy(), rtol=0, atol=2e-3,
+                                   err_msg=f"{what} step {i}")
+        np.testing.assert_array_equal(o2.active_chan[0], o1.active_chan)
+        assert int(st2.wf_cnt[0]) == int(st1.wf_cnt)
+        np.testing.assert_allclose(st2.wf_hist[0].numpy(),
+                                   st1.wf_hist.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("w", [64, 120])
+def test_sharded_waterfall_equals_unsharded(w):
+    """tests/test_sharding.py:367 at (1, 4), K = 4 (the plane path, K9's
+    bands), two steps: w = 120 is the general width, its per-shard hop
+    counter analytic from the carried one."""
+    chain, pairs = wf_pair(4, 4, w, n_steps=2)
+    assert not chain.fused
+    assert_rows(pairs, f"plane path w={w}")
+
+
+@pytest.mark.parametrize("name,k,n_t,w,sw", [
+    ("four_shards", 32, 4, 64, {}),              # tests/test_sharding.py:543
+    ("general_width", 32, 2, 128, {}),           # :814
+    ("trio", 16, 2, 120, dict(fuse_band=False))])
+def test_sharded_fused_waterfall(name, k, n_t, w, sw):
+    """The duo's K1 bands after the exact-state pre-pass, and the trio's
+    corrected planes, each shard's rows by K3."""
+    chain, pairs = wf_pair(k, n_t, w, **sw)
+    assert chain.fused and chain.fused_duo == (name != "trio")
+    assert_rows(pairs, name)
+
+
+def test_sharded_waterfall_matches_jax():
+    """Against JAX's sharded chain (its op engine on the 4-device virtual
+    mesh) at (1, 4), K = 4, w = 120, cf32, two steps: rows within 2e-3 dB,
+    the hop counter exact."""
+    from sdr_pmr446_tpu.parallel.scanner_sharded import (
+        ShardedScannerChain as JaxSharded, make_mesh as jax_mesh)
+    from sdr_pmr446_tpu.scanner.chain import make_runtime_params as jparams
+    k, w = 4, 120
+    jchain = JaxSharded(jax_mesh(1, 4), C.BlockConfig(k), waterfall=w)
+    chain = ShardedScannerChain(make_mesh(1, 4, "cpu"), C.BlockConfig(k),
+                                input_format="cf32", device="cpu",
+                                waterfall=w)
+    iq, wires = wf_wires(k, 2, "cf32")
+    n = k * C.SUBCHUNK_IN
+    jst, st = jchain.init_state(1), chain.init_state()
+    params = make_runtime_params(C.ScannerArgs(), "cpu")
+    for i, wire in enumerate(wires):
+        jst, jo = jchain.step(jst, jnp.asarray(
+            iq[None, i * n:(i + 1) * n], jnp.complex64),
+            jparams(C.ScannerArgs()))
+        st, o = chain.step(st, torch.from_numpy(wire)[None], params)
+        np.testing.assert_allclose(o.waterfall.numpy(),
+                                   np.asarray(jo.waterfall), rtol=0,
+                                   atol=2e-3, err_msg=f"step {i}")
+        np.testing.assert_array_equal(st.wf_cnt.numpy(),
+                                      np.asarray(jst.wf_cnt))
+
+
+def test_sharded_waterfall_multi_step():
+    """multi_step (the CUDA graph's steps; on the CPU the loop) of two
+    blocks with the waterfall on == the two steps, rows and carries."""
+    k, w = 16, 120
+    chain = ShardedScannerChain(make_mesh(1, 2, "cpu"), C.BlockConfig(k),
+                                device="cpu", waterfall=w)
+    _, wires = wf_wires(k, 2, "cu8")
+    _, outs = run_port(chain, wires)
+    params = make_runtime_params(C.ScannerArgs(), "cpu")
+    st, o = chain.multi_step(chain.init_state(), torch.stack(
+        [torch.from_numpy(x)[None] for x in wires]), params)
+    assert o.waterfall.shape == (1, 2 * k, w)
+    np.testing.assert_array_equal(o.waterfall[0].numpy(), np.concatenate(
+        [out["waterfall"][0] for out in outs]))
+
+
+def test_shard_hist_reach_spans_shards():
+    """The history of a shard when w/2 exceeds a shard's band: the
+    hist_len samples of [carried | shard 0 | ... | shard D-1] before its
+    first, and the carry their last hist_len (JAX's shard_hist takes one
+    neighbour's tail only); at hist_len <= T, shard_hist_planes'
+    values bit for bit."""
+    from sdr_pmr446_tpu_torch.parallel import halo
+    rng = np.random.default_rng(3)
+    n_s, n_t, t = 2, 3, 5
+    planes = torch.from_numpy(rng.standard_normal(
+        (n_s, n_t, 2, t)).astype(np.float32))
+    for hist_len in (4, 5, 7, 12):
+        carried = torch.from_numpy((rng.standard_normal((n_s, hist_len))
+                                    + 1j * rng.standard_normal(
+                                        (n_s, hist_len))).astype(np.complex64))
+        hist, carry = halo.shard_hist_reach(carried, planes, hist_len)
+        sig = torch.complex(planes[:, :, 0], planes[:, :, 1]).reshape(n_s, -1)
+        seq = torch.cat([carried, sig], dim=-1)
+        for d in range(n_t):
+            assert torch.equal(hist[:, d], seq[:, d * t:d * t + hist_len])
+            assert hist[1, d].is_contiguous()
+        assert torch.equal(carry, seq[:, -hist_len:])
+        if hist_len <= t:
+            want = halo.shard_hist_planes(carried, planes, hist_len)
+            assert torch.equal(hist, want[0]) and torch.equal(carry, want[1])
+
+
+def test_sharded_waterfall_wider_than_a_shard():
+    """w = 78400 at K_local = 1: each shard's w/2 = 39200-sample history
+    is its two left neighbours' bands (or the carried history), so the
+    rows equal the unsharded chain's.  K3 is replaced by a recorder (its
+    plain version's [w, 2w] table does not fit): the history each shard
+    got is the window of the band sequence before it, across both steps,
+    and the carries are the last shard's."""
+    from sdr_pmr446_tpu_torch.kernels.waterfall import WfOut
+    k, n_t, w = 2, 2, 78400
+    chain = ShardedScannerChain(make_mesh(1, n_t, "cpu"), C.BlockConfig(k),
+                                device="cpu", waterfall=w)
+    wl, hop = w // 2, w // 4
+    calls = []
+
+    class Recorder:
+        """K3's interface: WfOut(the last w/2 of [hist | band], the
+        counter moved on, zero rows)."""
+        wl = chain.wf.wl
+
+        def __call__(self, band, hist, cnt):
+            calls.append((band.clone(), hist.clone(), int(cnt)))
+            seq = torch.cat([hist, torch.complex(band[0], band[1])])
+            return WfOut(seq[-wl:], (cnt + band.shape[1]) % hop,
+                         torch.zeros((band.shape[1] // C.SUBCHUNK_RESAMP, w)))
+
+    chain.wf = Recorder()
+    _, wires = wf_wires(k, 2, "cu8")
+    _, outs = run_port(chain, wires)
+    assert len(calls) == 2 * n_t and outs[1]["waterfall"].shape == (1, k, w)
+    seq = torch.cat([torch.zeros(wl, dtype=torch.complex64)] + [
+        torch.complex(b[0], b[1]) for b, _, _ in calls])
+    nb = calls[0][0].shape[1]
+    for i, (_, hist, cnt) in enumerate(calls):
+        assert hist.shape == (wl,) and wl > nb
+        assert torch.equal(hist, seq[i * nb:i * nb + wl]), i
+        assert cnt == (i * nb) % hop
