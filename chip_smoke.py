@@ -175,7 +175,9 @@ on its own lines; any failure raises and ends the run:
      function S times its count in one eager step, the device-busy share
      of a megastep and its host ms; (d) on those four, Msamples/s at S =
      1, 4 and 8 in turns (median of 3 runs, 2 for the sharded duo), with
-     each graph's capture ms and memory.
+     each graph's capture ms and memory, and the graphs each chain (and
+     the driver at S = 4 and 8) holds after each timed run (one more is a
+     recapture).
  18. the batch server and live input: (a) apps/scan_batch.main on 8
      synthetic captures (4 cu8, 2 cs16, 2 cf32; 4 blocks of K = 40, 15.68 s
      of radio each) at --mesh 8,1, -w 80, --steps-per-dispatch 4, through
@@ -200,12 +202,37 @@ on its own lines; any failure raises and ends the run:
      the scanner CLI over a localhost
      rtl_tcp server against the oracle.  Launch counts == per part, the
      graphs each run captured reported.
+ 19. the op engines (engine="op", the JAX op engine's plain ops and state
+     layout; no kernel but K3), each part with the launch counts set to 0
+     just before it and checked == just after (none; K3 once a step under
+     -w; the duo's K1 / K2 in (a)'s turns and in (g)): (a) ScannerDriver(engine="op")
+     at K = 10 on phase 3's capture against the float64 oracle (decisions
+     exact, audio SNR > 40 dB) and decisions equal to phase 3's duo run;
+     at K = 40 cu8 (config 2) Msamples/s in turns (duo, op, op, duo) with
+     decisions equal to the duo's, a step under
+     set_sync_debug_mode("error"), one profiled step; (b) -w 80 on the op
+     engine at K = 10, rows within 1e-2 dB of the asgramcf oracle; (c)
+     dsd_in --engine op through its CLI at K = 10 (> 50 dB against the
+     DsdInOracle, within 1 LSB of the CPU op run) and the single op chain
+     at K = 16 on the cf32 wire (> 100 dB against the CPU op run, 1 kHz
+     tone > 35 dB); (d) the sharded op scanner at (4, 5), K = 40, against 4
+     unsharded op chains under JAX's sharded gates, the sharded dsd / single
+     op chains at (2, 2), K = 12 (K_local = 6), against the unsharded op
+     chains (PCM within 1 LSB and > 60 dB, audio > 60 dB); (e) multi_step at
+     S = 4 bit for bit on each of the six op chains (17(a)'s checks; the
+     sharded ones at (2, 2), K = 12), the op scanner's replay profiled and
+     its Msamples/s at S = 1 and 4 over 8 blocks; (f)
+     the op driver at K = 40: metrics, stop, checkpoint, restore bit-equal
+     to the uninterrupted run, the kernel driver refusing the checkpoint;
+     (g) apps/record.main on its default (kernel) engine: one WAV, the
+     driver's audio, K1 and K2 one launch a block.
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
 scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
 switched engines of 12(b), each sharded path of 13, the probe tools of
 14, faithful mode in 15, the driver's runs in 16, each path and the
-driver in 17, each scan_batch run and sharded path in 18) runs with
+driver in 17, each scan_batch run and sharded path in 18, each op path
+in 19) runs with
 the launch counts set to 0 just before it and read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
@@ -694,9 +721,10 @@ def phase_mono(dev, fmt: str, k: int, timer, reps: int = REPS):
     return rows
 
 
-def phase_dsd_app(dev, k: int, n_blocks: int):
-    """dsd_in through its CLI on the card vs the float64 oracle and the
-    port's CPU run; returns the blocks it ran."""
+def phase_dsd_app(dev, k: int, n_blocks: int, engine: str = "kernel"):
+    """dsd_in through its CLI (``--engine engine``) on the card vs the
+    float64 oracle and the port's CPU run on the same engine; returns the
+    blocks it ran."""
     import os
     import tempfile
     from sdr_pmr446_tpu_torch import config as C
@@ -714,7 +742,8 @@ def phase_dsd_app(dev, k: int, n_blocks: int):
             path = os.path.join(tmp, f"{device.replace(':', '_')}.raw")
             t0 = time.perf_counter()
             rc = app.main(["--input", cap, "--output", path,
-                           "--subchunks-per-step", str(k), "--device", device])
+                           "--subchunks-per-step", str(k), "--device", device,
+                           "--engine", engine])
             check(rc == 0, f"dsd_in --device {device} exit {rc}")
             log(f"  dsd_in --device {device}: {time.perf_counter() - t0:.2f} s")
             outs[device] = np.fromfile(path, dtype="<i2").astype(np.float64)
@@ -725,7 +754,8 @@ def phase_dsd_app(dev, k: int, n_blocks: int):
     snr = snr_db(ref, got)
     lsb = float(np.max(np.abs(got - cpu)))
     tone = synth.tone_snr_db(got[12000:] / 32767.0, 1000.0, fs=48000.0)
-    log(f"  dsd_in K={k}, {n_blocks} blocks: SNR vs oracle {snr:.1f} dB, "
+    log(f"  dsd_in --engine {engine} K={k}, {n_blocks} blocks: SNR vs "
+        f"oracle {snr:.1f} dB, "
         f"max |card - CPU| {lsb:.0f} LSB, 1 kHz tone SNR {tone:.1f} dB")
     check(snr > TOL_DSD_ORACLE_DB, "dsd_in SNR vs oracle")
     check(lsb <= TOL_PCM_LSB, "dsd_in card vs CPU")
@@ -740,13 +770,15 @@ def chain_blocks(mode: str, k: int, n_blocks: int, fmt: str = "cu8"):
             for i in range(n_blocks)]
 
 
-def make_chain(mode: str, k: int, device, mono: bool = True):
+def make_chain(mode: str, k: int, device, mono: bool = True,
+               engine: str = "kernel", fmt: str = "cu8"):
     from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdInChain
     from sdr_pmr446_tpu_torch.scanner.single import SingleChannelChain
     if mode == "dsd":
-        return DsdInChain(k, input_format="cu8", device=device, mono=mono)
-    return SingleChannelChain(5, k, input_format="cu8", device=device,
-                              mono=mono)
+        return DsdInChain(k, input_format=fmt, device=device, mono=mono,
+                          engine=engine)
+    return SingleChannelChain(5, k, input_format=fmt, device=device,
+                              mono=mono, engine=engine)
 
 
 def run_chain(chain, blocks):
@@ -759,16 +791,20 @@ def run_chain(chain, blocks):
     return np.concatenate([as_np(o) for o in outs])
 
 
-def phase_single(dev, k: int, n_blocks: int):
-    """The single-channel chain on the card vs its CPU run; returns the
-    blocks it ran."""
+def phase_single(dev, k: int, n_blocks: int, engine: str = "kernel",
+                 fmt: str = "cu8"):
+    """The single-channel chain on the card vs its CPU run, on ``engine``
+    with the ``fmt`` wire; returns the blocks it ran."""
     from sdr_pmr446_tpu_torch.io import synth
-    blocks = chain_blocks("single", k, n_blocks)
-    got = run_chain(make_chain("single", k, dev), blocks)
-    cpu = run_chain(make_chain("single", k, "cpu"), blocks)
+    blocks = chain_blocks("single", k, n_blocks, fmt)
+    got = run_chain(make_chain("single", k, dev, engine=engine, fmt=fmt),
+                    blocks)
+    cpu = run_chain(make_chain("single", k, "cpu", engine=engine, fmt=fmt),
+                    blocks)
     snr = snr_db(cpu, got)
     tone = synth.tone_snr_db(got[4000:], 1000.0)
-    log(f"  single channel 5, K={k}, {n_blocks} blocks: audio SNR vs CPU "
+    log(f"  single channel 5 ({engine} engine, {fmt}), K={k}, {n_blocks} "
+        f"blocks: audio SNR vs CPU "
         f"{snr:.1f} dB, 1 kHz tone SNR {tone:.1f} dB")
     check(snr > TOL_SNR_DB, "single audio SNR vs CPU")
     check(tone > TOL_TONE_DB, "single tone SNR")
@@ -1283,11 +1319,12 @@ def waterfall_case(dev, k: int, w: int, timer, reps: int = REPS):
             **b, "library_ms": t_lib}
 
 
-def phase_waterfall_oracle(dev, k: int, n_sub: int, w: int):
-    """The driver with -w on a synthetic cu8 capture: every row within
-    1e-2 dB of the float64 asgramcf oracle fed the oracle's band, the
-    decisions equal to the same run with the waterfall off, and K3
-    launched once a step of the -w run."""
+def phase_waterfall_oracle(dev, k: int, n_sub: int, w: int, **switches):
+    """The driver with -w on a synthetic cu8 capture, on the engine the
+    chain switches choose: every row within 1e-2 dB of the float64
+    asgramcf oracle fed the oracle's band, the decisions equal to the same
+    run with the waterfall off, and K3 launched once a step of the -w
+    run."""
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.io import synth
     from sdr_pmr446_tpu_torch.kernels import waterfall
@@ -1299,11 +1336,12 @@ def phase_waterfall_oracle(dev, k: int, n_sub: int, w: int):
     from sdr_pmr446_tpu_torch.taps import design as D
     iq = synth.make_scanner_iq(n_sub * C.SUBCHUNK_IN, channel=5, ctcss_code=12)
     raw = decode.quantize_iq(iq, "cu8")
-    off = ScannerDriver(subchunks_per_step=k, input_format="cu8", device=dev)
+    off = ScannerDriver(subchunks_per_step=k, input_format="cu8", device=dev,
+                        **switches)
     ref = off.run(wire_blocks(raw, "cu8", off.feed_len))
     before = waterfall.LAUNCHES
     drv = ScannerDriver(C.ScannerArgs(waterfall=w), subchunks_per_step=k,
-                        input_format="cu8", device=dev)
+                        input_format="cu8", device=dev, **switches)
     res = drv.run(wire_blocks(raw, "cu8", drv.feed_len))
     launches = waterfall.LAUNCHES - before
     host_iq = ((raw.astype(np.float64) - 127.5) / 127.5).view(np.complex128)
@@ -1316,7 +1354,8 @@ def phase_waterfall_oracle(dev, k: int, n_sub: int, w: int):
     for r in range(n_sub):
         asg.write(band[r * C.SUBCHUNK_RESAMP:(r + 1) * C.SUBCHUNK_RESAMP])
         err = max(err, float(np.max(np.abs(res.waterfall[r] - asg.execute()))))
-    log(f"  -w {w}, {n_sub} sub-chunks at K={k} ({drv.block_index} steps, "
+    log(f"  -w {w} {switches or ''}, {n_sub} sub-chunks at K={k} "
+        f"({drv.block_index} steps, "
         f"hop counter {int(drv.state.wf_cnt)} after them): rows within "
         f"{err:.3g} dB of the oracle; K3 launched {launches} times")
     check(err < TOL_WF_ORACLE_DB, "-w rows vs the oracle")
@@ -3073,17 +3112,20 @@ def phase_faithful(dev, k: int, sync):
                          "seconds": sec}}
 
 
-def phase_driver_checkpoint(dev, k: int, n_blocks: int):
+def phase_driver_checkpoint(dev, k: int, n_blocks: int, **switches):
     """Phase 16: ScannerDriver with metrics, a stopped run with a
-    checkpoint every block, and its resume, against the uninterrupted run.
-    Returns the steps run."""
+    checkpoint every block, and its resume, against the uninterrupted run,
+    on the engine the chain switches choose; with ``engine="op"`` the
+    kernel engine's driver refuses the checkpoint.  Returns the steps
+    run."""
     import os
     import tempfile
     from sdr_pmr446_tpu_torch import config as C
     from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver
     blocks = bench_blocks(k, n_blocks)
     make = lambda **kw: ScannerDriver(subchunks_per_step=k,
-                                      input_format="cu8", device=dev, **kw)
+                                      input_format="cu8", device=dev,
+                                      **switches, **kw)
     with tempfile.TemporaryDirectory() as tmp:
         metrics = os.path.join(tmp, "metrics.jsonl")
         full = make(metrics_path=metrics).run(blocks)
@@ -3110,6 +3152,16 @@ def phase_driver_checkpoint(dev, k: int, n_blocks: int):
         second = make(checkpoint_path=ckpt)
         check(second.restore() == stop_at, "restored block index")
         part2 = second.run(blocks)
+        if switches.get("engine") == "op":
+            try:
+                ScannerDriver(subchunks_per_step=k, input_format="cu8",
+                              device=dev).restore(ckpt)
+                refused = ""
+            except ValueError as e:
+                refused = str(e)
+            check("--engine op" in refused, "the kernel driver refuses the "
+                  f"op engine's checkpoint: {refused!r}")
+            log(f"  the kernel engine's driver refuses it: {refused}")
     for name in ("active_trace", "ct_detected", "ct_max_idx", "audio",
                  "audio_subchunks", "rssi_trace", "rel_rssi"):
         got = np.concatenate([getattr(part1, name), getattr(part2, name)])
@@ -3121,7 +3173,8 @@ def phase_driver_checkpoint(dev, k: int, n_blocks: int):
         check(np.array_equal(got, want), f"stop + resume {name} vs the "
               f"uninterrupted run: max|diff| {diff:.3g}")
     check(part1.events + part2.events == full.events, "stop + resume events")
-    log(f"  K={k}, {n_blocks} blocks: {len(recs)} metrics records with the "
+    log(f"  K={k} {switches or ''}, {n_blocks} blocks: {len(recs)} metrics "
+        f"records with the "
         f"JAX keys; stopped after block {stop_at} (final flush), resumed: "
         f"decisions, events, RSSI and audio == the uninterrupted run bit for "
         f"bit; events {full.events}")
@@ -3476,15 +3529,17 @@ def replay_checks(p: MegaPath, state, per_step: dict, sync,
             "replay_ms": span, "host_ms_megastep": h}
 
 
-def megastep_rates(p: MegaPath, n_timed: int, rounds: int, sync) -> dict:
-    """17(d): Msamples/s at each S of MEGA_TIMED_S in turns (1, 4, 8, 8,
-    4, 1, ...), ``rounds`` runs each, over ``n_timed`` blocks (blocks 1..
+def megastep_rates(p: MegaPath, n_timed: int, rounds: int, sync,
+                   timed_s: tuple = MEGA_TIMED_S) -> dict:
+    """17(d): Msamples/s at each S of ``timed_s`` in turns (1, 4, 8, 8, 4,
+    1, ...), ``rounds`` runs each, over ``n_timed`` blocks (blocks 1..
     again as needed): host wall around work that ends in a synchronize,
     the uploads inside (the driver's pinned ring, runtime/driver.py
     device_prefetch), each dispatch's outputs read back after the next is
     queued, a warm dispatch first.  S = 1 is step().  Also each graph's
-    replay on the device (CUDA events) a block.  Returns the medians and
-    each S's graph record."""
+    replay on the device (CUDA events) a block, and the graphs the chain
+    holds after each timed run (one more is a recapture).  Returns the
+    medians and each S's graph record."""
     import torch
     from sdr_pmr446_tpu_torch.runtime.driver import device_prefetch
     blocks = [p.host[1 + i % (len(p.host) - 1)] for i in range(n_timed)]
@@ -3510,7 +3565,7 @@ def megastep_rates(p: MegaPath, n_timed: int, rounds: int, sync) -> dict:
         [t.cpu() for t in tree_leaves(pending)]
         sync()
 
-    for s in MEGA_TIMED_S:              # warm: S = 1's tables, the graphs
+    for s in timed_s:                   # warm: S = 1's tables, the graphs
         reserved = settled_reserved()
         run(s)
         if s > 1:
@@ -3523,27 +3578,31 @@ def megastep_rates(p: MegaPath, n_timed: int, rounds: int, sync) -> dict:
                                         ) / 2 ** 20
     order = []
     for r in range(rounds):
-        order += list(MEGA_TIMED_S if r % 2 == 0 else MEGA_TIMED_S[::-1])
-    rates = {s: [] for s in MEGA_TIMED_S}
+        order += list(timed_s if r % 2 == 0 else timed_s[::-1])
+    rates = {s: [] for s in timed_s}
+    held = []
     for s in order:
         sync()
         t0 = time.perf_counter()
         run(s)
         rates[s].append(n_timed * p.samples / (time.perf_counter() - t0)
                         / 1e6)
+        held.append(len(p.chain.megastep.graphs))
     med = {s: statistics.median(v) for s, v in rates.items()}
     log(f"  (d) {p.name}, {n_timed} blocks, turns {order}: Msamples/s "
         + ", ".join(f"S={s} {med[s]:.2f} (" + ", ".join(
-            f"{x:.2f}" for x in rates[s]) + ")" for s in MEGA_TIMED_S)
+            f"{x:.2f}" for x in rates[s]) + ")" for s in timed_s)
+        + f"; graphs held after each run {held}"
         + "; graphs: " + ", ".join(
             f"S={s} warm-up {g['warmup_ms']:.1f} ms, capture "
             f"{g['capture_ms']:.1f} ms, a replay {g['replay_ms_per_block']:.3f}"
             f" device ms a block" + (f", {g['pool_mb']:.1f} MB" if "pool_mb"
                                      in g else "")
             for s, g in graphs.items()))
-    return {"msamples_per_s": {str(s): med[s] for s in MEGA_TIMED_S},
-            "runs": {str(s): rates[s] for s in MEGA_TIMED_S},
-            "graphs": {str(s): g for s, g in graphs.items()}}
+    return {"msamples_per_s": {str(s): med[s] for s in timed_s},
+            "runs": {str(s): rates[s] for s in timed_s},
+            "graphs": {str(s): g for s, g in graphs.items()},
+            "graphs_held": held}
 
 
 def megastep_driver(dev, k: int, n_blocks: int) -> int:
@@ -3621,6 +3680,7 @@ def driver_rates(dev, k: int, n_timed: int, rounds: int, sync) -> dict:
     for r in range(rounds):
         order += list(MEGA_TIMED_S if r % 2 == 0 else MEGA_TIMED_S[::-1])
     rates = {s: [] for s in MEGA_TIMED_S}
+    graphs = {s: [] for s in MEGA_TIMED_S}
     for s in order:
         sync()
         t0 = time.perf_counter()
@@ -3628,12 +3688,17 @@ def driver_rates(dev, k: int, n_timed: int, rounds: int, sync) -> dict:
         sync()
         rates[s].append(n_timed * k * C.SUBCHUNK_IN
                         / (time.perf_counter() - t0) / 1e6)
+        graphs[s].append(len(drivers[s].chain.megastep.graphs))
     med = {s: statistics.median(v) for s, v in rates.items()}
     log(f"  (d) ScannerDriver K={k}, {n_timed} blocks, turns {order}: "
         "Msamples/s " + ", ".join(f"S={s} {med[s]:.2f} (" + ", ".join(
             f"{x:.2f}" for x in rates[s]) + ")" for s in MEGA_TIMED_S))
+    log(f"  (d) ScannerDriver graphs held after each run (one more than the "
+        f"first run's is a recapture): " + ", ".join(
+            f"S={s} {graphs[s]}" for s in MEGA_TIMED_S if s > 1))
     return {"msamples_per_s": {str(s): med[s] for s in MEGA_TIMED_S},
-            "runs": {str(s): rates[s] for s in MEGA_TIMED_S}}
+            "runs": {str(s): rates[s] for s in MEGA_TIMED_S},
+            "graphs_held": {str(s): graphs[s] for s in MEGA_TIMED_S}}
 
 
 def phase_megastep(dev, sync) -> dict:
@@ -4380,6 +4445,273 @@ def profile_batch_megastep(dev, sync, paths) -> dict:
     return {"replay_ms": replay_ms, "graphs": len(chain.megastep.graphs)}
 
 
+# ------------------------------------------------ phase 19: the op engines
+#: the parts of an op-engine scanner step, by device function name
+OP_PARTS = (("convolutions (resampler, PFB, FIRs)",
+             ("implicit_convolve", "cudnn", "conv", "xmma_fprop",
+              "sm90_xmma_fprop", "sm80_xmma_fprop", "fft")),
+            ("matmuls (IIR scans, tone DFT)", ("gemm", "sm90_xmma_gemm",
+                                               "sm80_xmma_gemm", "cutlass",
+                                               "ampere", "gemv", "dot")),
+            ("K3 waterfall", ("wf_",)),
+            ("copies", ("Memcpy", "Memset")))
+#: (mesh, K) of the sharded op dsd / single chains in 19(d) and of every
+#: sharded op chain in (e): K_local = 6, which the kernel engine refuses
+OP_MONO = ((2, 2), 12)
+OP = {"engine": "op"}
+
+
+def check_launches(want: dict, what: str) -> dict:
+    """The launch counts since reset_launches() equal ``want`` (counter
+    name -> launches; every other counter 0)."""
+    got = {n: v for n, v in launches_now().items() if v}
+    check(got == want, f"{what}: launches {got}, expected {want}")
+    log(f"  launches over {what}: {got or 'none'}")
+    return got
+
+
+def op_sharded_scanner(dev, sync) -> None:
+    """19(d): the sharded op scanner at config 5's (4, 5), K = 40, cu8,
+    over 4 occupied blocks and the hang block, against 4 unsharded op
+    chains on the same bytes under JAX's sharded gates."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    (n_s, n_t), k = CONFIG5["duo"]
+    streams = config5_streams(n_s, k, 4, hang=True)
+    params = make_runtime_params(C.ScannerArgs(), dev)
+    chain = ShardedScannerChain(make_mesh(n_s, n_t), C.BlockConfig(k), **OP)
+    check(chain.engine_label == "op", "the sharded op engine")
+    chains = [ScannerChain(C.BlockConfig(k), device=dev, **OP)
+              for _ in range(n_s)]
+    wires = step_wires(streams, dev)
+    t0 = time.perf_counter()
+    _, got = run_sharded(chain, wires, params)
+    sync()
+    t1 = time.perf_counter()
+    want = run_streams(chains, wires, params)
+    sync()
+    log(f"  (d) the sharded op scanner ({n_s}, {n_t}) K={k}, {len(wires)} "
+        f"blocks (the last the hang block) in {(t1 - t0) * 1e3:.1f} ms (its "
+        f"first call included), 4 unsharded op chains in "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms: "
+        + check_sharded(got, want, "the sharded op scanner"))
+
+
+def op_sharded_mono(dev) -> int:
+    """19(d): the sharded dsd / single op chains at OP_MONO against the
+    unsharded op chains per stream (dsd cu8, single cf32).  Returns the
+    sharded steps."""
+    import torch
+    from sdr_pmr446_tpu_torch.parallel.dsd_sharded import ShardedDsdInChain
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import make_mesh
+    from sdr_pmr446_tpu_torch.parallel.single_sharded import (
+        ShardedSingleChain)
+    (n_s, n_t), k = OP_MONO
+    n_steps = 2
+    for mode, fmt in (("dsd", "cu8"), ("single", "cf32")):
+        blocks = chain_blocks(mode, k, n_steps + n_s - 1, fmt)
+        wires = step_wires([blocks[s:s + n_steps] for s in range(n_s)], dev)
+        chain = (ShardedDsdInChain(make_mesh(n_s, n_t), k, **OP) if mode ==
+                 "dsd" else ShardedSingleChain(make_mesh(n_s, n_t), 5, k,
+                                               input_format=fmt, **OP))
+        check(chain.k_local == k // n_t, "K_local")
+        got = torch.cat(run_sharded(chain, wires)[1], dim=1)
+        ref = make_chain(mode, k, dev, engine="op", fmt=fmt)
+        for s in range(n_s):
+            st, outs = ref.init_state(), []
+            for w in wires:
+                st, o = ref.step(st, w[s])
+                outs.append(o)
+            r = as_np(torch.cat(outs)).astype(np.float64)
+            g = as_np(got[s]).astype(np.float64)
+            snr = snr_db(r, g)
+            if mode == "dsd":
+                lsb = float(np.max(np.abs(g - r)))
+                check(lsb <= TOL_PCM_LSB and snr > 60.0,
+                      f"sharded dsd op stream {s}")
+                what = f"PCM within {lsb:.0f} LSB, SNR {snr:.1f} dB"
+            else:
+                check(snr > 60.0, f"sharded single op stream {s}")
+                what = f"audio SNR {snr:.1f} dB"
+            log(f"  (d) sharded {mode} op ({n_s}, {n_t}) K={k} (K_local "
+                f"{chain.k_local}), stream {s}: {what} against the "
+                f"unsharded op chain")
+    return 2 * n_steps
+
+
+def op_mega_paths(dev, n_blocks: int) -> dict:
+    """19(e)'s paths, each over ``n_blocks`` distinct blocks: name -> a
+    function that builds its MegaPath (no kernel launches a step)."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.parallel.dsd_sharded import ShardedDsdInChain
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.parallel.single_sharded import (
+        ShardedSingleChain)
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    scan = lambda k: k * C.SUBCHUNK_IN  # noqa: E731
+    copies = (("copies", ("Memcpy", "Memset")),)
+    k = MEGA_K["scanner"]
+    (m_s, m_t), km = OP_MONO
+    km1 = MEGA_K["mono"]
+
+    def mono(mode, fmt):
+        return lambda: MegaPath(
+            f"{mode} op K={km1} {fmt}",
+            make_chain(mode, km1, dev, engine="op", fmt=fmt), (),
+            chain_blocks(mode, km1, n_blocks, fmt), 0, set(), copies,
+            scan(km1))
+
+    def sharded_mono(mode, fmt):
+        blocks = chain_blocks(mode, km, n_blocks + m_s - 1, fmt)
+        mesh = make_mesh(m_s, m_t)
+        return lambda: MegaPath(
+            f"sharded {mode} op ({m_s}, {m_t}) K={km}",
+            ShardedDsdInChain(mesh, km, **OP) if mode == "dsd" else
+            ShardedSingleChain(mesh, 5, km, input_format=fmt, **OP), (),
+            [np.stack([blocks[i + s] for s in range(m_s)])
+             for i in range(n_blocks)], 1, set(), copies, m_s * scan(km))
+
+    def sharded():
+        streams = config5_streams(m_s, km, n_blocks - 1, hang=True)
+        return MegaPath(
+            f"sharded op scanner ({m_s}, {m_t}) K={km}",
+            ShardedScannerChain(make_mesh(m_s, m_t), C.BlockConfig(km),
+                                **OP),
+            (make_runtime_params(C.ScannerArgs(), dev),),
+            [np.stack(b) for b in zip(*streams)], 1, set(), OP_PARTS,
+            m_s * scan(km))
+
+    return {
+        "scanner": lambda: MegaPath(
+            f"op scanner K={k}", ScannerChain(C.BlockConfig(k), device=dev,
+                                              **OP),
+            (make_runtime_params(C.ScannerArgs(), dev),),
+            bench_blocks(k, n_blocks), 0, set(), OP_PARTS, scan(k)),
+        "dsd": mono("dsd", "cu8"), "single": mono("single", "cf32"),
+        "sharded": sharded, "sharded_dsd": sharded_mono("dsd", "cu8"),
+        "sharded_single": sharded_mono("single", "cf32"),
+    }
+
+
+def record_app(dev) -> None:
+    """19(g): apps/record.main on a synthetic cu8 capture (channel 5, then
+    receiver noise) on the driver's default engine: one WAV, its audio the
+    driver's, K1 and K2 one launch a block of record's run."""
+    import os
+    import tempfile
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.apps import record
+    from sdr_pmr446_tpu_torch.io import synth, wav
+    from sdr_pmr446_tpu_torch.ops import decode
+    from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver, wire_blocks
+    k = 10
+    n = 2 * k * C.SUBCHUNK_IN
+    rng = np.random.default_rng(7)
+    iq = np.concatenate([
+        synth.make_scanner_iq(n, channel=5, ctcss_code=None),
+        HANG_NOISE * (rng.standard_normal(n) + 1j * rng.standard_normal(n))])
+    raw = decode.quantize_iq(iq, "cu8")
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "cap.cu8")
+        raw.tofile(cap)
+        outd = os.path.join(tmp, "rec")
+        reset_launches()
+        rc = record.main(["--input", cap, "--outdir", outd,
+                          "--subchunks-per-step", str(k)])
+        check(rc == 0, f"record exit {rc}")
+        blocks = 2 * n // (k * C.SUBCHUNK_IN)
+        check_launches({"duo": blocks, "audio_bank": blocks},
+                       f"record's {blocks} blocks")
+        wavs = sorted(f for f in os.listdir(outd) if f.endswith(".wav"))
+        check(len(wavs) == 1, f"record wrote {wavs}")
+        got, rate = wav.read_wav(os.path.join(outd, wavs[0]))
+        drv = ScannerDriver(subchunks_per_step=k, input_format="cu8",
+                            device=dev)
+        res = drv.run(wire_blocks(raw, "cu8", drv.feed_len))
+        ref = os.path.join(tmp, "driver.wav")
+        wav.write_wav(ref, res.audio, C.AUDIO_SAMPLERATE)
+        want, _ = wav.read_wav(ref)
+    check(rate == C.AUDIO_SAMPLERATE and len(got) > 0, "record's WAV")
+    check(np.array_equal(got, want), "record's WAV == the driver's audio")
+    log(f"  (g) apps/record.main: one WAV {wavs[0]}, "
+        f"{len(got) / C.AUDIO_SAMPLERATE:.2f} s, equal to the driver's "
+        f"audio; events {res.events}")
+
+
+def phase_op_engines(dev, sync, oracle_run) -> dict:
+    """Phase 19: the op engines (engine="op", the JAX op engine's plain
+    ops) on the card, each part with the launch counts set to 0 just
+    before it and checked == just after: no kernel launches on an op path
+    but K3, once a step under -w; record (g) runs its default engine.
+    Returns the timings."""
+    bench = {}
+    t0 = time.perf_counter()
+    log("  (a) the op scanner (ScannerDriver(engine='op'), cu8)")
+    reset_launches()
+    _, op_run = phase_oracle(dev, 10, 30, **OP)
+    check_decisions(op_run, oracle_run, "op engine vs phase 3's duo run")
+    log("  decisions and events == phase 3's duo run")
+    check_launches({}, "the op scanner vs the oracle")
+    reset_launches()
+    steps, results, rates = phase_engines_bench(
+        dev, 40, 4, sync, {"duo": {}, "op": OP}, ("duo", "op", "op", "duo"))
+    check_decisions(results["op"], results["duo"], "op vs duo at K=40")
+    log("  K=40: the op engine's decisions and events == the duo's")
+    check_launches({"duo": steps["duo"], "audio_bank": steps["duo"]},
+                   "config 2 in turns (the duo's steps)")
+    bench.update({f"op_{k}": v for k, v in rates.items()})
+    reset_launches()
+    phase_no_host_reads(dev, 40, sync, **OP)
+    phase_profile(dev, 40, sync, parts=OP_PARTS, **OP)
+    check_launches({}, "the op scanner's sync-debug and profiled steps")
+    t_b = time.perf_counter()
+    log("  (b) -w 80 on the op engine (K=10)")
+    reset_launches()
+    phase_waterfall_oracle(dev, 10, 30, 80, **OP)
+    check_launches({"waterfall": 3}, "the -w 80 op scanner (3 steps)")
+    t_c = time.perf_counter()
+    log("  (c) dsd_in --engine op (K=10, cu8) and the single op chain "
+        "(K=16, cf32)")
+    reset_launches()
+    phase_dsd_app(dev, 10, 3, engine="op")
+    phase_single(dev, 16, 2, engine="op", fmt="cf32")
+    check_launches({}, "dsd_in and single on the op engine")
+    t_d = time.perf_counter()
+    log("  (d) the sharded op chains")
+    reset_launches()
+    op_sharded_scanner(dev, sync)
+    op_sharded_mono(dev)
+    check_launches({}, "the sharded op chains")
+    t_e = time.perf_counter()
+    log(f"  (e) multi_step on every op chain (S={MEGA_S})")
+    for key, build in op_mega_paths(dev, 1 + 2 * MEGA_S).items():
+        p = build()
+        st, per_step, rec = megastep_equals_steps(p, sync)
+        rec.update(replay_checks(p, st, per_step, sync,
+                                 profile=key == "scanner"))
+        if key == "scanner":
+            rec.update(megastep_rates(p, 8, 3, sync, timed_s=(1, MEGA_S)))
+            bench["megastep_op_scanner"] = rec
+        del p
+    t_f = time.perf_counter()
+    log("  (f) the driver on the op engine: checkpoint, stop, resume (K=40)")
+    reset_launches()
+    phase_driver_checkpoint(dev, 40, 4, **OP)
+    check_launches({}, "the op driver")
+    log("  (g) apps/record on its default engine")
+    record_app(dev)
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t_b - t0:.1f}, (b) {t_c - t_b:.1f}, (c) {t_d - t_c:.1f}, (d) "
+        f"{t_e - t_d:.1f}, (e) {t_f - t_e:.1f}, (f)-(g) "
+        f"{time.perf_counter() - t_f:.1f})")
+    return bench
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4593,6 +4925,9 @@ def main() -> int:
     log("phase 18: the batch server (apps/scan_batch.py), the sharded "
         "waterfall and faithful chain, live input")
     bench.update(phase_batch(dev, sync))
+    log("phase 19: the op engines (engine='op') on the card")
+    log(smi)
+    bench.update(phase_op_engines(dev, sync, oracle_run))
     log(f"  the run {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))

@@ -6,9 +6,10 @@ s16le mono to stdout (pipe it into ``dsd -i -`` or ``play``) or to a file.
 Flags: -g/--gain, -f/--frequency, --input, --input-format, --output,
 --subchunks-per-step, --steps-per-dispatch (S blocks a dispatch: a CUDA
 graph of S steps on the card, captured at the first megastep; the output
-is the same bytes), --device (which alone chooses between the CUDA kernel
-and its plain version) and --device-decode (accepted; the port always
-ships the raw wire bytes to the device and decodes there).  An
+is the same bytes), --device (cuda: the CUDA kernel, cpu: its plain
+version), --engine (kernel, the default; op: the JAX op engine's plain
+ops, every K) and --device-decode (accepted; the port always ships the
+raw wire bytes to the device and decodes there).  An
 rtl_tcp://host[:port] input streams --seconds of live radio tuned to -f
 (io/rtl_tcp.py: cu8 over the network, converted on the host, then the cf32
 wire), as the reference's dsd_in reads its SDR (src/dsd_in.c:151);
@@ -68,6 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: 'cuda' runs the CUDA kernel, 'cpu' its "
                         "plain PyTorch version (default: cuda; without a "
                         "CUDA device the run exits 1)")
+    p.add_argument("--engine", choices=["kernel", "op"], default="kernel",
+                   help="kernel: the mono CUDA kernel (JAX's pallas "
+                        "engine); op: plain PyTorch ops (JAX's xla engine)")
     return p
 
 
@@ -84,7 +88,7 @@ def main(argv=None) -> int:
         fmt = "cf32" if live else decode.wire_format(
             ns.input_format or iq_io.detect_format(ns.input))
         chain = DsdInChain(ns.subchunks_per_step, input_format=fmt,
-                           device=ns.device)
+                           device=ns.device, engine=ns.engine)
     except (ValueError, RuntimeError) as e:
         logging.error("%s", e)
         return 1
@@ -100,16 +104,18 @@ def main(argv=None) -> int:
             logging.error("cannot stream from %s: %s", ns.input, e)
             return 1
         logging.info("streaming live from %s (tuner: %s, %.3f MHz, %.0f s)"
-                     "; device %s", ns.input, live_source.client.tuner_name,
-                     ns.frequency / 1e6, ns.seconds, chain.device)
+                     "; device %s, %s engine", ns.input,
+                     live_source.client.tuner_name, ns.frequency / 1e6,
+                     ns.seconds, chain.device, chain.engine)
         blocks = (np.ascontiguousarray(b).view(np.uint8)
                   for b in live_source.blocks())
     else:
         raw = np.fromfile(ns.input, dtype=np.uint8)
         bps = decode.BYTES_PER_SAMPLE[fmt]
         raw = raw[:len(raw) // bps * bps]
-        logging.info("read %d IQ samples from %s (%s); device %s",
-                     len(raw) // bps, ns.input, fmt, chain.device)
+        logging.info("read %d IQ samples from %s (%s); device %s, %s engine",
+                     len(raw) // bps, ns.input, fmt, chain.device,
+                     chain.engine)
         blocks = wire_blocks(raw, fmt, chain.step_arg_len)
     out = sys.stdout.buffer if ns.output == "-" else open(ns.output, "wb")
     # TERM/QUIT end the loop at the next block boundary with the output

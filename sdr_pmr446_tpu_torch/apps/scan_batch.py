@@ -38,7 +38,9 @@ refuses another --subchunks-per-step, capture count, capture format or
 --device-decode setting.  Not ported: --checkpoint-backend orbax (a JAX
 library) and the multi-host flags (--coordinator, --num-processes,
 --process-id), which exit 2.  --device picks the implementation (cuda: the
-kernels, cpu: their plain versions).
+kernels, cpu: their plain versions); --engine the engine (kernel, the
+default; op: the JAX op engine's plain ops and state layout, every
+K_local), and --resume refuses a checkpoint of the other engine's layout.
 """
 
 from __future__ import annotations
@@ -100,6 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: 'cuda' runs the CUDA kernels, 'cpu' "
                         "their plain PyTorch versions (default: cuda; "
                         "without a CUDA device the run exits 1)")
+    p.add_argument("--engine", choices=["kernel", "op"], default="kernel",
+                   help="kernel: the CUDA kernels (JAX's pallas engine); "
+                        "op: plain PyTorch ops with the JAX op engine's "
+                        "state layout (JAX's xla engine)")
     p.add_argument("--subchunks-per-step", type=int, default=10)
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="blocks fused into one dispatch (a CUDA graph of "
@@ -333,7 +339,8 @@ def main(argv=None, stats: dict | None = None) -> int:
             make_mesh(n_streams, t_axis, ns.device),
             C.BlockConfig(ns.subchunks_per_step), lowpass=ns.lowpass,
             waterfall=max(ns.waterfall, 0),
-            input_format=wire_fmt or "cf32", device=ns.device)
+            input_format=wire_fmt or "cf32", device=ns.device,
+            engine=ns.engine)
     except (ValueError, RuntimeError) as e:
         logging.error("%s", e)
         return 1
@@ -345,8 +352,7 @@ def main(argv=None, stats: dict | None = None) -> int:
     params = make_runtime_params(args, dev)
     state = chain.init_state()
     block_len = chain.block.input_len
-    engine = ("duo" if chain.fused_duo else "trio" if chain.fused
-              else "plane path")
+    engine = chain.engine_label
     if wire_fmt:
         reader = RawBatchReader(paths, wire_fmt)
         reader_kind = f"raw {wire_fmt} wire"
@@ -390,7 +396,7 @@ def main(argv=None, stats: dict | None = None) -> int:
             blocks_done, loaded = state_io.load_state(ns.checkpoint, dev)
             with np.load(ns.checkpoint + ".accum.npz") as z:
                 ck = {k: z[k] for k in z.files}
-            state_io.check_kernel_layout(loaded)
+            state_io.check_layout(loaded, chain.engine)
             loaded = state_io.adapt_state_histories(loaded, state)
         except (OSError, ValueError, KeyError, EOFError,
                 zipfile.BadZipFile) as e:

@@ -10,8 +10,10 @@ SDR: io/rtl_tcp.py), --input-format, --device-decode, --output (a WAV, or
 the driver: a CUDA graph of S steps on the card, captured at the first
 megastep; ignored with --faithful, as in JAX), --faithful, --checkpoint,
 --checkpoint-every,
---checkpoint-backend npz, --resume and --device (cuda: the kernels, cpu:
-their plain versions).  With -w W each sub-chunk prints its ASCII
+--checkpoint-backend npz, --resume, --device (cuda: the kernels, cpu:
+their plain versions) and --engine (kernel, the default: the hand-written
+kernels; op: the JAX op engine's plain ops and its state layout, so a
+checkpoint the JAX CLI wrote off a TPU resumes with --engine op).  With -w W each sub-chunk prints its ASCII
 waterfall line and the channel footer (the reference's terminal UI) on
 stdout.  SIGTERM and SIGQUIT stop the scan at the next block boundary,
 flush a final checkpoint (with --checkpoint) and write the partial WAV
@@ -106,6 +108,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: 'cuda' runs the CUDA kernels, 'cpu' "
                         "their plain PyTorch versions (default: cuda; "
                         "without a CUDA device the run exits 1)")
+    p.add_argument("--engine", choices=["kernel", "op"], default="kernel",
+                   help="kernel: the CUDA kernels (JAX's pallas engine); "
+                        "op: plain PyTorch ops with the JAX op engine's "
+                        "state layout (JAX's xla engine, its default off a "
+                        "TPU); a checkpoint resumes only on its own engine")
     p.add_argument("--faithful", action="store_true",
                    help="the faithful gated audio path (validation mode, "
                         "exact reference semantics through transitions)")
@@ -267,11 +274,11 @@ def _scan(ns, mask: int, live: bool, live_sink) -> int:
                          or live_sink is not None else None),
             checkpoint_path=ns.checkpoint,
             checkpoint_every=ns.checkpoint_every,
-            steps_per_dispatch=ns.steps_per_dispatch)
+            steps_per_dispatch=ns.steps_per_dispatch, engine=ns.engine)
     except (ValueError, RuntimeError) as e:
         logging.error("%s", e)
         return 1
-    log.info("device: %s", driver.device)
+    log.info("device: %s, %s engine", driver.device, driver.engine)
     if ns.resume:
         try:
             driver.restore()

@@ -40,10 +40,11 @@ def make_pfb_kernel(prototype: np.ndarray,
 
 
 def frame_signs(parity: torch.Tensor, frames: int) -> torch.Tensor:
-    """(-1)^(parity + n) for n < frames, f32 on parity's device."""
+    """(-1)^(parity + n) for n < frames: f32 [..., frames] for ``parity``
+    [...], on parity's device."""
     f_sign = 1.0 - 2.0 * (torch.arange(frames, device=parity.device) % 2)
     p_sign = 1.0 - 2.0 * (parity % 2)
-    return (f_sign * p_sign).to(torch.float32)
+    return (f_sign * p_sign[..., None]).to(torch.float32)
 
 
 class PFBChannelizer(nn.Module):
@@ -64,17 +65,21 @@ class PFBChannelizer(nn.Module):
         self.register_buffer("weight", torch.as_tensor(w, device=device))
 
     def forward(self, state, x: torch.Tensor):
-        """state = (hist c64 [400], parity i32 []); x c64 [T], T % 16 == 0.
-        Returns ((hist', parity'), chan c64 [16, T/16]) channel-major."""
+        """state = (hist c64 [..., 400], parity i32 [...]); x c64 [..., T],
+        T % 16 == 0, each leading index a stream of its own.  Returns
+        ((hist', parity'), chan c64 [..., 16, T/16]) channel-major."""
         hist, parity = state
         t = x.shape[-1]
         if t % self.M:
             raise ValueError(f"band length {t} is not a multiple of {self.M}")
         frames = t // self.M
-        xe = torch.cat([hist, x])
-        lhs = torch.stack([xe.real, xe.imag])[None]            # [1, 2, T+400]
-        out = torch.nn.functional.conv1d(lhs, self.weight, stride=self.M)[0]
-        y = torch.complex(out[0::2], out[1::2])                 # [16, F]
-        y = y * frame_signs(parity, frames)[None, :]
+        xe = torch.cat([hist, x], dim=-1)
+        lead = xe.shape[:-1]
+        lhs = torch.stack([xe.real, xe.imag], dim=-2).reshape(
+            -1, 2, xe.shape[-1])                                # [B, 2, T+400]
+        out = torch.nn.functional.conv1d(lhs, self.weight, stride=self.M)
+        y = torch.complex(out[:, 0::2], out[:, 1::2]).reshape(
+            lead + (self.M, frames))                            # [..., 16, F]
+        y = y * frame_signs(parity, frames)[..., None, :]
         new_parity = ((parity + frames) % 2).to(torch.int32)
-        return (xe[xe.shape[-1] - self.hist_len:], new_parity), y
+        return (xe[..., xe.shape[-1] - self.hist_len:], new_parity), y

@@ -74,3 +74,14 @@ class PolyResampler(nn.Module):
         out = torch.nn.functional.conv1d(lhs, self.weight, stride=self.M)
         y = out.transpose(1, 2).reshape(lead + (frames * self.L,))
         return xe[..., xe.shape[-1] - hist.shape[-1]:], y
+
+
+def planes(z: torch.Tensor) -> torch.Tensor:
+    """c64 [..., T] -> its re / im planes f32 [..., 2, T] (the resampler
+    filters a complex signal as two real ones, as JAX's does)."""
+    return torch.view_as_real(z).transpose(-1, -2)
+
+
+def complex_of(p: torch.Tensor) -> torch.Tensor:
+    """Planes f32 [..., 2, T] -> c64 [..., T]."""
+    return torch.complex(p[..., 0, :], p[..., 1, :])

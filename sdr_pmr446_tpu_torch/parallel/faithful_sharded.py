@@ -11,9 +11,10 @@ with its halos (parallel/halo.py), in this order:
   2. the 25/128 resampler with the 345-sample input history of its left
      neighbour (``halo.shard_hist_planes``);
   3. the PFB with the 400-sample band history of its left neighbour and
-     each shard's incoming frame parity;
+     each shard's incoming frame parity, once over every [S, D] row
 
-then each stream's channel sub-chunks and [K, 16] RSSI are gathered (the
+(scanner/op_front.py's ``OpFrontEnd.shards``, which the op scanner runs
+too), then each stream's channel sub-chunks and [K, 16] RSSI are gathered (the
 tensor itself on one card) and ``faithful_scan``, the unsharded chain's
 function, runs once a stream over all K sub-chunks.  Like the JAX module
 and the unsharded faithful chain, it runs no kernel: the same plain ops
@@ -35,10 +36,7 @@ import torch
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch.ops.rssi import subchunk_rssi
-from sdr_pmr446_tpu_torch.parallel import halo
-from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (Mesh,
-                                                           frame_parities,
-                                                           mesh_device)
+from sdr_pmr446_tpu_torch.parallel.scanner_sharded import Mesh, mesh_device
 from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import stack_state
 from sdr_pmr446_tpu_torch.scanner.chain import RuntimeParams
@@ -86,23 +84,12 @@ class ShardedFaithfulChain:
             raise ValueError(f"iq must be complex64 {want}, got {iq.dtype} "
                              f"{tuple(iq.shape)}")
         n_s, n_t = self.n_stream, self.n_time
-        ch = self.chain
         x = torch.stack([iq.real, iq.imag], dim=1).reshape(
             n_s, 2, n_t, -1).transpose(1, 2)                # [S, D, 2, T]
-        (ndx, ndy), y = halo.shard_dc_blocker(
-            (torch.view_as_real(state.dc_x), torch.view_as_real(state.dc_y)),
-            x, C.DC_BLOCK_ALPHA)
-        rhist, r_carry = halo.shard_hist_planes(
-            state.resamp_hist, y, ch.resampler.hist_len)
-        _, band = ch.resampler(torch.view_as_real(rhist).transpose(-1, -2),
-                               y)                           # [S, D, 2, nb]
-        phist, p_carry = halo.shard_hist_planes(state.pfb_hist, band,
-                                                ch.pfb.hist_len)
-        f_local = band.shape[-1] // NCH
-        par, _, new_par = frame_parities(state.frame_parity, n_t, f_local)
-        chans = [torch.cat([ch.pfb((phist[s, d], par[s, d]), torch.complex(
-            band[s, d, 0], band[s, d, 1]))[1] for d in range(n_t)], dim=-1)
-            for s in range(n_s)]                            # [S][16, K*ns]
+        fr = self.chain.front.shards(state.dc_x, state.dc_y,
+                                     state.resamp_hist, state.pfb_hist,
+                                     state.frame_parity, x)
+        chans = fr.chan.transpose(1, 2).reshape(n_s, NCH, -1)  # [S, 16, K*ns]
 
         carries, outs = [], []
         for s in range(n_s):
@@ -110,15 +97,15 @@ class ShardedFaithfulChain:
             carry, o = faithful_scan(
                 FaithfulState(*(v[s] for v in state)),
                 subchunk_rssi(chans[s], self.K), chan_blocks, params,
-                ch.hp_flip, ch.lp_flip, ch.de_coeffs, self.lowpass)
+                self.chain.hp_flip, self.chain.lp_flip, self.chain.de_coeffs,
+                self.lowpass)
             carries.append(carry)
             outs.append(o)
         carry = {f: torch.stack([c[f] for c in carries]) for f in carries[0]}
         out = FaithfulOutputs(*(torch.stack(v) for v in zip(*outs)))
         new_state = FaithfulState(
-            dc_x=torch.complex(ndx[..., 0], ndx[..., 1]),
-            dc_y=torch.complex(ndy[..., 0], ndy[..., 1]),
-            resamp_hist=r_carry, pfb_hist=p_carry, frame_parity=new_par,
+            dc_x=fr.dc_x, dc_y=fr.dc_y, resamp_hist=fr.resamp_hist,
+            pfb_hist=fr.pfb_hist, frame_parity=fr.parity,
             rssi=out.rel_rssi[:, -1], **carry)
         return FaithfulState(*(v.contiguous() for v in new_state)), out
 

@@ -93,6 +93,15 @@ def shard_hist_reach(carried_hist: torch.Tensor, planes: torch.Tensor,
     return seq.unfold(-1, hist_len, t)[:, :n_t], seq[:, n_t * t:]
 
 
+def frame_parities(parity: torch.Tensor, n_time: int, f_local: int):
+    """(each shard's incoming PFB frame parity [S, D], the sign of each
+    shard's last frame [S, D] f32, the next block's parity [S])."""
+    d = torch.arange(n_time, dtype=torch.int32, device=parity.device)
+    par = ((parity[:, None] + d * f_local) % 2).to(torch.int32)
+    lsign = (1.0 - 2.0 * ((par + f_local - 1) % 2)).to(torch.float32)
+    return par, lsign, ((parity + n_time * f_local) % 2).to(torch.int32)
+
+
 def shard_scalar_prev(carried_prev: torch.Tensor, x_shard: torch.Tensor):
     """1-sample halo (the discriminator's previous sample): (prev [S, D,
     ...], new_carried [S, ...])."""

@@ -61,18 +61,31 @@ Each shard's hop counter is analytic, (wf_cnt + d * K_local * 19600) mod
 (w/4), and the carried ``wf_hist`` / ``wf_cnt`` are the last shard's.  Rows
 come back [S, K, w], per stream the unsharded chain's within 2e-3 dB.
 
-JAX's op engine (``use_pallas=False``) has no counterpart: on the CPU the
-chain runs the plain versions of the same kernels.
+``engine="op"`` is JAX's op engine (``use_pallas=False``, the op branch
+of JAX scanner_sharded.py:595-760, every K_local): the wire decoded to
+planes, the DC blocker over shards (``halo.shard_dc_blocker``), the plain
+resampler with the ``resamp_hist`` halo and the plain PFB with the
+``pfb_hist`` halo and each shard's frame parity, once over every [S, D]
+row (scanner/op_front.py ``OpFrontEnd.shards``), the discriminator with ``shard_scalar_prev``, the HP FIR, the
+delay line, the de-emphasis FIR and (``lowpass``) the lowpass FIR each
+with its ``shard_hist`` halo (each shorter than a shard's 1,225 K_local
+audio samples, so one neighbour serves it), the lp branch's DC blocker
+over shards, then the FSM's three-phase scan per stream on the gathered
+[K, 16] RSSI and [16, K, ns] lp plane.  It carries the op layout
+(runtime/state.py), ignores the ``fuse_*`` switches and runs K3 alone of
+the kernels, for the waterfall, as above.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch import device as devices
+from sdr_pmr446_tpu_torch import engine as engines
 from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
 from sdr_pmr446_tpu_torch.kernels.duo import ScannerDuo
@@ -80,18 +93,21 @@ from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
 from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod, last_frame_output
 from sdr_pmr446_tpu_torch.kernels.resample_kernel import Resampler
 from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
-from sdr_pmr446_tpu_torch.ops import decode, spectrogram
-from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums, subchunk_rssi
+from sdr_pmr446_tpu_torch.ops import decode, fir, fm, spectrogram
+from sdr_pmr446_tpu_torch.ops.rssi import (average_power_db, rssi_from_sums,
+                                           subchunk_rssi)
 from sdr_pmr446_tpu_torch.parallel import fused_halo as FH
 from sdr_pmr446_tpu_torch.parallel import halo
 from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import (ScannerState,
                                                 init_scanner_state,
                                                 stack_state)
-from sdr_pmr446_tpu_torch.scanner.chain import RuntimeParams, StepOutputs
+from sdr_pmr446_tpu_torch.scanner.chain import (OP_AUDIO_HIST, RuntimeParams,
+                                                StepOutputs)
 from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_ctcss_scan_v3,
                                               fsm_phase_a, fsm_phase_c,
                                               raw_sums_to_ctcss)
+from sdr_pmr446_tpu_torch.scanner.op_front import OpFrontEnd, shard_planes
 from sdr_pmr446_tpu_torch.taps import design as D
 
 NCH = C.NUM_CHANNELS
@@ -142,15 +158,6 @@ def stacked(outs, field: str) -> torch.Tensor:
                         for row in outs])
 
 
-def frame_parities(parity: torch.Tensor, n_time: int, f_local: int):
-    """(each shard's incoming PFB frame parity [S, D], the sign of each
-    shard's last frame [S, D] f32, the next block's parity [S])."""
-    d = torch.arange(n_time, dtype=torch.int32, device=parity.device)
-    par = ((parity[:, None] + d * f_local) % 2).to(torch.int32)
-    lsign = (1.0 - 2.0 * ((par + f_local - 1) % 2)).to(torch.float32)
-    return par, lsign, ((parity + n_time * f_local) % 2).to(torch.int32)
-
-
 class _Front(NamedTuple):
     """Steps 1-2 of every engine, per shard."""
     dc_x: torch.Tensor        # c64 [S]      carried state of the next block
@@ -159,19 +166,21 @@ class _Front(NamedTuple):
     pfb_hist: torch.Tensor    # c64 [S, 400]
     parity: torch.Tensor      # i32 [S]
     prev: torch.Tensor        # c64 [S, 16]
-    demod: list               # [S][D] f32 [16, F_local]
+    demod: list               # [S][D] f32 [16, F_local] (None: op engine)
     rssi: torch.Tensor        # f32 [S, D, K_local, 16]
     band: list                # [S][D] f32 [2, nb_local] band planes (K3's)
+    #                           (a tensor [S, D, 2, nb_local] on the op engine)
 
 
 class ShardedScannerChain:
     """The scanner block step over S streams on a one-card (S, D) mesh.
 
     ``device`` (the card by default) must be the mesh's: CUDA runs the
-    kernels, the CPU their plain versions.  ``fuse_band``, ``fuse_dc``,
-    ``fuse_rssi``, ``fuse_lp_dc`` and ``fuse_ctcss`` choose the engine by
-    the JAX names (module docstring); ``halo_dma`` moves the plane path's
-    two front-end halos by K11."""
+    kernels, the CPU their plain versions.  ``engine`` chooses the kernel
+    engines (the default) or the op engine; on the kernel engines
+    ``fuse_band``, ``fuse_dc``, ``fuse_rssi``, ``fuse_lp_dc`` and
+    ``fuse_ctcss`` choose the engine by the JAX names (module docstring);
+    ``halo_dma`` moves the plane path's two front-end halos by K11."""
 
     def __init__(self, mesh: Mesh, block: C.BlockConfig | None = None,
                  lowpass: bool = False, fir_deemph: bool = False,
@@ -179,14 +188,17 @@ class ShardedScannerChain:
                  input_format: str = "cu8", fuse_dc: bool = True,
                  fuse_lp_dc: bool = True, fuse_rssi: bool = True,
                  fuse_ctcss: bool = True, fuse_band: bool = True,
-                 device=devices.DEFAULT):
+                 device=devices.DEFAULT, engine: str = engines.KERNEL):
         precision.check()
         self.mesh = mesh
         self.device = mesh_device(mesh, device)
+        self.engine = engines.resolve(engine)
+        self.op = self.engine == engines.OP
         self.block = block or C.BlockConfig()
         self.input_format = decode.wire_format(input_format)
         spectrogram.validate_width(waterfall)
         self.waterfall = max(waterfall, 0)
+        self.lowpass = lowpass
         self.n_time, self.n_stream = mesh.n_time, mesh.n_stream
         k = self.block.subchunks_per_step
         if k % self.n_time:
@@ -195,10 +207,26 @@ class ShardedScannerChain:
         self.k_local = k // self.n_time
         self.t_local = self.block.input_len // self.n_time
         self.fused = bool(fuse_dc and fuse_lp_dc and fuse_rssi and fuse_ctcss
-                          and self.k_local % 8 == 0)
+                          and self.k_local % 8 == 0 and not self.op)
         self.fused_duo = self.fused and fuse_band
         self.halo_dma = halo_dma
         dev = self.device
+        deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
+        self.deemph_hist_len = deemph.shape[0] - 1
+        self.wf = (Waterfall(self.waterfall, device=dev)
+                   if self.waterfall else None)
+        self.megastep = fuse.fused_sharded_steps(self.step)
+        if self.op:
+            self.front = OpFrontEnd(dev)
+            self.resamp_hist_len = self.front.resampler.hist_len
+            self.pfb_hist_len = self.front.pfb.hist_len
+            self.audio_hist_len = OP_AUDIO_HIST
+            f32 = lambda taps: torch.as_tensor(  # noqa: E731
+                np.asarray(taps, np.float32), device=dev)
+            self.hp_taps = f32(D.ctcss_hp_taps())
+            self.deemph_taps = f32(deemph)
+            self.lp_taps = f32(D.audio_lp_taps())
+            return
         if self.fused_duo:
             self.duo = ScannerDuo(self.input_format, device=dev)
             self.resamp_hist_len = self.duo.front_hist_len
@@ -213,17 +241,21 @@ class ShardedScannerChain:
         self.pfb_hist_len = (self.duo.pfb if self.fused_duo
                              else self.pfb).hist_len
         self.audio_bank = AudioBank(lowpass, fir_deemph, device=dev)
-        deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
-        self.deemph_hist_len = deemph.shape[0] - 1
-        self.wf = (Waterfall(self.waterfall, device=dev)
-                   if self.waterfall else None)
-        self.megastep = fuse.fused_sharded_steps(self.step)
+        self.audio_hist_len = self.audio_bank.hist
+
+    @property
+    def engine_label(self) -> str:
+        """The engine a step runs: duo, trio, plane path or op."""
+        if self.op:
+            return "op"
+        return ("duo" if self.fused_duo else "trio" if self.fused
+                else "plane path")
 
     def init_state(self) -> ScannerState:
         """The zero state of every stream, each field [S, ...]."""
         return stack_state(init_scanner_state(
             self.resamp_hist_len, self.pfb_hist_len, self.deemph_hist_len,
-            self.audio_bank.hist, self.device, waterfall=self.waterfall),
+            self.audio_hist_len, self.device, waterfall=self.waterfall),
             self.n_stream)
 
     @property
@@ -267,7 +299,8 @@ class ShardedScannerChain:
         pfb_hist_in, ph_carry = FH.shard_pass_right(
             st.pfb_hist, bt[..., -self.pfb_hist_len:])
         f_local = t_local * C.RESAMP_L // C.RESAMP_M // NCH
-        par, lsign, new_par = frame_parities(st.frame_parity, n_t, f_local)
+        par, lsign, new_par = halo.frame_parities(st.frame_parity, n_t,
+                                                  f_local)
         cand = last_frame_output(bt[..., -PFB_TAPS:].real,
                                  bt[..., -PFB_TAPS:].imag, lsign)
         fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev,
@@ -316,7 +349,8 @@ class ShardedScannerChain:
             FH.correct_band(bw[:, :, 1], y_in.imag, hist_in.imag, t_local, h)],
             dim=2).reshape(band.shape)
         f_local = band.shape[-1] // NCH
-        par, lsign, new_par = frame_parities(st.frame_parity, n_t, f_local)
+        par, lsign, new_par = halo.frame_parities(st.frame_parity, n_t,
+                                                  f_local)
         cand = last_frame_output(band[..., 0, -PFB_TAPS:],
                                  band[..., 1, -PFB_TAPS:], lsign)
         fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev,
@@ -355,7 +389,8 @@ class ShardedScannerChain:
         phist, p_carry = halo.shard_hist_planes(st.pfb_hist, tails, hl,
                                                 self.halo_dma)
         f_local = bands[0][0].shape[-1] // NCH
-        par, lsign, new_par = frame_parities(st.frame_parity, n_t, f_local)
+        par, lsign, new_par = halo.frame_parities(st.frame_parity, n_t,
+                                                  f_local)
         cand = last_frame_output(tails[..., 0, :], tails[..., 1, :], lsign)
         fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev,
                                                    cand[..., None])
@@ -369,31 +404,71 @@ class ShardedScannerChain:
                       p_carry, new_par, fm_carry,
                       [[o.demod for o in row] for row in outs], rssi, bands)
 
-    # --------------------------------------------------------------- step
-    def step(self, state: ScannerState, wire: torch.Tensor,
-             params: RuntimeParams):
-        """One block step of every stream: ``wire`` uint8 [S, step_arg_len]
-        on the chain's device.  Returns (state', StepOutputs [S, K, ...])."""
-        wire3 = time_shards(wire, self.mesh, self.step_arg_len)
+    def _op_front(self, st: ScannerState, wire3, ns: int) -> _Front:
+        """The op engine's steps 1-5 over the shards (module docstring):
+        the demod comes back as a tensor [S, D, 16, F_local] in ``demod``
+        and the band planes as one [S, D, 2, nb_local]."""
+        n_s, n_t, kl = self.n_stream, self.n_time, self.k_local
+        fr = self.front.shards(st.dc_x, st.dc_y, st.resamp_hist, st.pfb_hist,
+                               st.frame_parity,
+                               shard_planes(wire3, self.input_format))
+        rssi = average_power_db(fr.chan.reshape(n_s, n_t, NCH, kl, ns),
+                                dim=-1).transpose(-1, -2)   # [S, D, kl, 16]
+        fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev, fr.chan)
+        _, demod = fm.fm_demod(fm_prev, fr.chan)
+        return _Front(fr.dc_x, fr.dc_y, fr.resamp_hist, fr.pfb_hist,
+                      fr.parity, fm_carry, demod, rssi, fr.band)
+
+    def _op_audio(self, state: ScannerState, fr: _Front, params, carries):
+        """The op engine's audio path over the shards and the FSM per
+        stream: (audio [S][D] [16, F_local], the FSM's results, the state
+        fields it carries)."""
+        n_s, n_t = self.n_stream, self.n_time
+        k, ns = self.block.subchunks_per_step, C.SUBCHUNK_AUDIO
+        demod = fr.demod
+        hp_hist, hp_carry = halo.shard_hist(state.hp_hist, demod,
+                                            C.HP_AUDIO_FILT_TAPS - 1)
+        _, hp_out = fir.fir_apply(hp_hist, demod, self.hp_taps)
+        dl_hist, dl_carry = halo.shard_hist(state.delay_hist, demod,
+                                            C.CTCSS_DELAY)
+        _, delayed = fir.delay_apply(dl_hist, demod)
+        (lpx_carry, lpy_carry), lp_dcb = halo.shard_dc_blocker(
+            (state.lp_dc_x, state.lp_dc_y), delayed - hp_out,
+            C.DC_BLOCK_ALPHA)
+        gained = hp_out * params.audio_gain
+        de_hist, de_carry = halo.shard_hist(state.deemph_hist, gained,
+                                            self.deemph_hist_len)
+        _, audio = fir.fir_apply(de_hist, gained, self.deemph_taps)
+        al_carry = state.audio_lp_hist
+        if self.lowpass:
+            al_hist, al_carry = halo.shard_hist(
+                state.audio_lp_hist, audio, C.LP_AUDIO_FILT_TAPS - 1)
+            _, audio = fir.fir_apply(al_hist, audio, self.lp_taps)
+        rssi_all = fr.rssi.reshape(n_s, k, NCH)
+        res = [fsm_ctcss_scan_v3(
+            carries[s], rssi_all[s], None, params.channel_mask,
+            params.squelch_level, params.lock_max,
+            lp_cm=lp_dcb[s].transpose(0, 1).reshape(NCH, k, ns))
+            for s in range(n_s)]
+        fields = dict(hp_hist=hp_carry, delay_hist=dl_carry,
+                      lp_dc_x=lpx_carry, lp_dc_y=lpy_carry,
+                      deemph_hist=de_carry, audio_lp_hist=al_carry)
+        return ([[audio[s, d] for d in range(n_t)] for s in range(n_s)],
+                res, fields)
+
+    def _kernel_audio(self, state: ScannerState, fr: _Front, params,
+                      carries):
+        """The kernel engines' audio path per shard and the FSM per stream:
+        (audio [S][D] [16, F_local], the FSM's results, the state fields it
+        carries)."""
         ns = C.SUBCHUNK_AUDIO
         n_s, n_t, kl = self.n_stream, self.n_time, self.k_local
         k = self.block.subchunks_per_step
-        if self.fused_duo:
-            fr = self._duo_front(state, wire3, ns)
-        elif self.fused:
-            fr = self._trio_front(state, wire3, ns)
-        else:
-            fr = self._plane_front(state, wire3, ns)
         rssi_all = fr.rssi.reshape(n_s, k, NCH)
         ha = self.audio_bank.hist
         ah_tails = torch.stack([torch.stack([dm[:, -ha:] for dm in row])
                                 for row in fr.demod])
         ah_local, ah_carry = halo.shard_hist(state.audio_hist, ah_tails, ha)
-        carries = [FsmCarry(state.fsm_state[s], state.active_chan[s],
-                            state.rssi[s], state.ct_count[s],
-                            state.ct_carry[s], state.ct_detected[s],
-                            state.ct_max_idx[s], state.ct_freq[s])
-                   for s in range(n_s)]
         res = []
         if self.fused:
             # 7a. phase A per stream on the gathered RSSI
@@ -442,6 +517,35 @@ class ShardedScannerChain:
                 res.append(fsm_ctcss_scan_v3(
                     carries[s], rssi_all[s], None, params.channel_mask,
                     params.squelch_level, params.lock_max, lp_cm=lp_cm))
+        return audio, res, dict(lp_dc_x=lpx_carry, lp_dc_y=lpy_carry,
+                                audio_hist=ah_carry)
+
+    # --------------------------------------------------------------- step
+    def step(self, state: ScannerState, wire: torch.Tensor,
+             params: RuntimeParams):
+        """One block step of every stream: ``wire`` uint8 [S, step_arg_len]
+        on the chain's device.  Returns (state', StepOutputs [S, K, ...])."""
+        wire3 = time_shards(wire, self.mesh, self.step_arg_len)
+        ns = C.SUBCHUNK_AUDIO
+        n_s = self.n_stream
+        k = self.block.subchunks_per_step
+        if self.op:
+            fr = self._op_front(state, wire3, ns)
+        elif self.fused_duo:
+            fr = self._duo_front(state, wire3, ns)
+        elif self.fused:
+            fr = self._trio_front(state, wire3, ns)
+        else:
+            fr = self._plane_front(state, wire3, ns)
+        rssi_all = fr.rssi.reshape(n_s, k, NCH)
+        carries = [FsmCarry(state.fsm_state[s], state.active_chan[s],
+                            state.rssi[s], state.ct_count[s],
+                            state.ct_carry[s], state.ct_detected[s],
+                            state.ct_max_idx[s], state.ct_freq[s])
+                   for s in range(n_s)]
+        audio, res, fields = (self._op_audio if self.op
+                              else self._kernel_audio)(state, fr, params,
+                                                       carries)
 
         wf_hist, wf_cnt, wf_rows = self._waterfall(state, fr.band)
 
@@ -466,8 +570,7 @@ class ShardedScannerChain:
         new_state = state._replace(
             dc_x=fr.dc_x, dc_y=fr.dc_y, resamp_hist=fr.resamp_hist,
             pfb_hist=fr.pfb_hist, frame_parity=fr.parity,
-            demod_prev=fr.prev, lp_dc_x=lpx_carry, lp_dc_y=lpy_carry,
-            audio_hist=ah_carry,
+            demod_prev=fr.prev, **fields,
             fsm_state=fsm.fsm_state, active_chan=fsm.active_chan,
             rssi=fsm.rssi, ct_count=fsm.ct_count, ct_carry=fsm.ct_carry,
             ct_detected=fsm.ct_detected, ct_max_idx=fsm.ct_max_idx,

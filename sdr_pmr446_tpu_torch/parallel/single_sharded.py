@@ -14,12 +14,21 @@ index mod 32) where JAX's takes a rotation, so each shard gets its own
 n0 = (n0 + d * t_band_local) mod 32; at K_local % 8 == 0 every shard's
 equals the stream's, as JAX's shared ``rot`` assumes.
 
+``engine="op"`` is JAX's op engine (``use_pallas=False``, JAX
+single_sharded.py:163-192) at every K_local, on the cf32 wire only (JAX
+single_sharded.py:86-91): the DC blocker over shards, the plain resampler
+and channel filter each with its ``shard_hist`` halo, the mixer's table at
+each shard's own phase (n0 + d * t_band_local) mod 32, the discriminator
+with ``shard_scalar_prev``, the HP and de-emphasis FIRs with their halos,
+carrying SingleOpState.  The kernel engine refuses K_local % 8 != 0
+(dsd_sharded.mono_geometry).
+
 ``ShardedSingleChain(mesh, channel, K).step(state, wire uint8 [S,
 step_arg_len]) -> (state', audio f32 [S, T * 25 / 2048])``, the state
-SingleState with every field [S, ...].  K_local % 8 != 0 raises (ROADMAP
-queue 1: the JAX op engines).  ``multi_step(state, wires uint8 [S_steps,
-S, step_arg_len])`` runs S_steps blocks in one dispatch (runtime/fuse.py),
-the audio [S, S_steps * T * 25 / 2048], equal to the steps bit for bit.
+SingleState (SingleOpState on the op engine) with every field [S, ...].
+``multi_step(state, wires uint8 [S_steps, S, step_arg_len])`` runs S_steps
+blocks in one dispatch (runtime/fuse.py), the audio [S, S_steps * T * 25 /
+2048], equal to the steps bit for bit.
 """
 
 from __future__ import annotations
@@ -28,18 +37,23 @@ import torch
 
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch import device as devices
+from sdr_pmr446_tpu_torch import engine as engines
 from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.kernels.chan_tail import (DPS, GL, PHASE_PERIOD,
                                                     MonoChain)
-from sdr_pmr446_tpu_torch.ops import decode, fm
+from sdr_pmr446_tpu_torch.ops import decode, fir, fm
+from sdr_pmr446_tpu_torch.ops.resample import complex_of, planes
 from sdr_pmr446_tpu_torch.parallel import fused_halo as FH
+from sdr_pmr446_tpu_torch.parallel import halo
 from sdr_pmr446_tpu_torch.parallel.dsd_sharded import mono_geometry
 from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (Mesh, mesh_device,
                                                            stacked,
                                                            time_shards)
 from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import stack_state
-from sdr_pmr446_tpu_torch.scanner.single import SingleState
+from sdr_pmr446_tpu_torch.scanner.op_front import shard_planes
+from sdr_pmr446_tpu_torch.scanner.single import (SingleChannelChain,
+                                                 SingleState)
 
 
 class ShardedSingleChain:
@@ -54,21 +68,32 @@ class ShardedSingleChain:
     def __init__(self, mesh: Mesh, channel: int,
                  subchunks_per_step: int = 16,
                  audio_gain: float = C.SDR_DEFAULT_AUDIO_GAIN,
-                 input_format: str = "cu8", device=devices.DEFAULT):
+                 input_format: str = "cu8", device=devices.DEFAULT,
+                 engine: str = engines.KERNEL):
         precision.check()
         if not 1 <= channel <= C.NUM_CHANNELS:
             raise ValueError(f"channel must be 1..{C.NUM_CHANNELS}")
         self.mesh = mesh
         self.device = mesh_device(mesh, device)
-        self.k_local = mono_geometry(subchunks_per_step, mesh)
+        self.engine = engines.resolve(engine)
+        self.op = self.engine == engines.OP
+        self.k_local = mono_geometry(subchunks_per_step, mesh, self.engine)
         self.channel = channel
         self.input_format = decode.wire_format(input_format)
         self.input_len = subchunks_per_step * C.SUBCHUNK_IN
         self.t_local = self.input_len // mesh.n_time
         self.t_band_local = self.t_local * C.RESAMP_L // C.RESAMP_M
         self.output_len = self.input_len * 25 // 2048
-        self.mono = MonoChain("single", self.input_format, channel=channel,
-                              audio_gain=audio_gain, device=self.device)
+        if self.op:
+            # the unsharded op chain's filters, table and zero state (it
+            # refuses any wire but cf32)
+            self.chain = SingleChannelChain(
+                channel, subchunks_per_step, audio_gain, self.input_format,
+                device=self.device, engine=self.engine)
+        else:
+            self.mono = MonoChain("single", self.input_format,
+                                  channel=channel, audio_gain=audio_gain,
+                                  device=self.device)
         self.megastep = fuse.fused_sharded_steps(self.step)
 
     @property
@@ -76,7 +101,9 @@ class ShardedSingleChain:
         """Wire bytes per stream and step."""
         return self.input_len * decode.BYTES_PER_SAMPLE[self.input_format]
 
-    def init_state(self) -> SingleState:
+    def init_state(self):
+        if self.op:
+            return stack_state(self.chain.init_state(), self.mesh.n_stream)
         st = SingleState(*self.mono.init_state(self.device),
                          torch.zeros((), dtype=torch.int32,
                                      device=self.device))
@@ -87,9 +114,11 @@ class ShardedSingleChain:
         docstring)."""
         return self.megastep(state, wires)
 
-    def step(self, state: SingleState, wire: torch.Tensor):
+    def step(self, state, wire: torch.Tensor):
         n_s, n_t = self.mesh.n_stream, self.mesh.n_time
         wire3 = time_shards(wire, self.mesh, self.step_arg_len)
+        if self.op:
+            return self._op_step(state, wire3)
         x_in, y_in, dcx_carry, dcy_carry, dc_tail = FH.exact_dc_state(
             wire3, self.input_format, self.t_local, self.TAIL, state.dc_x,
             state.dc_y)
@@ -126,3 +155,31 @@ class ShardedSingleChain:
         new = SingleState(dcx_carry, dcy_carry, fh_carry, bh_carry, sp_carry,
                           dh_carry, n0)
         return SingleState(*(v.contiguous() for v in new)), audio
+
+    def _op_step(self, st, wire3):
+        """The op engine over the shards (JAX single_sharded.py:163-192)."""
+        n_s, n_t = self.mesh.n_stream, self.mesh.n_time
+        ops = self.chain.ops
+        dx, dy, c1, band = ops.resample_shards(
+            st.dc_x, st.dc_y, st.res_hist,
+            shard_planes(wire3, self.input_format))         # [S, D, 2, Tb]
+        # each shard's mixer phase: its first band sample's global index
+        d = torch.arange(n_t, dtype=torch.int32, device=self.device)
+        n0_d = st.n0[:, None] + d * self.t_band_local       # [S, D]
+        mixed = ops.mix(complex_of(band), n0_d)
+        h2, c2 = halo.shard_hist(st.ch_hist, mixed, ops.chf.hist_len)
+        _, sig = ops.chf(planes(h2), planes(mixed))
+        sig = complex_of(sig)
+        fm_prev, fm_carry = halo.shard_scalar_prev(st.fm_prev, sig)
+        _, audio = fm.fm_demod(fm_prev, sig)
+        h3, c3 = halo.shard_hist(st.hp_hist, audio, ops.hp_taps.shape[0] - 1)
+        _, audio = fir.fir_apply(h3, audio, ops.hp_taps)
+        audio = audio * self.chain.audio_gain
+        h4, c4 = halo.shard_hist(st.deemph_hist, audio,
+                                 ops.deemph_taps.shape[0] - 1)
+        _, audio = fir.fir_apply(h4, audio, ops.deemph_taps)
+        n0 = ((st.n0 + n_t * self.t_band_local) % PHASE_PERIOD
+              ).to(torch.int32)
+        new = type(st)(dx, dy, c1, c2, fm_carry, c3, c4, n0)
+        return (type(st)(*(v.contiguous() for v in new)),
+                audio.reshape(n_s, -1))

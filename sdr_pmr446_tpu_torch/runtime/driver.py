@@ -22,6 +22,9 @@ As in the JAX driver (driver.py:139-177, 189-306):
     history lengths (``adapt_state_histories``), refuses a layout the chain
     cannot take, and makes the next ``run()`` skip the blocks already
     processed (one-shot);
+  - ``engine``: the chain's engine (engine.py; JAX's ``engine`` flag, the
+    op engine its ``xla``), whose state layout ``restore()`` holds a
+    checkpoint to;
   - ``request_stop()`` (a signal handler's call) makes ``run()`` finish the
     step in flight, drain it, write a final checkpoint and return the
     partial result at the next block boundary.  The orbax backend names a
@@ -128,12 +131,13 @@ class ScanResult:
 
 
 class ScannerDriver:
-    """``device`` alone chooses the implementation: a CUDA device runs the
+    """``device`` chooses where the chain runs: a CUDA device runs the
     hand-written kernels, the CPU their plain versions (device.resolve).
-    ``fuse_band``, ``fuse_dc``, ``fuse_rssi``, ``fuse_lp_dc`` and
-    ``fuse_ctcss`` choose the chain's engine (scanner/chain.py);
-    ``steps_per_dispatch`` and ``prefetch_depth`` as in JAX (module
-    docstring)."""
+    ``engine`` chooses the kernel engine (the default) or the op engine
+    (engine.py); on the kernel engine ``fuse_band``, ``fuse_dc``,
+    ``fuse_rssi``, ``fuse_lp_dc`` and ``fuse_ctcss`` choose its form
+    (scanner/chain.py); ``steps_per_dispatch`` and ``prefetch_depth`` as in
+    JAX (module docstring)."""
 
     def __init__(self, args: Optional[C.ScannerArgs] = None,
                  subchunks_per_step: int = 10, input_format: str = "cu8",
@@ -144,14 +148,15 @@ class ScannerDriver:
                  metrics_path: Optional[str] = None,
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 0, steps_per_dispatch: int = 1,
-                 prefetch_depth: int = 2):
+                 prefetch_depth: int = 2, engine: str = "kernel"):
         self.args = args or C.ScannerArgs()
         self.chain = ScannerChain(
             C.BlockConfig(subchunks_per_step), lowpass=self.args.lowpass,
             fir_deemph=self.args.fir_deemph, input_format=input_format,
             device=device, waterfall=self.args.waterfall,
             fuse_band=fuse_band, fuse_dc=fuse_dc, fuse_rssi=fuse_rssi,
-            fuse_lp_dc=fuse_lp_dc, fuse_ctcss=fuse_ctcss)
+            fuse_lp_dc=fuse_lp_dc, fuse_ctcss=fuse_ctcss, engine=engine)
+        self.engine = self.chain.engine
         self.device = self.chain.device
         self.on_subchunk = on_subchunk
         self.params = make_runtime_params(self.args, self.device)
@@ -184,10 +189,11 @@ class ScannerDriver:
         """Load a checkpoint (``path`` or checkpoint_path); the next run()
         skips the blocks of its input that it covers.  Returns the restored
         block index.  Raises ValueError for a state this chain cannot take
-        (the JAX op engine's layout, a non-history shape mismatch)."""
+        (the other engine's layout: state.check_layout; a non-history
+        shape mismatch)."""
         block_index, loaded = state_io.load_state(
             path or self.checkpoint_path, self.device)
-        state_io.check_kernel_layout(loaded)
+        state_io.check_layout(loaded, self.engine)
         self.state = state_io.adapt_state_histories(loaded,
                                                     self.chain.init_state())
         self.block_index = block_index

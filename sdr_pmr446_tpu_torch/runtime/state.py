@@ -1,22 +1,33 @@
 """Carried streaming state of the port's chains (PyTorch).
 
 Counterpart of sdr_pmr446_tpu/runtime/state.py.  ``ScannerState`` has the
-JAX field names, shapes and dtypes of the kernel engine's state
-(``ScannerChain(use_pallas=True).init_state()`` for the same input format
-and flags), so a JAX state converted to numpy loads into the port and back
-unchanged, and the npz checkpoint format is the same file format.  The
-four FIR histories of the JAX op path (hp/delay/deemph/audio-lp) stay zero
-here, as they do on the JAX kernel engine.  With the waterfall on,
-``wf_hist`` is c64 [w//2] as in the JAX state, and the port writes it and
-``wf_cnt`` every step, so a JAX XLA-path engine resumes from a port state.
-The trio (``fuse_band=False``) carries the duo's layout; with
-``fuse_dc=False`` ``resamp_hist`` is the resampler's c64 [345] input
-history, as in the JAX chain, and these conversions carry it both ways.
+JAX field names, shapes and dtypes, so a JAX state converted to numpy
+loads into the port and back unchanged, and the npz checkpoint format is
+the same file format.  Its layout depends on the engine (engine.py), as
+in JAX:
 
-The dsd_in and single-channel chains carry the JAX mono engine's layouts
-(scanner/dsd_in.py::DsdState, scanner/single.py::SingleState); their numpy
-conversions below take and give the fields in PallasDsdState /
-PallasSingleState order, so states pass between the packages both ways.
+  - the kernel engine's (``use_pallas=True``): the DC-blocked front
+    history in ``resamp_hist`` (c64 [384|512]; the raw [345] with
+    ``fuse_dc=False``) and the raw-demod history ``audio_hist`` [16,
+    512|640] of the audio bank; the four FIR histories of the op path
+    (``hp_hist``, ``delay_hist``, ``deemph_hist``, ``audio_lp_hist``) stay
+    zero;
+  - the op engine's (``use_pallas=False``): the resampler's raw-input
+    history ``resamp_hist`` c64 [345] and the four FIR histories carried;
+    ``audio_hist`` [16, 512] stays zero.
+
+``check_layout`` refuses a state of the other engine's layout, never
+reinterprets it.  With the waterfall on, ``wf_hist`` is c64 [w//2] as in
+the JAX state, and the port writes it and ``wf_cnt`` every step, so a JAX
+XLA-path engine resumes from a port state.
+
+The dsd_in and single-channel chains carry the JAX layouts of their
+engine: on the kernel engine the mono engine's (scanner/dsd_in.py::
+DsdState, scanner/single.py::SingleState, JAX's PallasDsdState /
+PallasSingleState), on the op engine the op engine's (DsdOpState,
+SingleOpState, JAX's DsdState / SingleState).  Their numpy conversions
+below take the chain's engine and give the fields in the JAX order, so
+states pass between the packages both ways.
 
 The time-sharded chains (parallel/) carry S streams' states at once: each
 field of the same NamedTuple with a leading [S] dim (``stack_state``), the
@@ -33,8 +44,9 @@ import numpy as np
 import torch
 
 from sdr_pmr446_tpu_torch import config as C
-from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdState
-from sdr_pmr446_tpu_torch.scanner.single import SingleState
+from sdr_pmr446_tpu_torch import engine as engines
+from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdOpState, DsdState
+from sdr_pmr446_tpu_torch.scanner.single import SingleOpState, SingleState
 
 
 class ScannerState(NamedTuple):
@@ -42,19 +54,21 @@ class ScannerState(NamedTuple):
     dc_x: torch.Tensor          # c64 []     IQ DC blocker x[-1]
     dc_y: torch.Tensor          # c64 []     IQ DC blocker y[-1]
     resamp_hist: torch.Tensor   # c64 [384|512] DC-blocked front history
-    #                             ([345] resampler history, fuse_dc=False)
+    #                             ([345] resampler history: fuse_dc=False,
+    #                             the op engine)
     # band rate (200 kHz)
     pfb_hist: torch.Tensor      # c64 [400]  channelizer history
     frame_parity: torch.Tensor  # i32 []     global PFB frame count mod 2
     # channel rate (12.5 kHz), per channel
     demod_prev: torch.Tensor    # c64 [16]   discriminator previous sample
-    hp_hist: torch.Tensor       # f32 [16, 376]   (op path only: zero)
-    delay_hist: torch.Tensor    # f32 [16, 188]   (op path only: zero)
+    hp_hist: torch.Tensor       # f32 [16, 376]   (op engine; kernel: zero)
+    delay_hist: torch.Tensor    # f32 [16, 188]   (op engine; kernel: zero)
     lp_dc_x: torch.Tensor       # f32 [16]   CTCSS-branch DC blocker
     lp_dc_y: torch.Tensor       # f32 [16]
-    deemph_hist: torch.Tensor   # f32 [16, deemph_taps-1] (op path: zero)
-    audio_lp_hist: torch.Tensor  # f32 [16, 102]  (op path only: zero)
+    deemph_hist: torch.Tensor   # f32 [16, deemph_taps-1] (op engine)
+    audio_lp_hist: torch.Tensor  # f32 [16, 102]  (op engine; kernel: zero)
     audio_hist: torch.Tensor    # f32 [16, 512|640] raw-demod history
+    #                             (kernel engine; op: [16, 512], zero)
     # control (squelch FSM)
     fsm_state: torch.Tensor     # i32 []     0=scanning 1=tuned
     active_chan: torch.Tensor   # i32 []     -1..15
@@ -143,23 +157,32 @@ def load_state(path: str, device) -> tuple[int, ScannerState]:
 
 
 #: the JAX op engine's FIR histories (use_pallas=False), zero on every
-#: kernel engine and in every state the port writes
+#: kernel engine
 OP_ENGINE_HISTORIES = ("hp_hist", "delay_hist", "deemph_hist",
                        "audio_lp_hist")
+#: the kernel engines' audio-bank history, zero on the op engine
+KERNEL_ENGINE_HISTORIES = ("audio_hist",)
 
 
-def check_kernel_layout(state: ScannerState) -> None:
-    """Raise ValueError if ``state`` carries the JAX op engine's layout (a
-    non-zero FIR history of OP_ENGINE_HISTORIES): the port's chains would
-    read its audio path wrongly, so such a checkpoint is refused, never
-    reinterpreted (ROADMAP queue 1: the JAX op engines)."""
-    for name in OP_ENGINE_HISTORIES:
+def check_layout(state: ScannerState, engine: str) -> None:
+    """Raise ValueError if ``state`` (a ScannerState, unsharded or with a
+    leading [S]) has the other engine's layout than ``engine``'s: a
+    non-zero op-engine FIR history (OP_ENGINE_HISTORIES) on the kernel
+    engine, a non-zero ``audio_hist`` on the op engine.  The chain would
+    read its audio path wrongly, so such a state is refused, never
+    reinterpreted; the message names the engine that takes it."""
+    other = {engines.KERNEL: (OP_ENGINE_HISTORIES, engines.OP,
+                              "the JAX op engine's (use_pallas=False)"),
+             engines.OP: (KERNEL_ENGINE_HISTORIES, engines.KERNEL,
+                          "a kernel engine's (use_pallas=True)")}
+    names, takes, layout = other[engines.resolve(engine)]
+    for name in names:
         v = getattr(state, name)
         if v is not None and bool(torch.any(v != 0)):
             raise ValueError(
-                f"checkpoint field {name!r} is non-zero: the state has the "
-                f"JAX op engine's layout (use_pallas=False), which the "
-                f"port's chains do not take yet")
+                f"state field {name!r} is non-zero: the state has {layout} "
+                f"layout, which the {engine} engine does not take (load it "
+                f"with --engine {takes} / engine={takes!r})")
 
 
 def adapt_state_histories(state, reference):
@@ -208,24 +231,29 @@ def _fields_from_numpy(cls, values, device):
 
 
 def dsd_state_to_numpy(state) -> list[np.ndarray]:
-    """A DsdInChain state as numpy arrays in the field order of the JAX
-    mono engine's PallasDsdState."""
+    """A DsdInChain state as numpy arrays in the field order of its JAX
+    counterpart (PallasDsdState on the kernel engine, DsdState on the op
+    engine)."""
     return state_to_numpy(state)
 
 
-def dsd_state_from_numpy(values, device):
-    """A DsdState from numpy arrays in PallasDsdState's field order (a JAX
-    mono-engine state's ``[np.asarray(v) for v in state]`` loads
-    unchanged)."""
-    return _fields_from_numpy(DsdState, values, device)
+def dsd_state_from_numpy(values, device, engine: str = engines.KERNEL):
+    """The ``engine``'s dsd state (DsdState or DsdOpState) from numpy
+    arrays in the JAX field order (a JAX state's ``[np.asarray(v) for v in
+    state]`` loads unchanged)."""
+    cls = DsdOpState if engines.resolve(engine) == engines.OP else DsdState
+    return _fields_from_numpy(cls, values, device)
 
 
 def single_state_to_numpy(state) -> list[np.ndarray]:
-    """A SingleChannelChain state as numpy arrays in the field order of the
-    JAX mono engine's PallasSingleState."""
+    """A SingleChannelChain state as numpy arrays in the field order of its
+    JAX counterpart (PallasSingleState / SingleState)."""
     return state_to_numpy(state)
 
 
-def single_state_from_numpy(values, device):
-    """A SingleState from numpy arrays in PallasSingleState's field order."""
-    return _fields_from_numpy(SingleState, values, device)
+def single_state_from_numpy(values, device, engine: str = engines.KERNEL):
+    """The ``engine``'s single state (SingleState or SingleOpState) from
+    numpy arrays in the JAX field order."""
+    cls = (SingleOpState if engines.resolve(engine) == engines.OP
+           else SingleState)
+    return _fields_from_numpy(cls, values, device)

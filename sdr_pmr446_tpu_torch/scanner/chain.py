@@ -1,7 +1,9 @@
-"""The 16-channel PMR446 scanner block step on the kernel engines (PyTorch).
+"""The 16-channel PMR446 scanner block step (PyTorch).
 
 Counterpart of sdr_pmr446_tpu/scanner/chain.py::ScannerChain._step_impl on
-its kernel engines (``use_pallas=True``):
+its kernel engines (``engine="kernel"``, the default; JAX
+``use_pallas=True``) and on its op engine (``engine="op"``, JAX
+``use_pallas=False``; below):
 
     (state, wire bytes [K * SUBCHUNK_IN samples], params) -> (state', StepOutputs)
 
@@ -49,12 +51,24 @@ serves the rest, and its in-kernel waterfall only some widths and K
 (spectrogram.kernel_wf_supported); every engine of the port serves every K
 and every width that spectrogram.validate_width accepts.
 
+The op engine (JAX chain.py:442-475, 491-501) runs no kernel but K3: the
+wire decoded to planes, then the shared plain front end
+(scanner/op_front.py: DC blocker, resampler, PFB), the per-sub-chunk RSSI
+and the discriminator on all 16 channels, the HP FIR and the 188-sample
+delay line, the lp branch ``delayed - hp_out`` and its DC blocker, then
+``audio * gain``, the de-emphasis FIR and, with ``lowpass``, the lowpass
+FIR, every filter carrying its history in the state (the JAX op layout:
+runtime/state.py); then ``fsm_ctcss_scan_v3`` on the channel-major lp
+plane and the audio select.  It ignores the ``fuse_*`` switches, as JAX's
+``fuse_* and use_pallas`` does, and serves every wire format and every K.
+
 The waterfall's window history is the w/2 band samples before the block.
 For w <= 800 it is read from the tail of the incoming ``pfb_hist`` (the
 last 400 band samples), which every JAX engine carries exactly, while the
 JAX in-kernel engine leaves ``wf_hist`` stale; wider windows read the
 carried ``wf_hist``.  Every step writes ``wf_hist`` and ``wf_cnt``, so a
-JAX XLA-path engine resumes from a port state exactly.
+JAX XLA-path engine resumes from a port state exactly.  K3 runs on the
+band planes of every engine, the op engine's included.
 """
 
 from __future__ import annotations
@@ -68,6 +82,7 @@ from torch import nn
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.taps import design as D
 from sdr_pmr446_tpu_torch import device as devices
+from sdr_pmr446_tpu_torch import engine as engines
 from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.kernels.audio_bank import AudioBank
 from sdr_pmr446_tpu_torch.kernels.duo import DuoOut, ScannerDuo
@@ -75,15 +90,18 @@ from sdr_pmr446_tpu_torch.kernels.front_end import FrontEnd
 from sdr_pmr446_tpu_torch.kernels.pfb_demod import PfbDemod
 from sdr_pmr446_tpu_torch.kernels.resample_kernel import Resampler
 from sdr_pmr446_tpu_torch.kernels.waterfall import Waterfall
-from sdr_pmr446_tpu_torch.ops import decode, iir, spectrogram
+from sdr_pmr446_tpu_torch.ops import decode, fir, fm, iir, spectrogram
 from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums, subchunk_rssi
 from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import ScannerState, init_scanner_state
 from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_ctcss_scan_v3,
                                               fsm_phase_a, fsm_phase_c,
                                               raw_sums_to_ctcss)
+from sdr_pmr446_tpu_torch.scanner.op_front import OpFrontEnd
 
 NCH = C.NUM_CHANNELS
+#: the op engine's unused audio-bank history length (JAX chain.py:204)
+OP_AUDIO_HIST = 4 * 128
 
 
 class RuntimeParams(NamedTuple):
@@ -127,32 +145,56 @@ class StepOutputs(NamedTuple):
 
 
 class ScannerChain(nn.Module):
-    """The scanner block step for one geometry, wire format and device.
+    """The scanner block step for one geometry, wire format, device and
+    engine.
 
     The kernels run for CUDA devices (the default); on the CPU, which the
     caller asks for with ``device="cpu"``, every kernel wrapper takes its
-    plain PyTorch version.  ``fuse_band`` and ``fuse_dc`` choose the engine
-    of steps 1-2, ``fuse_rssi``, ``fuse_lp_dc`` and ``fuse_ctcss`` the op
-    path of steps 3-5, by the JAX names and defaults (module docstring)."""
+    plain PyTorch version.  ``engine`` chooses the kernel engine (the
+    default) or the op engine (module docstring).  On the kernel engine
+    ``fuse_band`` and ``fuse_dc`` choose the engine of steps 1-2,
+    ``fuse_rssi``, ``fuse_lp_dc`` and ``fuse_ctcss`` the op path of steps
+    3-5, by the JAX names and defaults; the op engine ignores them."""
 
     def __init__(self, block: C.BlockConfig | None = None,
                  lowpass: bool = False, fir_deemph: bool = False,
                  input_format: str = "cu8", device="cuda",
                  waterfall: int = 0, fuse_band: bool = True,
                  fuse_dc: bool = True, fuse_rssi: bool = True,
-                 fuse_lp_dc: bool = True, fuse_ctcss: bool = True):
+                 fuse_lp_dc: bool = True, fuse_ctcss: bool = True,
+                 engine: str = engines.KERNEL):
         super().__init__()
         precision.check()
         spectrogram.validate_width(waterfall)
         self.block = block or C.BlockConfig()
         self.input_format = decode.wire_format(input_format)
         self.device = devices.resolve(device)
+        self.engine = engines.resolve(engine)
+        self.op = self.engine == engines.OP
+        self.lowpass = lowpass
         self.waterfall = max(waterfall, 0)
-        self.fuse_dc = fuse_dc
-        self.fuse_rssi = fuse_rssi
-        self.fuse_lp_dc = fuse_lp_dc
-        self.fuse_ctcss = fuse_ctcss and fuse_lp_dc and fuse_rssi
-        self.fuse_band = fuse_band and fuse_dc and self.fuse_ctcss
+        kernel = not self.op
+        self.fuse_dc = fuse_dc and kernel
+        self.fuse_rssi = fuse_rssi and kernel
+        self.fuse_lp_dc = fuse_lp_dc and kernel
+        self.fuse_ctcss = fuse_ctcss and self.fuse_lp_dc and self.fuse_rssi
+        self.fuse_band = fuse_band and self.fuse_dc and self.fuse_ctcss
+        deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
+        self.deemph_hist_len = deemph.shape[0] - 1
+        self.wf = (Waterfall(self.waterfall, device=self.device)
+                   if self.waterfall else None)
+        self.megastep = fuse.fused_steps(self.step)
+        if self.op:
+            self.front = OpFrontEnd(self.device)
+            self.resamp_hist_len = self.front.resampler.hist_len
+            self.pfb_hist_len = self.front.pfb.hist_len
+            self.audio_hist_len = OP_AUDIO_HIST
+            f32 = lambda taps: torch.as_tensor(  # noqa: E731
+                np.asarray(taps, np.float32), device=self.device)
+            self.register_buffer("hp_taps", f32(D.ctcss_hp_taps()))
+            self.register_buffer("deemph_taps", f32(deemph))
+            self.register_buffer("lp_taps", f32(D.audio_lp_taps()))
+            return
         if self.fuse_band:
             self.duo = ScannerDuo(self.input_format, device=self.device)
             self.resamp_hist_len = self.duo.front_hist_len
@@ -167,15 +209,11 @@ class ScannerChain(nn.Module):
         self.pfb_hist_len = (self.duo.pfb if self.fuse_band
                              else self.pfb).hist_len
         self.audio_bank = AudioBank(lowpass, fir_deemph, device=self.device)
-        self.wf = (Waterfall(self.waterfall, device=self.device)
-                   if self.waterfall else None)
-        deemph = D.deemph_fir_taps() if fir_deemph else D.deemph_fir_equiv()
-        self.deemph_hist_len = deemph.shape[0] - 1
-        self.megastep = fuse.fused_steps(self.step)
+        self.audio_hist_len = self.audio_bank.hist
 
     def init_state(self) -> ScannerState:
         return init_scanner_state(self.resamp_hist_len, self.pfb_hist_len,
-                                  self.deemph_hist_len, self.audio_bank.hist,
+                                  self.deemph_hist_len, self.audio_hist_len,
                                   self.device, waterfall=self.waterfall)
 
     @property
@@ -219,13 +257,15 @@ class ScannerChain(nn.Module):
         if wire.shape != (self.step_arg_len,):
             raise ValueError(f"wire has shape {tuple(wire.shape)}, expected "
                              f"({self.step_arg_len},)")
+        carry_in = FsmCarry(state.fsm_state, state.active_chan, state.rssi,
+                            state.ct_count, state.ct_carry, state.ct_detected,
+                            state.ct_max_idx, state.ct_freq)
+        if self.op:
+            return self._op_step(state, wire, params, carry_in)
         d = self._band_and_demod(state, wire, ns)
         rssi_db = (rssi_from_sums(d.mag_sums, ns) if self.fuse_rssi
                    else subchunk_rssi(d.mag_sums, k))
 
-        carry_in = FsmCarry(state.fsm_state, state.active_chan, state.rssi,
-                            state.ct_count, state.ct_carry, state.ct_detected,
-                            state.ct_max_idx, state.ct_freq)
         if self.fuse_ctcss:
             sched = fsm_phase_a(carry_in, rssi_db, params.channel_mask,
                                 params.squelch_level, params.lock_max, ns)
@@ -253,6 +293,54 @@ class ScannerChain(nn.Module):
                 params.squelch_level, params.lock_max,
                 lp_cm=lp_dcb.reshape(NCH, k, ns))
 
+        return self._finish(
+            state, d.band, audio, rssi_db, carry_out, fo,
+            dc_x=d.dc_x, dc_y=d.dc_y, resamp_hist=d.front_hist,
+            pfb_hist=d.pfb_hist, frame_parity=d.parity, demod_prev=d.prev,
+            lp_dc_x=lp_dc_x, lp_dc_y=lp_dc_y, audio_hist=audio_hist)
+
+    def _op_step(self, state: ScannerState, wire: torch.Tensor,
+                 params: RuntimeParams, carry_in: FsmCarry):
+        """The op engine's step (JAX chain.py:442-475, 491-501)."""
+        k, ns = self.block.subchunks_per_step, C.SUBCHUNK_AUDIO
+        xr, xi = decode.decode_planes(wire, self.input_format)
+        fr = self.front(state.dc_x, state.dc_y, state.resamp_hist,
+                        state.pfb_hist, state.frame_parity,
+                        torch.stack([xr, xi]))
+        rssi_db = subchunk_rssi(fr.chan, k)                 # [K, 16]
+        demod_prev, demod = fm.fm_demod(state.demod_prev, fr.chan)
+        # the audio path on all channels: HP, the complementary lp branch
+        # delay - HP and its DC blocker, gain, de-emphasis (, lowpass)
+        hp_hist, hp_out = fir.fir_apply(state.hp_hist, demod, self.hp_taps)
+        delay_hist, delayed = fir.delay_apply(state.delay_hist, demod)
+        (lp_dc_x, lp_dc_y), lp_dcb = iir.dc_blocker_apply(
+            (state.lp_dc_x, state.lp_dc_y), delayed - hp_out,
+            C.DC_BLOCK_ALPHA)
+        deemph_hist, audio = fir.fir_apply(
+            state.deemph_hist, hp_out * params.audio_gain, self.deemph_taps)
+        audio_lp_hist = state.audio_lp_hist
+        if self.lowpass:
+            audio_lp_hist, audio = fir.fir_apply(state.audio_lp_hist, audio,
+                                                 self.lp_taps)
+        carry_out, fo = fsm_ctcss_scan_v3(
+            carry_in, rssi_db, None, params.channel_mask,
+            params.squelch_level, params.lock_max,
+            lp_cm=lp_dcb.reshape(NCH, k, ns))
+        return self._finish(
+            state, fr.band, audio, rssi_db, carry_out, fo, dc_x=fr.dc_x,
+            dc_y=fr.dc_y, resamp_hist=fr.resamp_hist, pfb_hist=fr.pfb_hist,
+            frame_parity=fr.parity, demod_prev=demod_prev, hp_hist=hp_hist,
+            delay_hist=delay_hist, lp_dc_x=lp_dc_x, lp_dc_y=lp_dc_y,
+            deemph_hist=deemph_hist, audio_lp_hist=audio_lp_hist)
+
+    def _finish(self, state: ScannerState, band: torch.Tensor,
+                audio: torch.Tensor, rssi_db: torch.Tensor,
+                carry_out: FsmCarry, fo, **fields):
+        """Steps 6-7 of every engine: the active channel's audio of each
+        sub-chunk from ``audio`` [16, K * ns], the waterfall rows from the
+        band planes ``band`` [2, nb]; returns (the state with ``fields``
+        and the FSM's carry, StepOutputs)."""
+        k, ns = self.block.subchunks_per_step, C.SUBCHUNK_AUDIO
         sel = torch.clamp(fo.active_chan, 0, NCH - 1).long()
         audio_sel = audio.reshape(NCH, k, ns)[
             sel, torch.arange(k, device=sel.device)]
@@ -262,15 +350,12 @@ class ScannerChain(nn.Module):
         if self.wf is not None:
             hist = (state.pfb_hist if self.wf.wl <= state.pfb_hist.shape[0]
                     else state.wf_hist)
-            wf_hist, wf_cnt, wf = self.wf(d.band, hist, state.wf_cnt)
+            wf_hist, wf_cnt, wf = self.wf(band, hist, state.wf_cnt)
         else:
             wf = torch.zeros((k, 0), dtype=torch.float32,
                              device=rssi_db.device)
         new_state = state._replace(
-            dc_x=d.dc_x, dc_y=d.dc_y, resamp_hist=d.front_hist,
-            pfb_hist=d.pfb_hist, frame_parity=d.parity, demod_prev=d.prev,
-            lp_dc_x=lp_dc_x, lp_dc_y=lp_dc_y, audio_hist=audio_hist,
-            fsm_state=carry_out.fsm_state,
+            **fields, fsm_state=carry_out.fsm_state,
             active_chan=carry_out.active_chan, rssi=carry_out.rssi,
             ct_count=carry_out.ct_count, ct_carry=carry_out.ct_carry,
             ct_detected=carry_out.ct_detected,

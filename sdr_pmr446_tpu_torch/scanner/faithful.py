@@ -17,7 +17,8 @@ that mirrors the reference's main loop (src/sdr_pmr446.c:827-908):
   - the CTCSS detector reads the gated, DC-blocked LP branch.
 
 The front end (DC blocker, resampler, PFB) is continuous, as in the
-reference, and runs as plain ops (ops/iir.py, ops/resample.py, ops/pfb.py);
+reference, and runs as plain ops (scanner/op_front.py, shared with the op
+engine of scanner/chain.py);
 the detector shares scanner/fsm.py's ``ctcss_tables``,
 ``ctcss_subchunk_sums`` and ``ctcss_detect``.  The JAX package runs no
 TPU kernel here either, so faithful mode has no CUDA kernel: on a card the
@@ -39,14 +40,13 @@ from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch import precision
 from sdr_pmr446_tpu_torch.ops import fir, fm, iir
-from sdr_pmr446_tpu_torch.ops.pfb import PFBChannelizer
-from sdr_pmr446_tpu_torch.ops.resample import PolyResampler
 from sdr_pmr446_tpu_torch.ops.rssi import subchunk_rssi
 from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.scanner.chain import RuntimeParams
 from sdr_pmr446_tpu_torch.scanner.fsm import (_pick, ctcss_detect,
                                               ctcss_subchunk_sums,
                                               ctcss_tables)
+from sdr_pmr446_tpu_torch.scanner.op_front import OpFrontEnd
 from sdr_pmr446_tpu_torch.taps import design as D
 
 #: chunk length of the gated DC blocker's and de-emphasis scans (JAX
@@ -102,9 +102,7 @@ class FaithfulScannerChain(nn.Module):
         self.K = subchunks_per_step
         self.lowpass = lowpass
         self.device = devices.resolve(device)
-        self.resampler = PolyResampler(D.resampler_taps(), C.RESAMP_L,
-                                       C.RESAMP_M, device=self.device)
-        self.pfb = PFBChannelizer(D.pfb_prototype(), device=self.device)
+        self.front = OpFrontEnd(self.device)
         flip = lambda taps: torch.as_tensor(
             np.asarray(taps, np.float32)[::-1].copy(), device=self.device)
         self.register_buffer("hp_flip", flip(D.ctcss_hp_taps()))
@@ -124,8 +122,8 @@ class FaithfulScannerChain(nn.Module):
         i32 = dict(dtype=torch.int32, device=dev)
         return FaithfulState(
             dc_x=torch.zeros((), **c64), dc_y=torch.zeros((), **c64),
-            resamp_hist=torch.zeros(self.resampler.hist_len, **c64),
-            pfb_hist=torch.zeros(self.pfb.hist_len, **c64),
+            resamp_hist=torch.zeros(self.front.resampler.hist_len, **c64),
+            pfb_hist=torch.zeros(self.front.pfb.hist_len, **c64),
             frame_parity=torch.zeros((), **i32),
             fm_prev=torch.zeros((), **c64),
             hp_hist=fir.fir_init(C.HP_AUDIO_FILT_TAPS, device=dev),
@@ -151,24 +149,19 @@ class FaithfulScannerChain(nn.Module):
             raise ValueError(f"iq must be complex64 ({self.input_len},), got "
                              f"{iq.dtype} {tuple(iq.shape)}")
         # the shared front end, continuous as in the reference
-        (dx, dy), x = iir.dc_blocker_apply(
-            (torch.view_as_real(state.dc_x), torch.view_as_real(state.dc_y)),
-            torch.stack([iq.real, iq.imag]), C.DC_BLOCK_ALPHA)
-        rhist, band = self.resampler(torch.view_as_real(
-            state.resamp_hist).T, x)
-        (phist, parity), chan = self.pfb(
-            (state.pfb_hist, state.frame_parity),
-            torch.complex(band[0], band[1]))
-        chan_blocks = chan.reshape(C.NUM_CHANNELS, k, ns).transpose(0, 1)
-        rssi_k = subchunk_rssi(chan, k)                     # [K, 16]
+        fr = self.front(state.dc_x, state.dc_y, state.resamp_hist,
+                        state.pfb_hist, state.frame_parity,
+                        torch.stack([iq.real, iq.imag]))
+        chan_blocks = fr.chan.reshape(C.NUM_CHANNELS, k, ns).transpose(0, 1)
+        rssi_k = subchunk_rssi(fr.chan, k)                  # [K, 16]
 
         carry, outs = faithful_scan(state, rssi_k, chan_blocks, params,
                                     self.hp_flip, self.lp_flip,
                                     self.de_coeffs, self.lowpass)
         new_state = FaithfulState(
-            dc_x=torch.complex(dx[0], dx[1]), dc_y=torch.complex(dy[0], dy[1]),
-            resamp_hist=torch.complex(rhist[0], rhist[1]), pfb_hist=phist,
-            frame_parity=parity, rssi=outs.rel_rssi[-1], **carry)
+            dc_x=fr.dc_x, dc_y=fr.dc_y, resamp_hist=fr.resamp_hist,
+            pfb_hist=fr.pfb_hist, frame_parity=fr.parity,
+            rssi=outs.rel_rssi[-1], **carry)
         return new_state, outs
 
     def multi_step(self, state: FaithfulState, iqs: torch.Tensor,

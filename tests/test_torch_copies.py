@@ -3,13 +3,16 @@
 The port imports nothing of the JAX package; it keeps its own copies of
 ``config``, ``taps/design``, ``io/iq``, ``io/synth``, ``io/wav``,
 ``oracle/chain``, ``ui/waterfall``, ``io/native``, ``runtime/stream``,
-``io/rtl_tcp`` and ``io/audio``.  Each case here holds one piece of a copy bit-equal to the
+``io/rtl_tcp``, ``io/audio``, ``apps/filter_des`` and ``taps/pll_des``.
+Each case here holds one piece of a copy bit-equal to the
 original (one parametrised test, a case per piece), so a copy that drifts
 fails.
 """
 
+import contextlib
 import dataclasses
 import importlib
+import io
 from types import SimpleNamespace
 
 import numpy as np
@@ -37,7 +40,9 @@ def modules(pkg: str) -> SimpleNamespace:
                            wav=mod("io.wav"), oracle=mod("oracle.chain"),
                            wf=mod("ui.waterfall"), native=mod("io.native"),
                            stream=mod("runtime.stream"),
-                           rtl=mod("io.rtl_tcp"), audio=mod("io.audio"))
+                           rtl=mod("io.rtl_tcp"), audio=mod("io.audio"),
+                           filter_des=mod("apps.filter_des"),
+                           pll=mod("taps.pll_des"))
 
 
 PORT, JAX = modules("sdr_pmr446_tpu_torch"), modules("sdr_pmr446_tpu")
@@ -236,12 +241,38 @@ def audio_apis(m, tmp):
             str(a._backend("unspecified")), str(a._backend("pulse")))
 
 
+def filter_des_files(m, tmp):
+    """Every file filter_des writes (with the exploration designs), byte
+    for byte, and what it prints."""
+    out = tmp / "designs"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = m.filter_des.main(["--outdir", str(out), "--explore",
+                                "--points", "256"])
+    printed = buf.getvalue().replace(str(out), "<outdir>")
+    return (rc, printed) + tuple((f.name, f.read_bytes())
+                                 for f in sorted(out.iterdir()))
+
+
+def pll_design(m, tmp):
+    """The PLL's lock on a tone and on noise, and its biquad."""
+    res = m.pll.evaluate_on_tone(code=12, amp=0.15, noise=0.02,
+                                 seconds=0.5)
+    noise = 0.15 * np.random.default_rng(0).standard_normal(3000)
+    res2 = m.pll.CtcssPLL(94.8).run(noise)
+    bq = m.pll.Biquad.lowpass(2.0, 12500.0)
+    return (res.freq_track, res.lock, res.locked_fraction, res2.freq_track,
+            res2.lock, res2.locked_fraction, bq.b, bq.a,
+            bq.process(noise[:500]))
+
+
 CASES = {f.__name__: f for f in (config_constants, config_dataclasses,
                                  config_channel_mask, design_names, synth,
                                  iq_files, wav_file, scanner_oracle,
                                  dsd_oracle, chain_taps, waterfall_ui,
                                  native_io, native_fallback, stream_source,
-                                 rtl_tcp_protocol, audio_apis)}
+                                 rtl_tcp_protocol, audio_apis,
+                                 filter_des_files, pll_design)}
 CASES.update({f"design_{name}": (lambda fn: lambda m, tmp: fn(m.D))(fn)
               for name, fn in DESIGNS.items()})
 

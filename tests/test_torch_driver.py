@@ -16,8 +16,12 @@ Counterparts of tests/test_driver_apps.py on the CPU (plain versions):
     :271);
   - adapt_state_histories agrees with JAX's on padded and truncated
     histories and rejects a non-history mismatch naming the field;
-    load_state fills a field the file lacks with the chain's init value,
-    and restore() refuses the JAX op engine's state layout.
+    load_state fills a field the file lacks with the chain's init value;
+    the kernel driver's restore() refuses the JAX op engine's state
+    layout, the op driver (engine="op") resumes from a JAX op checkpoint
+    equal to the uninterrupted JAX run (decisions exact, RSSI within 5e-3
+    dB, audio within 1e-4 of its peak) and refuses a kernel-engine
+    checkpoint.
 """
 
 import itertools
@@ -163,14 +167,33 @@ def test_restore_fills_missing_fields_and_refuses_op_layout(capture,
     assert drv2.restore(str(tmp_path / "old.npz")) == 1
     for f, a, b in zip(drv.state._fields, drv2.state, drv.state):
         assert torch.equal(a, b), f
-    # the JAX op engine's state: its FIR histories are not the port's
+    # the JAX op engine's state: the kernel driver refuses it, the op
+    # driver resumes from it equal to the uninterrupted JAX run
     jchain = JaxChain(C.BlockConfig(K), input_format="cs16")
     words = jdecode.pack_bytes(capture[1].view(np.int16), "cs16")
-    jst, _ = jchain.step(jchain.init_state(), words[:jchain.step_arg_len],
-                         jparams(ARGS))
+    wl = jchain.step_arg_len
+    jst, _ = jchain.step(jchain.init_state(), words[:wl], jparams(ARGS))
     jstate.save_state(str(tmp_path / "op.npz"), 1, jst)
-    with pytest.raises(ValueError, match="op engine"):
+    with pytest.raises(ValueError, match="op engine.*--engine op"):
         make_driver().restore(str(tmp_path / "op.npz"))
+    op = make_driver(engine="op")
+    assert op.restore(str(tmp_path / "op.npz")) == 1
+    res = op.run(wire_blocks(capture[1], "cs16", op.feed_len))
+    outs = []
+    for i in (1, 2):
+        jst, o = jchain.step(jst, words[i * wl:(i + 1) * wl], jparams(ARGS))
+        outs.append(o)
+    want = lambda f: np.concatenate([np.asarray(getattr(o, f))  # noqa: E731
+                                     for o in outs])
+    np.testing.assert_array_equal(res.active_trace, want("active_chan"))
+    np.testing.assert_array_equal(res.ct_max_idx, want("ct_max_idx"))
+    np.testing.assert_allclose(res.rssi_trace, want("rssi_db"), rtol=0,
+                               atol=5e-3)
+    audio = want("audio")[want("audio_valid")].reshape(-1)
+    assert np.max(np.abs(res.audio - audio)) < 1e-4 * np.abs(audio).max()
+    # and the op driver refuses the kernel engine's checkpoint
+    with pytest.raises(ValueError, match="kernel engine.*--engine kernel"):
+        make_driver(engine="op").restore(str(tmp_path / "a.npz"))
 
 
 def test_adapt_state_histories_matches_jax():

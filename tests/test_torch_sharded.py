@@ -380,8 +380,13 @@ def test_constructors_reject_what_is_not_ported():
     for cls, args in ((ShardedDsdInChain, ()), (ShardedSingleChain, (5,))):
         with pytest.raises(ValueError, match="divide"):
             cls(mesh, *args, 6, device="cpu")
-        with pytest.raises(ValueError, match="queue 1: the JAX op engines"):
+        with pytest.raises(ValueError, match='engine="op"'):
             cls(mesh, *args, 16, device="cpu")          # K_local = 4
+        op = cls(mesh, *args, 16, input_format="cf32", device="cpu",
+                 engine="op")                           # K_local = 4 runs
+        st, out = op.step(op.init_state(), torch.zeros(
+            (1, op.step_arg_len), dtype=torch.uint8))
+        assert op.k_local == 4 and out.shape == (1, op.output_len)
     with pytest.raises(ValueError, match="runs on 'cuda'"):
         ShardedScannerChain(mesh, C.BlockConfig(4), device="meta")
     with pytest.raises(ValueError, match="wire must be uint8"):
