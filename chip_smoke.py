@@ -226,13 +226,31 @@ on its own lines; any failure raises and ends the run:
      to the uninterrupted run, the kernel driver refusing the checkpoint;
      (g) apps/record.main on its default (kernel) engine: one WAV, the
      driver's audio, K1 and K2 one launch a block.
+ 20. AOT export (apps/export_chain.py, torch.export; K1-K4 the custom ops
+     sdr_pmr446::duo / audio_bank / waterfall / mono): (a) BASELINE
+     configs 2 (scanner, cu8, K = 40), 4 (the same with -w 80), 3 (dsd,
+     K = 16, the cf32 wire JAX's cu8 mapping gives) and 1 (single, channel
+     5, K = 16) and the op scanner at K = 40, each exported through
+     export_chain.main with --device at its default and saved, then loaded
+     in one fresh process (``chip_smoke.py --export-child``) that imports
+     export_chain and nothing else of the package: over 4 distinct blocks
+     from the live chain's state after a first block, outputs and state
+     bit-equal to the live chain's, the kernels one launch a step (K1, K2;
+     K3 under -w; K4; none on the op engine), no weights_only fallback of
+     torch.export.load, no module of JAX, TF32 off; export time, bytes,
+     load time, and Msamples/s at S = 1 in turns with the live chain
+     (loaded, live, live, loaded); (b) the config 2 and op scanners at K
+     = 4 exported before their first step step bit for bit as chains
+     never exported; (c) the host microseconds a call through each op takes
+     beside a direct call of its CUDA implementation, in turns, their
+     outputs bit-equal.
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
 scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
 switched engines of 12(b), each sharded path of 13, the probe tools of
 14, faithful mode in 15, the driver's runs in 16, each path and the
 driver in 17, each scan_batch run and sharded path in 18, each op path
-in 19) runs with
+in 19, each export in 20) runs with
 the launch counts set to 0 just before it and read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
@@ -4712,11 +4730,317 @@ def phase_op_engines(dev, sync, oracle_run) -> dict:
     return bench
 
 
+# --------------------------------------------------- phase 20: the export
+#: (name, export_chain argv, the launches one step of its artifact makes)
+#: of each artifact of phase 20: BASELINE configs 2, 4, 3 (dsd on the
+#: cf32 wire that JAX's cu8 mapping gives) and 1, and the op scanner
+EXPORTS = (
+    ("config 2", ["--config", "scanner", "-k", "40", "--input-format",
+                  "cu8"], {"duo": 1, "audio_bank": 1}),
+    ("config 4", ["--config", "scanner", "-k", "40", "--input-format", "cu8",
+                  "-w", "80"], {"duo": 1, "audio_bank": 1, "waterfall": 1}),
+    ("config 3", ["--config", "dsd", "-k", "16", "--input-format", "cu8"],
+     {"chan_tail": 1}),
+    ("config 1", ["--config", "single", "-k", "16", "--channel", "5"],
+     {"chan_tail": 1}),
+    ("op scanner", ["--config", "scanner", "-k", "40", "--input-format",
+                    "cu8", "--engine", "op"], {}),
+)
+#: blocks each artifact runs from the live chain's state after block 0
+EXPORT_BLOCKS = 4
+#: K of 20(b)'s chains exported before their first step
+EXPORT_BEFORE_K = 4
+#: calls a timed batch of phase 20's host-cost measure makes, and batches
+EXPORT_CALLS, EXPORT_BATCHES = 50, 7
+
+
+def export_blocks(ns) -> list:
+    """1 + EXPORT_BLOCKS distinct blocks of an artifact's config: phase 4's
+    cu8 blocks (scanner), the FM tone (dsd) or channel 5 (single) on the
+    cf32 wire."""
+    k = ns.subchunks_per_step
+    if ns.config == "scanner":
+        return bench_blocks(k, 1 + EXPORT_BLOCKS)
+    return chain_blocks(ns.config, k, 1 + EXPORT_BLOCKS, "cf32")
+
+
+def step_leaves(step, state, blocks, rest) -> list:
+    """(state, outputs) leaves of ``step`` over ``blocks`` from ``state``,
+    one list a block, on the host."""
+    import torch.utils._pytree as pytree
+    out = []
+    for blk in blocks:
+        state, o = step(state, blk, *rest)
+        out.append([t.cpu() for t in pytree.tree_leaves((state, o))])
+    return out
+
+
+def export_child(spec_path: str) -> int:
+    """Phase 20's fresh process: imports sdr_pmr446_tpu_torch.apps.
+    export_chain and nothing else of the package, loads each artifact,
+    runs it over its blocks from the given state (launch counts read),
+    then times it at S = 1 in turns with the live chain that
+    export_chain.build_chain builds (loaded, live, live, loaded).  Prints
+    one JSON report; fails on a weights_only fallback of torch.export.load
+    or a module of JAX or of the JAX package."""
+    import logging
+    import torch
+    fallbacks = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            if "weights_only" in str(record.msg):
+                fallbacks.append(str(record.msg))
+
+    logging.getLogger("torch._export.serde.serialize").addHandler(Keep())
+    t0 = time.perf_counter()
+    from sdr_pmr446_tpu_torch.apps import export_chain as E
+    report = {"import_s": time.perf_counter() - t0, "cases": {}}
+    kernels = [m for n, m in sys.modules.items()
+               if n.startswith("sdr_pmr446_tpu_torch.kernels.")]
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device("cuda", 0)
+    for case in spec:
+        t = time.perf_counter()
+        step = E.load(case["path"])
+        torch.cuda.synchronize(dev)
+        load_s = time.perf_counter() - t
+        ns = E.build_parser().parse_args(case["argv"] + ["--out", "-"])
+        chain, args = E.build_chain(ns)
+        inp = torch.load(case["inputs"])
+        state0 = type(args[0])(*(v.to(dev) for v in inp["state"]))
+        blocks = [b.to(dev) for b in inp["blocks"]]
+        rest = args[2:]
+        chain.step(state0, blocks[0], *rest)        # the live chain warm
+        for mod in kernels:
+            for name in vars(mod):
+                if name.endswith("LAUNCHES"):
+                    setattr(mod, name, 0)
+        leaves = step_leaves(step, state0, blocks, rest)
+        torch.cuda.synchronize(dev)
+        launches = {f"{m.__name__.split('.')[-1]}"
+                    + ("" if name == "LAUNCHES" else f".{name}"): v
+                    for m in kernels for name, v in vars(m).items()
+                    if name.endswith("LAUNCHES") and v}
+        torch.save(leaves, case["outputs"])
+        n_samp = len(blocks) * ns.subchunks_per_step * E.C.SUBCHUNK_IN
+        rates = {"loaded": [], "live": []}
+        for who in ("loaded", "live", "live", "loaded"):
+            fn = step if who == "loaded" else chain.step
+            st = state0
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            for blk in blocks:
+                st, _ = fn(st, blk, *rest)
+            torch.cuda.synchronize(dev)
+            rates[who].append(n_samp / (time.perf_counter() - t) / 1e6)
+        report["cases"][case["name"]] = {
+            "load_s": load_s, "launches": launches, "msamples_per_s": rates,
+            "nodes": sum(n.op == "call_function" for n in step.graph.nodes)}
+    report["fallbacks"] = fallbacks
+    report["foreign"] = sorted(
+        n for n in sys.modules if n in ("jax", "sdr_pmr446_tpu")
+        or n.startswith(("jax.", "sdr_pmr446_tpu.")))
+    report["tf32"] = [torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32]
+    print(json.dumps(report))
+    return 0 if not (fallbacks or report["foreign"]
+                     or any(report["tf32"])) else 1
+
+
+def op_call_args(dev) -> dict:
+    """{kernel: (custom op, its registered CUDA implementation, arguments)}
+    at the main paths' shapes: K1 and K2 at K = 40 on phase 4's block, K3
+    at w = 80 on K1's band, K4 (dsd) at K = 16 on the cf32 wire."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.kernels import (audio_bank, chan_tail, duo,
+                                              waterfall)
+    from sdr_pmr446_tpu_torch.scanner.chain import ScannerChain
+    from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdInChain
+    chain = ScannerChain(C.BlockConfig(40), device=dev, waterfall=80)
+    st = chain.init_state()
+    wire = torch.from_numpy(bench_block(40, 0)).to(dev)
+    d, b = chain.duo, chain.audio_bank
+    duo_args = (wire, st.dc_x, st.dc_y, st.resamp_hist, st.pfb_hist,
+                st.frame_parity, st.demod_prev, d.front.kt, d.front.pj,
+                d.pfb.pfb_g, d.pfb.pfb_c, d.pfb.pfb_w, "cu8", NS)
+    o = d(*duo_args[:7], ns=NS)
+    k = 40
+    sel = torch.full((k,), 4, dtype=torch.int32, device=dev)
+    b_arr = torch.full((k,), NS - 1, dtype=torch.int32, device=dev)
+    bank_args = (st.audio_hist, st.lp_dc_x, st.lp_dc_y, o.demod,
+                 torch.tensor(1.0, device=dev), b_arr, sel, b.taps_staged,
+                 b.taps_audio, b.taps_lp, b.pj, b.f10, NS)
+    p = chain.wf.plan
+    wf_args = (o.band, st.pfb_hist, st.wf_cnt, chain.wf.pre, chain.wf.filt,
+               chain.wf.tw, p.w, p.m, p.m1, p.nt)
+    dsd = DsdInChain(16, input_format="cf32", device=dev)
+    m, ds = dsd.kernels, dsd.init_state()
+    mono_args = (torch.from_numpy(chain_blocks("dsd", 16, 1, "cf32")[0]).to(
+        dev), *ds, None, m.front.kt, m.front.pj, m.tail.kd_staged, None,
+        m.tail.post_staged, "cf32", "dsd", 0, 1.0)
+    return {"duo": (duo.duo_op, duo._duo_cuda, duo_args),
+            "audio_bank": (audio_bank.audio_bank_op,
+                           audio_bank._audio_bank_cuda, bank_args),
+            "waterfall": (waterfall.waterfall_op, waterfall._waterfall_cuda,
+                          wf_args),
+            "chan_tail": (chan_tail.mono_op, chan_tail._mono_cuda,
+                          mono_args)}
+
+
+def host_us(fn, args, sync) -> float:
+    """Median host microseconds a call of ``fn`` takes to return, over
+    EXPORT_BATCHES batches of EXPORT_CALLS calls (the card drained between
+    batches, not inside one)."""
+    per = []
+    for _ in range(EXPORT_BATCHES):
+        sync()
+        t = time.perf_counter()
+        for _ in range(EXPORT_CALLS):
+            fn(*args)
+        per.append((time.perf_counter() - t) / EXPORT_CALLS * 1e6)
+    sync()
+    return statistics.median(per)
+
+
+def op_overhead(dev, sync) -> dict:
+    """20(c): the host microseconds a call through each custom op takes
+    beside a direct call of its CUDA implementation (the ctypes launch),
+    in turns (op, direct, direct, op); outputs equal bit for bit."""
+    out = {}
+    for name, (op, direct, args) in op_call_args(dev).items():
+        check_bits(op(*args), direct(*args), f"20(c) {name} op vs direct")
+        t = {"op": [], "direct": []}
+        for who in ("op", "direct", "direct", "op"):
+            t[who].append(host_us(op if who == "op" else direct, args, sync))
+        op_us, direct_us = min(t["op"]), min(t["direct"])
+        out[name] = {"op_us": t["op"], "direct_us": t["direct"],
+                     "added_us": op_us - direct_us}
+        log(f"  (c) {name}: a call through the op {t['op'][0]:.1f} / "
+            f"{t['op'][1]:.1f} us of host, the direct launch "
+            f"{t['direct'][0]:.1f} / {t['direct'][1]:.1f} us: the op adds "
+            f"{op_us - direct_us:.1f} us (best of each)")
+    return out
+
+
+def phase_export(dev, sync, smi: str) -> dict:
+    """Phase 20: apps/export_chain on the card.  Each artifact of EXPORTS
+    is exported through export_chain.main (--device at its default),
+    saved, then loaded and run in a fresh process (export_child) over
+    EXPORT_BLOCKS distinct blocks from the live chain's state after block
+    0: outputs and state bit-equal to the live chain's, its kernels one
+    launch a step (K1 and K2; K3 under -w; K4 for dsd and single; none on
+    the op engine), no weights_only fallback, no JAX, TF32 off; its
+    Msamples/s at S = 1 in turns with the live chain's.  (b) a chain
+    exported before any live step steps as one never exported (the
+    kernel and the op scanner at K = EXPORT_BEFORE_K).  (c) the host
+    cost of the custom ops."""
+    import os
+    import tempfile
+    import torch
+    from sdr_pmr446_tpu_torch.apps import export_chain as E
+    t_start = time.perf_counter()
+    bench = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec, wants = [], {}
+        for i, (name, argv, per_step) in enumerate(EXPORTS):
+            path = os.path.join(tmp, f"a{i}.pt2")
+            ns = E.build_parser().parse_args(argv + ["--out", path])
+            reset_launches()
+            t = time.perf_counter()
+            rc = E.main(argv + ["--out", path])
+            export_s = time.perf_counter() - t
+            check(rc == 0, f"20 {name}: export_chain exit {rc}")
+            check_launches({}, f"20 {name}'s export")
+            ref, args = E.build_chain(ns)
+            blocks = [torch.from_numpy(b).to(dev) for b in export_blocks(ns)]
+            state0, _ = ref.step(args[0], blocks[0], *args[2:])
+            wants[name] = step_leaves(ref.step, state0, blocks[1:], args[2:])
+            if name in ("config 2", "op scanner"):
+                # (b) exported before it ever stepped, at a small K (a K =
+                # 40 scanner's trace takes 10-30 s)
+                small = E.build_parser().parse_args(
+                    argv + ["-k", str(EXPORT_BEFORE_K), "--out", path])
+                fresh, fresh_args = E.build_chain(small)
+                E.export_step(fresh, fresh_args)
+                never, never_args = E.build_chain(small)
+                blk = [torch.from_numpy(export_blocks(small)[0]).to(dev)]
+                check_bits(tuple(step_leaves(fresh.step, fresh_args[0], blk,
+                                             fresh_args[2:])[0]),
+                           tuple(step_leaves(never.step, never_args[0], blk,
+                                             never_args[2:])[0]),
+                           f"20(b) {name} exported before its first step")
+                log(f"  (b) {name} at K = {EXPORT_BEFORE_K}: a chain exported "
+                    f"before its first step steps bit for bit as one never "
+                    f"exported")
+            inputs = os.path.join(tmp, f"in{i}.pt")
+            torch.save({"state": [v.cpu() for v in state0],
+                        "blocks": [b.cpu() for b in blocks[1:]]}, inputs)
+            spec.append({"name": name, "argv": argv, "path": path,
+                         "inputs": inputs,
+                         "outputs": os.path.join(tmp, f"out{i}.pt"),
+                         "per_step": per_step})
+            bench[name] = {"export_s": export_s,
+                           "bytes": os.path.getsize(path)}
+            log(f"  (a) {name}: exported in {export_s:.2f} s, "
+                f"{bench[name]['bytes']} bytes")
+            del ref, args, blocks, state0
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--export-child", spec_path],
+                             capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t
+        if res.returncode != 0:
+            log(res.stdout[-4000:])
+            log(res.stderr[-4000:])
+        check(res.returncode == 0, f"20 the fresh process exit "
+              f"{res.returncode}")
+        report = json.loads(res.stdout.strip().splitlines()[-1])
+        log(f"  (a) the fresh process: {child_s:.1f} s, export_chain "
+            f"imported in {report['import_s']:.2f} s, no weights_only "
+            f"fallback, no JAX module, TF32 off ({report['tf32']})")
+        for case in spec:
+            name = case["name"]
+            got = torch.load(case["outputs"])
+            for b, (g, w) in enumerate(zip(got, wants[name])):
+                check(len(g) == len(w), f"20 {name} block {b} leaves")
+                for j, (gl, wl) in enumerate(zip(g, w)):
+                    check(gl.shape == wl.shape and gl.dtype == wl.dtype
+                          and torch.equal(bits(gl), bits(wl)),
+                          f"20 {name} block {b} leaf {j} differs")
+            r = report["cases"][name]
+            want = {k: n * EXPORT_BLOCKS for k, n in case["per_step"].items()}
+            check(r["launches"] == want, f"20 {name}: the loaded program "
+                  f"launched {r['launches']}, expected {want}")
+            rates = r["msamples_per_s"]
+            bench[name].update(load_s=r["load_s"], launches=r["launches"],
+                               msamples_per_s=rates, nodes=r["nodes"])
+            log(f"  (a) {name}: loaded in {r['load_s']:.2f} s, {len(got)} "
+                f"blocks bit-equal to the live chain, launches "
+                f"{r['launches'] or 'none'}, {r['nodes']} graph calls a "
+                f"step; Msamples/s at S = 1 loaded "
+                f"{rates['loaded'][0]:.1f} / {rates['loaded'][1]:.1f}, live "
+                f"{rates['live'][0]:.1f} / {rates['live'][1]:.1f}")
+    log(f"  {smi}")
+    reset_launches()
+    bench["op_overhead"] = op_overhead(dev, sync)
+    reset_launches()
+    log(f"  phase 20 took {time.perf_counter() - t_start:.1f} s")
+    return bench
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--export-child"]:
+        return export_child(sys.argv[2])
     from sdr_pmr446_tpu_torch.kernels import (audio_bank, build, chan_tail,
                                               duo, front_end, pfb_demod,
                                               resample_kernel, waterfall)
@@ -4928,6 +5252,9 @@ def main() -> int:
     log("phase 19: the op engines (engine='op') on the card")
     log(smi)
     bench.update(phase_op_engines(dev, sync, oracle_run))
+    log("phase 20: AOT export (apps/export_chain.py) on the card")
+    log(smi)
+    bench["export"] = phase_export(dev, sync, smi)
     log(f"  the run {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))

@@ -2,6 +2,7 @@
 """Times of the port's kernels of one tree, by CUDA kernel.
 
     python3 kernel_times.py [--tree DIR] [--label NAME] [--reps N] [--out FILE]
+                            [--chains]
 
 Runs, on one CUDA card, kernels of the ``sdr_pmr446_tpu_torch`` package
 found in DIR (default: this checkout), after building that tree's kernels
@@ -43,6 +44,11 @@ per call, with the CUDA kernels a call and the median span of a call on
 the device (its first kernel's start to its last one's end: launch gaps
 and overlaps included).  Two trees compare on one card when one job runs
 this for each in turns (parent, change, change, parent).
+With --chains it times the tree's chain steps instead of its kernels:
+the Msamples/s at S = 1 of ScannerChain (the duo, cu8, K = 40) and
+DsdInChain (mono, cu8, K = 16), each step on a device-resident block, 8
+distinct blocks (chip_smoke.py's bench_blocks / chain_blocks) after a
+warm-up block, host clock to a synchronize, N runs (median and all).
 Prints a line per case and, last, one JSON object {"label", "card",
 "cases": {...}}; writes that object to FILE too when given.  Needs a CUDA
 device and nvcc; imports nothing of JAX.
@@ -236,6 +242,43 @@ def bank_cases(dev, reps: int):
     return out
 
 
+def chain_rates(dev, sync, reps: int) -> dict:
+    """--chains: {chain: {"msamples_per_s": median, "runs": [...]}}."""
+    import time
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    from sdr_pmr446_tpu_torch.scanner.dsd_in import DsdInChain
+    n_blocks = 8
+    scanner = ScannerChain(C.BlockConfig(40), device=dev)
+    dsd = DsdInChain(16, input_format="cu8", device=dev)
+    params = (make_runtime_params(C.ScannerArgs(), dev),)
+    paths = {"scanner duo K=40 cu8": (scanner, params,
+                                      cs.bench_blocks(40, 1 + n_blocks)),
+             "dsd_in mono K=16 cu8": (dsd, (),
+                                      cs.chain_blocks("dsd", 16, 1 + n_blocks,
+                                                      "cu8"))}
+    out = {}
+    for name, (chain, rest, blocks) in paths.items():
+        wires = [torch.as_tensor(b, device=dev) for b in blocks]
+        n_samp = sum(len(b) for b in blocks[1:]) // 2       # cu8: 2 B each
+        st, _ = chain.step(chain.init_state(), wires[0], *rest)
+        runs = []
+        for _ in range(reps):
+            state = st
+            sync()
+            t0 = time.perf_counter()
+            for w in wires[1:]:
+                state, _ = chain.step(state, w, *rest)
+            sync()
+            runs.append(n_samp / (time.perf_counter() - t0) / 1e6)
+        out[name] = {"msamples_per_s": float(np.median(runs)), "runs": runs}
+        cs.log(f"  {name}: S = 1, {np.median(runs):.1f} Msamples/s (runs "
+               f"{', '.join(f'{r:.1f}' for r in runs)})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=None,
@@ -243,6 +286,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--reps", type=int, default=cs.REPS)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--chains", action="store_true",
+                    help="time the chain steps at S = 1, not the kernels")
     args = ap.parse_args(argv)
     if args.tree is not None:
         sys.path.insert(0, str(args.tree.resolve()))
@@ -261,6 +306,11 @@ def main(argv=None) -> int:
     cs.log(f"{args.label}: {Path(sdr_pmr446_tpu_torch.__file__).parent}, "
            f"{card}")
     build.library()
+    if args.chains:
+        doc = {"label": args.label, "card": card,
+               "cases": chain_rates(dev, sync, args.reps)}
+        print(json.dumps(doc))
+        return 0
     res = {}
     cases = (bank_cases(dev, args.reps) + k10_k12a_cases(dev, args.reps)
              + k12b_k11_cases(dev, args.reps))

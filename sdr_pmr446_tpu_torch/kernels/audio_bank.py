@@ -55,6 +55,14 @@ sample.  The FIR pair is a register-tiled product: a thread keeps AB_R
 consecutive audio and lp sums and a sliding window of samples in
 registers, and per group of 4 taps makes one float4 window load and one or
 two broadcast float4 tap loads (``staged_taps``) for 32 or 64 FFMAs.
+
+K2 runs behind the ``torch.library`` custom op ``sdr_pmr446::audio_bank``:
+the launch is its CUDA implementation (registered for "cuda" alone), the
+plain version its CPU implementation ("cpu" alone), the taps tensor
+arguments; the live scanner and an exported step (apps/export_chain.py)
+call the op, and ``LAUNCHES`` counts in its CUDA implementation.  K8
+(``apply``, ``apply_dc``), which no exported step reaches, stays a direct
+launch.
 """
 
 from __future__ import annotations
@@ -176,6 +184,148 @@ def tone_units() -> np.ndarray:
     return f10.astype(np.int32)
 
 
+def check_demod(demod: torch.Tensor, ns: int | None = None):
+    """(F, K): raise unless ``demod`` is [16, F] (F whole sub-chunks of
+    ``ns`` when given; K = 0 without)."""
+    if demod.dim() != 2 or demod.shape[0] != NCH or demod.shape[1] == 0 \
+            or (ns is not None and demod.shape[1] % ns):
+        whole = f"K*{ns}" if ns is not None else "F"
+        raise ValueError(f"demod must be [16, {whole}], got "
+                         f"{tuple(demod.shape)}")
+    f = demod.shape[1]
+    return f, (f // ns if ns is not None else 0)
+
+
+def apply_plain(hist, demod, gain, taps_audio, taps_lp) -> BankOut:
+    """K8 apply in plain PyTorch ops (any device): the FIR pair with the
+    composed taps."""
+    f, _ = check_demod(demod)
+    h = hist.shape[-1]
+    la, ll = taps_audio.shape[0], taps_lp.shape[0]
+    _, audio = fir.fir_apply(hist[:, h - (la - 1):], demod, taps_audio)
+    _, lp = fir.fir_apply(hist[:, h - (ll - 1):], demod, taps_lp)
+    new_hist = torch.cat([hist, demod], dim=-1)[:, f:].contiguous()
+    return BankOut(new_hist, audio * gain, lp)
+
+
+def apply_dc_plain(hist, dc_x, dc_y, demod, gain, taps_audio,
+                   taps_lp) -> BankDcOut:
+    """K8 apply_dc in plain PyTorch ops: the FIR pair, then the lp DC
+    blocker (ops/iir.py)."""
+    new_hist, audio, lp = apply_plain(hist, demod, gain, taps_audio, taps_lp)
+    (ndx, ndy), lp_dcb = iir.dc_blocker_apply((dc_x, dc_y), lp,
+                                              C.DC_BLOCK_ALPHA)
+    return BankDcOut(new_hist, ndx.contiguous(), ndy.contiguous(), audio,
+                     lp_dcb)
+
+
+def bank_plain(hist, dc_x, dc_y, demod, gain, b_arr, sel, taps_audio,
+               taps_lp, f10, ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
+    """K2 in plain PyTorch ops: apply_dc_plain, then the tone sums."""
+    check_demod(demod, ns)
+    o = apply_dc_plain(hist, dc_x, dc_y, demod, gain, taps_audio, taps_lp)
+    raw_pre, raw_mem = ctcss_sums_plain(o.lp_dcb, b_arr, sel, ns, f10)
+    return AudioOut(o.hist, o.dc_x, o.dc_y, o.audio, raw_pre, raw_mem)
+
+
+def dc_scratch(f: int, dev):
+    """(lp_last, lplocal, yend, carry) device scratch for an F-sample
+    block: lp[:, F-1], the chunk-local lp DC response, its chunk ends and
+    the chunk carries."""
+    chunks = -(-f // DC_L)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty(NCH, **f32), torch.empty((NCH, f), **f32),
+            torch.empty((NCH, chunks), **f32),
+            torch.empty((NCH, chunks), **f32))
+
+
+def check_bank(hist, demod, gain, taps_staged, taps_audio, taps_lp, pj,
+               dev, dc=()) -> int:
+    """F: raise unless the inputs and the taps suit the CUDA kernels."""
+    f, _ = check_demod(demod)
+    h = hist.shape[-1]
+    la, ll = taps_audio.shape[0], taps_lp.shape[0]
+    if not ll < la <= min(MAX_TAPS, h):
+        raise ValueError(f"the kernels take an audio FIR of {la} taps longer "
+                         f"than the lp FIR's {ll}, within {MAX_TAPS} and "
+                         f"the history's {h}")
+    build.require(demod, "demod", torch.float32, (NCH, f), dev)
+    build.require(hist, "hist", torch.float32, (NCH, h), dev)
+    build.require(gain, "gain", torch.float32, (), dev)
+    build.require(taps_staged, "taps_staged", torch.float32, None, dev)
+    build.require(pj, "pj", torch.float32, (DC_L,), dev)
+    for name, t in zip(("dc_x", "dc_y"), dc):
+        build.require(t, name, torch.float32, (NCH,), dev)
+    return f
+
+
+# ------------------------------------------------------ the custom op
+# K2: (hist', dc_x', dc_y', audio, raw_pre, raw_mem), AudioOut's fields
+
+@torch.library.custom_op("sdr_pmr446::audio_bank", mutates_args=(),
+                         device_types="cpu")
+def audio_bank_op(hist: torch.Tensor, dc_x: torch.Tensor,
+                  dc_y: torch.Tensor, demod: torch.Tensor,
+                  gain: torch.Tensor, b_arr: torch.Tensor,
+                  sel: torch.Tensor, taps_staged: torch.Tensor,
+                  taps_audio: torch.Tensor, taps_lp: torch.Tensor,
+                  pj: torch.Tensor, f10: torch.Tensor, ns: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 on CPU tensors: the plain version."""
+    return tuple(build.owned(t) for t in bank_plain(
+        hist, dc_x, dc_y, demod, gain, b_arr, sel, taps_audio, taps_lp, f10,
+        ns))
+
+
+@audio_bank_op.register_kernel("cuda")
+def _audio_bank_cuda(hist, dc_x, dc_y, demod, gain, b_arr, sel, taps_staged,
+                     taps_audio, taps_lp, pj, f10, ns):
+    """K2 on CUDA tensors: csrc/audio_bank.cu audio_bank_run on the current
+    stream (raises on any fault)."""
+    global LAUNCHES
+    dev = demod.device
+    f = check_bank(hist, demod, gain, taps_staged, taps_audio, taps_lp, pj,
+                   dev, (dc_x, dc_y))
+    _, k = check_demod(demod, ns)
+    h = hist.shape[-1]
+    build.require(b_arr, "b_arr", torch.int32, (k,), dev)
+    build.require(sel, "sel", torch.int32, (k,), dev)
+    build.require(f10, "f10", torch.int32, (C.CTCSS_NUM_FREQS,), dev)
+    lp_last, lplocal, yend, carry = dc_scratch(f, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    c64 = dict(dtype=torch.complex64, device=dev)
+    out = AudioOut(torch.empty((NCH, h), **f32), torch.empty(NCH, **f32),
+                   torch.empty(NCH, **f32), torch.empty((NCH, f), **f32),
+                   torch.empty((k, C.CTCSS_NUM_FREQS), **c64),
+                   torch.empty((k, C.CTCSS_NUM_FREQS), **c64))
+    code = build.library().audio_bank_run(
+        demod.data_ptr(), f, hist.data_ptr(), h,
+        dc_x.data_ptr(), dc_y.data_ptr(), gain.data_ptr(),
+        b_arr.data_ptr(), sel.data_ptr(), k, ns, taps_staged.data_ptr(),
+        taps_audio.shape[0], taps_lp.shape[0],
+        pj.data_ptr(), _P, _G, P_L, f10.data_ptr(),
+        lp_last.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
+        carry.data_ptr(),
+        out.audio.data_ptr(), out.hist.data_ptr(), out.dc_x.data_ptr(),
+        out.dc_y.data_ptr(), out.raw_pre.data_ptr(), out.raw_mem.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "audio_bank_run")
+    LAUNCHES += 1
+    return tuple(out)
+
+
+@audio_bank_op.register_fake
+def _audio_bank_fake(hist, dc_x, dc_y, demod, gain, b_arr, sel, taps_staged,
+                     taps_audio, taps_lp, pj, f10, ns):
+    f, k = check_demod(demod, ns)
+    c64 = dict(dtype=torch.complex64)
+    return (hist.new_empty(hist.shape), dc_x.new_empty((NCH,)),
+            dc_y.new_empty((NCH,)), demod.new_empty((NCH, f)),
+            demod.new_empty((k, C.CTCSS_NUM_FREQS), **c64),
+            demod.new_empty((k, C.CTCSS_NUM_FREQS), **c64))
+
+
 def ctcss_sums_plain(lpdc: torch.Tensor, b_arr: torch.Tensor,
                      sel: torch.Tensor, ns: int, f10: torch.Tensor):
     """(raw_pre, raw_mem) c64 [K, 38] of the selected channels (plain)."""
@@ -203,10 +353,11 @@ def ctcss_sums_plain(lpdc: torch.Tensor, b_arr: torch.Tensor,
 class AudioBank(nn.Module):
     """K2 (``forward``) and K8 (``apply``, ``apply_dc``).
 
-    ``module(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)`` -> AudioOut.
-    Each of the three runs the CUDA kernel for CUDA tensors and the plain
-    version for CPU tensors.  ``gain`` is a 0-d f32 tensor (read on device,
-    never on the host); b_arr, sel are i32 [K] from the FSM schedule."""
+    ``module(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)`` -> AudioOut
+    through ``sdr_pmr446::audio_bank``.  Each of the three runs the CUDA
+    kernel for CUDA tensors and the plain version for CPU tensors.
+    ``gain`` is a 0-d f32 tensor (read on device, never on the host);
+    b_arr, sel are i32 [K] from the FSM schedule."""
 
     def __init__(self, lowpass: bool = False, fir_deemph: bool = False,
                  *, device):
@@ -235,8 +386,11 @@ class AudioBank(nn.Module):
 
     def forward(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
                 ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
-        return self._route(demod, self.kernel, self.plain, hist, dc_x, dc_y,
-                           demod, gain, b_arr, sel, ns)
+        if demod.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"no audio bank for device {demod.device}")
+        return AudioOut(*audio_bank_op(
+            hist, dc_x, dc_y, demod, gain, b_arr, sel, self.taps_staged,
+            self.taps_audio, self.taps_lp, self.pj, self.f10, ns))
 
     def apply(self, hist, demod, gain) -> BankOut:
         """K8 apply: (hist', audio, lp), as PallasAudioBank.apply."""
@@ -249,72 +403,29 @@ class AudioBank(nn.Module):
         return self._route(demod, self.apply_dc_kernel, self.apply_dc_plain,
                            hist, dc_x, dc_y, demod, gain)
 
-    @staticmethod
-    def _k(demod, ns):
-        f = demod.shape[-1]
-        if demod.dim() != 2 or demod.shape[0] != NCH or f % ns:
-            raise ValueError(f"demod must be [16, K*{ns}], got "
-                             f"{tuple(demod.shape)}")
-        return f, f // ns
-
-    @staticmethod
-    def _f(demod):
-        if demod.dim() != 2 or demod.shape[0] != NCH or demod.shape[1] == 0:
-            raise ValueError(f"demod must be [16, F], got "
-                             f"{tuple(demod.shape)}")
-        return demod.shape[1]
-
     # ------------------------------------------------------------ plain
     def apply_plain(self, hist, demod, gain) -> BankOut:
         """K8 apply in plain PyTorch ops (any device): the FIR pair."""
-        f = self._f(demod)
-        h = hist.shape[-1]
-        la, ll = self.taps_audio.shape[0], self.taps_lp.shape[0]
-        _, audio = fir.fir_apply(hist[:, h - (la - 1):], demod,
-                                 self.taps_audio)
-        _, lp = fir.fir_apply(hist[:, h - (ll - 1):], demod, self.taps_lp)
-        new_hist = torch.cat([hist, demod], dim=-1)[:, f:].contiguous()
-        return BankOut(new_hist, audio * gain, lp)
+        return apply_plain(hist, demod, gain, self.taps_audio, self.taps_lp)
 
     def apply_dc_plain(self, hist, dc_x, dc_y, demod, gain) -> BankDcOut:
         """K8 apply_dc in plain PyTorch ops: the FIR pair, then the lp DC
         blocker (ops/iir.py)."""
-        new_hist, audio, lp = self.apply_plain(hist, demod, gain)
-        (ndx, ndy), lp_dcb = iir.dc_blocker_apply((dc_x, dc_y), lp,
-                                                  C.DC_BLOCK_ALPHA)
-        return BankDcOut(new_hist, ndx.contiguous(), ndy.contiguous(), audio,
-                         lp_dcb)
+        return apply_dc_plain(hist, dc_x, dc_y, demod, gain, self.taps_audio,
+                              self.taps_lp)
 
     def plain(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
               ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
         """K2 in plain PyTorch ops: apply_dc_plain, then the tone sums."""
-        self._k(demod, ns)
-        o = self.apply_dc_plain(hist, dc_x, dc_y, demod, gain)
-        raw_pre, raw_mem = ctcss_sums_plain(o.lp_dcb, b_arr, sel, ns, self.f10)
-        return AudioOut(o.hist, o.dc_x, o.dc_y, o.audio, raw_pre, raw_mem)
+        return bank_plain(hist, dc_x, dc_y, demod, gain, b_arr, sel,
+                          self.taps_audio, self.taps_lp, self.f10, ns)
 
     # ------------------------------------------------------------- cuda
-    def _check(self, hist, demod, gain, dev, dc=None):
+    def _check(self, hist, demod, gain, dev, dc=()):
         """Raise unless the inputs and the taps suit the kernels."""
-        f = self._f(demod)
-        build.require(demod, "demod", torch.float32, (NCH, f), dev)
         build.require(hist, "hist", torch.float32, (NCH, self.hist), dev)
-        build.require(gain, "gain", torch.float32, (), dev)
-        for name in ("taps_staged", "pj"):
-            build.require(getattr(self, name), name, torch.float32, None, dev)
-        for name, t in zip(("dc_x", "dc_y"), dc or ()):
-            build.require(t, name, torch.float32, (NCH,), dev)
-        return f
-
-    def _dc_scratch(self, f, dev):
-        """(lp_last, lplocal, yend, carry) device scratch for an F-sample
-        block: lp[:, F-1], the chunk-local lp DC response, its chunk ends
-        and the chunk carries."""
-        chunks = -(-f // DC_L)
-        f32 = dict(dtype=torch.float32, device=dev)
-        return (torch.empty(NCH, **f32), torch.empty((NCH, f), **f32),
-                torch.empty((NCH, chunks), **f32),
-                torch.empty((NCH, chunks), **f32))
+        return check_bank(hist, demod, gain, self.taps_staged,
+                          self.taps_audio, self.taps_lp, self.pj, dev, dc)
 
     def _taps(self):
         """The staged tap table's C arguments: (table, La, Ll)."""
@@ -323,37 +434,12 @@ class AudioBank(nn.Module):
 
     def kernel(self, hist, dc_x, dc_y, demod, gain, b_arr, sel,
                ns: int = C.SUBCHUNK_AUDIO) -> AudioOut:
-        """Launch K2 (csrc/audio_bank.cu audio_bank_run) on the current
-        stream."""
-        global LAUNCHES
-        f, k = self._k(demod, ns)
-        dev = demod.device
-        h = self.hist
-        self._check(hist, demod, gain, dev, (dc_x, dc_y))
-        build.require(b_arr, "b_arr", torch.int32, (k,), dev)
-        build.require(sel, "sel", torch.int32, (k,), dev)
-        build.require(self.f10, "f10", torch.int32, None, dev)
-        lp_last, lplocal, yend, carry = self._dc_scratch(f, dev)
-        f32 = dict(dtype=torch.float32, device=dev)
-        c64 = dict(dtype=torch.complex64, device=dev)
-        out = AudioOut(torch.empty((NCH, h), **f32), torch.empty(NCH, **f32),
-                       torch.empty(NCH, **f32), torch.empty((NCH, f), **f32),
-                       torch.empty((k, C.CTCSS_NUM_FREQS), **c64),
-                       torch.empty((k, C.CTCSS_NUM_FREQS), **c64))
-        code = build.library().audio_bank_run(
-            demod.data_ptr(), f, hist.data_ptr(), h,
-            dc_x.data_ptr(), dc_y.data_ptr(), gain.data_ptr(),
-            b_arr.data_ptr(), sel.data_ptr(), k, ns, *self._taps(),
-            self.pj.data_ptr(), _P, _G, P_L, self.f10.data_ptr(),
-            lp_last.data_ptr(), lplocal.data_ptr(), yend.data_ptr(),
-            carry.data_ptr(),
-            out.audio.data_ptr(), out.hist.data_ptr(), out.dc_x.data_ptr(),
-            out.dc_y.data_ptr(), out.raw_pre.data_ptr(),
-            out.raw_mem.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        build.check(code, "audio_bank_run")
-        LAUNCHES += 1
-        return out
+        """The op on CUDA tensors: K2 (csrc/audio_bank.cu audio_bank_run)
+        on the current stream."""
+        if demod.device.type != "cuda":
+            raise ValueError(f"the audio-bank kernel takes CUDA tensors, got "
+                             f"{demod.device}")
+        return self(hist, dc_x, dc_y, demod, gain, b_arr, sel, ns)
 
     def apply_kernel(self, hist, demod, gain) -> BankOut:
         """Launch K8 apply (csrc/audio_bank.cu audio_bank_apply) on the
@@ -380,7 +466,7 @@ class AudioBank(nn.Module):
         global APPLY_DC_LAUNCHES
         dev = demod.device
         f = self._check(hist, demod, gain, dev, (dc_x, dc_y))
-        lp_last, lplocal, yend, carry = self._dc_scratch(f, dev)
+        lp_last, lplocal, yend, carry = dc_scratch(f, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         out = BankDcOut(torch.empty((NCH, self.hist), **f32),
                         torch.empty(NCH, **f32), torch.empty(NCH, **f32),

@@ -295,3 +295,13 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().sdr_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def owned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if it is contiguous and alone in its storage, else a copy that
+    is: a custom op's output may not be a view (of an input, of another
+    output, or at an offset in a larger buffer)."""
+    if (t.is_contiguous() and t.storage_offset() == 0
+            and t.untyped_storage().nbytes() == t.numel() * t.element_size()):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)

@@ -57,10 +57,18 @@ launches are most of its time, so it has two.
 K5's CUDA version (``tail_run`` in csrc/chan_tail.cu) runs launches A and
 B on K6's band; K4 runs the same two kernels, so its outputs equal K6 ->
 K5's bit for bit.  See the source for the design.
+
+K4 runs behind the ``torch.library`` custom op ``sdr_pmr446::mono``: the
+launch is its CUDA implementation (registered for "cuda" alone), the plain
+version its CPU implementation ("cpu" alone), the tables tensor arguments;
+the live chains and an exported step (apps/export_chain.py) call the op,
+and ``LAUNCHES`` counts in its CUDA implementation.  K5, which no exported
+step reaches, stays a direct launch.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -69,6 +77,7 @@ from torch import nn
 
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.kernels import build
+from sdr_pmr446_tpu_torch.kernels import front_end as fe
 from sdr_pmr446_tpu_torch.kernels.front_end import (FMT_CODE, FrontEnd,
                                                     compact_phases)
 from sdr_pmr446_tpu_torch.kernels.pfb_demod import DEMOD_SCALE
@@ -341,10 +350,130 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def mono_geometry(wire: torch.Tensor, fmt: str):
+    """(n input samples, band samples nb, decimated samples F, group rows
+    G) of one block of K4."""
+    n = fe.wire_samples(wire, fmt)
+    nb = n * C.RESAMP_L // C.RESAMP_M
+    if nb % GL:
+        raise ValueError(f"{nb} band samples is not whole group rows of "
+                         f"{GL}")
+    return n, nb, nb // DEC, nb // GL
+
+
+def check_mode(mode: str, n0) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if (n0 is None) != (mode == "dsd"):
+        raise ValueError("n0 is the single chain's mixer phase: pass it "
+                         "for mode 'single' only")
+
+
+# ------------------------------------------------------ the custom op
+# (dc_x', dc_y', front_hist', band_hist', sig_prev', demod_hist', n0',
+# out): MonoOut's fields, n0' a zero i32 [] for mode "dsd"
+
+@functools.lru_cache(maxsize=None)
+def _plain_module(mode: str, fmt: str, channel: int,
+                  audio_gain: float) -> "MonoChain":
+    """The CPU module whose plain version the op's CPU implementation runs
+    (channel 0: none, mode "dsd")."""
+    return MonoChain(mode, fmt, channel or None, audio_gain, device="cpu")
+
+
+@torch.library.custom_op("sdr_pmr446::mono", mutates_args=(),
+                         device_types="cpu")
+def mono_op(wire: torch.Tensor, dc_x: torch.Tensor, dc_y: torch.Tensor,
+            front_hist: torch.Tensor, band_hist: torch.Tensor,
+            sig_prev: torch.Tensor, demod_hist: torch.Tensor,
+            n0: torch.Tensor | None, kt: torch.Tensor, pj: torch.Tensor,
+            kd: torch.Tensor, tab: torch.Tensor | None, post: torch.Tensor,
+            fmt: str, mode: str, channel: int, audio_gain: float
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor]:
+    """K4 on CPU tensors: the plain version."""
+    o = _plain_module(mode, fmt, channel, audio_gain).plain(
+        wire, dc_x, dc_y, front_hist, band_hist, sig_prev, demod_hist, n0)
+    n0_out = (o.n0 if o.n0 is not None
+              else torch.zeros((), dtype=torch.int32))
+    return tuple(build.owned(t) for t in o[:6] + (n0_out, o.out))
+
+
+@mono_op.register_kernel("cuda")
+def _mono_cuda(wire, dc_x, dc_y, front_hist, band_hist, sig_prev, demod_hist,
+               n0, kt, pj, kd, tab, post, fmt, mode, channel, audio_gain):
+    """K4 on CUDA tensors: mono_run (csrc/chan_tail.cu) on the current
+    stream (raises on any fault)."""
+    global LAUNCHES
+    check_mode(mode, n0)
+    n, nb, f, g = mono_geometry(wire, fmt)
+    dev = wire.device
+    h = front_hist.shape[0]
+    hb, dh, out_w = GEOMETRY[mode]
+    fe.check_state(fmt, wire, dc_x, dc_y, front_hist)
+    build.require(band_hist, "band_hist", torch.complex64, (hb * GL,), dev)
+    build.require(sig_prev, "sig_prev", torch.complex64, (), dev)
+    build.require(demod_hist, "demod_hist", torch.float32, (dh * DPS,), dev)
+    build.require(kd, "decimator taps", torch.float32, None, dev)
+    build.require(post, "post taps", torch.float32, None, dev)
+    if mode == "single":
+        build.require(n0, "n0", torch.int32, (), dev)
+        build.require(tab, "mixer table", torch.complex64, (PHASE_PERIOD,),
+                      dev)
+    (ylocal, yend, carry), fe_args = fe.kernel_args(kt, pj, n, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    c64 = dict(dtype=torch.complex64, device=dev)
+    band, dem = torch.empty(2 * nb, **f32), torch.empty(f, **f32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = (torch.empty((), **c64), torch.empty((), **c64),
+           torch.empty(h, **c64), torch.empty(hb * GL, **c64),
+           torch.empty((), **c64), torch.empty(dh * DPS, **f32),
+           torch.empty((), **i32) if mode == "single"
+           else torch.zeros((), **i32),
+           torch.empty(g * out_w, **f32))
+    o_dcx, o_dcy, o_fh, o_bh, o_sp, o_dh, o_n0, o_out = out
+    single = mode == "single"
+    code = build.library().mono_run(
+        FMT_CODE[fmt], MODE_CODE[mode], wire.data_ptr(), n,
+        dc_x.data_ptr(), dc_y.data_ptr(), front_hist.data_ptr(), h,
+        band_hist.data_ptr(), hb * GL, sig_prev.data_ptr(),
+        demod_hist.data_ptr(), dh * DPS, _ptr(n0), *fe_args,
+        kd.data_ptr(), kd.shape[1], tab.data_ptr() if single else None,
+        post.data_ptr(), post.shape[-1], DEMOD_SCALE,
+        ylocal.data_ptr(), yend.data_ptr(), carry.data_ptr(),
+        band.data_ptr(), dem.data_ptr(),
+        o_dcx.data_ptr(), o_dcy.data_ptr(), o_fh.data_ptr(),
+        o_bh.data_ptr(), o_sp.data_ptr(), o_dh.data_ptr(),
+        o_n0.data_ptr() if single else None, o_out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "mono_run")
+    LAUNCHES += 1
+    return out
+
+
+@mono_op.register_fake
+def _mono_fake(wire, dc_x, dc_y, front_hist, band_hist, sig_prev, demod_hist,
+               n0, kt, pj, kd, tab, post, fmt, mode, channel, audio_gain):
+    check_mode(mode, n0)
+    _, _, _, g = mono_geometry(wire, fmt)
+    hb, dh, out_w = GEOMETRY[mode]
+    c64 = dict(dtype=torch.complex64)
+    f32 = dict(dtype=torch.float32)
+    return (dc_x.new_empty((), **c64), dc_y.new_empty((), **c64),
+            front_hist.new_empty(front_hist.shape, **c64),
+            band_hist.new_empty((hb * GL,), **c64),
+            sig_prev.new_empty((), **c64),
+            demod_hist.new_empty((dh * DPS,), **f32),
+            wire.new_empty((), dtype=torch.int32),
+            wire.new_empty((g * out_w,), **f32))
+
+
 class MonoChain(nn.Module):
     """K4 for one mode and wire format.  ``module(wire, dc_x, dc_y,
-    front_hist, band_hist, sig_prev, demod_hist, n0)`` -> MonoOut: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    front_hist, band_hist, sig_prev, demod_hist, n0)`` -> MonoOut through
+    ``sdr_pmr446::mono``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
 
     def __init__(self, mode: str, fmt: str, channel: int | None = None,
                  audio_gain: float = 1.0, *, device):
@@ -353,6 +482,8 @@ class MonoChain(nn.Module):
         self.front = FrontEnd(fmt, device=device)
         self.fmt = self.front.fmt
         self.mode = mode
+        self.channel = channel
+        self.audio_gain = float(audio_gain)
         self.hb, self.dh, self.out_w = GEOMETRY[mode]
 
     def init_state(self, device) -> tuple:
@@ -364,14 +495,16 @@ class MonoChain(nn.Module):
 
     def forward(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
                 demod_hist, n0=None) -> MonoOut:
-        if wire.device.type == "cuda":
-            return self.kernel(wire, dc_x, dc_y, front_hist, band_hist,
-                               sig_prev, demod_hist, n0)
-        if wire.device.type == "cpu":
-            return self.plain(wire, dc_x, dc_y, front_hist, band_hist,
-                              sig_prev, demod_hist, n0)
-        raise ValueError(f"no mono-chain implementation for device "
-                         f"{wire.device}")
+        if wire.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"no mono-chain implementation for device "
+                             f"{wire.device}")
+        t = self.tail
+        o = mono_op(wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
+                    demod_hist, n0, self.front.kt, self.front.pj,
+                    t.kd_staged, t.tab if self.mode == "single" else None,
+                    t.post_staged, self.fmt, self.mode, self.channel or 0,
+                    self.audio_gain)
+        return MonoOut(*o[:6], o[6] if self.mode == "single" else None, o[7])
 
     # ------------------------------------------------------------ plain
     def plain(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
@@ -379,47 +512,20 @@ class MonoChain(nn.Module):
         """The same function in plain PyTorch ops: K6's plain version, then
         K5's (any device)."""
         self.tail.check_n0(n0)
-        fe = self.front.plain(wire, dc_x, dc_y, front_hist)
-        t = self.tail.plain(fe.band, band_hist, sig_prev, demod_hist, n0)
-        return MonoOut(fe.dc_x, fe.dc_y, fe.front_hist, *t)
+        fe_out = self.front.plain(wire, dc_x, dc_y, front_hist)
+        t = self.tail.plain(fe_out.band, band_hist, sig_prev, demod_hist, n0)
+        return MonoOut(fe_out.dc_x, fe_out.dc_y, fe_out.front_hist, *t)
 
     # ------------------------------------------------------------- cuda
     def kernel(self, wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
                demod_hist, n0=None) -> MonoOut:
-        """Launch mono_run (csrc/chan_tail.cu) on the current stream
-        (raises on any fault)."""
-        global LAUNCHES
-        self.tail.check_n0(n0)
-        n = self.front.samples(wire)
-        nb = n * C.RESAMP_L // C.RESAMP_M
-        f, g = nb // DEC, nb // GL
-        dev = wire.device
-        h = self.front.hist_len
-        self.front.check_state(wire, dc_x, dc_y, front_hist)
-        self.tail.check_state(band_hist, sig_prev, demod_hist, n0, dev)
-        (ylocal, yend, carry), fe_args = self.front.kernel_args(n, dev)
-        f32 = dict(dtype=torch.float32, device=dev)
-        band, dem = torch.empty(2 * nb, **f32), torch.empty(f, **f32)
-        c64 = dict(dtype=torch.complex64, device=dev)
-        t = self.tail.outputs(g, dev)
-        out = MonoOut(torch.empty((), **c64), torch.empty((), **c64),
-                      torch.empty(h, **c64), *t)
-        code = build.library().mono_run(
-            FMT_CODE[self.fmt], MODE_CODE[self.mode], wire.data_ptr(), n,
-            dc_x.data_ptr(), dc_y.data_ptr(), front_hist.data_ptr(), h,
-            band_hist.data_ptr(), self.hb * GL, sig_prev.data_ptr(),
-            demod_hist.data_ptr(), self.dh * DPS, _ptr(n0), *fe_args,
-            *self.tail.c_args(),
-            ylocal.data_ptr(), yend.data_ptr(), carry.data_ptr(),
-            band.data_ptr(), dem.data_ptr(),
-            out.dc_x.data_ptr(), out.dc_y.data_ptr(),
-            out.front_hist.data_ptr(), out.band_hist.data_ptr(),
-            out.sig_prev.data_ptr(), out.demod_hist.data_ptr(),
-            _ptr(out.n0), out.out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        build.check(code, "mono_run")
-        LAUNCHES += 1
-        return out
+        """The op on CUDA tensors: mono_run (csrc/chan_tail.cu) on the
+        current stream."""
+        if wire.device.type != "cuda":
+            raise ValueError(f"the mono-chain kernel takes CUDA tensors, got "
+                             f"{wire.device}")
+        return self(wire, dc_x, dc_y, front_hist, band_hist, sig_prev,
+                    demod_hist, n0)
 
 
 class TwoKernelChain(MonoChain):

@@ -32,10 +32,20 @@ register-tiled product over shared-memory taps, is compute at ~1.1 GFLOP
 per K = 40 block; the PFB, as 26-tap branch sums and a 16-point DFT
 (~2,100 FLOP a frame), and the 2-8 B/sample input read are small beside
 it.  Fusing the six launches is later work.
+
+Both versions run behind one ``torch.library`` custom op,
+``sdr_pmr446::duo``: its CUDA implementation is the launch (registered
+for "cuda" alone), its CPU implementation the plain version (for "cpu"
+alone), and no other device has one.  The live chains and an exported
+step (apps/export_chain.py) call the same op, whose fake implementation
+gives torch.export the outputs' shapes; the tables reach it as tensor
+arguments, and ``LAUNCHES`` counts in the CUDA implementation, so an
+exported program's launches count too.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -43,8 +53,10 @@ from torch import nn
 
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.kernels import build
+from sdr_pmr446_tpu_torch.kernels import front_end as fe
 from sdr_pmr446_tpu_torch.kernels.front_end import FMT_CODE, FrontEnd
-from sdr_pmr446_tpu_torch.kernels.pfb_demod import DEMOD_SCALE, PfbDemod
+from sdr_pmr446_tpu_torch.kernels.pfb_demod import (DEMOD_SCALE, HIST_LEN,
+                                                    PfbDemod)
 
 NCH = C.NUM_CHANNELS
 
@@ -65,10 +77,105 @@ class DuoOut(NamedTuple):
     band: torch.Tensor        # f32 [2, nb]  band planes (K3's input)
 
 
+def geometry(wire: torch.Tensor, fmt: str, ns: int):
+    """(n input samples, band samples, frames F, sub-chunks K)."""
+    n = fe.wire_samples(wire, fmt)
+    nb = n * C.RESAMP_L // C.RESAMP_M
+    f = nb // NCH
+    if f % ns:
+        raise ValueError(f"{f} frames is not whole sub-chunks of {ns}")
+    return n, nb, f, f // ns
+
+
+# ------------------------------------------------------ the custom op
+# (dc_x', dc_y', front_hist', demod, mag_sums, pfb_hist', prev', band):
+# DuoOut without the parity, which the wrapper forms outside the op
+
+@functools.lru_cache(maxsize=None)
+def _plain_module(fmt: str) -> "ScannerDuo":
+    """The CPU module whose plain version the op's CPU implementation runs
+    (its tables depend on nothing but the wire format)."""
+    return ScannerDuo(fmt, device="cpu")
+
+
+@torch.library.custom_op("sdr_pmr446::duo", mutates_args=(),
+                         device_types="cpu")
+def duo_op(wire: torch.Tensor, dc_x: torch.Tensor, dc_y: torch.Tensor,
+           front_hist: torch.Tensor, pfb_hist: torch.Tensor,
+           parity: torch.Tensor, prev: torch.Tensor, kt: torch.Tensor,
+           pj: torch.Tensor, pfb_g: torch.Tensor, pfb_c: torch.Tensor,
+           pfb_w: torch.Tensor, fmt: str, ns: int
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 on CPU tensors: the plain version."""
+    o = _plain_module(fmt).plain(wire, dc_x, dc_y, front_hist, pfb_hist,
+                                 parity, prev, ns)
+    return tuple(build.owned(t) for t in o[:6] + o[7:])
+
+
+@duo_op.register_kernel("cuda")
+def _duo_cuda(wire, dc_x, dc_y, front_hist, pfb_hist, parity, prev, kt, pj,
+              pfb_g, pfb_c, pfb_w, fmt, ns):
+    """K1 on CUDA tensors: csrc/duo.cu on the current stream (raises on any
+    fault)."""
+    global LAUNCHES
+    n, nb, f, k = geometry(wire, fmt, ns)
+    dev = wire.device
+    h = front_hist.shape[0]
+    fe.check_state(fmt, wire, dc_x, dc_y, front_hist)
+    build.require(pfb_hist, "pfb_hist", torch.complex64, (HIST_LEN,), dev)
+    build.require(parity, "parity", torch.int32, (), dev)
+    build.require(prev, "prev", torch.complex64, (NCH,), dev)
+    build.require(pfb_g, "pfb_g", torch.float32, None, dev)
+    for name, t in (("pfb_c", pfb_c), ("pfb_w", pfb_w)):
+        build.require(t, name, torch.complex64, (NCH,), dev)
+    (ylocal, yend, carry), fe_args = fe.kernel_args(kt, pj, n, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    c64 = dict(dtype=torch.complex64, device=dev)
+    chan = torch.empty(2 * NCH * f, **f32)
+    out = (torch.empty((), **c64), torch.empty((), **c64),
+           torch.empty(h, **c64), torch.empty((NCH, f), **f32),
+           torch.empty((k, NCH), **f32),
+           torch.empty(pfb_hist.shape[0], **c64), torch.empty(NCH, **c64),
+           torch.empty((2, nb), **f32))
+    o_dcx, o_dcy, o_fh, o_demod, o_mag, o_ph, o_prev, band = out
+    kt_p, pj_p, p, g, p_l, inv_cu8 = fe_args
+    code = build.library().duo_run(
+        FMT_CODE[fmt], wire.data_ptr(), n,
+        dc_x.data_ptr(), dc_y.data_ptr(), front_hist.data_ptr(), h,
+        pfb_hist.data_ptr(), parity.data_ptr(), prev.data_ptr(),
+        kt_p, pfb_g.data_ptr(), pfb_c.data_ptr(), pfb_w.data_ptr(), pj_p,
+        p, g, p_l, inv_cu8,
+        DEMOD_SCALE, k, ns,
+        ylocal.data_ptr(), yend.data_ptr(), carry.data_ptr(),
+        band.data_ptr(), chan.data_ptr(),
+        o_dcx.data_ptr(), o_dcy.data_ptr(), o_fh.data_ptr(),
+        o_ph.data_ptr(), o_demod.data_ptr(), o_mag.data_ptr(),
+        o_prev.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "duo_run")
+    LAUNCHES += 1
+    return out
+
+
+@duo_op.register_fake
+def _duo_fake(wire, dc_x, dc_y, front_hist, pfb_hist, parity, prev, kt, pj,
+              pfb_g, pfb_c, pfb_w, fmt, ns):
+    _, nb, f, k = geometry(wire, fmt, ns)
+    c64 = dict(dtype=torch.complex64)
+    return (dc_x.new_empty((), **c64), dc_y.new_empty((), **c64),
+            front_hist.new_empty(front_hist.shape, **c64),
+            wire.new_empty((NCH, f), dtype=torch.float32),
+            wire.new_empty((k, NCH), dtype=torch.float32),
+            pfb_hist.new_empty(pfb_hist.shape, **c64),
+            prev.new_empty((NCH,), **c64),
+            wire.new_empty((2, nb), dtype=torch.float32))
+
+
 class ScannerDuo(nn.Module):
     """K1 for one wire format.  ``module(wire, dc_x, dc_y, front_hist,
-    pfb_hist, parity, prev, ns)`` -> DuoOut: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    pfb_hist, parity, prev, ns)`` -> DuoOut through ``sdr_pmr446::duo``:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
 
     def __init__(self, fmt: str, device):
         super().__init__()
@@ -79,70 +186,34 @@ class ScannerDuo(nn.Module):
 
     def geometry(self, wire: torch.Tensor, ns: int):
         """(n input samples, band samples, frames F, sub-chunks K)."""
-        n = self.front.samples(wire)
-        nb = n * C.RESAMP_L // C.RESAMP_M
-        f = nb // NCH
-        if f % ns:
-            raise ValueError(f"{f} frames is not whole sub-chunks of {ns}")
-        return n, nb, f, f // ns
+        return geometry(wire, self.fmt, ns)
 
     def forward(self, wire, dc_x, dc_y, front_hist, pfb_hist, parity, prev,
                 ns: int = C.SUBCHUNK_AUDIO) -> DuoOut:
-        if wire.device.type == "cuda":
-            return self.kernel(wire, dc_x, dc_y, front_hist, pfb_hist, parity,
-                             prev, ns)
-        if wire.device.type == "cpu":
-            return self.plain(wire, dc_x, dc_y, front_hist, pfb_hist, parity,
-                              prev, ns)
-        raise ValueError(f"no duo implementation for device {wire.device}")
+        if wire.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"no duo implementation for device "
+                             f"{wire.device}")
+        _, _, f, _ = self.geometry(wire, ns)
+        o = duo_op(wire, dc_x, dc_y, front_hist, pfb_hist, parity, prev,
+                   self.front.kt, self.front.pj, self.pfb.pfb_g,
+                   self.pfb.pfb_c, self.pfb.pfb_w, self.fmt, ns)
+        return DuoOut(*o[:6], ((parity + f) % 2).to(torch.int32), *o[6:])
 
     # ------------------------------------------------------------ plain
     def plain(self, wire, dc_x, dc_y, front_hist, pfb_hist, parity, prev,
               ns: int = C.SUBCHUNK_AUDIO) -> DuoOut:
         """The same function in plain PyTorch ops (any device)."""
         self.geometry(wire, ns)
-        fe = self.front.plain(wire, dc_x, dc_y, front_hist)
-        p = self.pfb.plain(fe.band, pfb_hist, parity, prev, ns)
-        return DuoOut(fe.dc_x, fe.dc_y, fe.front_hist, p.demod, p.mag,
-                      p.pfb_hist, p.parity, p.prev, fe.band)
+        fe_out = self.front.plain(wire, dc_x, dc_y, front_hist)
+        p = self.pfb.plain(fe_out.band, pfb_hist, parity, prev, ns)
+        return DuoOut(fe_out.dc_x, fe_out.dc_y, fe_out.front_hist, p.demod,
+                      p.mag, p.pfb_hist, p.parity, p.prev, fe_out.band)
 
     # ------------------------------------------------------------- cuda
     def kernel(self, wire, dc_x, dc_y, front_hist, pfb_hist, parity, prev,
-             ns: int = C.SUBCHUNK_AUDIO) -> DuoOut:
-        """Launch csrc/duo.cu on the current stream (raises on any fault)."""
-        global LAUNCHES
-        n, nb, f, k = self.geometry(wire, ns)
-        dev = wire.device
-        h = self.front_hist_len
-        self.front.check_state(wire, dc_x, dc_y, front_hist)
-        self.pfb.check_state(pfb_hist, parity, prev, dev)
-        (ylocal, yend, carry), fe_args = self.front.kernel_args(n, dev)
-        f32 = dict(dtype=torch.float32, device=dev)
-        c64 = dict(dtype=torch.complex64, device=dev)
-        band = torch.empty((2, nb), **f32)
-        chan = torch.empty(2 * NCH * f, **f32)
-        out = DuoOut(torch.empty((), **c64), torch.empty((), **c64),
-                     torch.empty(h, **c64), torch.empty((NCH, f), **f32),
-                     torch.empty((k, NCH), **f32),
-                     torch.empty(self.pfb.hist_len, **c64),
-                     ((parity + f) % 2).to(torch.int32),
-                     torch.empty(NCH, **c64), band)
-        lib = build.library()
-        kt, pj, p, g, p_l, inv_cu8 = fe_args
-        code = lib.duo_run(
-            FMT_CODE[self.fmt], wire.data_ptr(), n,
-            dc_x.data_ptr(), dc_y.data_ptr(), front_hist.data_ptr(), h,
-            pfb_hist.data_ptr(), parity.data_ptr(), prev.data_ptr(),
-            kt, *self.pfb.factor_ptrs(), pj,
-            p, g, p_l, inv_cu8,
-            DEMOD_SCALE, k, ns,
-            ylocal.data_ptr(), yend.data_ptr(), carry.data_ptr(),
-            band.data_ptr(), chan.data_ptr(),
-            out.dc_x.data_ptr(), out.dc_y.data_ptr(),
-            out.front_hist.data_ptr(), out.pfb_hist.data_ptr(),
-            out.demod.data_ptr(), out.mag_sums.data_ptr(),
-            out.prev.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        build.check(code, "duo_run")
-        LAUNCHES += 1
-        return out
+               ns: int = C.SUBCHUNK_AUDIO) -> DuoOut:
+        """The op on CUDA tensors: csrc/duo.cu on the current stream."""
+        if wire.device.type != "cuda":
+            raise ValueError(f"the duo kernel takes CUDA tensors, got "
+                             f"{wire.device}")
+        return self(wire, dc_x, dc_y, front_hist, pfb_hist, parity, prev, ns)

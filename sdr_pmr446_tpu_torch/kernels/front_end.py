@@ -112,6 +112,43 @@ def staged_taps(kc: np.ndarray, M: int = C.RESAMP_M) -> np.ndarray:
     return out
 
 
+def kernel_args(kt: torch.Tensor, pj: torch.Tensor, n: int, dev):
+    """The front-end launches' scratch (ylocal, yend, carry) for ``n`` input
+    samples on ``dev``, and their C arguments (kt, pj, p, g, pL, inv_cu8)
+    from the staged taps ``kt`` and the DC fix-up powers ``pj``."""
+    chunks = -(-n // DC_L)
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = (torch.empty(2 * n, **f32), torch.empty(2 * chunks, **f32),
+               torch.empty(2 * chunks, **f32))
+    build.require(kt, "kt", torch.float32, None, dev)
+    build.require(pj, "pj", torch.float32, (DC_L,), dev)
+    return scratch, (kt.data_ptr(), pj.data_ptr(), _P, _G, P_L,
+                     float(np.float32(1.0 / 127.5)))
+
+
+def check_state(fmt: str, wire, dc_x, dc_y, front_hist) -> None:
+    """Raise unless the wire and the carried state suit the kernels."""
+    dev = wire.device
+    build.require(wire, "wire", torch.uint8, (wire.numel(),), dev)
+    build.require(dc_x, "dc_x", torch.complex64, (), dev)
+    build.require(dc_y, "dc_y", torch.complex64, (), dev)
+    build.require(front_hist, "front_hist", torch.complex64,
+                  (front_hist_len(fmt),), dev)
+
+
+def wire_samples(wire: torch.Tensor, fmt: str) -> int:
+    """Input samples in ``wire`` of format ``fmt`` (a multiple of
+    INPUT_GRANULE)."""
+    bps = decode.BYTES_PER_SAMPLE[fmt]
+    if wire.dim() != 1 or wire.numel() % bps:
+        raise ValueError(f"wire must be 1-D whole {fmt} samples")
+    n = wire.numel() // bps
+    if n % C.INPUT_GRANULE:
+        raise ValueError(f"{n} samples is not a multiple of "
+                         f"{C.INPUT_GRANULE}")
+    return n
+
+
 class FrontEnd(nn.Module):
     """K6 for one wire format: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  K1 and K4 run ``plain`` and read ``kt``
@@ -129,14 +166,7 @@ class FrontEnd(nn.Module):
 
     def samples(self, wire: torch.Tensor) -> int:
         """Input samples in ``wire`` (a multiple of INPUT_GRANULE)."""
-        bps = decode.BYTES_PER_SAMPLE[self.fmt]
-        if wire.dim() != 1 or wire.numel() % bps:
-            raise ValueError(f"wire must be 1-D whole {self.fmt} samples")
-        n = wire.numel() // bps
-        if n % C.INPUT_GRANULE:
-            raise ValueError(f"{n} samples is not a multiple of "
-                             f"{C.INPUT_GRANULE}")
-        return n
+        return wire_samples(wire, self.fmt)
 
     def forward(self, wire, dc_x, dc_y, front_hist) -> FrontOut:
         if wire.device.type == "cuda":
@@ -164,23 +194,11 @@ class FrontEnd(nn.Module):
         """The front-end launches' scratch (ylocal, yend, carry) for ``n``
         input samples, and their C arguments (kt, pj, p, g, pL, inv_cu8) as
         the entry points fe_run, duo_run and mono_run take them."""
-        chunks = -(-n // DC_L)
-        f32 = dict(dtype=torch.float32, device=dev)
-        scratch = (torch.empty(2 * n, **f32), torch.empty(2 * chunks, **f32),
-                   torch.empty(2 * chunks, **f32))
-        for name in ("kt", "pj"):
-            build.require(getattr(self, name), name, torch.float32, None, dev)
-        return scratch, (self.kt.data_ptr(), self.pj.data_ptr(), _P, _G, P_L,
-                         float(np.float32(1.0 / 127.5)))
+        return kernel_args(self.kt, self.pj, n, dev)
 
     def check_state(self, wire, dc_x, dc_y, front_hist) -> None:
         """Raise unless the wire and the carried state suit the kernels."""
-        dev = wire.device
-        build.require(wire, "wire", torch.uint8, (wire.numel(),), dev)
-        build.require(dc_x, "dc_x", torch.complex64, (), dev)
-        build.require(dc_y, "dc_y", torch.complex64, (), dev)
-        build.require(front_hist, "front_hist", torch.complex64,
-                      (self.hist_len,), dev)
+        check_state(self.fmt, wire, dc_x, dc_y, front_hist)
 
     def kernel(self, wire, dc_x, dc_y, front_hist) -> FrontOut:
         """Launch csrc/front_end.cu on the current stream (raises on any

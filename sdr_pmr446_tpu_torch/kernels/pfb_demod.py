@@ -45,6 +45,8 @@ from sdr_pmr446_tpu_torch.taps import design as D
 
 NCH = C.NUM_CHANNELS
 MAG_FORMS = ("sums", "plane")
+#: carried band samples: the 2 * 16 * 13 = 416-tap prototype less a frame
+HIST_LEN = 2 * NCH * C.PFB_SEMILENGTH - NCH
 #: 1 / (2 pi kf) in f32: the discriminator's output scale
 DEMOD_SCALE = float(np.float32(1.0 / (2.0 * math.pi * C.FM_KF)))
 
@@ -94,7 +96,12 @@ def last_frame_output(tail_r: torch.Tensor, tail_i: torch.Tensor,
     previous-sample halo of the time-sharded chains (parallel/): each shard
     computes its own last frame with one 416-tap dot and passes it right.
     Counterpart of the JAX kernels/pfb_demod.py::last_frame_output (plain
-    ops outside any kernel, there as here)."""
+    ops outside any kernel, there as here).  Its kernel planes are cached
+    per device at first use, for the sharded chains, which no export
+    reaches: under ``torch.export`` it raises."""
+    if torch.compiler.is_exporting():
+        raise RuntimeError("an exported step reaches last_frame_output, "
+                           "whose tables are built at first use")
     kr, ki = _kernel_planes(str(tail_r.device))
     lwr, lwi = tail_r[..., :, None], tail_i[..., :, None]
     y = torch.complex((lwr * kr - lwi * ki).sum(-2),

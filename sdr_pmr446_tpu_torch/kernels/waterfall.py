@@ -41,6 +41,13 @@ Shared memory a block is 2*nt*M*16 + 8w bytes (64 KB + 8w to M = 2048,
 128 KB + 8w at 4096) or 64 KB in the four-step passes; the kernel is bound
 by its shared-memory traffic and its double arithmetic (the CUDA source
 says more).
+
+K3 runs behind the ``torch.library`` custom op ``sdr_pmr446::waterfall``:
+the launch is its CUDA implementation (registered for "cuda" alone), the
+plain version its CPU implementation ("cpu" alone), the plan's tables
+tensor arguments and its sizes ints; the live chains and an exported step
+(apps/export_chain.py) call the op, and ``LAUNCHES`` counts in its CUDA
+implementation.
 """
 
 from __future__ import annotations
@@ -201,9 +208,100 @@ def hop_slots(device_index: int, w: int, m: int, nt: int) -> int:
     return max(1, blocks.value) * sms
 
 
+def rows_in(band: torch.Tensor) -> int:
+    """Sub-chunks K in ``band`` [2, K*19600]."""
+    sub = C.SUBCHUNK_RESAMP
+    if band.dim() != 2 or band.shape[0] != 2 or band.shape[1] % sub:
+        raise ValueError(f"band must be [2, K*{sub}] planes, "
+                         f"got {tuple(band.shape)}")
+    return band.shape[1] // sub
+
+
+def check_hist(hist: torch.Tensor, w: int) -> None:
+    if hist.dim() != 1 or hist.shape[0] < spectrogram.hist_len(w):
+        raise ValueError(f"hist needs >= {spectrogram.hist_len(w)} samples")
+
+
+@functools.lru_cache(maxsize=None)
+def _slabs(w: int, m: int, m1: int, nt: int, k: int, device_index: int):
+    """slab_geometry of the plan (w, m, m1, nt) at K on the card."""
+    plan = Plan(w, m, m1, nt, None, None, None)
+    slots = 0 if m1 else hop_slots(device_index, w, m, nt)
+    return slab_geometry(plan, k, slots)
+
+
+def waterfall_plain(band, hist, cnt, w: int) -> WfOut:
+    """K3 in plain PyTorch ops (ops/spectrogram.py; any device)."""
+    k = rows_in(band)
+    check_hist(hist, w)
+    wl = spectrogram.hist_len(w)
+    return WfOut(*spectrogram.asgram_rows_any_p(
+        hist[hist.shape[0] - wl:], cnt, band[0], band[1], k, w))
+
+
+# ------------------------------------------------------ the custom op
+# (hist', cnt', rows), WfOut's fields
+
+@torch.library.custom_op("sdr_pmr446::waterfall", mutates_args=(),
+                         device_types="cpu")
+def waterfall_op(band: torch.Tensor, hist: torch.Tensor, cnt: torch.Tensor,
+                 pre: torch.Tensor, filt: torch.Tensor | None,
+                 tw: torch.Tensor, w: int, m: int, m1: int, nt: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 on CPU tensors: the plain version."""
+    return tuple(build.owned(t) for t in waterfall_plain(band, hist, cnt, w))
+
+
+@waterfall_op.register_kernel("cuda")
+def _waterfall_cuda(band, hist, cnt, pre, filt, tw, w, m, m1, nt):
+    """K3 on CUDA tensors: csrc/waterfall.cu on the current stream (raises
+    on any fault)."""
+    global LAUNCHES
+    k = rows_in(band)
+    dev = band.device
+    nb = band.shape[1]
+    build.require(band, "band", torch.float32, (2, nb), dev)
+    build.require(hist, "hist", torch.complex64, None, dev)
+    check_hist(hist, w)
+    build.require(cnt, "cnt", torch.int32, (), dev)
+    build.require(pre, "pre", torch.complex128, (w // 2,), dev)
+    build.require(tw, "tw", torch.complex128, None, dev)
+    if filt is not None:
+        build.require(filt, "filt", torch.complex128, (m,), dev)
+    slab_hops, slabs = _slabs(w, m, m1, nt, k, dev.index)
+    part = torch.empty((k, slabs, w), dtype=torch.float64, device=dev)
+    scratch = None
+    if m1:
+        scratch = torch.empty((1 + (filt is not None), nb // (w // 4) + 1, m),
+                              dtype=torch.complex128, device=dev)
+    out = WfOut(torch.empty(w // 2, dtype=torch.complex64, device=dev),
+                torch.empty((), dtype=torch.int32, device=dev),
+                torch.empty((k, w), dtype=torch.float32, device=dev))
+    code = build.library().wf_run(
+        band.data_ptr(), nb, hist.data_ptr(), hist.shape[0],
+        cnt.data_ptr(), pre.data_ptr(),
+        None if filt is None else filt.data_ptr(),
+        tw.data_ptr(), w, k, C.SUBCHUNK_RESAMP, m, m1,
+        nt, slab_hops, slabs, None if scratch is None else
+        scratch.data_ptr(),
+        part.data_ptr(), out.rows.data_ptr(), out.hist.data_ptr(),
+        out.cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "wf_run")
+    LAUNCHES += 1
+    return tuple(out)
+
+
+@waterfall_op.register_fake
+def _waterfall_fake(band, hist, cnt, pre, filt, tw, w, m, m1, nt):
+    k = rows_in(band)
+    check_hist(hist, w)
+    return (hist.new_empty((w // 2,)), cnt.new_empty(()),
+            band.new_empty((k, w)))
+
+
 class Waterfall(nn.Module):
-    """K3 for one width ``w``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """K3 for one width ``w`` through ``sdr_pmr446::waterfall``: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
 
     def __init__(self, w: int, device):
         super().__init__()
@@ -218,72 +316,26 @@ class Waterfall(nn.Module):
         self.register_buffer("pre", as_dev(self.plan.pre))
         self.register_buffer("filt", as_dev(self.plan.filt))
         self.register_buffer("tw", as_dev(self.plan.tw))
-        self._geometry = {}  # (K, device index) -> slab_geometry
-
-    def rows_in(self, band: torch.Tensor) -> int:
-        """Sub-chunks K in ``band`` [2, K*19600]."""
-        sub = C.SUBCHUNK_RESAMP
-        if band.dim() != 2 or band.shape[0] != 2 or band.shape[1] % sub:
-            raise ValueError(f"band must be [2, K*{sub}] planes, "
-                             f"got {tuple(band.shape)}")
-        return band.shape[1] // sub
 
     def forward(self, band, hist, cnt) -> WfOut:
-        if band.device.type == "cuda":
-            return self.kernel(band, hist, cnt)
-        if band.device.type == "cpu":
-            return self.plain(band, hist, cnt)
-        raise ValueError(f"no waterfall implementation for device "
-                         f"{band.device}")
+        if band.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"no waterfall implementation for device "
+                             f"{band.device}")
+        p = self.plan
+        return WfOut(*waterfall_op(band, hist, cnt, self.pre, self.filt,
+                                   self.tw, p.w, p.m, p.m1, p.nt))
 
     def plain(self, band, hist, cnt) -> WfOut:
         """The same function in plain PyTorch ops (any device)."""
-        k = self.rows_in(band)
-        if hist.dim() != 1 or hist.shape[0] < self.wl:
-            raise ValueError(f"hist needs >= {self.wl} samples")
-        return WfOut(*spectrogram.asgram_rows_any_p(
-            hist[hist.shape[0] - self.wl:], cnt, band[0], band[1], k, self.w))
+        return waterfall_plain(band, hist, cnt, self.w)
 
     def kernel(self, band, hist, cnt) -> WfOut:
-        """Launch csrc/waterfall.cu on the current stream (raises on any
-        fault)."""
-        global LAUNCHES
-        k = self.rows_in(band)
-        dev = band.device
-        nb = band.shape[1]
-        build.require(band, "band", torch.float32, (2, nb), dev)
-        build.require(hist, "hist", torch.complex64, None, dev)
-        if hist.dim() != 1 or hist.shape[0] < self.wl:
-            raise ValueError(f"hist needs >= {self.wl} samples")
-        build.require(cnt, "cnt", torch.int32, (), dev)
-        if self.tw.device != dev:
+        """The op on CUDA tensors: csrc/waterfall.cu on the current
+        stream."""
+        if band.device.type != "cuda":
+            raise ValueError(f"the waterfall kernel takes CUDA tensors, got "
+                             f"{band.device}")
+        if self.tw.device != band.device:
             raise ValueError(f"the plan's tables are on {self.tw.device}, "
-                             f"the band on {dev}")
-        p = self.plan
-        key = (k, dev.index)
-        if key not in self._geometry:
-            slots = 0 if p.m1 else hop_slots(dev.index, p.w, p.m, p.nt)
-            self._geometry[key] = slab_geometry(p, k, slots)
-        slab_hops, slabs = self._geometry[key]
-        part = torch.empty((k, slabs, self.w), dtype=torch.float64,
-                           device=dev)
-        scratch = None
-        if p.m1:
-            scratch = torch.empty((1 + (p.filt is not None),
-                                   nb // (self.w // 4) + 1, p.m),
-                                  dtype=torch.complex128, device=dev)
-        out = WfOut(torch.empty(self.wl, dtype=torch.complex64, device=dev),
-                    torch.empty((), dtype=torch.int32, device=dev),
-                    torch.empty((k, self.w), dtype=torch.float32, device=dev))
-        code = build.library().wf_run(
-            band.data_ptr(), nb, hist.data_ptr(), hist.shape[0],
-            cnt.data_ptr(), self.pre.data_ptr(),
-            None if self.filt is None else self.filt.data_ptr(),
-            self.tw.data_ptr(), self.w, k, C.SUBCHUNK_RESAMP, p.m, p.m1,
-            p.nt, slab_hops, slabs, None if scratch is None else
-            scratch.data_ptr(),
-            part.data_ptr(), out.rows.data_ptr(), out.hist.data_ptr(),
-            out.cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        build.check(code, "wf_run")
-        LAUNCHES += 1
-        return out
+                             f"the band on {band.device}")
+        return self(band, hist, cnt)

@@ -94,9 +94,9 @@ from sdr_pmr446_tpu_torch.ops import decode, fir, fm, iir, spectrogram
 from sdr_pmr446_tpu_torch.ops.rssi import rssi_from_sums, subchunk_rssi
 from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import ScannerState, init_scanner_state
-from sdr_pmr446_tpu_torch.scanner.fsm import (FsmCarry, fsm_ctcss_scan_v3,
-                                              fsm_phase_a, fsm_phase_c,
-                                              raw_sums_to_ctcss)
+from sdr_pmr446_tpu_torch.scanner.fsm import (CtcssTables, FsmCarry,
+                                              fsm_ctcss_scan_v3, fsm_phase_a,
+                                              fsm_phase_c, raw_sums_to_ctcss)
 from sdr_pmr446_tpu_torch.scanner.op_front import OpFrontEnd
 
 NCH = C.NUM_CHANNELS
@@ -184,6 +184,12 @@ class ScannerChain(nn.Module):
         self.wf = (Waterfall(self.waterfall, device=self.device)
                    if self.waterfall else None)
         self.megastep = fuse.fused_steps(self.step)
+        # the constant tables every step reads, built here: a step then
+        # looks nothing up, and an exported step holds them as constants
+        self.ctcss = CtcssTables(C.SUBCHUNK_AUDIO, self.device,
+                                 k=self.block.subchunks_per_step)
+        if self.op or not (fuse_dc and fuse_lp_dc):
+            self.dc_tables = iir.dc_tables(self.device, C.DC_BLOCK_ALPHA)
         if self.op:
             self.front = OpFrontEnd(self.device)
             self.resamp_hist_len = self.front.resampler.hist_len
@@ -239,7 +245,8 @@ class ScannerChain(nn.Module):
             (ndx, ndy), y = iir.dc_blocker_apply(
                 (torch.view_as_real(state.dc_x),
                  torch.view_as_real(state.dc_y)),
-                torch.stack([xr, xi]), C.DC_BLOCK_ALPHA)
+                torch.stack([xr, xi]), C.DC_BLOCK_ALPHA,
+                tables=self.dc_tables)
             dc_x = torch.complex(ndx[0], ndx[1])
             dc_y = torch.complex(ndy[0], ndy[1])
             hist, band = self.resampler(state.resamp_hist, y[0], y[1])
@@ -273,8 +280,10 @@ class ScannerChain(nn.Module):
             a = self.audio_bank(state.audio_hist, state.lp_dc_x,
                                 state.lp_dc_y, d.demod, params.audio_gain,
                                 sched.b_arr, sel_k, ns)
-            s_pre, s_suf = raw_sums_to_ctcss(sched, a.raw_pre, a.raw_mem, ns)
-            carry_out, fo = fsm_phase_c(carry_in, sched, s_pre, s_suf)
+            s_pre, s_suf = raw_sums_to_ctcss(sched, a.raw_pre, a.raw_mem, ns,
+                                             tables=self.ctcss)
+            carry_out, fo = fsm_phase_c(carry_in, sched, s_pre, s_suf,
+                                        self.ctcss)
             audio_hist, lp_dc_x, lp_dc_y = a.hist, a.dc_x, a.dc_y
             audio = a.audio
         else:
@@ -287,11 +296,12 @@ class ScannerChain(nn.Module):
                 audio_hist, audio, lp = self.audio_bank.apply(
                     state.audio_hist, d.demod, params.audio_gain)
                 (lp_dc_x, lp_dc_y), lp_dcb = iir.dc_blocker_apply(
-                    (state.lp_dc_x, state.lp_dc_y), lp, C.DC_BLOCK_ALPHA)
+                    (state.lp_dc_x, state.lp_dc_y), lp, C.DC_BLOCK_ALPHA,
+                    tables=self.dc_tables)
             carry_out, fo = fsm_ctcss_scan_v3(
                 carry_in, rssi_db, None, params.channel_mask,
                 params.squelch_level, params.lock_max,
-                lp_cm=lp_dcb.reshape(NCH, k, ns))
+                lp_cm=lp_dcb.reshape(NCH, k, ns), tables=self.ctcss)
 
         return self._finish(
             state, d.band, audio, rssi_db, carry_out, fo,
@@ -315,7 +325,7 @@ class ScannerChain(nn.Module):
         delay_hist, delayed = fir.delay_apply(state.delay_hist, demod)
         (lp_dc_x, lp_dc_y), lp_dcb = iir.dc_blocker_apply(
             (state.lp_dc_x, state.lp_dc_y), delayed - hp_out,
-            C.DC_BLOCK_ALPHA)
+            C.DC_BLOCK_ALPHA, tables=self.dc_tables)
         deemph_hist, audio = fir.fir_apply(
             state.deemph_hist, hp_out * params.audio_gain, self.deemph_taps)
         audio_lp_hist = state.audio_lp_hist
@@ -325,7 +335,7 @@ class ScannerChain(nn.Module):
         carry_out, fo = fsm_ctcss_scan_v3(
             carry_in, rssi_db, None, params.channel_mask,
             params.squelch_level, params.lock_max,
-            lp_cm=lp_dcb.reshape(NCH, k, ns))
+            lp_cm=lp_dcb.reshape(NCH, k, ns), tables=self.ctcss)
         return self._finish(
             state, fr.band, audio, rssi_db, carry_out, fo, dc_x=fr.dc_x,
             dc_y=fr.dc_y, resamp_hist=fr.resamp_hist, pfb_hist=fr.pfb_hist,

@@ -25,8 +25,9 @@ maps with coefficients in {0, 1}, whose chains of non-zero terms are at
 most two long (the 2441-sample window spans at most two 1225-sample
 sub-chunks), so the sequential form computes the same values as the
 associative one and the decisions are equal; v2 and v3 are therefore one
-function here.  The phasor tables are built once on the host in float64
-and kept per device.
+function here.  The phasor tables are built once on the host in float64;
+their device copies (``CtcssTables``) are built with the chain that runs
+the detector, or shared per device for the callers that hold none.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from sdr_pmr446_tpu_torch import config as C
 
@@ -122,29 +124,64 @@ def _wrap_table() -> np.ndarray:
                   ).astype(np.complex64)
 
 
+class CtcssTables(nn.Module):
+    """The detector's constant tables on one device, built with the chain
+    that runs the detector (so a step reaches only tables that exist, and
+    an exported step holds them as constants): e0 c64 [38, ns], u_t c64
+    [2441, 38] (the count phasors, ``u`` transposed), wrap c64 [38], freqs
+    f32 [38], idx i32 [ns], and with ``k`` the window-phase correction
+    corr c64 [k, 38] of ``raw_sums_to_ctcss`` (``period``: K_local of a
+    time-sharded step)."""
+
+    def __init__(self, ns: int, device, k: int | None = None,
+                 period: int | None = None):
+        super().__init__()
+        self.ns, self.k, self.period = ns, k, period
+        as_dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        self.register_buffer("e0", as_dev(_phasor_table(ns)))
+        self.register_buffer("u_t", as_dev(np.ascontiguousarray(
+            _count_phasor_table().T)))
+        self.register_buffer("wrap", as_dev(_wrap_table()))
+        self.register_buffer("freqs", as_dev(np.asarray(C.CTCSS_FREQS,
+                                                        np.float32)))
+        self.register_buffer("idx", as_dev(np.arange(ns, dtype=np.int32)))
+        self.register_buffer("corr", None if k is None else as_dev(
+            _window_corr_table(k, ns, period)))
+
+    def check(self, ns: int, k: int | None = None,
+              period: int | None = None) -> None:
+        """Raise unless these are the tables of (ns[, k, period])."""
+        want = (ns,) if k is None else (ns, k, period)
+        have = ((self.ns,) if k is None else (self.ns, self.k, self.period))
+        if have != want:
+            raise ValueError(f"CTCSS tables of (ns, k, period) {have}, the "
+                             f"step needs {want}")
+
+
 @functools.lru_cache(maxsize=None)
-def _device_table(name: str, device: str, *key) -> torch.Tensor:
-    """The named constant table as a tensor on ``device`` (built once)."""
-    tables = {
-        "e0": lambda: _phasor_table(*key),
-        "u": _count_phasor_table,
-        "u_t": lambda: np.ascontiguousarray(_count_phasor_table().T),
-        "corr": lambda: _window_corr_table(*key),
-        "wrap": _wrap_table,
-        "freqs": lambda: np.asarray(C.CTCSS_FREQS, np.float32),
-        "idx": lambda: np.arange(*key, dtype=np.int32),
-    }
-    return torch.as_tensor(tables[name](), device=device)
+def _cached_tables(ns: int, device: str, k, period) -> CtcssTables:
+    return CtcssTables(ns, device, k, period)
+
+
+def shared_tables(ns: int, device, k: int | None = None,
+                  period: int | None = None) -> CtcssTables:
+    """The per-device CtcssTables of the eager callers that hold none of
+    their own (the time-sharded chains, faithful mode, the tests), built
+    at first use; raises under ``torch.export``, where a table built
+    during the trace would be a fake tensor left in the cache."""
+    if torch.compiler.is_exporting():
+        raise RuntimeError("an exported step reaches the CTCSS detector "
+                           "without its CtcssTables: build them with the "
+                           "chain")
+    return _cached_tables(ns, str(torch.device(device)), k, period)
 
 
 def ctcss_tables(ns: int, device="cpu"):
     """(e0 c64 [38, ns], u_table c64 [38, 2441], wrap c64 [38], freqs f32
     [38], idx_i i32 [ns]) on ``device``: the static tables of the
     windowed-DFT CTCSS update, as JAX fsm.ctcss_tables(ns)."""
-    dev = str(torch.device(device))
-    return (_device_table("e0", dev, ns), _device_table("u", dev),
-            _device_table("wrap", dev), _device_table("freqs", dev),
-            _device_table("idx", dev, ns))
+    t = shared_tables(ns, device)
+    return t.e0, t.u_t.T, t.wrap, t.freqs, t.idx
 
 
 def _pick(t: torch.Tensor, i: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -295,15 +332,18 @@ def fsm_phase_a(carry_in: FsmCarry, rssi_k: torch.Tensor, mask: torch.Tensor,
 
 
 def fsm_tone_sums(sched: FsmSchedule, lp: torch.Tensor | None,
-                  lp_cm: torch.Tensor | None, ns: int):
+                  lp_cm: torch.Tensor | None, ns: int,
+                  tables: CtcssTables | None = None):
     """Phase B: the windowed-DFT sums of the schedule's selected channel,
     (s_pre, s_suf) [K, 38] c64, from ``lp`` [K, 16, ns] or its
     channel-major form ``lp_cm`` [16, K, ns] (the layout the audio bank
-    emits: only the selected rows are read)."""
+    emits: only the selected rows are read).  ``tables``: the chain's
+    (default: the shared ones)."""
     k = sched.act2.shape[0]
     src = lp_cm if lp_cm is not None else lp
-    dev = str(src.device)
-    e0, _, wrap, _, idx_i = ctcss_tables(ns, dev)
+    tables = tables if tables is not None else shared_tables(ns, src.device)
+    tables.check(ns)
+    e0, wrap, idx_i = tables.e0, tables.wrap, tables.idx
     sel = torch.clamp(sched.act2, 0, C.NUM_CHANNELS - 1).long()
     ks = torch.arange(k, device=src.device)
     lp_sel = lp_cm[sel, ks] if lp_cm is not None else lp[ks, sel]  # [K, ns]
@@ -311,7 +351,7 @@ def fsm_tone_sums(sched: FsmSchedule, lp: torch.Tensor | None,
     xp = lp_sel * pre
     xs = lp_sel * (1.0 - pre)
     e0t = e0.T                                                  # [ns, 38]
-    u = _device_table("u_t", dev)[sched.cnt_r.long()]           # [K, 38]
+    u = tables.u_t[sched.cnt_r.long()]                          # [K, 38]
     s_pre = (xp.to(torch.complex64) @ e0t) * u
     s_suf = (xs.to(torch.complex64) @ e0t) * (u * wrap[None, :])
     return s_pre, s_suf
@@ -319,29 +359,33 @@ def fsm_tone_sums(sched: FsmSchedule, lp: torch.Tensor | None,
 
 def raw_sums_to_ctcss(sched: FsmSchedule, raw_pre: torch.Tensor,
                       raw_mem: torch.Tensor, ns: int,
-                      period: int | None = None):
+                      period: int | None = None,
+                      tables: CtcssTables | None = None):
     """(s_pre, s_suf) [K, 38] c64 from the audio-bank kernel's global-phase
     sums: applies the sub-chunk window phase (corr), the carried in-window
     phase (u) and the window wrap factor.  ``period`` = K_local for the
     gathered sums of a time-sharded step (each shard's kernel phase starts
-    at its own sample 0)."""
+    at its own sample 0).  ``tables``: the chain's, built with this k
+    and period (default: the shared ones)."""
     k = raw_pre.shape[0]
-    dev = str(raw_pre.device)
-    corr = _device_table("corr", dev, k, ns, period)
-    u_t = _device_table("u_t", dev)
-    wrap = _device_table("wrap", dev)
-    cu = corr * u_t[sched.cnt_r.long()]
+    if tables is None:
+        tables = shared_tables(ns, raw_pre.device, k, period)
+    tables.check(ns, k, period)
+    cu = tables.corr * tables.u_t[sched.cnt_r.long()]
     s_pre = raw_pre * cu
-    s_suf = (raw_mem - raw_pre) * (cu * wrap[None, :])
+    s_suf = (raw_mem - raw_pre) * (cu * tables.wrap[None, :])
     return s_pre, s_suf
 
 
 def fsm_phase_c(carry_in: FsmCarry, sched: FsmSchedule, s_pre: torch.Tensor,
-                s_suf: torch.Tensor):
+                s_suf: torch.Tensor, tables: CtcssTables | None = None):
     """Goertzel-carry chain + detection state from the tone sums ([K, 38]
-    c64).  Returns (carry_out, FsmOutputs)."""
+    c64).  Returns (carry_out, FsmOutputs).  ``tables``: the chain's
+    (default: the shared ones; only ``freqs`` is read)."""
     k_sub = sched.act2.shape[0]
-    freqs = _device_table("freqs", str(s_pre.device))
+    if tables is None:
+        tables = shared_tables(C.SUBCHUNK_AUDIO, s_pre.device)
+    freqs = tables.freqs
     cc = carry_in.ct_carry
     det = carry_in.ct_detected
     tidx = carry_in.ct_max_idx
@@ -381,17 +425,19 @@ def fsm_phase_c(carry_in: FsmCarry, sched: FsmSchedule, s_pre: torch.Tensor,
 def fsm_ctcss_scan_v3(carry_in: FsmCarry, rssi_k: torch.Tensor,
                       lp: torch.Tensor | None, mask: torch.Tensor,
                       squelch: torch.Tensor, lock_max: torch.Tensor,
-                      lp_cm: torch.Tensor | None = None):
+                      lp_cm: torch.Tensor | None = None,
+                      tables: CtcssTables | None = None):
     """fsm_ctcss_scan in three phases: fsm_phase_a -> fsm_tone_sums ->
     fsm_phase_c (the same decisions; test-enforced).  ``lp_cm``
     ([16, K, ns], channel-major) may be passed instead of ``lp``
-    ([K, 16, ns]); the values are identical either way."""
+    ([K, 16, ns]); the values are identical either way.  ``tables``: the
+    chain's CtcssTables (default: the shared ones)."""
     if lp_cm is not None:
         assert lp is None
     ns = (lp_cm if lp_cm is not None else lp).shape[-1]
     sched = fsm_phase_a(carry_in, rssi_k, mask, squelch, lock_max, ns)
-    s_pre, s_suf = fsm_tone_sums(sched, lp, lp_cm, ns)
-    return fsm_phase_c(carry_in, sched, s_pre, s_suf)
+    s_pre, s_suf = fsm_tone_sums(sched, lp, lp_cm, ns, tables)
+    return fsm_phase_c(carry_in, sched, s_pre, s_suf, tables)
 
 
 def fsm_ctcss_scan_v2(carry_in: FsmCarry, rssi_k: torch.Tensor,

@@ -66,13 +66,14 @@ class OpResample(nn.Module):
         super().__init__()
         self.resampler = PolyResampler(D.resampler_taps(), C.RESAMP_L,
                                        C.RESAMP_M, device=device)
+        self.dc_tables = iir.dc_tables(device, C.DC_BLOCK_ALPHA)
 
     def resample(self, dc_x, dc_y, hist, x: torch.Tensor):
         """dc_x, dc_y c64 [], hist c64 [345], x planes f32 [2, T] ->
         (dc_x', dc_y', hist', band planes f32 [2, T * 25 / 128])."""
         (dx, dy), y = iir.dc_blocker_apply(
             (torch.view_as_real(dc_x), torch.view_as_real(dc_y)), x,
-            C.DC_BLOCK_ALPHA)
+            C.DC_BLOCK_ALPHA, tables=self.dc_tables)
         rhist, band = self.resampler(planes(hist), y)
         return _complex(dx), _complex(dy), complex_of(rhist), band
 
