@@ -244,13 +244,37 @@ on its own lines; any failure raises and ends the run:
      never exported; (c) the host microseconds a call through each op takes
      beside a direct call of its CUDA implementation, in turns, their
      outputs bit-equal.
+ 21. multi-process execution (parallel/distributed.py: gloo over
+     localhost, the halos staged through the host): two rank processes of
+     this script (``chip_smoke.py --dist-child``), both on cuda:0, each
+     with a time limit, (a) config 5 through apps/scan_batch.main
+     (--mesh 4,5, K = 40, the four cu8 captures of 18(b), --device-decode,
+     --coordinator / --num-processes 2 / --process-id: a stream split, each
+     rank 2 captures x 5 time shards): rank 0's WAVs byte-equal and its
+     event logs equal to the one-process run's on the card, rank 1 writing
+     nothing; (b) the duo at (1, 4), K = 32 and (c) the plane path with
+     halo_dma at (1, 4), K = 40, split in time (each rank 1 stream x 2
+     time shards: K10's fold, the halos and K11's shard 0 across the
+     ranks), their outputs and state gathered by rank 0 against the
+     one-process chain on the same mesh: decisions and events exact, RSSI
+     and audio under JAX's sharded gates, and whether bit-equal; (d) each
+     rank's launches of K1, K2, K10 (a), (b) and of K7, K8, K9, K11 (c),
+     set to 0 just before and read just after, equal to the per-step
+     count of its block x steps; (e) ms a block and Msamples/s of (a), (b)
+     and (c) beside the one-process run's on the same card, the
+     host-staged collectives a step and their share of a rank's step
+     (host clock around synchronized runs, CUDA events beside): the two
+     ranks time-share one card, so no scaling figure; (f) why a time split
+     is bit-equal on the CPU but not on the card: the DC blockers' matmul
+     scan of a rank's shards alone against the same shards in the whole
+     batch, and the resampler's conv1d likewise (logged).
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
 scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
 switched engines of 12(b), each sharded path of 13, the probe tools of
 14, faithful mode in 15, the driver's runs in 16, each path and the
 driver in 17, each scan_batch run and sharded path in 18, each op path
-in 19, each export in 20) runs with
+in 19, each export in 20, each case of 21 in each rank) runs with
 the launch counts set to 0 just before it and read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
@@ -3967,8 +3991,8 @@ def carry_fault(rel: float):
     from sdr_pmr446_tpu_torch.parallel import fused_halo, halo
     sound_dc, sound_pre = halo.shard_dc_blocker, fused_halo.exact_dc_state
 
-    def dc(state, x, alpha):
-        st, y = sound_dc(state, x, alpha)
+    def dc(state, x, alpha, *tg):
+        st, y = sound_dc(state, x, alpha, *tg)
         n = y.shape[-1]
         decay = torch.as_tensor(((1.0 - alpha) ** (np.arange(n) + 1.0))
                                 .astype(np.float32), device=y.device)
@@ -5034,6 +5058,369 @@ def phase_export(dev, sync, smi: str) -> dict:
     return bench
 
 
+# ------------------------------------------- phase 21: two ranks on one card
+#: 21(b) and (c): (mesh, K, constructor keywords) of the chains that two
+#: ranks split in time (each rank 1 stream x 2 time shards): the duo at K
+#: = 32 (K_local = 8, K10's fold across the ranks) and the plane path with
+#: K11 at K = 40 (K_local = 10)
+DIST_CHAINS = {"duo": ((1, 4), 32, {}),
+               "plane": ((1, 4), 40, {"halo_dma": True})}
+#: blocks each case steps (config5_streams' stream 0), and timed repeats
+DIST_BLOCKS, DIST_REPS = 4, 2
+#: the launches one step of a rank's block makes on each case
+DIST_PER_STEP = {"duo": {"duo": 2, "audio_bank": 2, "summary": 1},
+                 "plane": {"resample_kernel": 2, "pfb_demod": 2,
+                           "audio_bank.APPLY_LAUNCHES": 2, "halo_dma": 2}}
+#: seconds a rank process may take, and its process group's timeout
+DIST_CHILD_S, DIST_GROUP_S = 600, 180
+
+
+def dist_batch_argv(paths) -> list:
+    """21(a): config 5 through scan_batch: 4 cu8 captures, --mesh 4,5, K =
+    40, --device-decode, one block a dispatch (its wall is then steps,
+    reads, uploads and drains, with no graph capture)."""
+    return paths + ["--subchunks-per-step", str(BATCH_K), "--mesh", "4,5",
+                    "--device-decode"]
+
+
+def dist_wires(k: int) -> list:
+    """The [1, bytes] cu8 blocks of 21(b) / (c) on the host."""
+    return [np.stack(blk) for blk in zip(*config5_streams(1, k,
+                                                          DIST_BLOCKS))]
+
+
+def timed_steps(chain, wires, params, sync) -> dict:
+    """DIST_REPS runs of ``chain`` over ``wires`` (on the device) from its
+    zero state: host ms a block of each (synchronized around the run),
+    the CUDA events' ms, and the host seconds of the host-staged
+    collectives (parallel/distributed.py STATS) in each."""
+    import torch
+    from sdr_pmr446_tpu_torch.parallel import distributed
+    out = {"ms_a_block": [], "event_ms_a_block": [], "stage_s": [],
+           "collective_s": [], "collectives": []}
+    for _ in range(DIST_REPS):
+        st = chain.init_state()
+        distributed.sync("timed")
+        sync()
+        distributed.reset_stats()
+        ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        t0 = time.perf_counter()
+        ev0.record()
+        for w in wires:
+            st, o = chain.step(st, w, params)
+        ev1.record()
+        sync()
+        wall = time.perf_counter() - t0
+        out["ms_a_block"].append(wall * 1e3 / len(wires))
+        out["event_ms_a_block"].append(ev0.elapsed_time(ev1) / len(wires))
+        out["stage_s"].append(distributed.STATS["stage_s"])
+        out["collective_s"].append(distributed.STATS["collective_s"])
+        out["collectives"].append(distributed.STATS["calls"])
+        out.setdefault("wall_s", []).append(wall)
+    return out
+
+
+def dist_child(spec_path: str, rank: int) -> int:
+    """Phase 21's rank process (``chip_smoke.py --dist-child SPEC RANK``):
+    joins the two-rank gloo group on cuda:0, runs 21(a) through
+    scan_batch.main, then 21(b) and (c) on its block of the global mesh
+    (launch counts set to 0 just before each and read just after), saves
+    rank 0's gathered outputs and state, and times its block.  Prints one
+    JSON report."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.apps import scan_batch
+    from sdr_pmr446_tpu_torch.parallel import distributed
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain)
+    from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
+    with open(spec_path) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    distributed.initialize(spec["addr"], 2, rank, timeout_s=DIST_GROUP_S)
+    report = {"rank": rank, "join_s": time.perf_counter() - t0, "cases": {}}
+
+    def batch(out_dir: str):
+        stats = {}
+        rc = scan_batch.main(spec["batch_argv"] + [
+            "--out-dir", out_dir, "--coordinator", spec["addr"],
+            "--num-processes", "2", "--process-id", str(rank), "--device",
+            "cuda"], stats)
+        torch.cuda.synchronize()
+        return rc, stats
+
+    reset_launches()
+    distributed.reset_stats()
+    rc, stats = batch(spec["out"][rank])
+    report["batch"] = {"rc": rc, "stats": stats, "launches": {
+        n: v for n, v in launches_now().items() if v},
+        "collectives": dict(distributed.STATS)}
+    # timed runs, the process warm (the first run above holds its first
+    # CUDA work: library and handle set-up)
+    timed = [batch(f"{spec['out'][rank]}_t{i}") for i in range(DIST_REPS)]
+    report["batch"]["timed_rcs"] = [rc for rc, _ in timed]
+    report["batch"]["walls"] = [st["wall_s"] for _, st in timed]
+    sync = torch.cuda.synchronize
+    for name, (mesh, k, kw) in DIST_CHAINS.items():
+        gm = distributed.global_mesh(*mesh, "cuda")
+        chain = ShardedScannerChain(gm, C.BlockConfig(k), device=gm.device,
+                                    **kw)
+        params = make_runtime_params(C.ScannerArgs(), gm.device)
+        wires = [distributed.make_global_array(gm, w, sharded_time=True)
+                 for w in dist_wires(k)]
+        chain.step(chain.init_state(), wires[0], params)   # tables, warm
+        sync()
+        reset_launches()
+        st, outs = chain.init_state(), []
+        for w in wires:
+            st, o = chain.step(st, w, params)
+            outs.append(o)
+        sync()
+        launches = {n: v for n, v in launches_now().items() if v}
+        gathered = [[t.cpu() for t in distributed.process_allgather(
+            list(o), gm, time_axis=1)] for o in outs]
+        state = [t.cpu() for t in distributed.gather_state(gm, st)]
+        if rank == 0:
+            torch.save({"outs": gathered, "state": state},
+                       spec["chains"][name])
+        report["cases"][name] = {
+            "block": [gm.stream0, gm.n_stream, gm.time0, gm.n_time],
+            "device": str(gm.device), "engine": chain.engine_label,
+            "launches": launches,
+            "timing": timed_steps(chain, wires, params, sync)}
+    distributed.sync("end")
+    distributed.shutdown()
+    print(json.dumps(report))
+    return 0
+
+
+def phase_distributed(dev, sync, smi: str) -> dict:
+    """Phase 21: two rank processes on the one card (gloo over localhost,
+    the halos staged through the host).  (a) config 5 through scan_batch
+    (a stream split: each rank 2 captures x 5 time shards) against the
+    one-process run on the card: rank 0's WAVs byte-equal, its event logs
+    equal, rank 1 writing nothing; (b) the duo and (c) the plane path with
+    K11 split in time over the ranks against the one-process chain on the
+    same mesh; (d) each rank's launches = per-step x steps of its block;
+    (e) ms a block and Msamples/s beside the one-process run's, with the
+    share of the host-staged collectives."""
+    import os
+    import tempfile
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.scanner.chain import (StepOutputs,
+                                                    make_runtime_params)
+    t_start = time.perf_counter()
+    bench = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = batch_captures(tmp)[:4]
+        one = os.path.join(tmp, "one")
+        argv = dist_batch_argv(paths)
+        l_one, _, run_one = run_scan_batch(dev, argv + ["--out-dir", one])
+        one_walls = [run_scan_batch(dev, argv + ["--out-dir", f"{one}_t{i}"])
+                     [2]["wall_s"] for i in range(DIST_REPS)]
+        params = make_runtime_params(C.ScannerArgs(), dev)
+        refs = {}
+        for name, (mesh, k, kw) in DIST_CHAINS.items():
+            chain = ShardedScannerChain(make_mesh(*mesh, dev),
+                                        C.BlockConfig(k), device=dev, **kw)
+            wires = [torch.as_tensor(w, device=dev) for w in dist_wires(k)]
+            st, outs = run_sharded(chain, wires, params)
+            refs[name] = ([[t.cpu() for t in o] for o in outs],
+                          [t.cpu() for t in st],
+                          timed_steps(chain, wires, params, sync))
+            del chain
+        spec = {"addr": free_address(), "batch_argv": argv,
+                "out": [os.path.join(tmp, f"rank{r}") for r in range(2)],
+                "chains": {n: os.path.join(tmp, f"{n}.pt")
+                           for n in DIST_CHAINS}}
+        spec_path = os.path.join(tmp, "dist.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-child",
+             spec_path, str(r)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DIST_CHILD_S))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        child_s = time.perf_counter() - t
+        for r, (p, (out, err)) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                log(out[-3000:])
+                log(err[-6000:])
+            check(p.returncode == 0, f"21 rank {r} exited {p.returncode}")
+        reports = [json.loads(out.strip().splitlines()[-1])
+                   for out, _ in logs]
+        log(f"  two rank processes on {torch.cuda.get_device_name(0)} "
+            f"(both on cuda:0), {child_s:.1f} s; joined in "
+            f"{reports[0]['join_s']:.2f} / {reports[1]['join_s']:.2f} s")
+        for err in (logs[0][1], logs[1][1]):
+            for line in err.splitlines():
+                if "shared with process" in line or "as a loop" in line:
+                    log(f"    {line.split('] ')[-1]}")
+
+        # (a) config 5 through scan_batch
+        for r, rep in enumerate(reports):
+            rcs = [rep["batch"]["rc"]] + rep["batch"]["timed_rcs"]
+            check(rcs == [0] * len(rcs), f"21(a) rank {r} scan_batch exits "
+                  f"{rcs}")
+        stems = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+        for stem in stems:
+            for ext in ("wav", "events.log"):
+                got = open(os.path.join(spec["out"][0], f"{stem}.{ext}"),
+                           "rb").read()
+                want = open(os.path.join(one, f"{stem}.{ext}"), "rb").read()
+                check(got == want, f"21(a) rank 0's {stem}.{ext} differs "
+                      f"from the one-process run's")
+        check(os.listdir(spec["out"][1]) == [], "21(a) rank 1 wrote files")
+        steps = BATCH_BLOCKS
+        want_a = {"duo": 2 * 5 * steps, "audio_bank": 2 * 5 * steps,
+                  "summary": steps}
+        for r, rep in enumerate(reports):
+            check(rep["batch"]["launches"] == want_a, f"21(d) rank {r} (a) "
+                  f"launched {rep['batch']['launches']}, expected {want_a}")
+        check(l_one == {**{n: 0 for n in l_one}, "duo": 4 * 5 * steps,
+                        "audio_bank": 4 * 5 * steps, "summary": steps},
+              f"21(a) one-process launches {l_one}")
+        samples = 4 * steps * BATCH_K * C.SUBCHUNK_IN
+        walls = [rep["batch"]["walls"] for rep in reports]
+        firsts = [rep["batch"]["stats"]["wall_s"] for rep in reports]
+        bench["a"] = {"one_process_wall_s": one_walls,
+                      "one_process_first_wall_s": run_one["wall_s"],
+                      "rank_wall_s": walls, "rank_first_wall_s": firsts,
+                      "rank_collectives": [rep["batch"]["collectives"]
+                                           for rep in reports],
+                      "graphs": [rep["batch"]["stats"]["graphs"]
+                                 for rep in reports]}
+        log(f"  (a) config 5 through scan_batch (--mesh 4,5, K = {BATCH_K}, "
+            f"cu8 --device-decode, S = 1, {steps} blocks of 4 "
+            f"captures): rank 0's WAVs byte-equal and events equal to the "
+            f"one-process run's, rank 1 wrote nothing; launches a rank "
+            f"{want_a}, graphs {bench['a']['graphs']}")
+        ms = lambda w: " / ".join(f"{v * 1e3 / steps:.2f}" for v in w)  # noqa
+        slow = [max(a, b) for a, b in zip(*walls)]
+        log(f"  (e) (a), the wall of a run with reads, uploads and drains (a "
+            f"rank's: process_allgather of the outputs), {DIST_REPS} runs: "
+            f"one process {ms(one_walls)} ms a block "
+            f"({samples / min(one_walls) / 1e6:.1f} Msamples/s at best), two "
+            f"ranks {ms(walls[0])} and {ms(walls[1])} ms a block "
+            f"({samples / min(slow) / 1e6:.1f} Msamples/s at best over the "
+            f"slower rank); the first run of each process, not timed above: "
+            f"one process {ms([run_one['wall_s']])} (its chain new, the "
+            f"process warm), ranks {ms(firsts)} (the first CUDA work of the "
+            f"process inside)")
+
+        # (b), (c): the time splits against the one-process chain
+        for name, (mesh, k, kw) in DIST_CHAINS.items():
+            got = torch.load(spec["chains"][name])
+            want_outs, want_state, one_t = refs[name]
+            exact = True
+            for g, w in zip(got["outs"], want_outs):
+                exact &= all(torch.equal(bits(a), bits(b))
+                             for a, b in zip(g, w))
+            state_exact = all(torch.equal(bits(a), bits(b))
+                              for a, b in zip(got["state"], want_state))
+            summary = check_sharded(
+                [StepOutputs(*g) for g in got["outs"]],
+                [StepOutputs(*w) for w in want_outs], f"21 {name}")
+            case = "b" if name == "duo" else "c"
+            log(f"  ({case}) the {reports[0]['cases'][name]['engine']} at "
+                f"{mesh}, K = {k}{', halo_dma' if kw else ''}, over two "
+                f"ranks (blocks {reports[0]['cases'][name]['block']} / "
+                f"{reports[1]['cases'][name]['block']}): "
+                f"{'outputs bit-equal' if exact else summary}, state "
+                f"{'bit-equal' if state_exact else 'not bit-equal'} to the "
+                f"one-process chain's")
+            per = DIST_PER_STEP[name]
+            want = {n: v * DIST_BLOCKS for n, v in per.items()}
+            for r, rep in enumerate(reports):
+                got_l = rep["cases"][name]["launches"]
+                check(got_l == want, f"21(d) rank {r} {name} launched "
+                      f"{got_l}, expected {want}")
+            log(f"  (d) ({case}) launches a rank over {DIST_BLOCKS} steps: "
+                f"{want}")
+            n = DIST_BLOCKS * k * C.SUBCHUNK_IN
+            tim = [rep["cases"][name]["timing"] for rep in reports]
+            rank_ms = [max(a, b) for a, b in zip(tim[0]["ms_a_block"],
+                                                 tim[1]["ms_a_block"])]
+            share = [(t["collective_s"][-1] / t["wall_s"][-1],
+                      t["stage_s"][-1] / t["wall_s"][-1]) for t in tim]
+            bench[name] = {"exact": exact, "state_exact": state_exact,
+                           "one_process": one_t, "ranks": tim}
+            log(f"  (e) ({case}): one process "
+                f"{' / '.join(f'{v:.2f}' for v in one_t['ms_a_block'])} ms a "
+                f"block ({n / DIST_BLOCKS / min(one_t['ms_a_block']) / 1e3:.1f}"
+                f" Msamples/s), two ranks "
+                f"{' / '.join(f'{v:.2f}' for v in rank_ms)} ms a block "
+                f"({n / DIST_BLOCKS / min(rank_ms) / 1e3:.1f} Msamples/s; "
+                f"CUDA events "
+                f"{tim[0]['event_ms_a_block'][-1]:.2f} / "
+                f"{tim[1]['event_ms_a_block'][-1]:.2f}); "
+                f"{tim[0]['collectives'][-1] // DIST_BLOCKS} host-staged "
+                f"collectives a step, their gloo calls and copies back "
+                f"{100 * share[0][0]:.1f} / {100 * share[1][0]:.1f} % of a "
+                f"rank's step, the copies to the host (with the wait for the "
+                f"device) {100 * share[0][1]:.1f} / {100 * share[1][1]:.1f} %")
+        bench["scan_batch_dependence"] = scan_batch_dependence(dev)
+        log("  (e) the two ranks time-share one card: these are no scaling "
+            "figures; a distributed step reads the host in its host-staged "
+            "collectives, so the no-host-reads checks of phases 4-19 do not "
+            "apply to it")
+        log(f"  {smi}")
+    reset_launches()
+    log(f"  phase 21 took {time.perf_counter() - t_start:.1f} s")
+    return bench
+
+
+def scan_batch_dependence(dev) -> dict:
+    """21(f): why a time split is not bit-equal on the card: the matmul
+    scan (ops/iir.first_order_scan, the DC blockers' chunked scan through
+    cuBLAS) of shards 2-3 of a [1, 4, 2, T] batch alone (a rank's block)
+    against the same shards in the whole batch, and the plain resampler
+    (cuDNN F.conv1d) likewise; logged, not gated."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.ops import iir
+    from sdr_pmr446_tpu_torch.ops.resample import PolyResampler
+    from sdr_pmr446_tpu_torch.taps import design as D
+    g = torch.Generator().manual_seed(21)
+    out = {}
+    for t in (2560, 401408):
+        x = torch.randn(1, 4, 2, t, generator=g).to(dev)
+        whole = iir.first_order_scan(x, 0.9995, x.new_zeros(1, 4, 2))
+        part = iir.first_order_scan(x[:, 2:], 0.9995, x.new_zeros(1, 2, 2))
+        out[f"scan_{t}"] = float((whole[:, 2:] - part).abs().max())
+    res = PolyResampler(D.resampler_taps(), C.RESAMP_L, C.RESAMP_M,
+                        device=dev)
+    x = torch.randn(1, 4, 2, 2560 - 384 + res.hist_len, generator=g).to(dev)
+    _, whole = res(x[..., :res.hist_len], x[..., res.hist_len:])
+    _, part = res(x[:, 2:, :, :res.hist_len], x[:, 2:, :, res.hist_len:])
+    out["resampler"] = float((whole[:, 2:] - part).abs().max())
+    log(f"  (f) a rank's shards alone vs in the one-process batch, max|diff| "
+        f"of unit-variance noise: the matmul scan {out['scan_2560']:.3g} "
+        f"(T = 2560) / {out['scan_401408']:.3g} (T = 401408), the "
+        f"resampler's conv1d {out['resampler']:.3g}")
+    return out
+
+
+def free_address() -> str:
+    """A localhost address with a free port (the coordinator's)."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{sk.getsockname()[1]}"
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5041,6 +5428,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--export-child"]:
         return export_child(sys.argv[2])
+    if sys.argv[1:2] == ["--dist-child"]:
+        return dist_child(sys.argv[2], int(sys.argv[3]))
     from sdr_pmr446_tpu_torch.kernels import (audio_bank, build, chan_tail,
                                               duo, front_end, pfb_demod,
                                               resample_kernel, waterfall)
@@ -5255,6 +5644,10 @@ def main() -> int:
     log("phase 20: AOT export (apps/export_chain.py) on the card")
     log(smi)
     bench["export"] = phase_export(dev, sync, smi)
+    log("phase 21: two rank processes on the card (parallel/distributed.py, "
+        "gloo, host-staged halos)")
+    log(smi)
+    bench["distributed"] = phase_distributed(dev, sync, smi)
     log(f"  the run {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))

@@ -20,6 +20,27 @@ one row of the one-card mesh, so --mesh S,T checks that the captures divide
 over S and the sub-chunks over T, and builds ``make_mesh(captures, T)``;
 no --mesh is (captures, 1).
 
+Processes (JAX's semantics: several processes iff --coordinator is given):
+--coordinator host:port --num-processes P --process-id r joins the gloo
+process group (parallel/distributed.py; rank 0 listens at host:port), and
+the P processes split JAX's (S x T) device mesh evenly, time fastest
+(``distributed.rank_block``): each holds whole stream shards, or one stream
+shard's captures x a run of its time shards, on its device (cuda:(r %
+cards), or --device cpu).  A mesh that does not split so, or a process id
+outside [0, P), exits 1, and so does --num-processes / --process-id
+without --coordinator.  Every process reads only its captures (and, from
+the raw --device-decode reader, only its time run of each block; the
+host-conversion reader reads its captures' whole blocks and keeps its
+run), every block's real sample count taken from the captures' sizes, the
+same on every process.  The halos between processes go through
+host-staged gloo collectives (a time split's steps then run as a loop, not
+a CUDA graph: runtime/fuse.py).  The outputs are gathered to every process
+and process 0 writes every file; the others log "process N done (process 0
+writes the outputs)".  A checkpoint holds every stream's rows, gathered;
+process 0 writes it and its accumulators, then every process syncs; on
+--resume every process loads it and keeps its rows.  A stop (a signal on
+any process, or --stop-after) ends every process after the same group.
+
 Dispatch: --steps-per-dispatch blocks go through the chain's multi_step (a
 CUDA graph of that many steps on the card), uploaded through a pinned
 staging ring (runtime/driver.py::device_prefetch); group i is drained after
@@ -34,10 +55,10 @@ SIGTERM / SIGINT (stop after the group in flight, final checkpoint,
 partial outputs).  A group's checkpoint is a copy of its state taken on the
 device right after its dispatch, written with the accumulators when the
 group is drained: checkpoints never drain a group early.  The resume guard
-refuses another --subchunks-per-step, capture count, capture format or
---device-decode setting.  Not ported: --checkpoint-backend orbax (a JAX
-library) and the multi-host flags (--coordinator, --num-processes,
---process-id), which exit 2.  --device picks the implementation (cuda: the
+refuses another --subchunks-per-step, capture count, capture format,
+--device-decode setting, --mesh or process count.  Not ported:
+--checkpoint-backend orbax (a JAX library), which exits 2.  --device picks
+the implementation (cuda: the
 kernels, cpu: their plain versions); --engine the engine (kernel, the
 default; op: the JAX op engine's plain ops and state layout, every
 K_local), and --resume refuses a checkpoint of the other engine's layout.
@@ -63,7 +84,6 @@ log = logging.getLogger("scan_batch")
 
 FORMATS = ("cf32", "cs16", "cu8", "cs8")
 ALIASES = {"sc16": "cs16", "rtlsdr": "cu8", "fc32": "cf32"}
-MULTI_HOST = ("not yet ported (ROADMAP queue 1: a transport across cards)")
 #: pinned host buffers the uploads run ahead by (the driver's default)
 PREFETCH_DEPTH = 2
 
@@ -95,7 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "block's sub-chunks over T time shards (default: "
                         "captures,1)")
     p.add_argument("--coordinator", type=str, default="",
-                   help=f"multi-host: {MULTI_HOST}")
+                   help="host:port of process 0: run as --num-processes "
+                        "processes over gloo (the halos staged through the "
+                        "host)")
     p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
@@ -137,33 +159,43 @@ def build_parser() -> argparse.ArgumentParser:
 class RawBatchReader:
     """[S, block * bytes a sample] uint8 wire reader over same-format raw
     captures (JAX ``_RawBatchReader``; the port's wire is bytes, so there
-    is no f32 word packing)."""
+    is no f32 word packing).  With ``run`` = (first sample, samples) it
+    reads only that run of each block (a process's time shards)."""
 
-    def __init__(self, paths, fmt: str):
+    def __init__(self, paths, fmt: str, run: tuple | None = None):
         from sdr_pmr446_tpu_torch.ops import decode
         self.fmt = fmt
         self.dtype = np.dtype(decode.WIRE_DTYPE[fmt])
         self.fill = decode.WIRE_FILL[fmt]
         self.files = [open(p, "rb") for p in paths]
+        self.run = run
+        self.block = 0
 
     def read_block(self, block_len: int):
-        """block_len samples a stream: ([S, bytes], most samples read), a
-        short tail padded with the format's near-zero value."""
-        elems = 2 * block_len
+        """block_len samples a stream (or the run of them): ([S, bytes],
+        most samples read), a short tail padded with the format's near-zero
+        value."""
+        first, n = self.run or (0, block_len)
+        elems = 2 * n
         rows, got = [], 0
         for f in self.files:
+            if self.run:
+                f.seek(2 * (self.block * block_len + first)
+                       * self.dtype.itemsize)
             raw = np.fromfile(f, dtype=self.dtype, count=elems)
             got = max(got, len(raw) // 2)
             if len(raw) < elems:
                 raw = np.concatenate(
                     [raw, np.full(elems - len(raw), self.fill, self.dtype)])
             rows.append(raw.view(np.uint8))
+        self.block += 1
         return np.stack(rows), got
 
     def skip_blocks(self, n_blocks: int, block_len: int) -> None:
         off = n_blocks * 2 * block_len * self.dtype.itemsize
         for f in self.files:
             f.seek(off, 0)
+        self.block = n_blocks
 
     def close(self) -> None:
         for f in self.files:
@@ -185,6 +217,37 @@ class WireBatchReader:
 
     def skip_blocks(self, n_blocks: int, block_len: int) -> None:
         self.reader.skip_blocks(n_blocks, block_len)
+
+    def close(self) -> None:
+        self.reader.close()
+
+
+class RankReader:
+    """A process's reader over several processes: ``reader`` reads the
+    process's captures; with ``cut`` = (first, count, n_time) each whole
+    block it returns is cut to the process's run of time shards, and every
+    block's real sample count comes from the captures' ``lengths``
+    (samples), so every process ends on the same block."""
+
+    def __init__(self, reader, lengths, cut: tuple | None = None):
+        self.reader = reader
+        self.total = max(lengths)
+        self.cut = cut
+        self.block = 0
+
+    def read_block(self, block_len: int):
+        blk, _ = self.reader.read_block(block_len)
+        if self.cut:
+            first, count, n_time = self.cut
+            blk = blk.reshape(blk.shape[0], n_time, -1)[
+                :, first:first + count].reshape(blk.shape[0], -1)
+        got = min(block_len, max(0, self.total - self.block * block_len))
+        self.block += 1
+        return blk, got
+
+    def skip_blocks(self, n_blocks: int, block_len: int) -> None:
+        self.reader.skip_blocks(n_blocks, block_len)
+        self.block = n_blocks
 
     def close(self) -> None:
         self.reader.close()
@@ -257,6 +320,28 @@ def _mesh_shape(ns, n_streams: int):
     return s_axis, t_axis
 
 
+def _process_block(ns, n_streams: int, s_axis: int, t_axis: int):
+    """This process's distributed.Block of the mesh, or None for one
+    process; a ValueError for an unusable choice."""
+    from sdr_pmr446_tpu_torch.parallel import distributed
+    if not ns.coordinator:
+        if ns.num_processes != 1 or ns.process_id != 0:
+            raise ValueError("--num-processes / --process-id need "
+                             "--coordinator")
+        return None
+    if ns.num_processes < 1:
+        raise ValueError(f"--num-processes {ns.num_processes}: must be >= 1")
+    return distributed.rank_block(n_streams, t_axis, ns.num_processes,
+                                  ns.process_id, s_axis)
+
+
+def capture_samples(paths, fmts) -> list:
+    """Each capture's samples, from its size and format."""
+    from sdr_pmr446_tpu_torch.ops import decode
+    return [os.path.getsize(p) // decode.BYTES_PER_SAMPLE[f]
+            for p, f in zip(paths, fmts)]
+
+
 def _event_lines(host: dict, s: int, i: int, sub: int) -> list:
     """JAX scan_batch's event lines of stream s, sub-chunk i."""
     out = []
@@ -296,10 +381,6 @@ def main(argv=None, stats: dict | None = None) -> int:
                         format="[%(asctime)s %(name)s] %(message)s",
                         stream=sys.stderr)
     ns = build_parser().parse_args(argv)
-    if ns.coordinator or ns.num_processes != 1 or ns.process_id != 0:
-        logging.error("--coordinator / --num-processes / --process-id: %s",
-                      MULTI_HOST)
-        return 2
     if ns.checkpoint_backend == "orbax":
         logging.error("not yet ported to sdr_pmr446_tpu_torch: "
                       "--checkpoint-backend orbax (a JAX library)")
@@ -323,27 +404,50 @@ def main(argv=None, stats: dict | None = None) -> int:
             logging.error("no such capture: %s", pth)
             return 1
 
+    from sdr_pmr446_tpu_torch import device as devices
     from sdr_pmr446_tpu_torch.io import wav
     from sdr_pmr446_tpu_torch.ops import spectrogram
+    from sdr_pmr446_tpu_torch.parallel import distributed
     from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
         ShardedScannerChain, make_mesh)
     from sdr_pmr446_tpu_torch.runtime import state as state_io
     from sdr_pmr446_tpu_torch.runtime.driver import device_prefetch
     from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
     from sdr_pmr446_tpu_torch.ui import waterfall as wf_ui
+    joined = False
     try:
         s_axis, t_axis = _mesh_shape(ns, n_streams)
+        block = _process_block(ns, n_streams, s_axis, t_axis)
         fmts, wire_fmt = _formats(ns, paths)
         spectrogram.validate_width(ns.waterfall)
+        if block is None:
+            mesh = make_mesh(n_streams, t_axis, ns.device)
+        else:
+            devices.resolve(ns.device)          # before joining the group
+            joined = distributed.initialize(ns.coordinator, ns.num_processes,
+                                            ns.process_id)
+            mesh = distributed.global_mesh(n_streams, t_axis, ns.device,
+                                           s_axis)
         chain = ShardedScannerChain(
-            make_mesh(n_streams, t_axis, ns.device),
-            C.BlockConfig(ns.subchunks_per_step), lowpass=ns.lowpass,
+            mesh, C.BlockConfig(ns.subchunks_per_step), lowpass=ns.lowpass,
             waterfall=max(ns.waterfall, 0),
-            input_format=wire_fmt or "cf32", device=ns.device,
+            input_format=wire_fmt or "cf32", device=mesh.device,
             engine=ns.engine)
     except (ValueError, RuntimeError) as e:
         logging.error("%s", e)
+        if joined:
+            distributed.shutdown()
         return 1
+    multi = block is not None
+    writer = not multi or ns.process_id == 0
+
+    def _leave(rc: int) -> int:
+        """Every process past this point, then out of the group it joined."""
+        if joined:
+            distributed.sync("scan_batch_exit")
+            distributed.shutdown()
+        return rc
+
     os.makedirs(ns.out_dir, exist_ok=True)
     args = C.ScannerArgs(
         audio_gain=ns.audio_gain, squelch_level=ns.squelch,
@@ -353,15 +457,29 @@ def main(argv=None, stats: dict | None = None) -> int:
     state = chain.init_state()
     block_len = chain.block.input_len
     engine = chain.engine_label
+    mine = (slice(block.stream0, block.stream0 + block.n_stream) if multi
+            else slice(None))
+    # a process's time run of each block, in samples
+    run = (None if not multi or block.n_time == t_axis else
+           (block.time0 * chain.t_local, block.n_time * chain.t_local))
     if wire_fmt:
-        reader = RawBatchReader(paths, wire_fmt)
+        reader = RawBatchReader(paths[mine], wire_fmt, run)
         reader_kind = f"raw {wire_fmt} wire"
     else:
-        reader = WireBatchReader(paths, fmts)
+        reader = WireBatchReader(paths[mine], fmts[mine])
         reader_kind = f"{reader.kind} BatchReader"
     log.info("scanning %d captures on a (%d stream x %d time) mesh "
              "(--mesh %d,%d), %s engine, device %s, reader %s", n_streams,
              n_streams, t_axis, s_axis, t_axis, engine, dev, reader_kind)
+    if multi:
+        reader = RankReader(
+            reader, capture_samples(paths, fmts),
+            None if wire_fmt or run is None
+            else (block.time0, block.n_time, t_axis))
+        log.info("process %d of %d: captures %d..%d, time shards %d..%d",
+                 ns.process_id, ns.num_processes, block.stream0,
+                 block.stream0 + block.n_stream - 1, block.time0,
+                 block.time0 + block.n_time - 1)
 
     audio = [[] for _ in range(n_streams)]
     events = [[] for _ in range(n_streams)]
@@ -370,14 +488,22 @@ def main(argv=None, stats: dict | None = None) -> int:
     n_fuse = max(1, ns.steps_per_dispatch)
     guard = {"subchunks_per_step": ns.subchunks_per_step,
              "n_streams": n_streams, "formats": ",".join(fmts),
-             "device_decode": int(bool(ns.device_decode))}
+             "device_decode": int(bool(ns.device_decode)),
+             "mesh": f"{s_axis},{t_axis}",
+             "num_processes": ns.num_processes if multi else 1}
+    text_keys = ("formats", "mesh")
 
     saved_at = {"blocks": -1}
 
     def save_ckpt(blocks_done: int, host_state: list) -> None:
-        state_io.save_state(ns.checkpoint, blocks_done, type(state)(
+        # every stream's rows (a process holds its own): process 0 writes
+        rows = distributed.gather_state(mesh, type(state)(
             *(torch.from_numpy(v) for v in host_state)))
         saved_at["blocks"] = blocks_done
+        if not writer:
+            distributed.sync("scan_batch_ckpt")
+            return
+        state_io.save_state(ns.checkpoint, blocks_done, rows)
         arrs = {"subchunk": np.int64(acc["subchunk"]),
                 "total_got": np.int64(acc["total_got"])}
         arrs.update({k: np.array(v) for k, v in guard.items()})
@@ -389,6 +515,7 @@ def main(argv=None, stats: dict | None = None) -> int:
                 arrs[f"wf{s}"] = np.array("\n".join(wf_lines[s]))
         np.savez(ns.checkpoint + ".accum.npz", **arrs)
         log.info("checkpoint at block %d -> %s", blocks_done, ns.checkpoint)
+        distributed.sync("scan_batch_ckpt")
 
     blocks_done = 0           # blocks dispatched AND drained
     if ns.resume:
@@ -397,25 +524,29 @@ def main(argv=None, stats: dict | None = None) -> int:
             with np.load(ns.checkpoint + ".accum.npz") as z:
                 ck = {k: z[k] for k in z.files}
             state_io.check_layout(loaded, chain.engine)
+            if multi:
+                loaded = state_io.state_rows(loaded, block.stream0,
+                                             block.n_stream)
             loaded = state_io.adapt_state_histories(loaded, state)
         except (OSError, ValueError, KeyError, EOFError,
                 zipfile.BadZipFile) as e:
             logging.error("cannot restore checkpoint '%s': %s",
                           ns.checkpoint, e)
-            return 1
-        # the guard: another block shape, capture count or wire would
-        # seek mid-block or read another format's bytes
-        saved = {k: (str(ck[k]) if k == "formats" else int(ck[k]))
+            return _leave(1)
+        # the guard: another block shape, capture count, wire or split
+        # would seek mid-block, read another format's bytes or other rows
+        saved = {k: (str(ck[k]) if k in text_keys else int(ck[k]))
                  for k in guard if k in ck}
         if saved != guard:
             logging.error("checkpoint was written with %s; resume invoked "
                           "with %s — rerun with the checkpoint's geometry, "
-                          "formats and --device-decode", saved, guard)
-            return 1
+                          "formats, --device-decode, --mesh and process "
+                          "count", saved, guard)
+            return _leave(1)
         state = loaded
         acc["subchunk"] = int(ck["subchunk"])
         acc["total_got"] = int(ck["total_got"])
-        for s in range(n_streams):
+        for s in range(n_streams if writer else 0):
             a = ck[f"audio{s}"]
             audio[s] = list(a) if a.size else []
             ev = str(ck[f"events{s}"])
@@ -445,10 +576,18 @@ def main(argv=None, stats: dict | None = None) -> int:
     fetch = HostFetch(dev)
     gots: collections.deque = collections.deque()
 
+    def stopped() -> bool:
+        """The stop flag; over several processes the processes agree on it
+        (a stop on any of them), so that all stop after the same group."""
+        if multi:
+            stop["flag"] = distributed.agree(stop["flag"])
+        return stop["flag"]
+
     def read_blocks():
-        """The reader's blocks until EOF or a stop; each block's real
-        sample count goes to ``gots``."""
-        while not stop["flag"]:
+        """The reader's blocks until EOF or a stop (over several processes,
+        until EOF: a stop ends the loop below where they agree on it); each
+        block's real sample count goes to ``gots``."""
+        while multi or not stop["flag"]:
             blk, got = reader.read_block(block_len)
             if got == 0:
                 return
@@ -459,9 +598,14 @@ def main(argv=None, stats: dict | None = None) -> int:
 
     def drain(pending) -> None:
         out, nblk, ev, snap = pending
-        host = dict(zip(out._fields, fetch(list(out), ev)))
+        host = fetch(list(out), ev)
+        if multi:
+            # every process's sub-chunks of its streams, to every process
+            host = [t.numpy() for t in distributed.process_allgather(
+                [torch.from_numpy(v) for v in host], mesh, time_axis=1)]
+        host = dict(zip(out._fields, host))
         k = host["active_chan"].shape[1]
-        for s in range(n_streams):
+        for s in range(n_streams if writer else 0):
             for i in range(k):
                 sub = acc["subchunk"] + i
                 if host["audio_valid"][s][i]:
@@ -501,7 +645,7 @@ def main(argv=None, stats: dict | None = None) -> int:
         got = gots.popleft()
         acc["total_got"] += got
         group_got += got
-        group.append(wire.reshape(n_streams, -1))
+        group.append(wire.reshape(chain.n_stream, -1))
         if len(group) < n_fuse:
             continue
         groups_done += 1
@@ -514,15 +658,16 @@ def main(argv=None, stats: dict | None = None) -> int:
         if pending is not None:
             drain(pending)
         pending = out
-        if stop["flag"]:
+        if stopped():
             break
     # a short last group runs block by block (no graph of its own)
-    for wire in (() if stop["flag"] else group):
+    for wire in (() if stopped() else group):
         out = dispatch([wire], False)
         if pending is not None:
             drain(pending)
         pending = out
-    if not stop["flag"]:
+    halted = stopped()
+    if not halted:
         group_got = 0
     if pending is not None:
         drain(pending)
@@ -530,7 +675,7 @@ def main(argv=None, stats: dict | None = None) -> int:
     reader.close()
     for sig, handler in prev_handlers:   # main() is re-entrant in tests
         signal.signal(sig, handler)
-    if stop["flag"]:
+    if halted:
         acc["total_got"] -= group_got     # read, never dispatched
         if ns.checkpoint and saved_at["blocks"] != blocks_done:
             save_ckpt(blocks_done, [v.cpu().numpy() for v in state])
@@ -543,7 +688,13 @@ def main(argv=None, stats: dict | None = None) -> int:
     if stats is not None:
         stats.update(reader=reader_kind, engine=engine, blocks=blocks_done,
                      samples=samples, wall_s=wall, first_s=first_s,
-                     graphs=len(chain.megastep.graphs))
+                     graphs=len(chain.megastep.graphs),
+                     processes=ns.num_processes if multi else 1)
+    _leave(0)
+    if not writer:
+        log.info("process %d done (process 0 writes the outputs)",
+                 ns.process_id)
+        return 0
 
     real_sub = -(-acc["total_got"] // C.SUBCHUNK_IN)
     for s, stem in enumerate(unique_stems(paths)):

@@ -23,7 +23,11 @@ quietly, as JAX's does (JAX dsd_sharded.py:62).
 the op engine) with every field [S, ...] (the JAX sharded state's
 layout).  ``multi_step(state, wires uint8 [S_steps, S, step_arg_len])``
 runs S_steps blocks in one dispatch (runtime/fuse.py), the pcm [S, S_steps
-* T * 3 / 64], equal to the steps bit for bit.
+* T * 3 / 64], equal to the steps bit for bit.  On a rank's block of a
+mesh over several processes (parallel/distributed.py::global_mesh) the
+wire, the pcm and the state are the rank's (its time shards of its
+streams; parallel/scanner_sharded.py), the halos passed over its time
+group.
 """
 
 from __future__ import annotations
@@ -54,10 +58,11 @@ def mono_geometry(subchunks_per_step: int, mesh: Mesh,
     """K_local, or a ValueError where the ``engine`` cannot run: the
     sharded mono (kernel) engine needs K_local % 8 == 0, the op engine
     serves every K_local."""
-    if subchunks_per_step % mesh.n_time:
+    n_time = halo.TimeGroup.of(mesh).total(mesh.n_time)
+    if subchunks_per_step % n_time:
         raise ValueError(f"subchunks_per_step={subchunks_per_step} must "
-                         f"divide evenly over the {mesh.n_time}-way time mesh")
-    k_local = subchunks_per_step // mesh.n_time
+                         f"divide evenly over the {n_time}-way time mesh")
+    k_local = subchunks_per_step // n_time
     if k_local % 8 and engines.resolve(engine) == engines.KERNEL:
         raise ValueError(
             f"the sharded mono engine needs subchunks_per_step / n_time % 8 "
@@ -84,9 +89,10 @@ class ShardedDsdInChain:
         self.engine = engines.resolve(engine)
         self.op = self.engine == engines.OP
         self.k_local = mono_geometry(subchunks_per_step, mesh, self.engine)
+        self.tg = halo.TimeGroup.of(mesh)
         self.input_format = decode.wire_format(input_format)
         self.input_len = subchunks_per_step * C.SUBCHUNK_IN
-        self.t_local = self.input_len // mesh.n_time
+        self.t_local = self.k_local * C.SUBCHUNK_IN
         self.output_len = self.input_len * 3 // 64
         if self.op:
             # the unsharded op chain's resamplers and zero state
@@ -95,12 +101,13 @@ class ShardedDsdInChain:
         else:
             self.mono = MonoChain("dsd", self.input_format,
                                   device=self.device)
-        self.megastep = fuse.fused_sharded_steps(self.step)
+        self.megastep = fuse.fused_sharded_steps(self.step, self.tg.size)
 
     @property
     def step_arg_len(self) -> int:
-        """Wire bytes per stream and step."""
-        return self.input_len * decode.BYTES_PER_SAMPLE[self.input_format]
+        """Wire bytes per stream and step (of the rank's time shards)."""
+        return (self.t_local * self.mesh.n_time
+                * decode.BYTES_PER_SAMPLE[self.input_format])
 
     def init_state(self):
         if self.op:
@@ -119,20 +126,20 @@ class ShardedDsdInChain:
             return self._op_step(state, wire3)
         x_in, y_in, dcx_carry, dcy_carry, dc_tail = FH.exact_dc_state(
             wire3, self.input_format, self.t_local, self.TAIL, state.dc_x,
-            state.dc_y)
+            state.dc_y, self.tg)
         # every halo rebuilt from the corrected tail, before the kernel
+        # (one collective for the four over a time group)
         tail = self.mono.tail
-        fh_in, fh_carry = FH.shard_pass_right(
-            state.front_hist, dc_tail[..., -self.mono.front.hist_len:])
         band = FH.resample_tail(self.mono.front.resampler, dc_tail,
                                 FH.REBUILD_START)           # [S, D, 1300]
-        bh_in, bh_carry = FH.shard_pass_right(
-            state.band_hist, band[..., -state.band_hist.shape[-1]:])
         sig = FH.resample_tail(tail.decim, band,
                                band.shape[-1] - self.SIG_SPAN)   # [.., 51]
-        sp_in, sp_carry = FH.shard_pass_right(state.sig_prev, sig[..., -1])
         _, dem = fm.fm_demod(sig[..., 0], sig[..., 1:])     # [S, D, 50]
-        dh_in, dh_carry = FH.shard_pass_right(state.demod_hist, dem)
+        ((fh_in, fh_carry), (bh_in, bh_carry), (sp_in, sp_carry),
+         (dh_in, dh_carry)) = self.tg.pass_right(
+            (state.front_hist, dc_tail[..., -self.mono.front.hist_len:]),
+            (state.band_hist, band[..., -state.band_hist.shape[-1]:]),
+            (state.sig_prev, sig[..., -1]), (state.demod_hist, dem))
         outs = [[self.mono(wire3[s, d], x_in[s, d], y_in[s, d], fh_in[s, d],
                            bh_in[s, d], sp_in[s, d], dh_in[s, d])
                  for d in range(self.mesh.n_time)]
@@ -147,18 +154,18 @@ class ShardedDsdInChain:
 
     def _op_step(self, st, wire3):
         """The op engine over the shards (JAX dsd_sharded.py:182-200)."""
-        n_s, n_t = self.mesh.n_stream, self.mesh.n_time
+        n_s, tg = self.mesh.n_stream, self.tg
         ops = self.chain.ops
         dx, dy, c1, band = ops.resample_shards(
             st.dc_x, st.dc_y, st.res1_hist,
-            shard_planes(wire3, self.input_format))         # [S, D, 2, nb]
+            shard_planes(wire3, self.input_format), tg)     # [S, D, 2, nb]
         h2, c2 = halo.shard_hist_planes(st.res2_hist, band,
-                                        ops.res2.hist_len)
+                                        ops.res2.hist_len, tg=tg)
         _, sig = ops.res2(planes(h2), band)
         sig = complex_of(sig)                               # [S, D, Ts]
-        fm_prev, fm_carry = halo.shard_scalar_prev(st.fm_prev, sig)
+        fm_prev, fm_carry = halo.shard_scalar_prev(st.fm_prev, sig, tg)
         _, audio = fm.fm_demod(fm_prev, sig)
-        h3, c3 = halo.shard_hist(st.up_hist, audio, ops.up.hist_len)
+        h3, c3 = halo.shard_hist(st.up_hist, audio, ops.up.hist_len, tg=tg)
         _, out48 = ops.up(h3, audio)
         new = type(st)(dx, dy, c1, c2, fm_carry, c3)
         return (type(st)(*(v.contiguous() for v in new)),

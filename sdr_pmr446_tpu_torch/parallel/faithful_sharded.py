@@ -27,6 +27,11 @@ unsharded chain's decisions exactly and audio to f32 rounding of the
 composed carries (tests/test_sharding.py:323).  ``multi_step(state, iqs
 [S_steps, S, K * SUBCHUNK_IN], params)`` runs S_steps blocks in one
 dispatch (runtime/fuse.py), outputs stream-major [S, S_steps * K, ...].
+On a rank's block of a mesh over several processes (parallel/
+distributed.py::global_mesh) ``iq`` is the rank's time shards of its
+streams, [S_loc, D_loc * K_local * SUBCHUNK_IN], the channel sub-chunks are
+gathered over its time group, ``faithful_scan`` runs over all K on every
+rank of the group, and the outputs are the rank's sub-chunks.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch.ops.rssi import subchunk_rssi
+from sdr_pmr446_tpu_torch.parallel.halo import TimeGroup
 from sdr_pmr446_tpu_torch.parallel.scanner_sharded import Mesh, mesh_device
 from sdr_pmr446_tpu_torch.runtime import fuse
 from sdr_pmr446_tpu_torch.runtime.state import stack_state
@@ -59,17 +65,21 @@ class ShardedFaithfulChain:
         self.K = subchunks_per_step
         self.lowpass = lowpass
         self.n_stream, self.n_time = mesh.n_stream, mesh.n_time
-        if self.K % self.n_time:
+        self.tg = TimeGroup.of(mesh)
+        n_time = self.tg.total(self.n_time)
+        if self.K % n_time:
             raise ValueError(f"subchunks_per_step={self.K} must divide "
-                             f"evenly over the {self.n_time}-way time axis")
-        self.k_local = self.K // self.n_time
+                             f"evenly over the {n_time}-way time axis")
+        self.k_local = self.K // n_time
+        self.k_rank = self.k_local * self.n_time
         # the unsharded chain's filters, taps and zero state
         self.chain = FaithfulScannerChain(self.K, lowpass, device=self.device)
-        self.megastep = fuse.fused_sharded_steps(self.step)
+        self.megastep = fuse.fused_sharded_steps(self.step, self.tg.size)
 
     @property
     def input_len(self) -> int:
-        return self.K * C.SUBCHUNK_IN
+        """Samples per stream and step (of the rank's time shards)."""
+        return self.k_rank * C.SUBCHUNK_IN
 
     def init_state(self) -> FaithfulState:
         """The zero state of every stream, each field [S, ...]."""
@@ -83,13 +93,14 @@ class ShardedFaithfulChain:
         if iq.dtype != torch.complex64 or tuple(iq.shape) != want:
             raise ValueError(f"iq must be complex64 {want}, got {iq.dtype} "
                              f"{tuple(iq.shape)}")
-        n_s, n_t = self.n_stream, self.n_time
+        n_s, n_t, tg = self.n_stream, self.n_time, self.tg
         x = torch.stack([iq.real, iq.imag], dim=1).reshape(
             n_s, 2, n_t, -1).transpose(1, 2)                # [S, D, 2, T]
         fr = self.chain.front.shards(state.dc_x, state.dc_y,
                                      state.resamp_hist, state.pfb_hist,
-                                     state.frame_parity, x)
-        chans = fr.chan.transpose(1, 2).reshape(n_s, NCH, -1)  # [S, 16, K*ns]
+                                     state.frame_parity, x, tg)
+        chans = tg.gather(fr.chan).transpose(1, 2).reshape(
+            n_s, NCH, -1)                                   # [S, 16, K*ns]
 
         carries, outs = [], []
         for s in range(n_s):
@@ -107,6 +118,9 @@ class ShardedFaithfulChain:
             dc_x=fr.dc_x, dc_y=fr.dc_y, resamp_hist=fr.resamp_hist,
             pfb_hist=fr.pfb_hist, frame_parity=fr.parity,
             rssi=out.rel_rssi[:, -1], **carry)
+        if tg.size > 1:
+            mine = slice(tg.index * self.k_rank, (tg.index + 1) * self.k_rank)
+            out = FaithfulOutputs(*(v[:, mine] for v in out))
         return FaithfulState(*(v.contiguous() for v in new_state)), out
 
     def multi_step(self, state: FaithfulState, iqs: torch.Tensor,

@@ -23,7 +23,9 @@ a one-pole is affine in its incoming state instead:
 Every constant is re-derived here in float64 on the host, bit-equal to the
 JAX package's (test-enforced), and applied as f32 operations.  All values
 carry the mesh's leading dims ([S, D] per shard, [S] carried;
-parallel/halo.py).
+parallel/halo.py).  Over several processes (``tg``, a halo.TimeGroup) the
+pre-pass runs K10 on the rank's own shards, and the folds compose the
+per-shard summaries gathered over the time group, in the one-card order.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 from sdr_pmr446_tpu_torch import config as C
 from sdr_pmr446_tpu_torch.ops import decode, iir
 from sdr_pmr446_tpu_torch.ops.resample import _kernel_matrix
-from sdr_pmr446_tpu_torch.parallel.halo import shift_right
+from sdr_pmr446_tpu_torch.parallel.halo import LOCAL, TimeGroup, shift_right
 from sdr_pmr446_tpu_torch.taps import design as D
 
 _P = 1.0 - C.DC_BLOCK_ALPHA
@@ -51,20 +53,21 @@ W_PAD = (_HIST_ROWS + 1) * M
 # generic shard plumbing
 # ---------------------------------------------------------------------------
 
-def shard_pass_right(carried: torch.Tensor, val: torch.Tensor):
+def shard_pass_right(carried: torch.Tensor, val: torch.Tensor,
+                     tg: TimeGroup = LOCAL):
     """Each shard receives its LEFT neighbour's ``val`` [S, D, ...] (shard 0
     the ``carried`` [S, ...]); returns (received, new_carried = the last
     shard's val)."""
-    return shift_right(carried, val), last_shard(val)
+    return tg.pass_right((carried, val))
 
 
-def last_shard(val: torch.Tensor) -> torch.Tensor:
+def last_shard(val: torch.Tensor, tg: TimeGroup = LOCAL) -> torch.Tensor:
     """The LAST shard's ``val`` [S, D, ...] -> [S, ...]."""
-    return val[:, -1]
+    return tg.last(val)
 
 
 def compose_dc_chain(y0_end, x_last, carried_y, carried_x, p_t1: float,
-                     g: float):
+                     g: float, tg: TimeGroup = LOCAL):
     """Each shard's TRUE incoming one-pole state from zero-state kernel
     runs of y[n] = g (x[n] - x[n-1]) + p y[n-1].
 
@@ -77,8 +80,12 @@ def compose_dc_chain(y0_end, x_last, carried_y, carried_x, p_t1: float,
     order, in the dtype of y0_end (complex64 or f32), as JAX's lax.scan
     (the constants stay host scalars: nothing is copied to the device).
 
+    Over a time group the per-shard values are gathered, every rank folds
+    all D, and y_in and delta are the rank's shards.
+
     Returns (y_in [S, D, ...], delta [S, D, ...], new_carried_y [S, ...],
     new_carried_x [S, ...])."""
+    y0_end, x_last = tg.gather(y0_end, x_last)
     num = y0_end.shape[1]
     x_in_seq = shift_right(carried_x, x_last)
     y = carried_y.to(y0_end.dtype)
@@ -88,8 +95,8 @@ def compose_dc_chain(y0_end, x_last, carried_y, carried_x, p_t1: float,
         y_ins.append(y)
         deltas.append(delta)
         y = y0_end[:, d] + delta * p_t1
-    return (torch.stack(y_ins, dim=1), torch.stack(deltas, dim=1), y,
-            last_shard(x_last))
+    return (tg.local(torch.stack(y_ins, dim=1)),
+            tg.local(torch.stack(deltas, dim=1)), y, last_shard(x_last))
 
 
 @functools.lru_cache(maxsize=None)
@@ -280,7 +287,7 @@ def dc_tail_exact(tail_x: torch.Tensor, y_pre, x_pre, delta,
 
 def exact_dc_state(wire: torch.Tensor, fmt: str, t_local: int,
                    tail_len: int, carried_x: torch.Tensor,
-                   carried_y: torch.Tensor):
+                   carried_y: torch.Tensor, tg: TimeGroup = LOCAL):
     """The pre-pass of the duo and mono engines, for wire [S, D, bytes a
     shard] and the stream state (carried_x, carried_y) c64 [S]: each
     shard's exact incoming DC state and its true DC-blocked tail.  Returns
@@ -289,10 +296,13 @@ def exact_dc_state(wire: torch.Tensor, fmt: str, t_local: int,
     y00, y_pre, x_pre, xlast, tail_x = front_zero_summary_wire(
         wire, fmt, t_local, tail_len)
     p_t1 = _zero_summary_consts(t_local, tail_len)["p_t1"]
+    # over a time group: one collective for the fold and x_in
+    y00, xlast = tg.gather(y00, xlast)
     y_in, delta, new_y, new_x = compose_dc_chain(
         y00, xlast, carried_y, carried_x, p_t1, _G)
-    return (shift_right(carried_x, xlast), y_in, new_x, new_y,
-            dc_tail_exact(tail_x, y_pre, x_pre, delta, t_local))
+    return (tg.local(shift_right(carried_x, xlast)), tg.local(y_in), new_x,
+            new_y, dc_tail_exact(tail_x, y_pre, x_pre, tg.local(delta),
+                                 t_local))
 
 
 #: where the halo rebuilds start in a corrected DC tail: the resampler's

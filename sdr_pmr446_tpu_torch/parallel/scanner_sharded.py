@@ -61,6 +61,18 @@ Each shard's hop counter is analytic, (wf_cnt + d * K_local * 19600) mod
 (w/4), and the carried ``wf_hist`` / ``wf_cnt`` are the last shard's.  Rows
 come back [S, K, w], per stream the unsharded chain's within 2e-3 dB.
 
+Over several processes (parallel/distributed.py: ``global_mesh`` gives the
+chain a rank's block of the global mesh) the chain holds the rank's S_loc
+streams x D_loc time shards and steps its block: ``wire`` uint8 [S_loc,
+step_arg_len] (the rank's shards of each stream), the state its streams'
+rows (replicated over the ranks of a time group, as JAX replicates the
+state over the time axis) and every output leaf [S_loc, D_loc * K_local,
+...], its own sub-chunks.  The halos cross the ranks through the time
+group's host-staged transport (halo.TimeGroup); the FSM runs per stream
+over the whole K on every rank of the group, on the gathered [K, 16] RSSI
+and [K, 38] tone sums (or [16, K, ns] lp plane).  A rank's outputs equal
+its block of the one-process mesh's bit for bit.
+
 ``engine="op"`` is JAX's op engine (``use_pallas=False``, the op branch
 of JAX scanner_sharded.py:595-760, every K_local): the wire decoded to
 planes, the DC blocker over shards (``halo.shard_dc_blocker``), the plain
@@ -200,12 +212,16 @@ class ShardedScannerChain:
         self.waterfall = max(waterfall, 0)
         self.lowpass = lowpass
         self.n_time, self.n_stream = mesh.n_time, mesh.n_stream
+        self.tg = halo.TimeGroup.of(mesh)
+        n_time = self.tg.total(self.n_time)
         k = self.block.subchunks_per_step
-        if k % self.n_time:
+        if k % n_time:
             raise ValueError(f"subchunks_per_step={k} must divide evenly over "
-                             f"the {self.n_time}-way time axis")
-        self.k_local = k // self.n_time
-        self.t_local = self.block.input_len // self.n_time
+                             f"the {n_time}-way time axis")
+        self.k_local = k // n_time
+        #: the rank's sub-chunks a step (K on the one-card mesh)
+        self.k_rank = self.k_local * self.n_time
+        self.t_local = self.block.input_len // n_time
         self.fused = bool(fuse_dc and fuse_lp_dc and fuse_rssi and fuse_ctcss
                           and self.k_local % 8 == 0 and not self.op)
         self.fused_duo = self.fused and fuse_band
@@ -215,7 +231,7 @@ class ShardedScannerChain:
         self.deemph_hist_len = deemph.shape[0] - 1
         self.wf = (Waterfall(self.waterfall, device=dev)
                    if self.waterfall else None)
-        self.megastep = fuse.fused_sharded_steps(self.step)
+        self.megastep = fuse.fused_sharded_steps(self.step, self.tg.size)
         if self.op:
             self.front = OpFrontEnd(dev)
             self.resamp_hist_len = self.front.resampler.hist_len
@@ -260,8 +276,8 @@ class ShardedScannerChain:
 
     @property
     def step_arg_len(self) -> int:
-        """Wire bytes per stream and step."""
-        return self.block.input_len * decode.BYTES_PER_SAMPLE[
+        """Wire bytes per stream and step (of the rank's time shards)."""
+        return self.t_local * self.n_time * decode.BYTES_PER_SAMPLE[
             self.input_format]
 
     def multi_step(self, state: ScannerState, wires: torch.Tensor,
@@ -274,9 +290,9 @@ class ShardedScannerChain:
     # ------------------------------------------------------------ engines
     def _duo_front(self, st: ScannerState, wire3, ns: int) -> _Front:
         """(a): K1 per shard, after the exact-state pre-pass when D > 1."""
-        n_s, n_t = self.n_stream, self.n_time
+        n_s, n_t, tg = self.n_stream, self.n_time, self.tg
         run = lambda s, d, *state: self.duo(wire3[s, d], *state, ns)  # noqa: E731
-        if n_t == 1:
+        if tg.total(n_t) == 1:
             outs = [[run(s, 0, st.dc_x[s], st.dc_y[s], st.resamp_hist[s],
                          st.pfb_hist[s], st.frame_parity[s],
                          st.demod_prev[s])] for s in range(n_s)]
@@ -288,23 +304,24 @@ class ShardedScannerChain:
                           [[o.band for o in row] for row in outs])
         t_local = self.t_local
         dcx_in, y_in, dcx_carry, dcy_carry, dc_tail = FH.exact_dc_state(
-            wire3, self.input_format, t_local, DUO_TAIL, st.dc_x, st.dc_y)
+            wire3, self.input_format, t_local, DUO_TAIL, st.dc_x, st.dc_y,
+            tg)
 
         # the outgoing halos from the corrected tail, before the kernel
+        # (one collective for the three over a time group)
         h = self.resamp_hist_len
-        hist_in, rh_carry = FH.shard_pass_right(st.resamp_hist,
-                                                dc_tail[..., -h:])
         bt = FH.resample_tail(self.duo.front.resampler, dc_tail,
                               FH.REBUILD_START)
-        pfb_hist_in, ph_carry = FH.shard_pass_right(
-            st.pfb_hist, bt[..., -self.pfb_hist_len:])
         f_local = t_local * C.RESAMP_L // C.RESAMP_M // NCH
         par, lsign, new_par = halo.frame_parities(st.frame_parity, n_t,
-                                                  f_local)
+                                                  f_local, tg)
         cand = last_frame_output(bt[..., -PFB_TAPS:].real,
                                  bt[..., -PFB_TAPS:].imag, lsign)
-        fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev,
-                                                   cand[..., None])
+        ((hist_in, rh_carry), (pfb_hist_in, ph_carry),
+         (fm_prev, fm_carry)) = tg.pass_right(
+            (st.resamp_hist, dc_tail[..., -h:]),
+            (st.pfb_hist, bt[..., -self.pfb_hist_len:]),
+            (st.demod_prev, cand))
 
         # K1 with the exact incoming state; its returned carries are the
         # pre-pass's to f32 rounding, and the rebuilt ones are kept
@@ -326,21 +343,24 @@ class ShardedScannerChain:
     def _trio_front(self, st: ScannerState, wire3, ns: int) -> _Front:
         """(b): K6 per shard from zero y and history, the band corrected,
         then K7 on the corrected band."""
-        n_s, n_t = self.n_stream, self.n_time
+        n_s, n_t, tg = self.n_stream, self.n_time, self.tg
         h, t_local = self.resamp_hist_len, self.t_local
         xlast = self._last_samples(wire3)
-        dcx_in, dcx_carry = halo.shard_scalar_prev(st.dc_x, xlast[..., None])
+        dcx_in, dcx_carry = halo.shard_scalar_prev(st.dc_x, xlast[..., None],
+                                                   tg)
         c64 = dict(dtype=torch.complex64, device=self.device)
         zy, zh = torch.zeros((), **c64), torch.zeros(h, **c64)
         fos = [[self.front(wire3[s, d], dcx_in[s, d], zy, zh)
                 for d in range(n_t)] for s in range(n_s)]
         fc = FH.front_end_consts(t_local, h)
         y_in, _, dcy_carry, _ = FH.compose_dc_chain(
-            stacked(fos, "dc_y"), xlast, st.dc_y, st.dc_x, fc["p_t1"], 0.0)
+            stacked(fos, "dc_y"), xlast, st.dc_y, st.dc_x, fc["p_t1"], 0.0,
+            tg)
         ramp = FH._device_const(FH.front_end_consts, str(self.device),
                                 "tail_ramp", t_local, h)
         hist_in, rh_carry = FH.shard_pass_right(
-            st.resamp_hist, stacked(fos, "front_hist") + y_in[..., None] * ramp)
+            st.resamp_hist, stacked(fos, "front_hist") + y_in[..., None] * ramp,
+            tg)
         band = stacked(fos, "band")                        # [S, D, 2, nb]
         g_local = band.shape[-1] // (NCH * C.RESAMP_L)
         bw = band.reshape(n_s, n_t, 2, g_local, NCH * C.RESAMP_L)
@@ -350,14 +370,14 @@ class ShardedScannerChain:
             dim=2).reshape(band.shape)
         f_local = band.shape[-1] // NCH
         par, lsign, new_par = halo.frame_parities(st.frame_parity, n_t,
-                                                  f_local)
+                                                  f_local, tg)
         cand = last_frame_output(band[..., 0, -PFB_TAPS:],
                                  band[..., 1, -PFB_TAPS:], lsign)
-        fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev,
-                                                   cand[..., None])
         hl = self.pfb_hist_len
-        pfb_hist_in, ph_carry = FH.shard_pass_right(
-            st.pfb_hist, torch.complex(band[..., 0, -hl:], band[..., 1, -hl:]))
+        (fm_prev, fm_carry), (pfb_hist_in, ph_carry) = tg.pass_right(
+            (st.demod_prev, cand),
+            (st.pfb_hist, torch.complex(band[..., 0, -hl:],
+                                        band[..., 1, -hl:])))
         outs = [[self.pfb(band[s, d], pfb_hist_in[s, d], par[s, d],
                           fm_prev[s, d], ns, mag="sums")
                  for d in range(n_t)] for s in range(n_s)]
@@ -369,17 +389,17 @@ class ShardedScannerChain:
     def _plane_front(self, st: ScannerState, wire3, ns: int) -> _Front:
         """(c): the plain DC blocker over shards, then K9 and K7's plane
         form per shard."""
-        n_s, n_t = self.n_stream, self.n_time
+        n_s, n_t, tg = self.n_stream, self.n_time, self.tg
         t_local, kl = self.t_local, self.k_local
         xr, xi = decode.decode_planes(wire3.reshape(-1), self.input_format)
         x = torch.stack([xr.reshape(n_s, n_t, t_local),
                          xi.reshape(n_s, n_t, t_local)], dim=2)
         (ndx, ndy), y = halo.shard_dc_blocker(
             (torch.view_as_real(st.dc_x), torch.view_as_real(st.dc_y)), x,
-            C.DC_BLOCK_ALPHA)
+            C.DC_BLOCK_ALPHA, tg)
         h = self.resamp_hist_len
         rhist, r_carry = halo.shard_hist_planes(st.resamp_hist, y, h,
-                                                self.halo_dma)
+                                                self.halo_dma, tg)
         bands = [[self.resampler(rhist[s, d], y[s, d, 0], y[s, d, 1])[1]
                   for d in range(n_t)] for s in range(n_s)]
         # a shard's band (>= 19,600 samples) holds its whole last frame
@@ -387,13 +407,13 @@ class ShardedScannerChain:
                              for row in bands])            # [S, D, 2, 416]
         hl = self.pfb_hist_len
         phist, p_carry = halo.shard_hist_planes(st.pfb_hist, tails, hl,
-                                                self.halo_dma)
+                                                self.halo_dma, tg)
         f_local = bands[0][0].shape[-1] // NCH
         par, lsign, new_par = halo.frame_parities(st.frame_parity, n_t,
-                                                  f_local)
+                                                  f_local, tg)
         cand = last_frame_output(tails[..., 0, :], tails[..., 1, :], lsign)
         fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev,
-                                                   cand[..., None])
+                                                   cand[..., None], tg)
         outs = [[self.pfb(bands[s][d], phist[s, d], par[s, d], fm_prev[s, d],
                           ns, mag="plane")
                  for d in range(n_t)] for s in range(n_s)]
@@ -411,10 +431,12 @@ class ShardedScannerChain:
         n_s, n_t, kl = self.n_stream, self.n_time, self.k_local
         fr = self.front.shards(st.dc_x, st.dc_y, st.resamp_hist, st.pfb_hist,
                                st.frame_parity,
-                               shard_planes(wire3, self.input_format))
+                               shard_planes(wire3, self.input_format),
+                               self.tg)
         rssi = average_power_db(fr.chan.reshape(n_s, n_t, NCH, kl, ns),
                                 dim=-1).transpose(-1, -2)   # [S, D, kl, 16]
-        fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev, fr.chan)
+        fm_prev, fm_carry = halo.shard_scalar_prev(st.demod_prev, fr.chan,
+                                                   self.tg)
         _, demod = fm.fm_demod(fm_prev, fr.chan)
         return _Front(fr.dc_x, fr.dc_y, fr.resamp_hist, fr.pfb_hist,
                       fr.parity, fm_carry, demod, rssi, fr.band)
@@ -423,32 +445,34 @@ class ShardedScannerChain:
         """The op engine's audio path over the shards and the FSM per
         stream: (audio [S][D] [16, F_local], the FSM's results, the state
         fields it carries)."""
-        n_s, n_t = self.n_stream, self.n_time
+        n_s, n_t, tg = self.n_stream, self.n_time, self.tg
         k, ns = self.block.subchunks_per_step, C.SUBCHUNK_AUDIO
         demod = fr.demod
         hp_hist, hp_carry = halo.shard_hist(state.hp_hist, demod,
-                                            C.HP_AUDIO_FILT_TAPS - 1)
+                                            C.HP_AUDIO_FILT_TAPS - 1, tg=tg)
         _, hp_out = fir.fir_apply(hp_hist, demod, self.hp_taps)
         dl_hist, dl_carry = halo.shard_hist(state.delay_hist, demod,
-                                            C.CTCSS_DELAY)
+                                            C.CTCSS_DELAY, tg=tg)
         _, delayed = fir.delay_apply(dl_hist, demod)
         (lpx_carry, lpy_carry), lp_dcb = halo.shard_dc_blocker(
             (state.lp_dc_x, state.lp_dc_y), delayed - hp_out,
-            C.DC_BLOCK_ALPHA)
+            C.DC_BLOCK_ALPHA, tg)
         gained = hp_out * params.audio_gain
         de_hist, de_carry = halo.shard_hist(state.deemph_hist, gained,
-                                            self.deemph_hist_len)
+                                            self.deemph_hist_len, tg=tg)
         _, audio = fir.fir_apply(de_hist, gained, self.deemph_taps)
         al_carry = state.audio_lp_hist
         if self.lowpass:
             al_hist, al_carry = halo.shard_hist(
-                state.audio_lp_hist, audio, C.LP_AUDIO_FILT_TAPS - 1)
+                state.audio_lp_hist, audio, C.LP_AUDIO_FILT_TAPS - 1, tg=tg)
             _, audio = fir.fir_apply(al_hist, audio, self.lp_taps)
-        rssi_all = fr.rssi.reshape(n_s, k, NCH)
+        # the FSM per stream over the whole K: the group's RSSI and lp plane
+        rssi_g, lp_g = tg.gather(fr.rssi, lp_dcb)
+        rssi_all = rssi_g.reshape(n_s, k, NCH)
         res = [fsm_ctcss_scan_v3(
             carries[s], rssi_all[s], None, params.channel_mask,
             params.squelch_level, params.lock_max,
-            lp_cm=lp_dcb[s].transpose(0, 1).reshape(NCH, k, ns))
+            lp_cm=lp_g[s].transpose(0, 1).reshape(NCH, k, ns))
             for s in range(n_s)]
         fields = dict(hp_hist=hp_carry, delay_hist=dl_carry,
                       lp_dc_x=lpx_carry, lp_dc_y=lpy_carry,
@@ -462,13 +486,23 @@ class ShardedScannerChain:
         (audio [S][D] [16, F_local], the FSM's results, the state fields it
         carries)."""
         ns = C.SUBCHUNK_AUDIO
-        n_s, n_t, kl = self.n_stream, self.n_time, self.k_local
+        n_s, n_t, kl, tg = self.n_stream, self.n_time, self.k_local, self.tg
         k = self.block.subchunks_per_step
-        rssi_all = fr.rssi.reshape(n_s, k, NCH)
         ha = self.audio_bank.hist
         ah_tails = torch.stack([torch.stack([dm[:, -ha:] for dm in row])
                                 for row in fr.demod])
-        ah_local, ah_carry = halo.shard_hist(state.audio_hist, ah_tails, ha)
+        if tg.size == 1:
+            rssi_g = fr.rssi
+            ah_local, ah_carry = halo.shard_hist(state.audio_hist, ah_tails,
+                                                 ha)
+        else:
+            # the RSSI gathered with the audio halo's edges: one collective
+            rssi_g, edges = tg.gather(fr.rssi, ah_tails[:, -1:])
+            left = (state.audio_hist if tg.index == 0
+                    else edges[:, tg.index - 1])
+            ah_local = halo.shift_right(left, ah_tails)
+            ah_carry = edges[:, -1]
+        rssi_all = rssi_g.reshape(n_s, k, NCH)
         res = []
         if self.fused:
             # 7a. phase A per stream on the gathered RSSI
@@ -478,8 +512,8 @@ class ShardedScannerChain:
             sel = torch.stack([torch.clamp(sc.act2, 0, NCH - 1)
                                for sc in scheds]).to(torch.int32)
             b_arr = torch.stack([sc.b_arr for sc in scheds]).to(torch.int32)
-            sel3 = sel.reshape(n_s, n_t, kl)
-            b3 = b_arr.reshape(n_s, n_t, kl)
+            sel3 = tg.local(sel.reshape(n_s, tg.total(n_t), kl))
+            b3 = tg.local(b_arr.reshape(n_s, tg.total(n_t), kl))
             # 6. K2 per shard from a zero lp-DC state; its zero-state error
             # in the tone sums is delta * zeta^pos, added back exactly
             z16 = torch.zeros(NCH, dtype=torch.float32, device=self.device)
@@ -490,11 +524,11 @@ class ShardedScannerChain:
             cc = FH.ctcss_corr_consts(kl, ns)
             _, delta_lp, lpy_carry, lpx_carry = FH.compose_dc_chain(
                 stacked(banks, "dc_y"), stacked(banks, "dc_x"),
-                state.lp_dc_y, state.lp_dc_x, cc["p_t1"], FH._G)
+                state.lp_dc_y, state.lp_dc_x, cc["p_t1"], FH._G, tg)
             delta_sel = torch.gather(delta_lp, 2, sel3.long())
-            pre, mem = FH.correct_raw_sums(
+            pre, mem = tg.gather(*FH.correct_raw_sums(
                 stacked(banks, "raw_pre"), stacked(banks, "raw_mem"),
-                delta_sel, b3, kl, ns)
+                delta_sel, b3, kl, ns))
             audio = [[b.audio for b in row] for row in banks]
             for s in range(n_s):
                 # 7b. the gathered tone sums; each shard's kernel phase
@@ -510,7 +544,8 @@ class ShardedScannerChain:
                       for d in range(n_t)] for s in range(n_s)]
             (lpx_carry, lpy_carry), lp_dcb = halo.shard_dc_blocker(
                 (state.lp_dc_x, state.lp_dc_y), stacked(banks, "lp"),
-                C.DC_BLOCK_ALPHA)
+                C.DC_BLOCK_ALPHA, tg)
+            lp_dcb = tg.gather(lp_dcb)
             audio = [[b.audio for b in row] for row in banks]
             for s in range(n_s):
                 lp_cm = lp_dcb[s].transpose(0, 1).reshape(NCH, k, ns)
@@ -537,7 +572,6 @@ class ShardedScannerChain:
             fr = self._trio_front(state, wire3, ns)
         else:
             fr = self._plane_front(state, wire3, ns)
-        rssi_all = fr.rssi.reshape(n_s, k, NCH)
         carries = [FsmCarry(state.fsm_state[s], state.active_chan[s],
                             state.rssi[s], state.ct_count[s],
                             state.ct_carry[s], state.ct_detected[s],
@@ -549,16 +583,19 @@ class ShardedScannerChain:
 
         wf_hist, wf_cnt, wf_rows = self._waterfall(state, fr.band)
 
-        # 8. each stream's selected audio
-        ks = torch.arange(k, device=self.device)
+        # 8. each stream's selected audio, of the rank's sub-chunks
+        kr = self.k_rank
+        ks = torch.arange(kr, device=self.device)
+        mine = slice(self.tg.index * kr, (self.tg.index + 1) * kr)
         outputs = []
         for s, (carry_out, fo) in enumerate(res):
+            fo = type(fo)(*(v[mine] for v in fo))
             sel_s = torch.clamp(fo.active_chan, 0, NCH - 1).long()
-            a_s = torch.cat(audio[s], dim=-1).reshape(NCH, k, ns)
+            a_s = torch.cat(audio[s], dim=-1).reshape(NCH, kr, ns)
             outputs.append(StepOutputs(
                 audio=a_s[sel_s, ks], audio_valid=fo.active_chan >= 0,
                 active_chan=fo.active_chan, rel_rssi=fo.rel_rssi,
-                rssi_db=rssi_all[s], ev_tuned=fo.ev_tuned,
+                rssi_db=fr.rssi[s].reshape(kr, NCH), ev_tuned=fo.ev_tuned,
                 ev_detuned=fo.ev_detuned, ev_changed=fo.ev_changed,
                 ev_prev_chan=fo.ev_prev_chan, ev_new_chan=fo.ev_new_chan,
                 ct_detected=fo.ct_detected, ct_max_idx=fo.ct_max_idx,
@@ -581,10 +618,11 @@ class ShardedScannerChain:
         """K3 once a shard on its band planes ``band`` [S][D] f32 [2,
         nb_local]: (wf_hist' [S, w/2], wf_cnt' [S], rows [S, K, w]), the
         carries the last shard's (module docstring)."""
-        n_s, n_t, k = self.n_stream, self.n_time, self.block.subchunks_per_step
+        n_s, n_t, tg = self.n_stream, self.n_time, self.tg
         if self.wf is None:
             return state.wf_hist, state.wf_cnt, torch.zeros(
-                (n_s, k, 0), dtype=torch.float32, device=self.device)
+                (n_s, self.k_rank, 0), dtype=torch.float32,
+                device=self.device)
         wl = self.wf.wl
         hist0 = (state.pfb_hist if wl <= state.pfb_hist.shape[-1]
                  else state.wf_hist)
@@ -593,12 +631,13 @@ class ShardedScannerChain:
         keep = min(wl, nb)
         tails = torch.stack([torch.stack([b[:, nb - keep:] for b in row])
                              for row in band])
-        hist, _ = halo.shard_hist_reach(hist0[..., -wl:], tails, wl)
-        d = torch.arange(n_t, dtype=torch.int32, device=self.device)
+        hist, _ = halo.shard_hist_reach(hist0[..., -wl:], tails, wl, tg)
+        d = tg.shard_index(n_t, self.device)
         cnt = (state.wf_cnt[:, None] + d * nb) % (self.waterfall // 4)
         outs = [[self.wf(band[s][j], hist[s, j], cnt[s, j])
                  for j in range(n_t)] for s in range(n_s)]
-        return (torch.stack([row[-1].hist for row in outs]),
-                torch.stack([row[-1].cnt for row in outs]),
-                torch.stack([torch.cat([o.rows for o in row])
-                             for row in outs]))
+        hist_c, cnt_c = tg.last(
+            torch.stack([row[-1].hist for row in outs])[:, None],
+            torch.stack([row[-1].cnt for row in outs])[:, None])
+        return (hist_c, cnt_c, torch.stack([torch.cat([o.rows for o in row])
+                                            for row in outs]))

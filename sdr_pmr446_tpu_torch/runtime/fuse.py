@@ -21,6 +21,11 @@ rounding only).  On the CPU, which a caller asks for with ``device="cpu"``,
 the megastep is the plain loop of S steps.  There is no fallback: on a
 CUDA device a capture or replay error raises.
 
+A sharded step whose halos cross processes (parallel/distributed.py: a
+time group of several ranks) reads the host in its host-staged
+collectives, which no CUDA graph can hold: its megastep is the loop of S
+steps on the card too, equal bit for bit, and says so once in the log.
+
 A graph reads and writes fixed buffers, so a call copies the caller's
 state, inputs and params into the graph's static inputs on the device,
 replays, and returns copies of the graph's outputs and new state: a state
@@ -42,6 +47,7 @@ result, whether eagerly or in a replay.
 from __future__ import annotations
 
 import gc
+import logging
 import sys
 import time
 from typing import Callable, Dict, Tuple
@@ -50,6 +56,8 @@ import torch
 
 #: the package whose modules hold the kernels' launch counters
 KERNELS = "sdr_pmr446_tpu_torch.kernels"
+
+log = logging.getLogger("fuse")
 
 
 # ------------------------------------------------------------ launch counts
@@ -216,11 +224,16 @@ class Megastep:
     """``fused(state, xs[S, ...], *args) -> (state', outs)``: S calls of
     ``step(state, xs[i], *args)``, each output leaf concatenated along
     ``dim`` (0: [S*K, ...], 1: [n_streams, S*K, ...]).  On a CUDA device a
-    captured graph a set of shapes (``graphs``), on the CPU the loop."""
+    captured graph a set of shapes (``graphs``), on the CPU the loop; the
+    loop on the card too where ``collective`` (the step runs host-staged
+    collectives)."""
 
-    def __init__(self, step: Callable, dim: int = 0):
+    def __init__(self, step: Callable, dim: int = 0,
+                 collective: bool = False):
         self.step = step
         self.dim = dim
+        self.collective = collective
+        self.said_loop = False
         self.graphs: Dict[tuple, _Captured] = {}
 
     def loop(self, state, xs, *args):
@@ -239,6 +252,13 @@ class Megastep:
             return self.loop(state, xs, *args)
         if xs.device.type != "cuda":
             raise ValueError(f"no megastep for device {xs.device}")
+        if self.collective:
+            if not self.said_loop:
+                log.info("the step's halos cross processes (host-staged "
+                         "collectives): multi_step runs its %d steps as a "
+                         "loop, not a CUDA graph", xs.shape[0])
+                self.said_loop = True
+            return self.loop(state, xs, *args)
         key = _signature(state, xs, *args)
         graph = self.graphs.get(key)
         if graph is None:
@@ -253,8 +273,9 @@ def fused_steps(step: Callable) -> Megastep:
     return Megastep(step, dim=0)
 
 
-def fused_sharded_steps(step: Callable) -> Megastep:
+def fused_sharded_steps(step: Callable, time_ranks: int = 1) -> Megastep:
     """The megastep of a sharded block step over [n_streams, ...] inputs:
     xs [S, n_streams, ...], outputs stream-major [n_streams, S*K, ...]
-    (JAX ``fused_sharded_steps``)."""
-    return Megastep(step, dim=1)
+    (JAX ``fused_sharded_steps``); ``time_ranks`` > 1 (a time group over
+    several processes) makes it the loop."""
+    return Megastep(step, dim=1, collective=time_ranks > 1)

@@ -126,6 +126,14 @@ def stack_state(state, n_streams: int):
                          for v in state))
 
 
+def state_rows(state, start: int, count: int):
+    """Streams ``start`` .. ``start + count - 1`` of a stacked [S, ...]
+    state (a rank's rows over several processes: what it loads from a
+    checkpoint of every stream; parallel/distributed.py::gather_state is
+    the way back)."""
+    return type(state)(*(v[start:start + count] for v in state))
+
+
 def state_to_numpy(state: ScannerState) -> list[np.ndarray]:
     """The state's fields as numpy arrays, in field order."""
     return [v.detach().cpu().numpy() for v in state]

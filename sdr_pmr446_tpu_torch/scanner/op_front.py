@@ -14,7 +14,8 @@ Each stage also runs over the time shards of a (stream x time) mesh
 halo (``shard_hist_planes``), and the PFB once over every [S, D] row with
 each shard's own frame parity (``frame_parities``), as the sharded op
 chains in parallel/ run them (JAX scanner_sharded.py:668-690,
-dsd_sharded.py:182-190, single_sharded.py:163-170).
+dsd_sharded.py:182-190, single_sharded.py:163-170); ``tg`` (a
+halo.TimeGroup) carries the halos across the ranks of a time group.
 """
 
 from __future__ import annotations
@@ -77,15 +78,16 @@ class OpResample(nn.Module):
         rhist, band = self.resampler(planes(hist), y)
         return _complex(dx), _complex(dy), complex_of(rhist), band
 
-    def resample_shards(self, dc_x, dc_y, hist, x: torch.Tensor):
+    def resample_shards(self, dc_x, dc_y, hist, x: torch.Tensor,
+                        tg: halo.TimeGroup = halo.LOCAL):
         """``resample`` over time shards: dc_x, dc_y c64 [S], hist c64 [S,
         345], x planes f32 [S, D, 2, T] -> (dc_x' [S], dc_y' [S], hist' [S,
         345], band planes f32 [S, D, 2, nb])."""
         (dx, dy), y = halo.shard_dc_blocker(
             (torch.view_as_real(dc_x), torch.view_as_real(dc_y)), x,
-            C.DC_BLOCK_ALPHA)
+            C.DC_BLOCK_ALPHA, tg)
         rhist, carry = halo.shard_hist_planes(hist, y,
-                                              self.resampler.hist_len)
+                                              self.resampler.hist_len, tg=tg)
         _, band = self.resampler(planes(rhist), y)
         return _complex(dx), _complex(dy), carry, band
 
@@ -106,15 +108,15 @@ class OpFrontEnd(OpResample):
         return FrontOut(dx, dy, rhist, phist, parity, band, chan)
 
     def shards(self, dc_x, dc_y, resamp_hist, pfb_hist, parity,
-               x: torch.Tensor) -> FrontOut:
+               x: torch.Tensor, tg: halo.TimeGroup = halo.LOCAL) -> FrontOut:
         """``forward`` over time shards: the carried state [S, ...] and x
         planes f32 [S, D, 2, T] -> FrontOut with the next block's state
         [S, ...], band [S, D, 2, nb] and chan [S, D, 16, F]."""
         dx, dy, r_carry, band = self.resample_shards(dc_x, dc_y,
-                                                     resamp_hist, x)
+                                                     resamp_hist, x, tg)
         phist, p_carry = halo.shard_hist_planes(pfb_hist, band,
-                                                self.pfb.hist_len)
+                                                self.pfb.hist_len, tg=tg)
         par, _, new_par = halo.frame_parities(
-            parity, band.shape[1], band.shape[-1] // C.NUM_CHANNELS)
+            parity, band.shape[1], band.shape[-1] // C.NUM_CHANNELS, tg)
         _, chan = self.pfb((phist, par), complex_of(band))
         return FrontOut(dx, dy, r_carry, p_carry, new_par, band, chan)

@@ -18,8 +18,11 @@ on meshes 2,1 (the duo) and 2,4 (the plane path).  The gates:
     uninterrupted run (:668, :723); the resume guard (:779), also on the
     capture format and --device-decode; a checkpoint never drains a group
     before the next one is dispatched;
-  - exit codes: the multi-host flags and orbax 2, a missing capture and a
-    bad mesh 1.
+  - exit codes: orbax 2; a missing capture, a bad mesh, a process id
+    outside [0, --num-processes) and a mesh that does not split over the
+    processes 1 (both refused before any process group is joined);
+    --coordinator with one process writes the files of a run without it
+    (the two-process runs: tests/test_torch_distributed.py).
 """
 
 import os
@@ -310,8 +313,10 @@ def test_checkpoint_waits_for_the_next_dispatch(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["--coordinator", "localhost:1234"], 2),
-    (["--num-processes", "2"], 2),
+    (["--coordinator", "127.0.0.1:1", "--num-processes", "2",
+      "--process-id", "2"], 1),
+    (["--coordinator", "127.0.0.1:1", "--num-processes", "2", "--mesh",
+      "1,1"], 1),
     (["--checkpoint-backend", "orbax"], 2),
     (["--mesh", "3,1"], 1),
     (["--mesh", "2,3"], 1),
@@ -326,6 +331,26 @@ def test_exit_codes(argv, rc, tmp_path):
         argv = [str(tmp_path / "missing.cs16")]
     assert port(caps + argv + ["--out-dir", str(outd)]) == rc
     assert not (outd / "cap0.wav").exists()
+
+
+def test_coordinator_with_one_process(tmp_path):
+    """--coordinator with one process (a gloo group of one) writes the same
+    files as a run without it, as JAX's does; --num-processes without
+    --coordinator exits 1."""
+    import socket
+    caps = captures(str(tmp_path), n_sub=4)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    base = caps + ["--subchunks-per-step", "4", "--mesh", "2,2"]
+    assert port(base + ["--out-dir", str(tmp_path / "a")]) == 0
+    assert port(base + ["--out-dir", str(tmp_path / "b"), "--coordinator",
+                        addr, "--num-processes", "1"]) == 0
+    for name in sorted(os.listdir(tmp_path / "a")):
+        assert (tmp_path / "a" / name).read_bytes() == \
+            (tmp_path / "b" / name).read_bytes(), name
+    assert port(base + ["--out-dir", str(tmp_path / "c"), "--num-processes",
+                        "2"]) == 1
 
 
 def test_default_device_is_the_card(tmp_path):
