@@ -268,13 +268,26 @@ on its own lines; any failure raises and ends the run:
      is bit-equal on the CPU but not on the card: the DC blockers' matmul
      scan of a rank's shards alone against the same shards in the whole
      batch, and the resampler's conv1d likewise (logged).
+ 22. the associative FSM (scanner/fsm.py v3, which every earlier phase
+     runs): (a) phase 4's capture (K = 40, cu8, 4 blocks) through the duo
+     ScannerChain with its phase A and C calls recorded, K1 and K2 once a
+     step: the loops (v2) on the same RSSI and K2 tone sums give the same
+     schedule, decisions, events and carry bit for bit; (b) phases A + C
+     of one step profiled as v3 and as v2 (CUDA kernels, device ms, host
+     ms a call); (c) the duo through multi_step at S = 8: Msamples/s, a
+     replay's device ms a block and the replay by part (the FSM's ops in
+     "other"); (d) one sharded duo (4, 5) step profiled: ms and device
+     events by part.  kernel_times.py --fsm reads (c) and (d) of two
+     trees in turns.  ``chip_smoke.py --phase 22`` runs phases 1 and 22
+     alone and prints no result lines.
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
 scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
 switched engines of 12(b), each sharded path of 13, the probe tools of
 14, faithful mode in 15, the driver's runs in 16, each path and the
 driver in 17, each scan_batch run and sharded path in 18, each op path
-in 19, each export in 20, each case of 21 in each rank) runs with
+in 19, each export in 20, each case of 21 in each rank, each of 22(a),
+(c) and (d)) runs with
 the launch counts set to 0 just before it and read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
@@ -5421,6 +5434,192 @@ def free_address() -> str:
         return f"127.0.0.1:{sk.getsockname()[1]}"
 
 
+# ------------------------------------------- phase 22: the associative FSM
+#: K of phase 22's duo chain (phase 4's capture), S of its replay
+FSM_K, FSM_S = 40, 8
+
+
+def fsm_parts(evs, parts) -> dict:
+    """Device events of a profiled run by part (``parts`` as in
+    profile_step; the rest is "other": the FSM, RSSI and select ops):
+    {label: [ms, events]}, and "busy" the union of all their intervals."""
+    out: dict = {"busy": [busy_ms(evs), len(evs)]}
+    for e in evs:
+        g = out.setdefault(device_group(e.name, parts), [0.0, 0])
+        g[0] += e.time_range.elapsed_us() / 1e3
+        g[1] += 1
+    return out
+
+
+def fsm_duo_replay(dev, sync) -> dict:
+    """22(c): the duo ScannerChain at K = FSM_K through multi_step at S =
+    FSM_S: Msamples/s over 16 blocks (two runs, uploads and drains inside;
+    17(d)'s megastep_rates), the captured graph's replay on the device a
+    block (CUDA events) and one replay under torch.profiler by part (the
+    FSM's ops in "other"), each a block."""
+    p = mega_paths(dev, 1 + FSM_S)["duo"]()
+    rates = megastep_rates(p, 2 * FSM_S, 2, sync, timed_s=(FSM_S,))
+    graph = graph_of(p, FSM_S)
+    evs, _, _, wall = profile_session(graph.graph.recorder.graph.replay,
+                                      sync)
+    by = {k: [v[0] / FSM_S, v[1] / FSM_S]
+          for k, v in fsm_parts(evs, SCANNER_PARTS).items()}
+    rec = {"msamples_per_s": rates["msamples_per_s"][str(FSM_S)],
+           "runs": rates["runs"][str(FSM_S)],
+           "replay_ms_per_block": rates["graphs"][str(FSM_S)][
+               "replay_ms_per_block"],
+           "profiled_per_block": by}
+    log(f"  (c) duo K={FSM_K} S={FSM_S}: {rec['msamples_per_s']:.2f} "
+        f"Msamples/s (runs {', '.join(f'{r:.2f}' for r in rec['runs'])}), "
+        f"a replay {rec['replay_ms_per_block']:.3f} device ms a block; "
+        "profiled a block: " + ", ".join(
+            f"{k} {v[0]:.3f} ms / {v[1]:g} events" for k, v in sorted(
+                by.items(), key=lambda kv: -kv[1][0])))
+    return rec
+
+
+def fsm_sharded_step(dev, sync) -> dict:
+    """22(d): the sharded duo at config 5's (4, 5), K = 40, one warm step
+    under torch.profiler: busy ms, and ms and device events by part (the
+    FSM's and halos' small ops in "other")."""
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
+        ShardedScannerChain, make_mesh)
+    from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
+    (n_s, n_t), k = CONFIG5["duo"]
+    wires = step_wires(config5_streams(n_s, k, 4, hang=True), dev)
+    params = make_runtime_params(C.ScannerArgs(), dev)
+    chain = ShardedScannerChain(make_mesh(n_s, n_t), C.BlockConfig(k))
+    st, _ = run_sharded(chain, wires[:2], params)
+    sync()
+    evs, _, _, wall = profile_session(
+        lambda: chain.step(st, wires[2], params), sync)
+    by = fsm_parts(evs, SHARDED_PARTS)
+    log(f"  (d) sharded duo ({n_s}, {n_t}) K={k}, one profiled step: wall "
+        f"{wall:.1f} ms, " + ", ".join(
+            f"{k_} {v[0]:.3f} ms / {v[1]} events" for k_, v in sorted(
+                by.items(), key=lambda kv: -kv[1][0])))
+    return {"profiled_wall_ms": wall, "by_part": by}
+
+
+def fsm_tree_readings(dev, sync) -> dict:
+    """22(c) and (d) of one tree: kernel_times.py --fsm runs them on two
+    trees in turns."""
+    out = {}
+    for key, fn, kernels in (
+            ("duo_replay", fsm_duo_replay, {"duo", "audio_bank"}),
+            ("sharded_step", fsm_sharded_step,
+             {"duo", "audio_bank", "summary"})):
+        reset_launches()
+        out[key] = fn(dev, sync)
+        got = {n: v for n, v in launches_now().items() if v}
+        check(set(got) == kernels and got["duo"] == got["audio_bank"],
+              f"22 {key}: launches {got}")
+        log(f"  {key}: launches {got}")
+    return out
+
+
+@contextlib.contextmanager
+def fsm_recorded(calls: list):
+    """The duo chain's phase A and C calls (scanner/chain.py's names)
+    recorded with their results: appends (phase, args, kwargs, result)."""
+    from sdr_pmr446_tpu_torch.scanner import chain as chain_mod
+    saved = {n: getattr(chain_mod, n) for n in ("fsm_phase_a",
+                                                 "fsm_phase_c")}
+    for name, fn in saved.items():
+        def rec(*args, _fn=fn, _name=name, **kw):
+            out = _fn(*args, **kw)
+            calls.append((_name, args, kw, out))
+            return out
+        setattr(chain_mod, name, rec)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(chain_mod, name, fn)
+
+
+def fsm_call_profile(fn, sync) -> dict:
+    """One FSM call under torch.profiler: its CUDA kernels, their device
+    ms in all and busy (union), and the host ms of a call (median of 5,
+    synchronized)."""
+    evs = profile_session(fn, sync)[0]
+    host = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        host.append((time.perf_counter() - t0) * 1e3)
+    return {"kernels": len(evs), "device_ms": sum(
+        e.time_range.elapsed_us() for e in evs) / 1e3,
+        "busy_ms": busy_ms(evs), "host_ms": statistics.median(host)}
+
+
+def phase_fsm(dev, sync) -> dict:
+    """Phase 22: the associative FSM (scanner/fsm.py v3) on the card.
+    (a) phase 4's capture (4 blocks, K = FSM_K, cu8) through the duo
+    ScannerChain, each step's phase A and C calls recorded: the loops (v2)
+    on the same RSSI and the same K2 tone sums give the same schedule,
+    outputs and carry bit for bit; (b) phases A + C of the last step once
+    under torch.profiler as v3 and as v2: CUDA kernels, device and host ms;
+    (c), (d) fsm_tree_readings."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.scanner import fsm
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    t0 = time.perf_counter()
+    chain = ScannerChain(C.BlockConfig(FSM_K), input_format="cu8",
+                         device=dev)
+    params = make_runtime_params(C.ScannerArgs(), dev)
+    wires = [torch.as_tensor(b, device=dev)
+             for b in bench_blocks(FSM_K, 4)]
+    calls: list = []
+    st = chain.init_state()
+    reset_launches()
+    with fsm_recorded(calls):
+        for w in wires:
+            st, _ = chain.step(st, w, params)
+    sync()
+    got = {n: v for n, v in launches_now().items() if v}
+    check(got == {"duo": len(wires), "audio_bank": len(wires)},
+          f"phase 22(a) launches {got} over {len(wires)} steps")
+    check(len(calls) == 2 * len(wires), f"phase 22(a): {len(calls)} FSM "
+          f"calls recorded for {len(wires)} steps")
+    events = 0
+    for i in range(0, len(calls), 2):
+        (_, a_args, a_kw, sched), (_, c_args, c_kw, (carry, outs)) = \
+            calls[i:i + 2]
+        sched2 = fsm.fsm_phase_a_v2(*a_args, **a_kw)
+        check_bits(sched2, sched, f"22(a) step {i // 2} schedule v2 vs v3")
+        carry2, outs2 = fsm.fsm_phase_c_v2(c_args[0], sched2, *c_args[2:],
+                                           **c_kw)
+        check_bits(outs2, outs, f"22(a) step {i // 2} outputs v2 vs v3")
+        check_bits(carry2, carry, f"22(a) step {i // 2} carry v2 vs v3")
+        events += sum(int(getattr(outs, f).sum()) for f in (
+            "ev_tuned", "ev_detuned", "ev_changed", "ev_ct_acquired",
+            "ev_ct_changed", "ev_ct_lost"))
+    check(events > 0, "phase 22(a): the capture raised no FSM event")
+    log(f"  (a) duo K={FSM_K}, {len(wires)} blocks: v2 on the recorded RSSI "
+        f"and K2 tone sums equals v3 bit for bit (schedule, {events} "
+        f"events, outputs, carry)")
+    (_, a_args, a_kw, _), (_, c_args, c_kw, _) = calls[-2:]
+    prof = {}
+    for name, pa, pc in (("v3", fsm.fsm_phase_a, fsm.fsm_phase_c),
+                         ("v2", fsm.fsm_phase_a_v2, fsm.fsm_phase_c_v2)):
+        def run(pa=pa, pc=pc):
+            s = pa(*a_args, **a_kw)
+            return pc(c_args[0], s, *c_args[2:], **c_kw)
+        prof[name] = r = fsm_call_profile(run, sync)
+        log(f"  (b) phases A + C {name} at K={FSM_K}: {r['kernels']} CUDA "
+            f"kernels, device {r['device_ms']:.3f} ms (busy "
+            f"{r['busy_ms']:.3f}), host {r['host_ms']:.3f} ms a call")
+    rec = {"call_profile": prof, **fsm_tree_readings(dev, sync)}
+    log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5449,6 +5648,10 @@ def main() -> int:
     lib = build.build(verbose=True)
     build.library()
     log(f"  built and loaded {lib} in {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:3] == ["--phase", "22"]:      # phases 1 and 22 alone
+        log("phase 22: the associative FSM (scanner/fsm.py v3) on the card")
+        log(json.dumps({"fsm": phase_fsm(dev, sync), "card": smi}))
+        return 0
 
     log("phase 2: kernels vs plain versions on the card")
     rows = phase_kernels(dev, "cu8", 40, cuda_timer)
@@ -5648,6 +5851,9 @@ def main() -> int:
         "gloo, host-staged halos)")
     log(smi)
     bench["distributed"] = phase_distributed(dev, sync, smi)
+    log("phase 22: the associative FSM (scanner/fsm.py v3) on the card")
+    log(smi)
+    bench["fsm"] = phase_fsm(dev, sync)
     log(f"  the run {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))

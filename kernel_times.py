@@ -2,7 +2,7 @@
 """Times of the port's kernels of one tree, by CUDA kernel.
 
     python3 kernel_times.py [--tree DIR] [--label NAME] [--reps N] [--out FILE]
-                            [--chains]
+                            [--chains | --fsm] [--only TEXT]
 
 Runs, on one CUDA card, kernels of the ``sdr_pmr446_tpu_torch`` package
 found in DIR (default: this checkout), after building that tree's kernels
@@ -35,7 +35,8 @@ history, h = 345, of the [4, 4, 2, 1003520] DC-blocked planes, and the
 PFB tail, h = 400, of the [4, 4, 2, 416] tails) from the planes to (hist,
 carry) with halo_dma (K11 from the planes where the tree has it, else the
 tree's composition: torch.complex, the ring shift, the carry copy) and
-with the collectives (torch.complex, the shift),
+with the collectives (torch.complex, the shift), and torch.roll of each
+halo's complex tail (K11's ring shift as one library call),
 
 each on chip_smoke.py's inputs (the same helpers): CUDA events around one
 call (median over N fresh inputs, after a warm-up call), and the device
@@ -49,6 +50,13 @@ the Msamples/s at S = 1 of ScannerChain (the duo, cu8, K = 40) and
 DsdInChain (mono, cu8, K = 16), each step on a device-resident block, 8
 distinct blocks (chip_smoke.py's bench_blocks / chain_blocks) after a
 warm-up block, host clock to a synchronize, N runs (median and all).
+With --fsm it reads the scanner FSM's cost on the tree's chains instead
+(chip_smoke.py phase 22(c), (d)): the duo (cu8, K = 40) through
+multi_step at S = 8, its Msamples/s over 16 blocks, a replay's device
+ms a block and one replay under torch.profiler by part (the FSM's ops in
+"other"), and one step of the sharded duo at config 5's (4, 5) under
+torch.profiler (ms and device events by part).  --only TEXT times only the
+kernel cases whose name holds TEXT.
 Prints a line per case and, last, one JSON object {"label", "card",
 "cases": {...}}; writes that object to FILE too when given.  Needs a CUDA
 device and nvcc; imports nothing of JAX.
@@ -110,6 +118,12 @@ def k12b_k11_cases(dev, reps: int):
     for name, fn in (("halo_dma", dma), ("collectives", collective)):
         out.append((f"halo pair, {name}", lambda cr, yy, cp, tl, fn=fn: (
             fn(cr, yy, rh), fn(cp, tl, ph)), ins))
+    tail = lambda p, h: torch.complex(  # noqa: E731
+        p[..., 0, p.shape[-1] - h:], p[..., 1, p.shape[-1] - h:])
+    for name, i, h in (("resampler history", 1, rh), ("PFB", 3, ph)):
+        out.append((f"torch.roll (K11's library call), {name} tail",
+                    lambda x: torch.roll(x, 1, dims=1),
+                    [(tail(a[i], h),) for a in ins]))
     return out
 
 
@@ -288,6 +302,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--chains", action="store_true",
                     help="time the chain steps at S = 1, not the kernels")
+    ap.add_argument("--fsm", action="store_true",
+                    help="read the FSM's cost on the chains, not the "
+                         "kernels")
+    ap.add_argument("--only", default="",
+                    help="time only the kernel cases whose name holds this")
     args = ap.parse_args(argv)
     if args.tree is not None:
         sys.path.insert(0, str(args.tree.resolve()))
@@ -306,26 +325,33 @@ def main(argv=None) -> int:
     cs.log(f"{args.label}: {Path(sdr_pmr446_tpu_torch.__file__).parent}, "
            f"{card}")
     build.library()
-    if args.chains:
+    if args.chains or args.fsm:
         doc = {"label": args.label, "card": card,
-               "cases": chain_rates(dev, sync, args.reps)}
-        print(json.dumps(doc))
+               "cases": (chain_rates(dev, sync, args.reps) if args.chains
+                         else cs.fsm_tree_readings(dev, sync))}
+        write(doc, args.out)
         return 0
     res = {}
     cases = (bank_cases(dev, args.reps) + k10_k12a_cases(dev, args.reps)
              + k12b_k11_cases(dev, args.reps))
     for name, fn, inputs in cases:
+        if args.only not in name:
+            continue
         res[name] = r = measure(fn, inputs, sync)
         span = "n/a" if r["span_ms"] is None else f"{r['span_ms']:.4f} ms"
         cs.log(f"  {name}: event {r['event_ms']:.4f} ms, device "
                f"{r['device_ms']:.4f} ms, {r['kernels']:g} CUDA kernels, "
                f"span {span}: {cs.split_str(r['by_kernel'])}")
-    doc = {"label": args.label, "card": card, "cases": res}
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(doc))
-    print(json.dumps(doc))
+    write({"label": args.label, "card": card, "cases": res}, args.out)
     return 0
+
+
+def write(doc: dict, out: Path | None) -> None:
+    """Prints ``doc`` as JSON, and writes it to ``out`` when given."""
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(doc))
+    print(json.dumps(doc))
 
 
 if __name__ == "__main__":

@@ -16,10 +16,11 @@ step_arg_len], params) -> (state', StepOutputs)``, every output leaf [S, K,
 stream the unsharded ScannerChain's outputs, decisions and events exactly,
 RSSI and audio to f32 rounding of the composed carries.  Each shard runs
 the kernels of the unsharded engines on its K_local = K / D sub-chunks;
-the FSM runs per stream on the gathered [K, 16] RSSI and [K, 38] tone
-sums.  The engine follows JAX's gate: the kernel engines (duo or trio)
-when every ``fuse_*`` switch is on and K_local % 8 == 0, the plane path
-otherwise (the port has no ``fuse_group``, as in scanner/chain.py):
+the FSM (scanner/fsm.py v3) runs once for all S streams on the gathered
+[S, K, 16] RSSI and [S, K, 38] tone sums, as JAX's vmap runs it.  The
+engine follows JAX's gate: the kernel engines (duo or trio) when every
+``fuse_*`` switch is on and K_local % 8 == 0, the plane path otherwise
+(the port has no ``fuse_group``, as in scanner/chain.py):
 
   (a) the DUO (default): for D > 1 a read-only pre-pass (K10,
       kernels/summary.py) and the fold of parallel/fused_halo.py give each
@@ -68,10 +69,11 @@ step_arg_len] (the rank's shards of each stream), the state its streams'
 rows (replicated over the ranks of a time group, as JAX replicates the
 state over the time axis) and every output leaf [S_loc, D_loc * K_local,
 ...], its own sub-chunks.  The halos cross the ranks through the time
-group's host-staged transport (halo.TimeGroup); the FSM runs per stream
-over the whole K on every rank of the group, on the gathered [K, 16] RSSI
-and [K, 38] tone sums (or [16, K, ns] lp plane).  A rank's outputs equal
-its block of the one-process mesh's bit for bit.
+group's host-staged transport (halo.TimeGroup); the FSM runs over the
+whole K on every rank of the group, for the rank's streams at once, on the
+gathered [S_loc, K, 16] RSSI and [S_loc, K, 38] tone sums (or [S_loc, 16,
+K, ns] lp plane).  A rank's outputs equal its block of the one-process
+mesh's bit for bit.
 
 ``engine="op"`` is JAX's op engine (``use_pallas=False``, the op branch
 of JAX scanner_sharded.py:595-760, every K_local): the wire decoded to
@@ -82,10 +84,10 @@ row (scanner/op_front.py ``OpFrontEnd.shards``), the discriminator with ``shard_
 delay line, the de-emphasis FIR and (``lowpass``) the lowpass FIR each
 with its ``shard_hist`` halo (each shorter than a shard's 1,225 K_local
 audio samples, so one neighbour serves it), the lp branch's DC blocker
-over shards, then the FSM's three-phase scan per stream on the gathered
-[K, 16] RSSI and [16, K, ns] lp plane.  It carries the op layout
-(runtime/state.py), ignores the ``fuse_*`` switches and runs K3 alone of
-the kernels, for the waterfall, as above.
+over shards, then the FSM's three-phase scan of every stream at once on
+the gathered [S, K, 16] RSSI and [S, 16, K, ns] lp plane.  It carries the
+op layout (runtime/state.py), ignores the ``fuse_*`` switches and runs K3
+alone of the kernels, for the waterfall, as above.
 """
 
 from __future__ import annotations
@@ -441,10 +443,11 @@ class ShardedScannerChain:
         return _Front(fr.dc_x, fr.dc_y, fr.resamp_hist, fr.pfb_hist,
                       fr.parity, fm_carry, demod, rssi, fr.band)
 
-    def _op_audio(self, state: ScannerState, fr: _Front, params, carries):
-        """The op engine's audio path over the shards and the FSM per
-        stream: (audio [S][D] [16, F_local], the FSM's results, the state
-        fields it carries)."""
+    def _op_audio(self, state: ScannerState, fr: _Front, params,
+                  carry: FsmCarry):
+        """The op engine's audio path over the shards and the FSM over the
+        streams: (audio [S][D] [16, F_local], the FSM's (carry, outputs)
+        [S, ...], the state fields it carries)."""
         n_s, n_t, tg = self.n_stream, self.n_time, self.tg
         k, ns = self.block.subchunks_per_step, C.SUBCHUNK_AUDIO
         demod = fr.demod
@@ -466,14 +469,13 @@ class ShardedScannerChain:
             al_hist, al_carry = halo.shard_hist(
                 state.audio_lp_hist, audio, C.LP_AUDIO_FILT_TAPS - 1, tg=tg)
             _, audio = fir.fir_apply(al_hist, audio, self.lp_taps)
-        # the FSM per stream over the whole K: the group's RSSI and lp plane
+        # the FSM of every stream over the whole K at once: the group's
+        # RSSI and lp plane
         rssi_g, lp_g = tg.gather(fr.rssi, lp_dcb)
-        rssi_all = rssi_g.reshape(n_s, k, NCH)
-        res = [fsm_ctcss_scan_v3(
-            carries[s], rssi_all[s], None, params.channel_mask,
+        res = fsm_ctcss_scan_v3(
+            carry, rssi_g.reshape(n_s, k, NCH), None, params.channel_mask,
             params.squelch_level, params.lock_max,
-            lp_cm=lp_g[s].transpose(0, 1).reshape(NCH, k, ns))
-            for s in range(n_s)]
+            lp_cm=lp_g.transpose(1, 2).reshape(n_s, NCH, k, ns))
         fields = dict(hp_hist=hp_carry, delay_hist=dl_carry,
                       lp_dc_x=lpx_carry, lp_dc_y=lpy_carry,
                       deemph_hist=de_carry, audio_lp_hist=al_carry)
@@ -481,10 +483,10 @@ class ShardedScannerChain:
                 res, fields)
 
     def _kernel_audio(self, state: ScannerState, fr: _Front, params,
-                      carries):
-        """The kernel engines' audio path per shard and the FSM per stream:
-        (audio [S][D] [16, F_local], the FSM's results, the state fields it
-        carries)."""
+                      carry: FsmCarry):
+        """The kernel engines' audio path per shard and the FSM over the
+        streams: (audio [S][D] [16, F_local], the FSM's (carry, outputs)
+        [S, ...], the state fields it carries)."""
         ns = C.SUBCHUNK_AUDIO
         n_s, n_t, kl, tg = self.n_stream, self.n_time, self.k_local, self.tg
         k = self.block.subchunks_per_step
@@ -503,17 +505,13 @@ class ShardedScannerChain:
             ah_local = halo.shift_right(left, ah_tails)
             ah_carry = edges[:, -1]
         rssi_all = rssi_g.reshape(n_s, k, NCH)
-        res = []
         if self.fused:
-            # 7a. phase A per stream on the gathered RSSI
-            scheds = [fsm_phase_a(carries[s], rssi_all[s],
-                                  params.channel_mask, params.squelch_level,
-                                  params.lock_max, ns) for s in range(n_s)]
-            sel = torch.stack([torch.clamp(sc.act2, 0, NCH - 1)
-                               for sc in scheds]).to(torch.int32)
-            b_arr = torch.stack([sc.b_arr for sc in scheds]).to(torch.int32)
+            # 7a. phase A of every stream on the gathered RSSI
+            sched = fsm_phase_a(carry, rssi_all, params.channel_mask,
+                                params.squelch_level, params.lock_max, ns)
+            sel = torch.clamp(sched.act2, 0, NCH - 1)         # i32 [S, K]
             sel3 = tg.local(sel.reshape(n_s, tg.total(n_t), kl))
-            b3 = tg.local(b_arr.reshape(n_s, tg.total(n_t), kl))
+            b3 = tg.local(sched.b_arr.reshape(n_s, tg.total(n_t), kl))
             # 6. K2 per shard from a zero lp-DC state; its zero-state error
             # in the tone sums is delta * zeta^pos, added back exactly
             z16 = torch.zeros(NCH, dtype=torch.float32, device=self.device)
@@ -530,13 +528,12 @@ class ShardedScannerChain:
                 stacked(banks, "raw_pre"), stacked(banks, "raw_mem"),
                 delta_sel, b3, kl, ns))
             audio = [[b.audio for b in row] for row in banks]
-            for s in range(n_s):
-                # 7b. the gathered tone sums; each shard's kernel phase
-                # restarts at its own sample 0 (period = K_local)
-                s_pre, s_suf = raw_sums_to_ctcss(
-                    scheds[s], pre[s].reshape(k, -1), mem[s].reshape(k, -1),
-                    ns, period=kl)
-                res.append(fsm_phase_c(carries[s], scheds[s], s_pre, s_suf))
+            # 7b. the gathered tone sums; each shard's kernel phase restarts
+            # at its own sample 0 (period = K_local)
+            s_pre, s_suf = raw_sums_to_ctcss(
+                sched, pre.reshape(n_s, k, -1), mem.reshape(n_s, k, -1), ns,
+                period=kl)
+            res = fsm_phase_c(carry, sched, s_pre, s_suf)
         else:
             # 6. K8 apply per shard, the lp DC blocker over the shards
             banks = [[self.audio_bank.apply(ah_local[s, d], fr.demod[s][d],
@@ -547,11 +544,10 @@ class ShardedScannerChain:
                 C.DC_BLOCK_ALPHA, tg)
             lp_dcb = tg.gather(lp_dcb)
             audio = [[b.audio for b in row] for row in banks]
-            for s in range(n_s):
-                lp_cm = lp_dcb[s].transpose(0, 1).reshape(NCH, k, ns)
-                res.append(fsm_ctcss_scan_v3(
-                    carries[s], rssi_all[s], None, params.channel_mask,
-                    params.squelch_level, params.lock_max, lp_cm=lp_cm))
+            res = fsm_ctcss_scan_v3(
+                carry, rssi_all, None, params.channel_mask,
+                params.squelch_level, params.lock_max,
+                lp_cm=lp_dcb.transpose(1, 2).reshape(n_s, NCH, k, ns))
         return audio, res, dict(lp_dc_x=lpx_carry, lp_dc_y=lpy_carry,
                                 audio_hist=ah_carry)
 
@@ -572,38 +568,33 @@ class ShardedScannerChain:
             fr = self._trio_front(state, wire3, ns)
         else:
             fr = self._plane_front(state, wire3, ns)
-        carries = [FsmCarry(state.fsm_state[s], state.active_chan[s],
-                            state.rssi[s], state.ct_count[s],
-                            state.ct_carry[s], state.ct_detected[s],
-                            state.ct_max_idx[s], state.ct_freq[s])
-                   for s in range(n_s)]
-        audio, res, fields = (self._op_audio if self.op
-                              else self._kernel_audio)(state, fr, params,
-                                                       carries)
+        carry = FsmCarry(state.fsm_state, state.active_chan, state.rssi,
+                         state.ct_count, state.ct_carry, state.ct_detected,
+                         state.ct_max_idx, state.ct_freq)
+        audio, (fsm, fo), fields = (self._op_audio if self.op
+                                    else self._kernel_audio)(state, fr,
+                                                             params, carry)
 
         wf_hist, wf_cnt, wf_rows = self._waterfall(state, fr.band)
 
         # 8. each stream's selected audio, of the rank's sub-chunks
         kr = self.k_rank
         ks = torch.arange(kr, device=self.device)
+        at_s = torch.arange(n_s, device=self.device)[:, None]
         mine = slice(self.tg.index * kr, (self.tg.index + 1) * kr)
-        outputs = []
-        for s, (carry_out, fo) in enumerate(res):
-            fo = type(fo)(*(v[mine] for v in fo))
-            sel_s = torch.clamp(fo.active_chan, 0, NCH - 1).long()
-            a_s = torch.cat(audio[s], dim=-1).reshape(NCH, kr, ns)
-            outputs.append(StepOutputs(
-                audio=a_s[sel_s, ks], audio_valid=fo.active_chan >= 0,
-                active_chan=fo.active_chan, rel_rssi=fo.rel_rssi,
-                rssi_db=fr.rssi[s].reshape(kr, NCH), ev_tuned=fo.ev_tuned,
-                ev_detuned=fo.ev_detuned, ev_changed=fo.ev_changed,
-                ev_prev_chan=fo.ev_prev_chan, ev_new_chan=fo.ev_new_chan,
-                ct_detected=fo.ct_detected, ct_max_idx=fo.ct_max_idx,
-                ct_freq=fo.ct_freq, ev_ct_acquired=fo.ev_ct_acquired,
-                ev_ct_changed=fo.ev_ct_changed, ev_ct_lost=fo.ev_ct_lost,
-                waterfall=wf_rows[s]))
-        out = StepOutputs(*(torch.stack(v) for v in zip(*outputs)))
-        fsm = FsmCarry(*(torch.stack(v) for v in zip(*(c for c, _ in res))))
+        fo = type(fo)(*(v[:, mine] for v in fo))
+        sel = torch.clamp(fo.active_chan, 0, NCH - 1).long()    # [S, kr]
+        a = torch.stack([torch.cat(row, dim=-1) for row in audio])
+        out = StepOutputs(
+            audio=a.reshape(n_s, NCH, kr, ns)[at_s, sel, ks],
+            audio_valid=fo.active_chan >= 0, active_chan=fo.active_chan,
+            rel_rssi=fo.rel_rssi, rssi_db=fr.rssi.reshape(n_s, kr, NCH),
+            ev_tuned=fo.ev_tuned, ev_detuned=fo.ev_detuned,
+            ev_changed=fo.ev_changed, ev_prev_chan=fo.ev_prev_chan,
+            ev_new_chan=fo.ev_new_chan, ct_detected=fo.ct_detected,
+            ct_max_idx=fo.ct_max_idx, ct_freq=fo.ct_freq,
+            ev_ct_acquired=fo.ev_ct_acquired, ev_ct_changed=fo.ev_ct_changed,
+            ev_ct_lost=fo.ev_ct_lost, waterfall=wf_rows)
         new_state = state._replace(
             dc_x=fr.dc_x, dc_y=fr.dc_y, resamp_hist=fr.resamp_hist,
             pfb_hist=fr.pfb_hist, frame_parity=fr.parity,
