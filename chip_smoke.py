@@ -267,7 +267,14 @@ on its own lines; any failure raises and ends the run:
      ranks time-share one card, so no scaling figure; (f) why a time split
      is bit-equal on the CPU but not on the card: the DC blockers' matmul
      scan of a rank's shards alone against the same shards in the whole
-     batch, and the resampler's conv1d likewise (logged).
+     batch, and the resampler's conv1d likewise (logged); (g) (b)'s and
+     (c)'s chains through multi_step at S = 4 on each rank: CUDA-graph
+     segments around the host-staged collectives (runtime/fuse.py), each
+     rank's outputs and state bit for bit the loop of its 4 steps (a
+     capture, then a replay) and, gathered, under the sharded gates of the
+     one-process chain; segments and graphs a rank; its launches over the
+     replays = the per-step counts x steps; ms a block of the replays
+     beside (e)'s loop, host clock and CUDA events, with the gloo share.
  22. the associative FSM (scanner/fsm.py v3, which every earlier phase
      runs): (a) phase 4's capture (K = 40, cu8, 4 blocks) through the duo
      ScannerChain with its phase A and C calls recorded, K1 and K2 once a
@@ -279,7 +286,17 @@ on its own lines; any failure raises and ends the run:
      "other"); (d) one sharded duo (4, 5) step profiled: ms and device
      events by part.  kernel_times.py --fsm reads (c) and (d) of two
      trees in turns.  ``chip_smoke.py --phase 22`` runs phases 1 and 22
-     alone and prints no result lines.
+     alone and prints no result lines (``--phase 21``: phases 1 and 21).
+ 23. checkpoints on the card: (a) the driver at K = 40 (cu8, 4 blocks)
+     stopped after block 2 with a checkpoint every block and resumed in a
+     new driver, under checkpoint_backend="orbax" (a
+     torch.distributed.checkpoint directory) and "npz": audio, decisions,
+     events and the final state bit for bit the uninterrupted run's;
+     (b) save and load ms of each backend on a K = 40 state, and the bytes
+     each writes; (c) scan_batch --mesh 8,1 (phase 18's 8 captures, S = 2,
+     -w 80) on its default backend (orbax): --stop-after 1, then --resume,
+     every file byte for byte the uninterrupted run's.
+     ``chip_smoke.py --phase 23`` runs phases 1 and 23 alone.
 
 Each path (the scanner in phases 3-4, dsd_in in 7, single in 8, the -w
 scanner in 10, the engines of 11(b), each two-kernel chain in 11(c), the
@@ -287,7 +304,7 @@ switched engines of 12(b), each sharded path of 13, the probe tools of
 14, faithful mode in 15, the driver's runs in 16, each path and the
 driver in 17, each scan_batch run and sharded path in 18, each op path
 in 19, each export in 20, each case of 21 in each rank, each of 22(a),
-(c) and (d)) runs with
+(c) and (d), each run of 23) runs with
 the launch counts set to 0 just before it and read just after.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
@@ -3167,9 +3184,11 @@ def phase_faithful(dev, k: int, sync):
                          "seconds": sec}}
 
 
-def phase_driver_checkpoint(dev, k: int, n_blocks: int, **switches):
+def phase_driver_checkpoint(dev, k: int, n_blocks: int,
+                            backend: str = "npz", **switches):
     """Phase 16: ScannerDriver with metrics, a stopped run with a
-    checkpoint every block, and its resume, against the uninterrupted run,
+    checkpoint every block on ``backend``, and its resume, against the
+    uninterrupted run (outputs, events and the final state bit for bit),
     on the engine the chain switches choose; with ``engine="op"`` the
     kernel engine's driver refuses the checkpoint.  Returns the steps
     run."""
@@ -3183,7 +3202,8 @@ def phase_driver_checkpoint(dev, k: int, n_blocks: int, **switches):
                                       **switches, **kw)
     with tempfile.TemporaryDirectory() as tmp:
         metrics = os.path.join(tmp, "metrics.jsonl")
-        full = make(metrics_path=metrics).run(blocks)
+        whole = make(metrics_path=metrics)
+        full = whole.run(blocks)
         with open(metrics) as f:
             recs = [json.loads(line) for line in f]
         keys = {"subchunk", "active_chan", "rel_rssi", "rssi_db",
@@ -3194,9 +3214,10 @@ def phase_driver_checkpoint(dev, k: int, n_blocks: int, **switches):
               "metrics sub-chunk indices")
         check(sum((r["events"] for r in recs), []) == full.events,
               "metrics events")
-        ckpt = os.path.join(tmp, "state.npz")
+        ckpt = os.path.join(tmp, "state.npz" if backend == "npz" else "st")
         stop_at = n_blocks // 2
-        first = make(checkpoint_path=ckpt, checkpoint_every=1)
+        first = make(checkpoint_path=ckpt, checkpoint_every=1,
+                     checkpoint_backend=backend)
         # block j drains after block j + 1 is dispatched: a stop asked in
         # block stop_at - 2's drain ends the run after block stop_at - 1
         first.on_subchunk = (lambda sub, o: first.request_stop()
@@ -3204,9 +3225,13 @@ def phase_driver_checkpoint(dev, k: int, n_blocks: int, **switches):
         part1 = first.run(blocks)
         check(first.stopped and first.block_index == stop_at,
               f"stopped at block {first.block_index}, wanted {stop_at}")
-        second = make(checkpoint_path=ckpt)
+        check(os.path.isdir(ckpt) == (backend == "orbax"),
+              f"the {backend} checkpoint's kind")
+        second = make(checkpoint_path=ckpt, checkpoint_backend=backend)
         check(second.restore() == stop_at, "restored block index")
         part2 = second.run(blocks)
+        check_bits(second.state, whole.state, f"stop + resume ({backend}) "
+                   f"final state")
         if switches.get("engine") == "op":
             try:
                 ScannerDriver(subchunks_per_step=k, input_format="cu8",
@@ -3230,9 +3255,9 @@ def phase_driver_checkpoint(dev, k: int, n_blocks: int, **switches):
     check(part1.events + part2.events == full.events, "stop + resume events")
     log(f"  K={k} {switches or ''}, {n_blocks} blocks: {len(recs)} metrics "
         f"records with the "
-        f"JAX keys; stopped after block {stop_at} (final flush), resumed: "
-        f"decisions, events, RSSI and audio == the uninterrupted run bit for "
-        f"bit; events {full.events}")
+        f"JAX keys; stopped after block {stop_at} (final flush, {backend} "
+        f"backend), resumed: decisions, events, RSSI, audio and the final "
+        f"state == the uninterrupted run bit for bit; events {full.events}")
     return n_blocks + stop_at + (n_blocks - stop_at)
 
 
@@ -4378,7 +4403,8 @@ def phase_batch(dev, sync) -> dict:
         ckpt = os.path.join(tmp, "ck.npz")
         outs = [os.path.join(tmp, f"c{i}") for i in range(2)]
         part = paths + base + ["--mesh", "8,1", "--steps-per-dispatch", "2",
-                               "--checkpoint", ckpt]
+                               "--checkpoint", ckpt, "--checkpoint-backend",
+                               "npz"]
         l1, _, r1 = run_scan_batch(dev, part + ["--stop-after", "1",
                                                 "--out-dir", outs[0]])
         l2, _, r2 = run_scan_batch(dev, part + ["--resume", "--out-dir",
@@ -4395,7 +4421,7 @@ def phase_batch(dev, sync) -> dict:
                   f"after a part, wanted {done}")
             check_counts(counts, {"duo": 16, "audio_bank": 16,
                                   "waterfall": 16}, "(c)")
-        log(f"  (c) --stop-after 1 at S=2 (2 blocks, graphs "
+        log(f"  (c) --stop-after 1 at S=2 on the npz backend (2 blocks, graphs "
             f"{r1['graphs']}), then --resume (2 blocks, graphs "
             f"{r2['graphs']}): every WAV, events and waterfall log == (a)'s "
             f"byte for byte")
@@ -5078,7 +5104,8 @@ def phase_export(dev, sync, smi: str) -> dict:
 #: K11 at K = 40 (K_local = 10)
 DIST_CHAINS = {"duo": ((1, 4), 32, {}),
                "plane": ((1, 4), 40, {"halo_dma": True})}
-#: blocks each case steps (config5_streams' stream 0), and timed repeats
+#: blocks each case steps (config5_streams' stream 0; 21(g)'s S), and
+#: timed repeats
 DIST_BLOCKS, DIST_REPS = 4, 2
 #: the launches one step of a rank's block makes on each case
 DIST_PER_STEP = {"duo": {"duo": 2, "audio_bank": 2, "summary": 1},
@@ -5102,15 +5129,17 @@ def dist_wires(k: int) -> list:
                                                           DIST_BLOCKS))]
 
 
-def timed_steps(chain, wires, params, sync) -> dict:
+def timed_steps(chain, wires, params, sync, mega: bool = False) -> dict:
     """DIST_REPS runs of ``chain`` over ``wires`` (on the device) from its
-    zero state: host ms a block of each (synchronized around the run),
-    the CUDA events' ms, and the host seconds of the host-staged
-    collectives (parallel/distributed.py STATS) in each."""
+    zero state, step by step or (``mega``) as one multi_step: host ms a
+    block of each (synchronized around the run), the CUDA events' ms, and
+    the host seconds of the host-staged collectives
+    (parallel/distributed.py STATS) in each."""
     import torch
     from sdr_pmr446_tpu_torch.parallel import distributed
     out = {"ms_a_block": [], "event_ms_a_block": [], "stage_s": [],
            "collective_s": [], "collectives": []}
+    xs = torch.stack(wires) if mega else None
     for _ in range(DIST_REPS):
         st = chain.init_state()
         distributed.sync("timed")
@@ -5119,7 +5148,9 @@ def timed_steps(chain, wires, params, sync) -> dict:
         ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
         t0 = time.perf_counter()
         ev0.record()
-        for w in wires:
+        if mega:
+            st, o = chain.multi_step(st, xs, params)
+        for w in () if mega else wires:
             st, o = chain.step(st, w, params)
         ev1.record()
         sync()
@@ -5131,6 +5162,53 @@ def timed_steps(chain, wires, params, sync) -> dict:
         out["collectives"].append(distributed.STATS["calls"])
         out.setdefault("wall_s", []).append(wall)
     return out
+
+
+def dist_megastep(chain, gm, wires, params, sync, save_to) -> dict:
+    """21(g) on one rank: ``wires`` through multi_step (a capture, then a
+    replay) from the zero state, each bit for bit the loop of the steps;
+    the gathered outputs and state saved to ``save_to`` (rank 0); the
+    launches of 2 replays; the replays timed as (e) times the loop."""
+    import torch
+    from sdr_pmr446_tpu_torch.parallel import distributed
+    from sdr_pmr446_tpu_torch.runtime import fuse
+    st0 = chain.init_state()
+    want_st, outs = st0, []
+    for w in wires:
+        want_st, o = chain.step(want_st, w, params)
+        outs.append(o)
+    want = fuse._concat(outs, 1)
+    xs = torch.stack(wires)
+    sync()
+    t0 = time.perf_counter()
+    got_st, got = chain.multi_step(st0, xs, params)
+    sync()
+    first_s = time.perf_counter() - t0
+    check_bits(got, want, "21(g) the captured megastep's outputs vs the loop")
+    check_bits(got_st, want_st, "21(g) the captured megastep's state vs the "
+               "loop")
+    (graph,) = chain.megastep.graphs.values()
+    rec = graph.graph.recorder
+    reset_launches()
+    for _ in range(2):
+        st2, got2 = chain.multi_step(st0, xs, params)
+    sync()
+    launches = {n: v for n, v in launches_now().items() if v}
+    check_bits(got2, want, "21(g) a replay's outputs vs the loop")
+    check_bits(st2, want_st, "21(g) a replay's state vs the loop")
+    # a rank's megastep outputs are its time run of each step in turn:
+    # gathered step by step, as (b) / (c) gather the loop's
+    n = len(wires)
+    gathered = [[t.cpu() for t in distributed.process_allgather(
+        [t[:, i * (t.shape[1] // n):(i + 1) * (t.shape[1] // n)]
+         for t in got], gm, time_axis=1)] for i in range(n)]
+    state = [t.cpu() for t in distributed.gather_state(gm, got_st)]
+    if save_to:
+        torch.save({"outs": gathered, "state": state}, save_to)
+    return {"graphs": len(rec.graphs), "collectives": len(rec.cuts),
+            "first_call_s": first_s, "warmup_ms": graph.warmup_ms,
+            "capture_ms": graph.capture_ms, "replay_launches": launches,
+            "timing": timed_steps(chain, wires, params, sync, mega=True)}
 
 
 def dist_child(spec_path: str, rank: int) -> int:
@@ -5200,7 +5278,10 @@ def dist_child(spec_path: str, rank: int) -> int:
             "block": [gm.stream0, gm.n_stream, gm.time0, gm.n_time],
             "device": str(gm.device), "engine": chain.engine_label,
             "launches": launches,
-            "timing": timed_steps(chain, wires, params, sync)}
+            "timing": timed_steps(chain, wires, params, sync),
+            "mega": dist_megastep(chain, gm, wires, params, sync,
+                                  spec["mega"][name] if rank == 0
+                                  else None)}
     distributed.sync("end")
     distributed.shutdown()
     print(json.dumps(report))
@@ -5248,7 +5329,9 @@ def phase_distributed(dev, sync, smi: str) -> dict:
         spec = {"addr": free_address(), "batch_argv": argv,
                 "out": [os.path.join(tmp, f"rank{r}") for r in range(2)],
                 "chains": {n: os.path.join(tmp, f"{n}.pt")
-                           for n in DIST_CHAINS}}
+                           for n in DIST_CHAINS},
+                "mega": {n: os.path.join(tmp, f"{n}_mega.pt")
+                         for n in DIST_CHAINS}}
         spec_path = os.path.join(tmp, "dist.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
@@ -5279,7 +5362,8 @@ def phase_distributed(dev, sync, smi: str) -> dict:
             f"{reports[0]['join_s']:.2f} / {reports[1]['join_s']:.2f} s")
         for err in (logs[0][1], logs[1][1]):
             for line in err.splitlines():
-                if "shared with process" in line or "as a loop" in line:
+                if ("shared with process" in line
+                        or "host-staged collectives" in line):
                     log(f"    {line.split('] ')[-1]}")
 
         # (a) config 5 through scan_batch
@@ -5384,6 +5468,7 @@ def phase_distributed(dev, sync, smi: str) -> dict:
                 f"{100 * share[0][0]:.1f} / {100 * share[1][0]:.1f} % of a "
                 f"rank's step, the copies to the host (with the wait for the "
                 f"device) {100 * share[0][1]:.1f} / {100 * share[1][1]:.1f} %")
+        bench["megastep"] = dist_megastep_readings(spec, reports, refs)
         bench["scan_batch_dependence"] = scan_batch_dependence(dev)
         log("  (e) the two ranks time-share one card: these are no scaling "
             "figures; a distributed step reads the host in its host-staged "
@@ -5393,6 +5478,84 @@ def phase_distributed(dev, sync, smi: str) -> dict:
     reset_launches()
     log(f"  phase 21 took {time.perf_counter() - t_start:.1f} s")
     return bench
+
+
+def dist_megastep_readings(spec, reports, refs) -> dict:
+    """21(g) read from the ranks' reports: each rank's megastep was bit for
+    bit its loop (the rank checked); the gathered megastep outputs against
+    (b) / (c)'s gathered loop outputs (bit for bit) and the one-process
+    chain (the sharded gates); launches over 2 replays = per step x
+    DIST_BLOCKS x 2; ms a block of the replays beside (e)'s loop."""
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.scanner.chain import StepOutputs
+    out = {}
+    for name, (mesh, k, kw) in DIST_CHAINS.items():
+        case = "b" if name == "duo" else "c"
+        got = torch.load(spec["mega"][name])
+        loop = torch.load(spec["chains"][name])
+        steps = got["outs"]
+        for i, (g, w) in enumerate(zip(steps, loop["outs"])):
+            check(all(torch.equal(bits(a), bits(b)) for a, b in zip(g, w)),
+                  f"21(g) {name}: the gathered megastep's step {i} differs "
+                  f"from the gathered loop's")
+        check(all(torch.equal(bits(a), bits(b))
+                  for a, b in zip(got["state"], loop["state"])),
+              f"21(g) {name}: the gathered megastep's state differs from "
+              f"the loop's")
+        summary = check_sharded([StepOutputs(*g) for g in steps],
+                                [StepOutputs(*w) for w in refs[name][0]],
+                                f"21(g) {name}")
+        megas = [rep["cases"][name]["mega"] for rep in reports]
+        want = {n: v * DIST_BLOCKS * 2
+                for n, v in DIST_PER_STEP[name].items()}
+        per_step = megas[0]["collectives"] // DIST_BLOCKS
+        for r, m in enumerate(megas):
+            check(m["replay_launches"] == want, f"21(g) rank {r} {name} "
+                  f"launched {m['replay_launches']} in 2 replays, expected "
+                  f"{want}")
+            check(m["graphs"] == m["collectives"] + 1,
+                  f"21(g) rank {r} {name}: {m['graphs']} graphs around "
+                  f"{m['collectives']} collectives")
+        loops = [rep["cases"][name]["timing"] for rep in reports]
+        tim = [m["timing"] for m in megas]
+        n = k * C.SUBCHUNK_IN
+        slow = lambda t: [max(a, b) for a, b in zip(  # noqa: E731
+            t[0]["ms_a_block"], t[1]["ms_a_block"])]
+        share = [t["collective_s"][-1] / t["wall_s"][-1] for t in tim]
+        out[name] = {"graphs": [m["graphs"] for m in megas],
+                     "collectives": [m["collectives"] for m in megas],
+                     "first_call_s": [m["first_call_s"] for m in megas],
+                     "warmup_ms": [m["warmup_ms"] for m in megas],
+                     "capture_ms": [m["capture_ms"] for m in megas],
+                     "ranks": tim, "loop_ranks": loops}
+        log(f"  (g) ({case}) multi_step at S = {DIST_BLOCKS} on each rank: "
+            f"{megas[0]['graphs']} / {megas[1]['graphs']} CUDA graphs around "
+            f"{megas[0]['collectives']} / {megas[1]['collectives']} "
+            f"host-staged collectives ({per_step} a step); a capture and 2 "
+            f"replays each bit for bit the loop of the rank's steps; "
+            f"gathered: bit for bit (b)/(c)'s loop, and against the "
+            f"one-process chain {summary}; launches a rank over 2 replays "
+            f"{want}; first call (warm-up + capture + replay) "
+            f"{megas[0]['first_call_s']:.2f} / {megas[1]['first_call_s']:.2f}"
+            f" s (warm-up {megas[0]['warmup_ms']:.0f} / "
+            f"{megas[1]['warmup_ms']:.0f} ms, capture "
+            f"{megas[0]['capture_ms']:.0f} / {megas[1]['capture_ms']:.0f} "
+            f"ms)")
+        log(f"  (g) ({case}) ms a block over the slower rank: replays "
+            f"{' / '.join(f'{v:.2f}' for v in slow(tim))} "
+            f"({n / min(slow(tim)) / 1e3:.1f} Msamples/s; CUDA events "
+            f"{tim[0]['event_ms_a_block'][-1]:.2f} / "
+            f"{tim[1]['event_ms_a_block'][-1]:.2f}), the loop (e) "
+            f"{' / '.join(f'{v:.2f}' for v in slow(loops))} "
+            f"({n / min(slow(loops)) / 1e3:.1f} Msamples/s; CUDA events "
+            f"{loops[0]['event_ms_a_block'][-1]:.2f} / "
+            f"{loops[1]['event_ms_a_block'][-1]:.2f}); the replays' gloo "
+            f"calls {100 * share[0]:.1f} / {100 * share[1]:.1f} % of a "
+            f"rank's wall, the waits for the device before them "
+            f"{100 * tim[0]['stage_s'][-1] / tim[0]['wall_s'][-1]:.1f} / "
+            f"{100 * tim[1]['stage_s'][-1] / tim[1]['wall_s'][-1]:.1f} %")
+    return out
 
 
 def scan_batch_dependence(dev) -> dict:
@@ -5620,6 +5783,140 @@ def phase_fsm(dev, sync) -> dict:
     return rec
 
 
+# ------------------------------------------------- phase 23: checkpoints
+#: 23(b): timed saves and loads of each backend
+CKPT_REPS = 5
+
+
+def tree_bytes(path: str) -> int:
+    """Bytes of a file, or of every file under a directory."""
+    import os
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def checkpoint_costs(dev, sync) -> dict:
+    """23(b): the state after one K = 40 bench block on the card, saved and
+    loaded CKPT_REPS times by each backend (host clock; a save includes its
+    read of the state from the device, a load its upload): ms of each,
+    and the bytes each writes."""
+    import os
+    import tempfile
+    import torch
+    from sdr_pmr446_tpu_torch import config as C
+    from sdr_pmr446_tpu_torch.runtime import state as state_io
+    from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
+                                                    make_runtime_params)
+    chain = ScannerChain(C.BlockConfig(40), device=dev)
+    st, _ = chain.step(chain.init_state(),
+                       torch.from_numpy(bench_block(40, 0)).to(dev),
+                       make_runtime_params(C.ScannerArgs(), dev))
+    sync()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, save, load, name in (
+                ("npz", state_io.save_state, state_io.load_state, "s.npz"),
+                ("orbax", state_io.save_state_orbax,
+                 state_io.load_state_orbax, "s_dcp")):
+            path = os.path.join(tmp, name)
+            saves, loads = [], []
+            for i in range(CKPT_REPS):
+                t0 = time.perf_counter()
+                save(path, i, st)
+                saves.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                bi, got = load(path, dev)
+                sync()
+                loads.append((time.perf_counter() - t0) * 1e3)
+                check(bi == i, f"23(b) {backend} block index")
+                check_bits(got, st, f"23(b) {backend} round trip")
+            out[backend] = {"save_ms": saves, "load_ms": loads,
+                            "bytes": tree_bytes(path)}
+            log(f"  (b) {backend}: save "
+                f"{' / '.join(f'{v:.2f}' for v in saves)} ms, load "
+                f"{' / '.join(f'{v:.2f}' for v in loads)} ms "
+                f"({CKPT_REPS} each, host clock, the state's device read "
+                f"and upload inside), {out[backend]['bytes']} bytes; the "
+                f"round trip bit for bit")
+    return out
+
+
+def phase_checkpoints(dev, sync, smi: str) -> dict:
+    """Phase 23: (a) the driver's stop / resume on each backend, (b) the
+    backends' costs, (c) scan_batch's default (orbax) backend stopped and
+    resumed against the uninterrupted run, byte for byte."""
+    import os
+    import tempfile
+    from sdr_pmr446_tpu_torch.apps import scan_batch
+    from sdr_pmr446_tpu_torch.kernels import audio_bank, duo
+    t0 = time.perf_counter()
+    bench = {}
+    for backend in ("orbax", "npz"):
+        duo.LAUNCHES = audio_bank.LAUNCHES = 0
+        steps = phase_driver_checkpoint(dev, 40, 4, backend=backend)
+        dl = {"K1": duo.LAUNCHES, "K2": audio_bank.LAUNCHES}
+        check(dl["K1"] == dl["K2"] == steps, f"23(a) K1 / K2 launches "
+              f"{dl} for {steps} steps ({backend})")
+        log(f"  (a) {backend}: launches over the driver's {steps} steps "
+            f"{dl}")
+    t_b = time.perf_counter()
+    bench["costs"] = checkpoint_costs(dev, sync)
+    t_c = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = batch_captures(tmp)
+        stems = scan_batch.unique_stems(paths)
+        base = paths + ["--subchunks-per-step", str(BATCH_K), "-w",
+                        str(BATCH_WF), "--mesh", "8,1",
+                        "--steps-per-dispatch", "2"]
+        outs = {n: os.path.join(tmp, n) for n in ("full", "part", "res")}
+        ckpt = os.path.join(tmp, "ck")
+        l0, _, r0 = run_scan_batch(dev, base + ["--out-dir", outs["full"]])
+        l1, _, r1 = run_scan_batch(dev, base + [
+            "--checkpoint", ckpt, "--stop-after", "1", "--out-dir",
+            outs["part"]])
+        check(os.path.isfile(os.path.join(ckpt, ".metadata")),
+              "23(c) the default backend wrote no DCP directory")
+        ck_bytes = tree_bytes(ckpt)
+        l2, _, r2 = run_scan_batch(dev, base + [
+            "--checkpoint", ckpt, "--resume", "--out-dir", outs["res"]])
+        for stem in stems:
+            for ext in ("wav", "events.log", "waterfall.log"):
+                got = open(os.path.join(outs["res"], f"{stem}.{ext}"),
+                           "rb").read()
+                want = open(os.path.join(outs["full"], f"{stem}.{ext}"),
+                            "rb").read()
+                check(got == want, f"23(c) resumed {stem}.{ext} differs "
+                      f"from the uninterrupted run's")
+        n8 = len(paths)
+        for counts, run, done, what in ((l0, r0, 4, "full"),
+                                        (l1, r1, 2, "stopped"),
+                                        (l2, r2, 4, "resumed")):
+            check(run["blocks"] == done, f"23(c) {what}: {run['blocks']} "
+                  f"blocks done, wanted {done}")
+            n = n8 * (2 if what != "full" else 4)
+            check_counts(counts, {"duo": n, "audio_bank": n,
+                                  "waterfall": n}, f"23(c) {what}")
+        bench["scan_batch"] = {"walls_s": [r0["wall_s"], r1["wall_s"],
+                                           r2["wall_s"]],
+                               "checkpoint_bytes": ck_bytes}
+        log(f"  (c) scan_batch --mesh 8,1, 8 captures x {BATCH_BLOCKS} "
+            f"blocks of K={BATCH_K}, S=2, -w {BATCH_WF}, the default "
+            f"(orbax) backend: --stop-after 1 (2 blocks, a {ck_bytes}-byte "
+            f"DCP directory), then --resume (2 blocks): every WAV, events "
+            f"and waterfall log == the uninterrupted run's byte for byte; "
+            f"launches a part "
+            f"{ {n: v for n, v in l1.items() if v} }; walls "
+            f"{r0['wall_s']:.3f} (whole) / {r1['wall_s']:.3f} / "
+            f"{r2['wall_s']:.3f} s")
+    log(f"  {smi}")
+    log(f"  phase 23 took {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t_b - t0:.1f}, (b) {t_c - t_b:.1f}, (c) "
+        f"{time.perf_counter() - t_c:.1f})")
+    return bench
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5651,6 +5948,16 @@ def main() -> int:
     if sys.argv[1:3] == ["--phase", "22"]:      # phases 1 and 22 alone
         log("phase 22: the associative FSM (scanner/fsm.py v3) on the card")
         log(json.dumps({"fsm": phase_fsm(dev, sync), "card": smi}))
+        return 0
+    if sys.argv[1:3] == ["--phase", "21"]:      # phases 1 and 21 alone
+        log("phase 21: two rank processes on the card")
+        log(json.dumps({"distributed": phase_distributed(dev, sync, smi),
+                        "card": smi}))
+        return 0
+    if sys.argv[1:3] == ["--phase", "23"]:      # phases 1 and 23 alone
+        log("phase 23: checkpoints on the card (npz and orbax backends)")
+        log(json.dumps({"checkpoints": phase_checkpoints(dev, sync, smi),
+                        "card": smi}))
         return 0
 
     log("phase 2: kernels vs plain versions on the card")
@@ -5854,6 +6161,9 @@ def main() -> int:
     log("phase 22: the associative FSM (scanner/fsm.py v3) on the card")
     log(smi)
     bench["fsm"] = phase_fsm(dev, sync)
+    log("phase 23: checkpoints on the card (npz and orbax backends)")
+    log(smi)
+    bench["checkpoints"] = phase_checkpoints(dev, sync, smi)
     log(f"  the run {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"bench": bench, "card": smi}))

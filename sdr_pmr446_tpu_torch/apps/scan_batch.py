@@ -33,13 +33,16 @@ the raw --device-decode reader, only its time run of each block; the
 host-conversion reader reads its captures' whole blocks and keeps its
 run), every block's real sample count taken from the captures' sizes, the
 same on every process.  The halos between processes go through
-host-staged gloo collectives (a time split's steps then run as a loop, not
-a CUDA graph: runtime/fuse.py).  The outputs are gathered to every process
-and process 0 writes every file; the others log "process N done (process 0
-writes the outputs)".  A checkpoint holds every stream's rows, gathered;
-process 0 writes it and its accumulators, then every process syncs; on
---resume every process loads it and keeps its rows.  A stop (a signal on
-any process, or --stop-after) ends every process after the same group.
+host-staged gloo collectives (on the card a time split's megastep is then
+CUDA-graph segments replayed around them: runtime/fuse.py).  The outputs
+are gathered to every process and process 0 writes every file; the others
+log "process N done (process 0 writes the outputs)".  A checkpoint holds
+every stream's rows, gathered to every process: under orbax every process
+calls the save, a collective, with those rows (DCP writes each tensor once
+and process 0 the metadata); under npz process 0 writes the file.  Process
+0 writes the accumulators, then every process syncs; on --resume every
+process loads the checkpoint and keeps its rows.  A stop (a signal on any
+process, or --stop-after) ends every process after the same group.
 
 Dispatch: --steps-per-dispatch blocks go through the chain's multi_step (a
 CUDA graph of that many steps on the card), uploaded through a pinned
@@ -48,18 +51,21 @@ group i + 1 is dispatched, its outputs read back on a copy stream that
 waits only for group i.  A short last group runs block by block, so it
 captures no graph of its own.
 
-Checkpoints: --checkpoint (npz: runtime/state.py's save_state of the [S,
-...] state, plus an ``.accum.npz`` sidecar of the accumulators) every
---checkpoint-every dispatch groups, --resume, --stop-after N groups and
-SIGTERM / SIGINT (stop after the group in flight, final checkpoint,
-partial outputs).  A group's checkpoint is a copy of its state taken on the
-device right after its dispatch, written with the accumulators when the
-group is drained: checkpoints never drain a group early.  The resume guard
-refuses another --subchunks-per-step, capture count, capture format,
---device-decode setting, --mesh or process count.  Not ported:
---checkpoint-backend orbax (a JAX library), which exits 2.  --device picks
-the implementation (cuda: the
-kernels, cpu: their plain versions); --engine the engine (kernel, the
+Checkpoints: --checkpoint PATH every --checkpoint-every dispatch groups,
+--resume, --stop-after N groups and SIGTERM / SIGINT (stop after the group
+in flight, final checkpoint, partial outputs).  --checkpoint-backend orbax
+(the default, as in JAX) writes PATH as a directory, runtime/state.py's
+save_state_orbax of the [S, ...] state on torch.distributed.checkpoint; npz
+writes it as one file, save_state in the format both packages read.  Either
+way the accumulators go to a ``PATH.accum.npz`` sidecar, and --resume reads
+the backend --checkpoint-backend names (a directory JAX's orbax wrote is
+tensorstore, not DCP: it exits 1 naming the format).  A group's checkpoint
+is a copy of its state taken on the device right after its dispatch,
+written with the accumulators when the group is drained: checkpoints never
+drain a group early.  The resume guard refuses another
+--subchunks-per-step, capture count, capture format, --device-decode
+setting, --mesh or process count.  --device picks the implementation (cuda:
+the kernels, cpu: their plain versions); --engine the engine (kernel, the
 default; op: the JAX op engine's plain ops and state layout, every
 K_local), and --resume refuses a checkpoint of the other engine's layout.
 """
@@ -133,16 +139,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="blocks fused into one dispatch (a CUDA graph of "
                         "that many steps on the card; outputs equal to 1)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="checkpoint path (.npz): (blocks done, the [S, ...] "
-                        "state) plus <path>.accum.npz, the accumulated "
-                        "outputs; a SIGTERM/SIGINT flushes a final one")
+                   help="checkpoint path (a directory under orbax, a .npz "
+                        "file under npz): (blocks done, the [S, ...] state) "
+                        "plus <path>.accum.npz, the accumulated outputs; a "
+                        "SIGTERM/SIGINT flushes a final one")
     p.add_argument("--checkpoint-every", type=int, default=1,
                    help="dispatch groups between checkpoints (with "
                         "--checkpoint; a checkpoint never drains a group "
                         "early)")
     p.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
-                   default="npz",
-                   help="checkpoint format; the port writes npz only")
+                   default="orbax",
+                   help="orbax (default): a torch.distributed.checkpoint "
+                        "directory, saved by every process together (JAX's "
+                        "name; JAX's orbax files are another format); npz: "
+                        "one file in the format both packages read")
     p.add_argument("--resume", action="store_true",
                    help="restore --checkpoint and continue mid-batch; "
                         "outputs are identical to an uninterrupted run")
@@ -381,10 +391,6 @@ def main(argv=None, stats: dict | None = None) -> int:
                         format="[%(asctime)s %(name)s] %(message)s",
                         stream=sys.stderr)
     ns = build_parser().parse_args(argv)
-    if ns.checkpoint_backend == "orbax":
-        logging.error("not yet ported to sdr_pmr446_tpu_torch: "
-                      "--checkpoint-backend orbax (a JAX library)")
-        return 2
     try:
         mask = (C.parse_channel_mask(ns.mask) if ns.mask
                 else (1 << C.MAX_CHANNELS) - 1)
@@ -496,14 +502,19 @@ def main(argv=None, stats: dict | None = None) -> int:
     saved_at = {"blocks": -1}
 
     def save_ckpt(blocks_done: int, host_state: list) -> None:
-        # every stream's rows (a process holds its own): process 0 writes
+        # every stream's rows (a process holds its own), on every process
         rows = distributed.gather_state(mesh, type(state)(
             *(torch.from_numpy(v) for v in host_state)))
         saved_at["blocks"] = blocks_done
+        if ns.checkpoint_backend == "orbax":
+            # a collective: every process saves the same rows (JAX's
+            # orbax save, apps/scan_batch.py:307-315)
+            state_io.save_state_orbax(ns.checkpoint, blocks_done, rows)
+        elif writer:
+            state_io.save_state(ns.checkpoint, blocks_done, rows)
         if not writer:
             distributed.sync("scan_batch_ckpt")
             return
-        state_io.save_state(ns.checkpoint, blocks_done, rows)
         arrs = {"subchunk": np.int64(acc["subchunk"]),
                 "total_got": np.int64(acc["total_got"])}
         arrs.update({k: np.array(v) for k, v in guard.items()})
@@ -520,7 +531,8 @@ def main(argv=None, stats: dict | None = None) -> int:
     blocks_done = 0           # blocks dispatched AND drained
     if ns.resume:
         try:
-            blocks_done, loaded = state_io.load_state(ns.checkpoint, dev)
+            _, load = state_io.BACKENDS[ns.checkpoint_backend]
+            blocks_done, loaded = load(ns.checkpoint, dev)
             with np.load(ns.checkpoint + ".accum.npz") as z:
                 ck = {k: z[k] for k in z.files}
             state_io.check_layout(loaded, chain.engine)

@@ -2,31 +2,33 @@
 
 Counterpart of sdr_pmr446_tpu/apps/sdr_pmr446.py with the flags of the
 ported slice: -g/--gain, -s/--squelch, -w/--waterfall, -l/--lowpass,
--m/--mask, -a/--audio-gain, -p/--lock-mode, --fir-deemph, --input,
---input (a capture file, or rtl_tcp://host:port for a live network
-SDR: io/rtl_tcp.py), --input-format, --device-decode, --output (a WAV, or
+-m/--mask, -a/--audio-gain, -p/--lock-mode, --fir-deemph, --input
+(a capture file, or rtl_tcp://host:port for a live network SDR:
+io/rtl_tcp.py), --input-format, --device-decode, --output (a WAV, or
 ``live``: the audio player of -b/--audio-api, io/audio.py), --seconds,
---subchunks-per-step, --steps-per-dispatch (S blocks a dispatch through
-the driver: a CUDA graph of S steps on the card, captured at the first
+--subchunks-per-step, --steps-per-dispatch (S blocks a dispatch through the
+driver: a CUDA graph of S steps on the card, captured at the first
 megastep; ignored with --faithful, as in JAX), --faithful, --checkpoint,
---checkpoint-every,
---checkpoint-backend npz, --resume, --device (cuda: the kernels, cpu:
-their plain versions) and --engine (kernel, the default: the hand-written
-kernels; op: the JAX op engine's plain ops and its state layout, so a
-checkpoint the JAX CLI wrote off a TPU resumes with --engine op).  With -w W each sub-chunk prints its ASCII
-waterfall line and the channel footer (the reference's terminal UI) on
-stdout.  SIGTERM and SIGQUIT stop the scan at the next block boundary,
-flush a final checkpoint (with --checkpoint) and write the partial WAV
-(exit 0); SIGUSR1 does nothing; an interrupt (SIGINT) exits 130.
---faithful runs the validation chain (scanner/faithful.py) on the
-capture decoded to complex64; with --device-decode it exits 1, as in JAX.
---resume without --checkpoint, or from a missing or unreadable
-checkpoint, exits 1.  -b names the audio API as in JAX (unspecified, alsa,
-pulse, wav, dummy; an unknown or unavailable one exits 1); --output live
-needs a live one.  An rtl_tcp:// input streams --seconds of radio (cu8 over
-the network, converted on the host as a cf32 capture is, then the cf32
-wire); it exits 1 with --faithful or --device-decode.
---checkpoint-backend orbax (a JAX library) exits 2, "not yet ported".
+--checkpoint-every, --checkpoint-backend (npz, the default, one file in the
+format both packages read; orbax, a torch.distributed.checkpoint directory:
+JAX's name, not JAX's orbax files), --resume, --device (cuda: the kernels,
+cpu: their plain versions) and --engine (kernel, the default: the
+hand-written kernels; op: the JAX op engine's plain ops and its state
+layout, so a checkpoint the JAX CLI wrote off a TPU resumes with --engine
+op).  With -w W each sub-chunk prints its ASCII waterfall line and the
+channel footer (the reference's terminal UI) on stdout.  SIGTERM and
+SIGQUIT stop the scan at the next block boundary, flush a final checkpoint
+(with --checkpoint) and write the partial WAV (exit 0); SIGUSR1 does
+nothing; an interrupt (SIGINT) exits 130.  --faithful runs the validation
+chain (scanner/faithful.py) on the capture decoded to complex64; with
+--device-decode it exits 1, as in JAX.  --resume without --checkpoint, or
+from a missing or unreadable checkpoint (under orbax also a directory that
+is no DCP checkpoint, such as one JAX's orbax wrote), exits 1.  -b names
+the audio API as in JAX (unspecified, alsa, pulse, wav, dummy; an unknown
+or unavailable one exits 1); --output live needs a live one.  An rtl_tcp://
+input streams --seconds of radio (cu8 over the network, converted on the
+host as a cf32 capture is, then the cf32 wire); it exits 1 with --faithful
+or --device-decode.
 
     python -m sdr_pmr446_tpu_torch.apps.sdr_pmr446 --input cap.cu8 -w 120
 """
@@ -117,24 +119,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the faithful gated audio path (validation mode, "
                         "exact reference semantics through transitions)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="checkpoint file (.npz): periodically persist "
+                   help="checkpoint path (a .npz file, or a directory with "
+                        "--checkpoint-backend orbax): periodically persist "
                         "(block index, state) for --resume")
     p.add_argument("--checkpoint-every", type=int, default=1,
                    help="blocks between checkpoints (with --checkpoint)")
     p.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
                    default="npz",
-                   help="checkpoint format; the port writes npz only")
+                   help="npz: one file in the format both packages read; "
+                        "orbax: a directory (torch.distributed.checkpoint "
+                        "here, not JAX's orbax files)")
     p.add_argument("--resume", action="store_true",
                    help="restore --checkpoint and continue mid-capture")
     return p
-
-
-def _unported(ns) -> list[str]:
-    """Flags given that the port does not implement."""
-    found = []
-    if ns.checkpoint_backend == "orbax":
-        found.append("--checkpoint-backend orbax (a JAX library)")
-    return found
 
 
 def _live_sink(ns):
@@ -168,12 +165,6 @@ def main(argv=None) -> int:
                         format="[%(asctime)s %(name)s] %(message)s",
                         stream=sys.stderr)
     ns = build_parser().parse_args(argv)
-    unported = _unported(ns)
-    if unported:
-        logging.error("not yet ported to sdr_pmr446_tpu_torch: %s "
-                      "(use python -m sdr_pmr446_tpu.apps.sdr_pmr446)",
-                      ", ".join(unported))
-        return 2
     try:
         mask = (C.parse_channel_mask(ns.mask) if ns.mask
                 else (1 << C.MAX_CHANNELS) - 1)
@@ -274,6 +265,7 @@ def _scan(ns, mask: int, live: bool, live_sink) -> int:
                          or live_sink is not None else None),
             checkpoint_path=ns.checkpoint,
             checkpoint_every=ns.checkpoint_every,
+            checkpoint_backend=ns.checkpoint_backend,
             steps_per_dispatch=ns.steps_per_dispatch, engine=ns.engine)
     except (ValueError, RuntimeError) as e:
         logging.error("%s", e)

@@ -34,6 +34,13 @@ rank's device.  Gloo's CUDA-tensor support does not cover every collective,
 and on a machine with one card two ranks share it (NCCL refuses two ranks
 on one GPU).  So a distributed step reads the host; ``STATS`` keeps the
 calls, the bytes and the host seconds of the staging and of the collectives.
+
+Inside a megastep's CUDA-graph capture (runtime/fuse.py
+``SegmentedGraphRecorder``) a collective stages through static pinned
+buffers instead (``Exchange``): the warm-up plans one per collective, the
+capture copies the send bytes into it at the end of one graph segment and
+the received bytes out of it at the start of the next, and each replay
+runs the gloo collective between the two segments.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from sdr_pmr446_tpu_torch import device as devices
+from sdr_pmr446_tpu_torch.runtime import fuse
 
 log = logging.getLogger("distributed")
 
@@ -250,11 +258,73 @@ def _to_bytes(t: torch.Tensor) -> torch.Tensor:
     return torch.cat([b, b.new_zeros(pad)]) if pad else b
 
 
+class Exchange:
+    """One collective of a captured megastep: static pinned buffers for its
+    send bytes [nbytes] and its receive bytes [ranks, nbytes].  Called
+    between its two graph segments, it waits for the device work queued so
+    far (the first segment's copy into ``send``), then runs the gloo
+    all_gather into ``recv``, counted in ``STATS`` as an eager one is."""
+
+    def __init__(self, nbytes: int, group, device: torch.device):
+        self.group = group
+        self.device = device
+        self.ranks = dist.get_world_size(group)
+        cuda = device.type == "cuda"     # the CPU: plain host buffers
+        self.send = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
+        self.recv = torch.empty((self.ranks, nbytes), dtype=torch.uint8,
+                                pin_memory=cuda)
+        self.rows = list(self.recv)
+        self.done = torch.cuda.Event() if cuda else None
+
+    def matches(self, nbytes: int, group) -> bool:
+        return self.send.numel() == nbytes and self.group is group
+
+    def __call__(self) -> None:
+        t0 = time.perf_counter()
+        if self.done is not None:
+            self.done.record(torch.cuda.current_stream(self.device))
+            self.done.synchronize()
+        t1 = time.perf_counter()
+        dist.all_gather(self.rows, self.send, group=self.group)
+        STATS["calls"] += 1
+        STATS["bytes"] += self.recv.numel()
+        STATS["stage_s"] += t1 - t0
+        STATS["collective_s"] += time.perf_counter() - t1
+
+    @staticmethod
+    def agree(exchanges: list) -> None:
+        """The ranks of the exchanges' group agree on the schedule: one
+        collective of (collectives, bytes sent, a hash of each size in
+        order); a rank whose schedule differs raises, on every rank."""
+        group = exchanges[0].group
+        if any(e.group is not group for e in exchanges):
+            raise RuntimeError("a captured megastep's collectives span "
+                               "several process groups")
+        digest = 0
+        for e in exchanges:
+            digest = (digest * 1000003 + e.send.numel()) % (1 << 61)
+        mine = torch.tensor([len(exchanges), sum(e.send.numel()
+                                                 for e in exchanges), digest],
+                            dtype=torch.int64)
+        every = [torch.empty_like(mine) for _ in range(exchanges[0].ranks)]
+        dist.all_gather(every, mine, group=group)
+        if any(not torch.equal(t, every[0]) for t in every):
+            raise RuntimeError(
+                "the ranks captured different collective schedules "
+                "(collectives, bytes, hash): "
+                + "; ".join(str(t.tolist()) for t in every))
+
+
 def all_gather(tensors, group=None) -> list:
     """[[each of ``tensors`` from rank g] for g in the group's ranks]: one
     gloo all_gather of their bytes, staged through the host, the results
-    on the tensors' devices."""
+    on the tensors' devices.  Under a megastep's warm-up it also plans an
+    ``Exchange``; under its capture it goes through that Exchange's
+    static pinned buffers and cuts the capture between them."""
     dev = tensors[0].device
+    segments = fuse.segmenting()
+    if segments is not None and segments.capturing:
+        return _captured_all_gather(tensors, group, segments)
     t0 = time.perf_counter()
     buf = torch.cat([_to_bytes(t) for t in tensors]).cpu()
     t1 = time.perf_counter()
@@ -266,8 +336,36 @@ def all_gather(tensors, group=None) -> list:
     STATS["bytes"] += buf.numel() * n
     STATS["stage_s"] += t1 - t0
     STATS["collective_s"] += time.perf_counter() - t1
+    if segments is not None:
+        segments.planned.append(Exchange(buf.numel(), group, dev))
+    return _unpack(back, tensors)
+
+
+def _captured_all_gather(tensors, group, segments) -> list:
+    """``all_gather`` inside a capture: the send bytes copied into the
+    planned Exchange's pinned buffer, the capture cut, the received bytes
+    copied from its pinned buffer in the next segment.  Nothing is
+    exchanged now (no kernel runs during a capture)."""
+    buf = torch.cat([_to_bytes(t) for t in tensors])
+    planned = segments.planned[len(segments.cuts):]
+    if planned and not planned[0].matches(buf.numel(), group):
+        raise RuntimeError(
+            f"collective {len(segments.cuts) + 1} of the capture sends "
+            f"{buf.numel()} bytes, the warm-up's {planned[0].send.numel()}")
+    if planned:
+        planned[0].send.copy_(buf, non_blocking=True)
+    exchange = segments.cut()       # raises where the warm-up made none
+    back = torch.empty(tuple(exchange.recv.shape), dtype=torch.uint8,
+                       device=buf.device)
+    back.copy_(exchange.recv, non_blocking=True)
+    return _unpack(back, tensors)
+
+
+def _unpack(back: torch.Tensor, tensors) -> list:
+    """Each rank's row of ``back`` [ranks, bytes] split back into tensors
+    shaped as ``tensors``."""
     res = []
-    for g in range(n):
+    for g in range(back.shape[0]):
         row, off, got = back[g], 0, []
         for t in tensors:
             nb = t.numel() * t.element_size()

@@ -16,19 +16,22 @@ As in the JAX driver (driver.py:139-177, 189-306):
     ``rel_rssi``, ``rssi_db`` (16 values to 0.01 dB), ``ctcss_detected``,
     ``ctcss_code`` and ``events`` (the sub-chunk's log lines);
   - ``checkpoint_path`` / ``checkpoint_every``: (block index, state) saved
-    as .npz (runtime/state.py ``save_state``, the JAX package's npz format)
     every ``checkpoint_every`` blocks (0: only ``checkpoint_now()`` and the
     final flush on a stop write it); ``restore()`` loads it, reconciles its
     history lengths (``adapt_state_histories``), refuses a layout the chain
     cannot take, and makes the next ``run()`` skip the blocks already
     processed (one-shot);
+  - ``checkpoint_backend``: ``"npz"`` (the default: runtime/state.py
+    ``save_state``, one file in the npz format both packages read) or
+    ``"orbax"`` (JAX's name for its directory backend: ``save_state_orbax``,
+    a torch.distributed.checkpoint directory, which JAX's orbax does not
+    read, nor the port JAX's);
   - ``engine``: the chain's engine (engine.py; JAX's ``engine`` flag, the
     op engine its ``xla``), whose state layout ``restore()`` holds a
     checkpoint to;
   - ``request_stop()`` (a signal handler's call) makes ``run()`` finish the
     step in flight, drain it, write a final checkpoint and return the
-    partial result at the next block boundary.  The orbax backend names a
-    JAX library and has no counterpart.
+    partial result at the next block boundary.
 
 The step is asynchronous on a CUDA device, so block i+1 is dispatched
 before block i's outputs are read back: the host-side drain overlaps the
@@ -148,7 +151,11 @@ class ScannerDriver:
                  metrics_path: Optional[str] = None,
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 0, steps_per_dispatch: int = 1,
-                 prefetch_depth: int = 2, engine: str = "kernel"):
+                 prefetch_depth: int = 2, engine: str = "kernel",
+                 checkpoint_backend: str = "npz"):
+        if checkpoint_backend not in state_io.BACKENDS:
+            raise ValueError(f"checkpoint_backend {checkpoint_backend!r}: "
+                             f"one of {', '.join(state_io.BACKENDS)}")
         self.args = args or C.ScannerArgs()
         self.chain = ScannerChain(
             C.BlockConfig(subchunks_per_step), lowpass=self.args.lowpass,
@@ -166,6 +173,7 @@ class ScannerDriver:
         self.metrics_path = metrics_path
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
+        self.checkpoint_backend = checkpoint_backend
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self.prefetch_depth = max(1, int(prefetch_depth))
         self._resume_skip = 0            # armed by restore(), one-shot
@@ -182,17 +190,17 @@ class ScannerDriver:
         """Save (block_index, state) now, whatever the cadence (the final
         flush of a stopped run); does nothing without a checkpoint_path."""
         if self.checkpoint_path:
-            state_io.save_state(self.checkpoint_path, self.block_index,
-                                self.state)
+            save, _ = state_io.BACKENDS[self.checkpoint_backend]
+            save(self.checkpoint_path, self.block_index, self.state)
 
     def restore(self, path: Optional[str] = None) -> int:
         """Load a checkpoint (``path`` or checkpoint_path); the next run()
         skips the blocks of its input that it covers.  Returns the restored
         block index.  Raises ValueError for a state this chain cannot take
         (the other engine's layout: state.check_layout; a non-history
-        shape mismatch)."""
-        block_index, loaded = state_io.load_state(
-            path or self.checkpoint_path, self.device)
+        shape mismatch), FileNotFoundError for a missing checkpoint."""
+        _, load = state_io.BACKENDS[self.checkpoint_backend]
+        block_index, loaded = load(path or self.checkpoint_path, self.device)
         state_io.check_layout(loaded, self.engine)
         self.state = state_io.adapt_state_histories(loaded,
                                                     self.chain.init_state())

@@ -22,9 +22,18 @@ the megastep is the plain loop of S steps.  There is no fallback: on a
 CUDA device a capture or replay error raises.
 
 A sharded step whose halos cross processes (parallel/distributed.py: a
-time group of several ranks) reads the host in its host-staged
-collectives, which no CUDA graph can hold: its megastep is the loop of S
-steps on the card too, equal bit for bit, and says so once in the log.
+time group of several ranks) runs host-staged gloo collectives, which no
+CUDA graph can hold.  Its S steps are captured as an ordered list of
+graphs, segment 0 .. n, cut at each collective (``SegmentedGraphRecorder``):
+segment k ends with a captured copy of the collective's send bytes into a
+static pinned host buffer, segment k + 1 begins with a captured copy of
+the static pinned receive buffer to the device, and a replay runs segment
+k, waits for it, runs the gloo collective on the pinned buffers, then runs
+segment k + 1.  The warm-up runs the real collectives and plans the
+buffers; the capture exchanges nothing (no kernel runs), so every rank of
+the group captures in the same megastep call, and then the ranks agree on
+the schedule (the number of collectives and their sizes) with one
+collective.  The outputs are bit for bit the loop of the S steps.
 
 A graph reads and writes fixed buffers, so a call copies the caller's
 state, inputs and params into the graph's static inputs on the device,
@@ -40,17 +49,19 @@ Launch counts.  The kernel wrappers count a launch when they are called
 (``LAUNCHES`` in kernels/*.py), so the warm-up and the capture would count
 launches that a replay makes.  ``CountedGraph`` takes back what the
 warm-up and the capture counted, records what the capture counted, and
-adds it at each replay: a count is launches that ran and delivered a
-result, whether eagerly or in a replay.
+adds it at each replay (of every segment): a count is launches that ran
+and delivered a result, whether eagerly or in a replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import itertools
 import logging
 import sys
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -85,6 +96,22 @@ def add_launch_counts(delta: Dict[Tuple[str, str], int]) -> None:
         setattr(mod, attr, getattr(mod, attr) + n)
 
 
+@contextlib.contextmanager
+def _collected_first():
+    """The cycle collector run now and off until the context ends.  A
+    chain is a reference cycle (its megastep holds its step), so a dead
+    chain's graphs die when the collector runs; a run inside a capture
+    would reset a graph there and void the capture."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class CudaGraphRecorder:
     """Captures into and replays one ``torch.cuda.CUDAGraph``; the capture
     runs on ``stream`` (the warm-up's side stream), a replay on the
@@ -95,22 +122,106 @@ class CudaGraphRecorder:
         self.graph = torch.cuda.CUDAGraph()
 
     def capture(self, fn: Callable):
-        # a chain is a reference cycle (its megastep holds its step), so
-        # a dead chain's graphs die when the cycle collector runs; one
-        # that ran inside a capture would reset a graph there and void
-        # the capture: collect first, and not during the capture
-        gc.collect()
-        enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, stream=self.stream):
-                return fn()
-        finally:
-            if enabled:
-                gc.enable()
+        with _collected_first(), torch.cuda.graph(self.graph,
+                                                  stream=self.stream):
+            return fn()
 
     def replay(self) -> None:
         self.graph.replay()
+
+
+class SegmentedGraphRecorder:
+    """Captures a body that runs host exchanges (a time split's host-staged
+    collectives) as an ordered list of CUDA graphs, and replays them with
+    each exchange between its two graphs.  The interface of
+    ``CudaGraphRecorder`` (``capture(fn)``, ``replay()``), plus:
+
+      - ``active(False)``: the context of the eager warm-up, during which
+        each exchange runs for real and adds its ``Exchange`` (static
+        pinned buffers, parallel/distributed.py) to ``planned``, in order;
+      - ``cut()``: called by the k-th exchange inside the capture, returns
+        its planned ``Exchange`` after ending the current graph and
+        beginning the next (the caller captured its send copy before and
+        captures its receive copy after).
+
+    After the capture the exchanges' group agrees on the schedule
+    (``Exchange.agree``); a mismatch raises.
+
+    Every graph draws from one memory pool: tensors made in segment k and
+    read in segment k + 1 stay valid, as the segments always replay in the
+    order they were captured."""
+
+    def __init__(self, stream: torch.cuda.Stream):
+        self.stream = stream
+        self.graphs: list = []
+        self.planned: list = []
+        self.cuts: list = []
+        self.capturing = False
+        self._pool = None
+
+    @contextlib.contextmanager
+    def active(self, capturing: bool):
+        """This recorder as ``segmenting()``'s answer, planning (the
+        warm-up) or capturing."""
+        global _ACTIVE
+        _ACTIVE, self.capturing = self, capturing
+        try:
+            yield
+        finally:
+            _ACTIVE, self.capturing = None, False
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self._pool)
+        self.graphs.append(graph)
+
+    def cut(self):
+        if len(self.cuts) >= len(self.planned):
+            raise RuntimeError(
+                f"the capture made a collective the warm-up did not (number "
+                f"{len(self.cuts) + 1}, the warm-up made {len(self.planned)})")
+        self.graphs[-1].capture_end()
+        self.cuts.append(self.planned[len(self.cuts)])
+        self._begin()
+        return self.cuts[-1]
+
+    def capture(self, fn: Callable):
+        torch.cuda.synchronize(self.stream.device)
+        self._pool = torch.cuda.graph_pool_handle()
+        self.graphs, self.cuts = [], []
+        with _collected_first(), torch.cuda.stream(self.stream):
+            self._begin()
+            try:
+                with self.active(True):
+                    result = fn()
+            finally:
+                self.graphs[-1].capture_end()
+        if len(self.cuts) != len(self.planned):
+            raise RuntimeError(
+                f"the capture made {len(self.cuts)} collectives, the warm-up "
+                f"{len(self.planned)}")
+        if self.cuts:
+            self.cuts[0].agree(self.cuts)
+        return result
+
+    def replay(self) -> None:
+        for graph, exchange in itertools.zip_longest(self.graphs, self.cuts):
+            graph.replay()
+            if exchange is not None:
+                exchange()
+
+
+#: the segmented recorder whose warm-up or capture is running, if any: a
+#: CUDA capture holds the whole thread, so one at a time per process, set
+#: only inside ``SegmentedGraphRecorder.active``
+_ACTIVE: Optional[SegmentedGraphRecorder] = None
+
+
+def segmenting() -> Optional[SegmentedGraphRecorder]:
+    """The ``SegmentedGraphRecorder`` planning (``.capturing`` False) or
+    capturing (True) right now, or None: parallel/distributed.py's
+    ``all_gather`` asks, to plan its buffers or to cut the capture."""
+    return _ACTIVE
 
 
 class CountedGraph:
@@ -170,10 +281,12 @@ def _concat(outs: list, dim: int):
 
 
 class _Captured:
-    """One megastep's graph: its static inputs, and the new state and the
-    S steps' outputs it writes."""
+    """One megastep's graph (with ``segmented``, its segments around the
+    step's host-staged collectives): its static inputs, and the new state
+    and the S steps' outputs it writes."""
 
-    def __init__(self, step: Callable, dim: int, state, xs, args):
+    def __init__(self, step: Callable, dim: int, state, xs, args,
+                 segmented: bool = False):
         dev = xs.device
         self.dim = dim
         self.state = [t.clone() for t in _leaves(state)]
@@ -181,7 +294,9 @@ class _Captured:
         self.args = [[t.clone() for t in _leaves(a)] for a in args]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        self.graph = CountedGraph(CudaGraphRecorder(side))
+        recorder = (SegmentedGraphRecorder if segmented
+                    else CudaGraphRecorder)(side)
+        self.graph = CountedGraph(recorder)
 
         def body():
             st = _rebuild(state, self.state)
@@ -195,7 +310,9 @@ class _Captured:
         t0 = time.perf_counter()
 
         def warmup():
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), (recorder.active(False)
+                                           if segmented
+                                           else contextlib.nullcontext()):
                 body()
             side.synchronize()
             self.warmup_ms = (time.perf_counter() - t0) * 1e3
@@ -224,16 +341,15 @@ class Megastep:
     """``fused(state, xs[S, ...], *args) -> (state', outs)``: S calls of
     ``step(state, xs[i], *args)``, each output leaf concatenated along
     ``dim`` (0: [S*K, ...], 1: [n_streams, S*K, ...]).  On a CUDA device a
-    captured graph a set of shapes (``graphs``), on the CPU the loop; the
-    loop on the card too where ``collective`` (the step runs host-staged
-    collectives)."""
+    captured graph a set of shapes (``graphs``), with ``segmented`` (the
+    step runs host-staged collectives) graph segments around them; on the
+    CPU the loop."""
 
     def __init__(self, step: Callable, dim: int = 0,
-                 collective: bool = False):
+                 segmented: bool = False):
         self.step = step
         self.dim = dim
-        self.collective = collective
-        self.said_loop = False
+        self.segmented = segmented
         self.graphs: Dict[tuple, _Captured] = {}
 
     def loop(self, state, xs, *args):
@@ -252,18 +368,18 @@ class Megastep:
             return self.loop(state, xs, *args)
         if xs.device.type != "cuda":
             raise ValueError(f"no megastep for device {xs.device}")
-        if self.collective:
-            if not self.said_loop:
-                log.info("the step's halos cross processes (host-staged "
-                         "collectives): multi_step runs its %d steps as a "
-                         "loop, not a CUDA graph", xs.shape[0])
-                self.said_loop = True
-            return self.loop(state, xs, *args)
         key = _signature(state, xs, *args)
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = _Captured(self.step, self.dim,
-                                                 state, xs, args)
+                                                 state, xs, args,
+                                                 self.segmented)
+            if self.segmented:
+                log.info("the step's halos cross processes: multi_step "
+                         "captured its %d steps as %d CUDA graphs around %d "
+                         "host-staged collectives", xs.shape[0],
+                         len(graph.graph.recorder.graphs),
+                         len(graph.graph.recorder.cuts))
         return graph(state, xs, args)
 
 
@@ -277,5 +393,5 @@ def fused_sharded_steps(step: Callable, time_ranks: int = 1) -> Megastep:
     """The megastep of a sharded block step over [n_streams, ...] inputs:
     xs [S, n_streams, ...], outputs stream-major [n_streams, S*K, ...]
     (JAX ``fused_sharded_steps``); ``time_ranks`` > 1 (a time group over
-    several processes) makes it the loop."""
-    return Megastep(step, dim=1, collective=time_ranks > 1)
+    several processes) captures it in segments around the collectives."""
+    return Megastep(step, dim=1, segmented=time_ranks > 1)

@@ -16,6 +16,12 @@ in JAX:
     history ``resamp_hist`` c64 [345] and the four FIR histories carried;
     ``audio_hist`` [16, 512] stays zero.
 
+Checkpoints: ``save_state`` / ``load_state`` write and read the npz file
+both packages read; ``save_state_orbax`` / ``load_state_orbax`` (JAX's
+names for its orbax backend) a torch.distributed.checkpoint directory with
+JAX's tree, for any chain's state, which JAX's orbax does not read (nor
+the port JAX's tensorstore directories).
+
 ``check_layout`` refuses a state of the other engine's layout, never
 reinterprets it.  With the waterfall on, ``wf_hist`` is c64 [w//2] as in
 the JAX state, and the port writes it and ``wf_cnt`` every step, so a JAX
@@ -38,6 +44,11 @@ the packages both ways too.
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
+import shutil
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -162,6 +173,152 @@ def load_state(path: str, device) -> tuple[int, ScannerState]:
                                 device=device) if f"s{i}" in z else None
                 for i in range(len(ScannerState._fields))]
         return int(z["block_index"]), ScannerState(*vals)
+
+
+# ------------------------------------------- the directory ("orbax") backend
+def save_state_orbax(path: str, block_index: int, state) -> None:
+    """Checkpoint (block index, state) as a directory, on
+    ``torch.distributed.checkpoint`` (DCP): the port's counterpart of JAX's
+    orbax backend (runtime/state.py ``save_state_orbax``), with its name
+    and its tree, ``{"block_index", "leaves": {"s<i>": ...}, "empties"}``.
+    Works for any chain's state NamedTuple, stacked [S, ...] states too.
+    Zero-size fields (``wf_hist`` with the waterfall off) are stored as
+    their (shape, dtype) in ``empties``, a JSON byte string, as in JAX.
+
+    ``path`` is overwritten as a whole: the tree goes to ``<path>.dcp-tmp``
+    and then replaces ``path``.  With no process group this is one
+    process's save.  In a process group it is a collective that every rank
+    calls with the same (replicated) tree; DCP plans the writes together,
+    writes each tensor once, and rank 0 writes the metadata and moves the
+    directory into place before a barrier releases the ranks.
+
+    DCP stores torch's own files (``.metadata``, ``__<rank>_0.distcp``);
+    JAX's orbax stores tensorstore / OCDBT.  The two directories are not
+    interchangeable: ``load_state_orbax`` refuses a JAX one by name, and the
+    npz format (``save_state``) is the one both packages read."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    leaves, empties = {}, {}
+    for i, v in enumerate(state_to_numpy(state)):
+        if v.size == 0:
+            empties[f"s{i}"] = [list(v.shape), str(v.dtype)]
+        else:
+            leaves[f"s{i}"] = torch.from_numpy(v)
+    meta = torch.tensor(list(json.dumps(empties).encode()), dtype=torch.uint8)
+    tree = {"block_index": torch.tensor(int(block_index), dtype=torch.int64),
+            "leaves": leaves, "empties": meta}
+    path = os.path.abspath(path)
+    tmp = path + ".dcp-tmp"
+    group = dist.is_available() and dist.is_initialized()
+    writer = not group or dist.get_rank() == 0
+    if writer:
+        # before the save's first collective: no rank writes into tmp
+        # until the writer has cleared it
+        shutil.rmtree(tmp, ignore_errors=True)
+    with _one_process_quiet():
+        dcp.save(tree, checkpoint_id=tmp, no_dist=not group)
+    if writer:
+        old = path + ".dcp-old"
+        shutil.rmtree(old, ignore_errors=True)
+        if os.path.isdir(path):
+            os.rename(path, old)
+        elif os.path.exists(path):
+            os.remove(path)
+        os.rename(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    if group:
+        dist.barrier()
+
+
+@contextlib.contextmanager
+def _one_process_quiet():
+    """Without DCP's warning that a call with no process group is one
+    process's (``no_dist`` says so already)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore",
+                                message="torch.distributed is disabled")
+        yield
+
+
+def _dcp_metadata(path: str):
+    """The DCP metadata of the checkpoint directory ``path``; raises
+    FileNotFoundError where there is nothing, ValueError naming what is
+    there where it is no DCP checkpoint (a file, a JAX orbax directory,
+    anything else)."""
+    from torch.distributed.checkpoint import FileSystemReader
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint directory {path!r}")
+    if not os.path.isdir(path):
+        raise ValueError(f"{path!r} is a file, not a checkpoint directory "
+                         f"(an npz checkpoint? --checkpoint-backend npz)")
+    found = sorted(os.listdir(path))
+    if ".metadata" not in found:
+        if {"_CHECKPOINT_METADATA", "manifest.ocdbt"} & set(found):
+            raise ValueError(
+                f"{path!r} is a JAX orbax checkpoint (tensorstore / OCDBT: "
+                f"{', '.join(found)}), which only JAX reads; the port reads "
+                f"torch.distributed.checkpoint directories and the npz "
+                f"format both packages share")
+        raise ValueError(
+            f"{path!r} is not a torch.distributed.checkpoint directory (no "
+            f".metadata; found: {', '.join(found) or 'nothing'})")
+    try:
+        return FileSystemReader(path).read_metadata()
+    except Exception as e:                      # noqa: BLE001 — any reader
+        raise ValueError(f"{path!r}: unreadable checkpoint metadata "
+                         f"({type(e).__name__}: {e})") from None
+
+
+def load_state_orbax(path: str, device, state_cls=ScannerState):
+    """Restore (block_index, state) from a ``save_state_orbax`` directory
+    (JAX runtime/state.py ``load_state_orbax``).  Each tensor is read at
+    the shape and dtype the checkpoint's own metadata gives, so a history
+    of another length reaches ``adapt_state_histories``; a field the
+    checkpoint lacks loads as None (then filled with the chain's init
+    value).  A plain read on every process (no collective).  Raises
+    FileNotFoundError / ValueError for a missing or foreign directory
+    (``_dcp_metadata``)."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.api import CheckpointException
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+    path = os.path.abspath(path)
+    meta = _dcp_metadata(path)
+    tree: dict = {"leaves": {}}
+    for key, m in meta.state_dict_metadata.items():
+        if not isinstance(m, TensorStorageMetadata):
+            continue
+        t = torch.zeros(tuple(m.size), dtype=m.properties.dtype)
+        if key.startswith("leaves."):
+            tree["leaves"][key[len("leaves."):]] = t
+        elif key in ("block_index", "empties"):
+            tree[key] = t
+    if "block_index" not in tree or "empties" not in tree:
+        raise ValueError(f"{path!r} holds no state checkpoint (keys: "
+                         f"{', '.join(sorted(meta.state_dict_metadata))})")
+    try:
+        with _one_process_quiet():
+            dcp.load(tree, checkpoint_id=path, no_dist=True)
+    except CheckpointException as e:     # a BaseException: make it an error
+        raise ValueError(f"{path!r}: cannot read the checkpoint ({e})") \
+            from None
+    empties = json.loads(bytes(tree["empties"].tolist()).decode())
+    vals = []
+    for i in range(len(state_cls._fields)):
+        key = f"s{i}"
+        if key in empties:
+            shape, dtype = empties[key]
+            vals.append(torch.from_numpy(np.zeros(tuple(shape), dtype)).to(
+                device))
+        elif key in tree["leaves"]:
+            vals.append(tree["leaves"][key].to(device))
+        else:
+            vals.append(None)
+    return int(tree["block_index"]), state_cls(*vals)
+
+
+#: ``--checkpoint-backend`` (JAX's names) -> (save, load)
+BACKENDS = {"npz": (save_state, load_state),
+            "orbax": (save_state_orbax, load_state_orbax)}
 
 
 #: the JAX op engine's FIR histories (use_pallas=False), zero on every

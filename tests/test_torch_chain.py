@@ -264,19 +264,21 @@ def test_app_scans_capture_on_cpu(tmp_path, caplog):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["-w", "6"], 1), (["--checkpoint-backend", "orbax"], 2),
+    (["-w", "6"], 1),
+    (["--checkpoint-backend", "orbax", "--checkpoint", "no_such_ckpt.dir",
+      "--resume", "--device", "cpu"], 1),
     (["-b", "nosuch"], 1),
     (["--input", "rtl_tcp://localhost:1234", "--faithful"], 1),
     (["-m", "1-64"], 1), (["-m", "65"], 1),
     (["--device", "meta"], 1), (["--device-decode", "--device", "cpu"], 1),
     (["--resume", "--device", "cpu"], 1)])
 def test_app_rejects_unported_and_bad_flags(argv, rc, tmp_path):
-    """Flags of parts not ported (the orbax backend) exit 2, never a
-    no-op; an audio API that is not compiled in, --faithful on a live
-    rtl_tcp input, an empty channel mask, a channel out of range, an
-    invalid waterfall width, a device that is neither cuda nor cpu,
-    --device-decode without a capture file (as in JAX) and --resume
-    without --checkpoint exit 1."""
+    """An audio API that is not compiled in, --faithful on a live rtl_tcp
+    input, an empty channel mask, a channel out of range, an invalid
+    waterfall width, a device that is neither cuda nor cpu,
+    --device-decode without a capture file (as in JAX), --resume without
+    --checkpoint and an orbax --resume of a missing directory exit 1 and
+    write no WAV."""
     from sdr_pmr446_tpu_torch.apps import sdr_pmr446 as app
     out = tmp_path / "a.wav"
     assert app.main(argv + ["--seconds", "0.2", "--output", str(out)]) == rc

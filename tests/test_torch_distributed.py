@@ -26,8 +26,10 @@ between them, and
     tests/test_multihost.py:176-188); --mesh 1,4 (a time split, the
     --device-decode reader reading each process's time run);
   - --checkpoint --stop-after 1 over two processes, then --resume over two,
-    equal to the uninterrupted run (tests/test_multihost.py:190-258), and
-    the resume guard refusing another process count; a stop asked of
+    equal to the uninterrupted run (tests/test_multihost.py:190-258), on
+    each backend: npz (process 0 writes the file) and orbax (both ranks
+    save the gathered rows in one torch.distributed.checkpoint collective),
+    and the resume guard refusing another process count; a stop asked of
     process 1 alone stopping both after the same group, resumed equal to
     an uninterrupted run;
   - the rank layout (``rank_block``) for (2, 2), (1, 4) and (4, 5) over two
@@ -369,7 +371,8 @@ def test_scan_batch_two_process_checkpoint_resume(batch_runs):
     from sdr_pmr446_tpu_torch.apps import scan_batch
     tmp, caps, ref, _ = batch_runs
     ckpt = os.path.join(tmp, "mh.npz")
-    argv = caps + BATCH + ["--mesh", "2,2", "--checkpoint", ckpt]
+    argv = caps + BATCH + ["--mesh", "2,2", "--checkpoint", ckpt,
+                           "--checkpoint-backend", "npz"]
     run_batch_pair(tmp, "p", argv + ["--stop-after", "1"])
     assert os.path.exists(ckpt) and os.path.exists(ckpt + ".accum.npz")
     with np.load(ckpt) as z:
@@ -381,6 +384,26 @@ def test_scan_batch_two_process_checkpoint_resume(batch_runs):
                                    os.path.join(tmp, "one")]) == 1
 
 
+def test_scan_batch_two_process_orbax_checkpoint_resume(batch_runs):
+    """The same over the default backend: both processes call the
+    directory save (torch.distributed.checkpoint, a collective) with the
+    gathered rows, two processes resume from it, and process 0's files
+    equal the uninterrupted run's; the directory holds every stream's
+    rows."""
+    from sdr_pmr446_tpu_torch.runtime import state as state_io
+    tmp, caps, ref, _ = batch_runs
+    ckpt = os.path.join(tmp, "mh_dcp")
+    argv = caps + BATCH + ["--mesh", "2,2", "--checkpoint", ckpt]
+    run_batch_pair(tmp, "po", argv + ["--stop-after", "1"])
+    assert os.path.isfile(os.path.join(ckpt, ".metadata"))
+    assert os.path.exists(ckpt + ".accum.npz")
+    bi, st = state_io.load_state_orbax(ckpt, "cpu")
+    assert bi == 1 and st.dc_x.shape[0] == 2
+    out0, out1 = run_batch_pair(tmp, "ro", argv + ["--resume"])
+    assert files(out0) == files(ref)
+    assert os.listdir(out1) == []
+
+
 def test_scan_batch_stop_on_one_process_stops_both(tmp_path):
     """A stop asked of process 1 alone (--stop-after 2 on its command line,
     as a signal to it would): both processes agree on it, stop after the
@@ -390,7 +413,8 @@ def test_scan_batch_stop_on_one_process_stops_both(tmp_path):
     tmp = str(tmp_path)
     caps = batch_captures(tmp, n_sub=24, prefix="scap")
     ckpt = os.path.join(tmp, "stop.npz")
-    argv = caps + BATCH + ["--mesh", "2,2", "--checkpoint", ckpt]
+    argv = caps + BATCH + ["--mesh", "2,2", "--checkpoint", ckpt,
+                           "--checkpoint-backend", "npz"]
     logs = spawn_pair(_BATCH_WORKER, lambda r: [
         os.path.join(tmp, f"k{r}"), "-",
         json.dumps(argv + (["--stop-after", "2"] if r else [])), "[]"])

@@ -11,9 +11,9 @@ Counterparts of tests/test_driver_apps.py on the CPU (plain versions):
   - request_stop() flushes a final checkpoint (with checkpoint_every=0
     nothing else writes it), and resuming from it is bit-exact (:474);
   - the CLI's --checkpoint / --checkpoint-every / --resume, and its error
-    exits: --resume without --checkpoint, from a missing or a corrupt file
-    (1), --checkpoint-backend orbax (2, it names a JAX library) (:208-214,
-    :271);
+    exits: --resume without --checkpoint, from a missing or a corrupt file,
+    or from an npz file under --checkpoint-backend orbax (1) (:208-214,
+    :271; the orbax backend itself: tests/test_torch_checkpoint.py);
   - adapt_state_histories agrees with JAX's on padded and truncated
     histories and rejects a non-history mismatch naming the field;
     load_state fills a field the file lacks with the chain's init value;
@@ -234,8 +234,8 @@ def test_app_checkpoint_flags(capture, tmp_path, caplog):
                       (["--resume", "--checkpoint",
                         str(tmp_path / "nope.npz")], 1),
                       (["--resume", "--checkpoint", str(bad)], 1),
-                      (["--checkpoint", ckpt, "--checkpoint-backend",
-                        "orbax"], 2)):
+                      (["--resume", "--checkpoint", ckpt,
+                        "--checkpoint-backend", "orbax"], 1)):
         assert app.main(base + extra) == rc, extra
 
 

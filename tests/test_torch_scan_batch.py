@@ -15,12 +15,14 @@ on meshes 2,1 (the duo) and 2,4 (the plane path).  The gates:
   - --device-decode on cu8 captures equal to the host decode
     (tests/test_driver_apps.py:353);
   - a stop (--stop-after) and a SIGTERM, each resumed, equal to the
-    uninterrupted run (:668, :723); the resume guard (:779), also on the
-    capture format and --device-decode; a checkpoint never drains a group
-    before the next one is dispatched;
-  - exit codes: orbax 2; a missing capture, a bad mesh, a process id
-    outside [0, --num-processes) and a mesh that does not split over the
-    processes 1 (both refused before any process group is joined);
+    uninterrupted run (:668, :723), the stop on both backends (orbax, the
+    default, and npz); the resume guard (:779), also on the capture format
+    and --device-decode; a checkpoint never drains a group before the next
+    one is dispatched;
+  - exit codes 1: an orbax --resume of a missing directory, a missing
+    capture, a bad mesh, a process id outside [0, --num-processes) and a
+    mesh that does not split over the processes (both refused before any
+    process group is joined);
     --coordinator with one process writes the files of a run without it
     (the two-process runs: tests/test_torch_distributed.py).
 """
@@ -191,19 +193,23 @@ def test_device_decode_equals_host_decode(tmp_path):
                  d_dev]) == 1
 
 
-def test_stop_and_resume_equal_uninterrupted(tmp_path):
-    """tests/test_driver_apps.py:668 (npz): --stop-after 1, then
-    --resume, equal to the uninterrupted run: WAVs, events, waterfall."""
+@pytest.mark.parametrize("backend", ["npz", "orbax"])
+def test_stop_and_resume_equal_uninterrupted(tmp_path, backend):
+    """tests/test_driver_apps.py:668: --stop-after 1, then --resume, equal
+    to the uninterrupted run: WAVs, events, waterfall; on each backend (a
+    file under npz, a directory under orbax)."""
     caps = captures(str(tmp_path), n_sub=12)
-    base = caps + ["--mesh", "2,1", "--subchunks-per-step", "4", "-w", "64"]
+    base = caps + ["--mesh", "2,1", "--subchunks-per-step", "4", "-w", "64",
+                   "--checkpoint-backend", backend]
     full = str(tmp_path / "full")
     assert port(base + ["--out-dir", full]) == 0
     ref = outputs(full)
-    ckpt = str(tmp_path / "ck.npz")
+    ckpt = str(tmp_path / ("ck.npz" if backend == "npz" else "ck"))
     part = str(tmp_path / "part")
     assert port(base + ["--out-dir", part, "--checkpoint", ckpt,
                         "--stop-after", "1"]) == 0
     assert os.path.exists(ckpt) and os.path.exists(ckpt + ".accum.npz")
+    assert os.path.isdir(ckpt) == (backend == "orbax")
     assert len(outputs(part)["cap0"][0]) < len(ref["cap0"][0])
     res = str(tmp_path / "res")
     assert port(base + ["--out-dir", res, "--checkpoint", ckpt,
@@ -222,7 +228,8 @@ def test_sigterm_and_resume_equal_uninterrupted(tmp_path):
     0 after a final checkpoint; --resume completes the batch equal to an
     uninterrupted run."""
     caps = captures(str(tmp_path), n_sub=160)
-    base = caps + ["--subchunks-per-step", "4", "--device", "cpu"]
+    base = caps + ["--subchunks-per-step", "4", "--device", "cpu",
+                   "--checkpoint-backend", "npz"]
     full = str(tmp_path / "full")
     assert scan_batch.main(base + ["--out-dir", full]) == 0
     ref = outputs(full, waterfall=False)
@@ -299,7 +306,8 @@ def test_checkpoint_waits_for_the_next_dispatch(tmp_path, monkeypatch):
     monkeypatch.setattr(state_io, "save_state", save_state)
     ckpt = str(tmp_path / "c.npz")
     assert port(caps + ["--out-dir", str(tmp_path / "o"), "--checkpoint",
-                        ckpt, "--subchunks-per-step", "2",
+                        ckpt, "--checkpoint-backend", "npz",
+                        "--subchunks-per-step", "2",
                         "--steps-per-dispatch", "2"]) == 0
     assert order == ["dispatch", "dispatch", "save 2", "dispatch",
                      "save 4", "dispatch", "save 6", "save 8"], order
@@ -317,7 +325,7 @@ def test_checkpoint_waits_for_the_next_dispatch(tmp_path, monkeypatch):
       "--process-id", "2"], 1),
     (["--coordinator", "127.0.0.1:1", "--num-processes", "2", "--mesh",
       "1,1"], 1),
-    (["--checkpoint-backend", "orbax"], 2),
+    (["--checkpoint", "no_such_ckpt.dir", "--resume"], 1),
     (["--mesh", "3,1"], 1),
     (["--mesh", "2,3"], 1),
     (["--mesh", "two"], 1),
