@@ -28,7 +28,10 @@ the audio API as in JAX (unspecified, alsa, pulse, wav, dummy; an unknown
 or unavailable one exits 1); --output live needs a live one.  An rtl_tcp://
 input streams --seconds of radio (cu8 over the network, converted on the
 host as a cf32 capture is, then the cf32 wire); it exits 1 with --faithful
-or --device-decode.
+or --device-decode.  --trace DIR profiles the scan with the span recorder
+on: DIR/trace.json is torch.profiler's Chrome trace with the program's
+spans on the same timeline, DIR/counters.json the counters
+(utils/profiling.py).
 
     python -m sdr_pmr446_tpu_torch.apps.sdr_pmr446 --input cap.cu8 -w 120
 """
@@ -36,6 +39,7 @@ or --device-decode.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import signal
 import sys
@@ -54,6 +58,7 @@ from sdr_pmr446_tpu_torch.runtime.driver import ScannerDriver, wire_blocks
 from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
 from sdr_pmr446_tpu_torch.scanner.faithful import FaithfulScannerChain
 from sdr_pmr446_tpu_torch.ui import waterfall as wf_ui
+from sdr_pmr446_tpu_torch.utils import profiling
 
 FORMATS = "cf32 fc32 cs16 sc16 cs8 cu8 rtlsdr".split()
 
@@ -131,6 +136,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "here, not JAX's orbax files)")
     p.add_argument("--resume", action="store_true",
                    help="restore --checkpoint and continue mid-capture")
+    p.add_argument("--trace", type=str, default=None, metavar="DIR",
+                   help="profile the driver's scan (not --faithful): "
+                        "DIR/trace.json (the profiler's Chrome trace with "
+                        "the program's spans) and DIR/counters.json")
     return p
 
 
@@ -310,7 +319,8 @@ def _scan(ns, mask: int, live: bool, live_sink) -> int:
     else:
         blocks = wire_blocks(raw, fmt, driver.feed_len)
     try:
-        result = driver.run(blocks)
+        with _traced(ns.trace):
+            result = driver.run(blocks)
     except KeyboardInterrupt:
         log.info("Signal caught, exiting!")
         driver.checkpoint_now()
@@ -329,6 +339,19 @@ def _scan(ns, mask: int, live: bool, live_sink) -> int:
                  n / C.AUDIO_SAMPLERATE, ns.output)
     log.info("Exiting")
     return 0
+
+
+@contextlib.contextmanager
+def _traced(log_dir):
+    """With a ``--trace`` DIR, the body under the profiler with the span
+    recorder on; else nothing."""
+    if log_dir is None:
+        yield
+        return
+    with profiling.recording(), profiling.trace(log_dir):
+        yield
+    logging.getLogger("sdr_pmr446").info("trace and counters written to %s",
+                                         log_dir)
 
 
 def _run_faithful(ns, args, raw: np.ndarray, fmt: str, log,

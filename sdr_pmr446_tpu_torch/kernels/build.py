@@ -31,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from sdr_pmr446_tpu_torch.utils.profiling import count
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -255,8 +257,10 @@ def sass_by_function(lib: Path | None = None) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first call), argtypes set."""
+    """The loaded kernel library (built at first call), argtypes set;
+    each load counts ``kernels.library_loads``."""
     lib = ctypes.CDLL(str(build()))
+    count("kernels.library_loads")
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

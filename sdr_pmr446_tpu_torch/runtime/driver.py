@@ -47,13 +47,27 @@ device's work.  As in the JAX driver (driver.py:41-60, 118-126, 195-250):
     pinned host buffers, each upload non-blocking on a copy stream that
     runs up to ``prefetch_depth`` blocks ahead of the step that reads it
     (``device_prefetch``); the values are the same.
+
+Spans and counters (utils/profiling.py; spans only while the recorder is
+on, each with the first stream-block it concerns): ``prefetch.*`` in
+``device_prefetch``; ``dispatch.stack`` (a megastep's blocks stacked),
+``driver.dispatch`` (the ``chain.multi_step`` call, over runtime/fuse.py's
+``megastep.*``) or ``step.eager`` (a ``chain.step`` call: S = 1, tail
+blocks); in ``_drain`` ``drain.wait`` (the host waiting for the card),
+``drain.fetch`` (the outputs' copies to the host) and ``drain.subchunks``
+(the per-sub-chunk loop; the time in ``on_subchunk`` summed into one child
+``drain.on_subchunk``); ``driver.checkpoint`` (a save).  Counters:
+``driver.blocks``, ``driver.dispatches``, ``driver.eager_steps``,
+``drain.subchunks``, ``drain.audio_subchunks``, ``drain.events``.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import logging
+import time
 from typing import Callable, Iterable, Iterator, List, Optional
 
 import numpy as np
@@ -64,13 +78,15 @@ from sdr_pmr446_tpu_torch.runtime import state as state_io
 from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
                                                 make_runtime_params,
                                                 outputs_to_numpy)
-from sdr_pmr446_tpu_torch.utils.profiling import log_jsonl
+from sdr_pmr446_tpu_torch.utils import profiling
+from sdr_pmr446_tpu_torch.utils.profiling import count, log_jsonl, span
 
 log = logging.getLogger("sdr_pmr446")
 
 
 def device_prefetch(blocks: Iterable[np.ndarray], device: torch.device,
-                    depth: int) -> Iterator[torch.Tensor]:
+                    depth: int, first_block: int = 0
+                    ) -> Iterator[torch.Tensor]:
     """Each block's bytes as a uint8 tensor on ``device``, uploaded up to
     ``depth`` blocks ahead of the one yielded (JAX ``_device_prefetch``).
 
@@ -79,12 +95,24 @@ def device_prefetch(blocks: Iterable[np.ndarray], device: torch.device,
     rewritten before its last copy's event has completed, the current
     stream waits on a block's event before the block is yielded, and the
     block's memory is not reused before that stream is done with it.  On
-    the CPU the blocks are yielded as they come."""
+    the CPU the blocks are yielded as they come.
+
+    Spans (``first_block`` numbers the first block): ``prefetch.source``,
+    the caller's ``next()``; on a CUDA device ``prefetch.slot_wait`` (the
+    wait for a slot's last copy: counted in ``prefetch.slot_waits_blocked``
+    when it had not finished), ``prefetch.host_copy`` (into the pinned
+    buffer; its first allocation ``prefetch.pin``) and ``prefetch.upload``
+    (the device buffer, the copy and its event); ``prefetch.bytes`` counts
+    the bytes."""
+    blocks = iter(blocks)
     if device.type != "cuda":
-        for blk in blocks:
+        for b in itertools.count(first_block):
+            with span("prefetch.source", b):
+                blk = next(blocks, _END)
+            if blk is _END:
+                return
             yield torch.from_numpy(np.ascontiguousarray(blk).view(
                 np.uint8).reshape(-1))
-        return
     depth = max(1, int(depth))
     copy_stream = torch.cuda.Stream(device)
     compute = torch.cuda.current_stream(device)
@@ -97,17 +125,29 @@ def device_prefetch(blocks: Iterable[np.ndarray], device: torch.device,
         wire.record_stream(compute)
         return wire
 
-    for i, blk in enumerate(blocks):
-        raw = np.ascontiguousarray(blk).view(np.uint8).reshape(-1)
+    for i in itertools.count():
+        b = first_block + i
+        with span("prefetch.source", b):
+            blk = next(blocks, _END)
+        if blk is _END:
+            break
         slot = i % depth
         if ring[slot] is not None:
-            ring[slot][1].synchronize()
-        if ring[slot] is None or ring[slot][0].numel() != raw.size:
-            ring[slot] = (torch.empty(raw.size, dtype=torch.uint8,
-                                      pin_memory=True), None)
-        pinned = ring[slot][0]
-        pinned.numpy()[:] = raw
-        with torch.cuda.stream(copy_stream):
+            with span("prefetch.slot_wait", b):
+                last = ring[slot][1]
+                if not last.query():
+                    count("prefetch.slot_waits_blocked")
+                    last.synchronize()
+        with span("prefetch.host_copy", b):
+            raw = np.ascontiguousarray(blk).view(np.uint8).reshape(-1)
+            if ring[slot] is None or ring[slot][0].numel() != raw.size:
+                with span("prefetch.pin", b):
+                    ring[slot] = (torch.empty(raw.size, dtype=torch.uint8,
+                                              pin_memory=True), None)
+            pinned = ring[slot][0]
+            pinned.numpy()[:] = raw
+        count("prefetch.bytes", raw.size)
+        with span("prefetch.upload", b), torch.cuda.stream(copy_stream):
             wire = torch.empty(raw.size, dtype=torch.uint8, device=device)
             wire.copy_(pinned, non_blocking=True)
             event = torch.cuda.Event()
@@ -118,6 +158,10 @@ def device_prefetch(blocks: Iterable[np.ndarray], device: torch.device,
             yield ready(queue.popleft())
     while queue:
         yield ready(queue.popleft())
+
+
+#: the end of a source of blocks (``device_prefetch``)
+_END = object()
 
 
 @dataclasses.dataclass
@@ -191,7 +235,8 @@ class ScannerDriver:
         flush of a stopped run); does nothing without a checkpoint_path."""
         if self.checkpoint_path:
             save, _ = state_io.BACKENDS[self.checkpoint_backend]
-            save(self.checkpoint_path, self.block_index, self.state)
+            with span("driver.checkpoint", self.block_index):
+                save(self.checkpoint_path, self.block_index, self.state)
 
     def restore(self, path: Optional[str] = None) -> int:
         """Load a checkpoint (``path`` or checkpoint_path); the next run()
@@ -232,7 +277,7 @@ class ScannerDriver:
         n_fuse = self.steps_per_dispatch
         wires = device_prefetch(
             (blk for i, blk in enumerate(blocks) if i >= skip), self.device,
-            self.prefetch_depth)
+            self.prefetch_depth, self.block_index)
         group: List[torch.Tensor] = []   # blocks awaiting one megastep
         self.stopped = False
         try:
@@ -241,12 +286,17 @@ class ScannerDriver:
                     group.append(wire)
                     if len(group) < n_fuse:
                         continue
-                    self.state, out = self.chain.multi_step(
-                        self.state, torch.stack(group), self.params)
+                    with span("dispatch.stack", self.block_index):
+                        xs = torch.stack(group)
+                    with span("driver.dispatch", self.block_index):
+                        self.state, out = self.chain.multi_step(
+                            self.state, xs, self.params)
+                    del xs           # the stack's memory back before the next
+                    count("driver.dispatches")
+                    count("driver.blocks", n_fuse)
                     group = []
                 else:
-                    self.state, out = self.chain.step(self.state, wire,
-                                                      self.params)
+                    out = self._step(wire)
                 if pending is not None:
                     self._drain(pending, acc)
                 pending = out
@@ -257,8 +307,7 @@ class ScannerDriver:
             # tail blocks that do not fill a megastep run as single steps
             # (skipped on a stop request: they resume from the checkpoint)
             for wire in (() if self._stop_requested else group):
-                self.state, out = self.chain.step(self.state, wire,
-                                                  self.params)
+                out = self._step(wire)
                 if pending is not None:
                     self._drain(pending, acc)
                 pending = out
@@ -291,9 +340,35 @@ class ScannerDriver:
             events=acc["events"],
             waterfall=np.concatenate(acc["wf"]) if acc["wf"] else None)
 
+    def _step(self, wire):
+        """One block as a single step, outside a graph; returns its
+        outputs."""
+        with span("step.eager", self.block_index):
+            self.state, out = self.chain.step(self.state, wire, self.params)
+        count("driver.dispatches")
+        count("driver.blocks")
+        count("driver.eager_steps")
+        return out
+
     def _drain(self, out, acc) -> None:
-        o = outputs_to_numpy(out)
+        block = self.subchunk // self.chain.block.subchunks_per_step
+        # the outputs' copies queue on the current stream behind every
+        # dispatch so far, so the host waits for all of them: timed apart
+        with span("drain.wait", block):
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        with span("drain.fetch", block):
+            o = outputs_to_numpy(out)
+        with span("drain.subchunks", block):
+            self._subchunks(o, acc)
+
+    def _subchunks(self, o, acc) -> None:
+        """The drain's per-sub-chunk loop over the host's outputs ``o``."""
         k = len(o["active_chan"])
+        n_events = len(acc["events"])
+        on_subchunk = self.on_subchunk
+        if on_subchunk is not None and profiling.enabled():
+            on_subchunk = profiling.Summed(on_subchunk)
         for i in range(k):
             sub = self.subchunk + i
             msgs = self._event_lines(o, i)
@@ -314,8 +389,8 @@ class ScannerDriver:
                     "ctcss_code": int(o["ct_max_idx"][i]) + 1,
                     "events": msgs,
                 })
-            if self.on_subchunk is not None:
-                self.on_subchunk(sub, {f: o[f][i] for f in o})
+            if on_subchunk is not None:
+                on_subchunk(sub, {f: o[f][i] for f in o})
         acc["active"].append(o["active_chan"])
         acc["rssi"].append(o["rssi_db"])
         acc["rel"].append(o["rel_rssi"])
@@ -324,6 +399,13 @@ class ScannerDriver:
         if self.args.waterfall > 0:
             acc["wf"].append(o["waterfall"])
         self.subchunk += k
+        count("drain.subchunks", k)
+        count("drain.audio_subchunks",
+              int(np.count_nonzero(o["audio_valid"])))
+        count("drain.events", len(acc["events"]) - n_events)
+        if isinstance(on_subchunk, profiling.Summed):
+            end = time.perf_counter_ns()
+            profiling.record("drain.on_subchunk", end - on_subchunk.ns, end)
 
     @staticmethod
     def _event_lines(o, i) -> List[str]:

@@ -51,6 +51,16 @@ launches that a replay makes.  ``CountedGraph`` takes back what the
 warm-up and the capture counted, records what the capture counted, and
 adds it at each replay (of every segment): a count is launches that ran
 and delivered a result, whether eagerly or in a replay.
+
+Spans (utils/profiling.py, while the recorder is on): ``megastep.call``
+over a megastep call, whose self time is the megastep's own host work
+outside the spans below (the shapes' signature and the graph's lookup on
+the card, the loop on the CPU); a graph's first call records
+``megastep.warmup`` and ``megastep.capture`` (the stamps its ``warmup_ms``
+/ ``capture_ms`` read) and counts ``megastep.captures``; every call on the
+card ``megastep.stage`` (the copies into the static inputs),
+``megastep.replay`` and ``megastep.collect`` (the new state's clones and
+the outputs' concatenation).
 """
 
 from __future__ import annotations
@@ -64,6 +74,8 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from sdr_pmr446_tpu_torch.utils.profiling import count, record, span
 
 #: the package whose modules hold the kernels' launch counters
 KERNELS = "sdr_pmr446_tpu_torch.kernels"
@@ -307,7 +319,7 @@ class _Captured:
                 outs.append(out)
             return st, outs
 
-        t0 = time.perf_counter()
+        stamps = [time.perf_counter_ns()]
 
         def warmup():
             with torch.cuda.stream(side), (recorder.active(False)
@@ -315,26 +327,34 @@ class _Captured:
                                            else contextlib.nullcontext()):
                 body()
             side.synchronize()
-            self.warmup_ms = (time.perf_counter() - t0) * 1e3
+            stamps.append(time.perf_counter_ns())
 
         self.new_state, self.outs = self.graph.capture(body, warmup)
         torch.cuda.current_stream(dev).wait_stream(side)
-        #: host ms of the capture with the graph's instantiation (and of
-        #: the warm-up, ``warmup_ms``)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3 - self.warmup_ms
+        stamps.append(time.perf_counter_ns())
+        record("megastep.warmup", stamps[0], stamps[1])
+        record("megastep.capture", stamps[1], stamps[2])
+        count("megastep.captures")
+        #: host ms of the warm-up, and of the capture with the graph's
+        #: instantiation
+        self.warmup_ms = (stamps[1] - stamps[0]) / 1e6
+        self.capture_ms = (stamps[2] - stamps[1]) / 1e6
 
     def __call__(self, state, xs, args):
-        for dst, src in zip(self.state, _leaves(state)):
-            dst.copy_(src)
-        self.xs.copy_(xs)
-        for dsts, a in zip(self.args, args):
-            for dst, src in zip(dsts, _leaves(a)):
+        with span("megastep.stage"):
+            for dst, src in zip(self.state, _leaves(state)):
                 dst.copy_(src)
-        self.graph.replay()
-        # fresh tensors: the next replay rewrites the graph's own
-        new_state = [t.clone() for t in _leaves(self.new_state)]
-        return (_rebuild(self.new_state, new_state),
-                _concat(self.outs, self.dim))
+            self.xs.copy_(xs)
+            for dsts, a in zip(self.args, args):
+                for dst, src in zip(dsts, _leaves(a)):
+                    dst.copy_(src)
+        with span("megastep.replay"):
+            self.graph.replay()
+        with span("megastep.collect"):
+            # fresh tensors: the next replay rewrites the graph's own
+            new_state = [t.clone() for t in _leaves(self.new_state)]
+            outs = _concat(self.outs, self.dim)
+        return _rebuild(self.new_state, new_state), outs
 
 
 class Megastep:
@@ -361,6 +381,10 @@ class Megastep:
         return state, _concat(outs, self.dim)
 
     def __call__(self, state, xs: torch.Tensor, *args):
+        with span("megastep.call"):
+            return self._call(state, xs, *args)
+
+    def _call(self, state, xs: torch.Tensor, *args):
         if xs.dim() < 1 or xs.shape[0] < 1:
             raise ValueError(f"xs must stack at least one block, got shape "
                              f"{tuple(xs.shape)}")

@@ -240,21 +240,11 @@ def test_app_checkpoint_flags(capture, tmp_path, caplog):
 
 
 def test_profiling_utils_match_jax(tmp_path):
-    """utils/profiling.py: ThroughputMeter reports what JAX's reports for
-    the same blocks and time, log_jsonl appends one JSON line a record,
-    and trace() writes a Chrome trace of the profiled region."""
-    from sdr_pmr446_tpu.utils import profiling as jprof
+    """utils/profiling.py: log_jsonl appends one JSON line a record, as
+    JAX's does, and trace() writes a Chrome trace of the profiled region
+    (its spans and counters with the recorder on:
+    tests/test_torch_tracing.py)."""
     from sdr_pmr446_tpu_torch.utils import profiling as tprof
-    meters = [m.ThroughputMeter(samples_per_block=K * C.SUBCHUNK_IN)
-              for m in (tprof, jprof)]
-    for m in meters:
-        m.start()
-        m.stop()
-        m.total_time = 0.25
-    assert meters[0].report() == meters[1].report()
-    assert meters[0].report()["blocks"] == 1
-    with pytest.raises(RuntimeError, match="without start"):
-        meters[0].stop()
     path = str(tmp_path / "m.jsonl")
     for i in range(2):
         tprof.log_jsonl(path, {"subchunk": i, "events": ["x"]})
