@@ -34,8 +34,11 @@ As in the JAX driver (driver.py:139-177, 189-306):
     partial result at the next block boundary.
 
 The step is asynchronous on a CUDA device, so block i+1 is dispatched
-before block i's outputs are read back: the host-side drain overlaps the
-device's work.  As in the JAX driver (driver.py:41-60, 118-126, 195-250):
+before block i's outputs are drained.  Block i's outputs are copied to
+pinned host memory by copies queued right after its own dispatch
+(``ReadBack``), so the drain waits for dispatch i alone while dispatch
+i+1 runs: the host-side drain overlaps the device's work.  As in the JAX
+driver (driver.py:41-60, 118-126, 195-250):
 
   - ``steps_per_dispatch`` S: S blocks a dispatch (``chain.multi_step``, a
     CUDA graph of S steps on the card, runtime/fuse.py), equal to S single
@@ -53,12 +56,15 @@ on, each with the first stream-block it concerns): ``prefetch.*`` in
 ``device_prefetch``; ``dispatch.stack`` (a megastep's blocks stacked),
 ``driver.dispatch`` (the ``chain.multi_step`` call, over runtime/fuse.py's
 ``megastep.*``) or ``step.eager`` (a ``chain.step`` call: S = 1, tail
-blocks); in ``_drain`` ``drain.wait`` (the host waiting for the card),
-``drain.fetch`` (the outputs' copies to the host) and ``drain.subchunks``
-(the per-sub-chunk loop; the time in ``on_subchunk`` summed into one child
+blocks); on a CUDA device ``drain.enqueue`` (a dispatch's read-back
+queued, right after it); in ``_drain`` ``drain.wait`` (the host waiting
+for its own dispatch's read-back), ``drain.fetch`` (the outputs out of
+the staging buffer; on the CPU, read) and ``drain.subchunks`` (the
+per-sub-chunk loop; the time in ``on_subchunk`` summed into one child
 ``drain.on_subchunk``); ``driver.checkpoint`` (a save).  Counters:
 ``driver.blocks``, ``driver.dispatches``, ``driver.eager_steps``,
-``drain.subchunks``, ``drain.audio_subchunks``, ``drain.events``.
+``drain.subchunks``, ``drain.audio_subchunks``, ``drain.events``,
+``drain.waits_blocked``.
 """
 
 from __future__ import annotations
@@ -164,6 +170,76 @@ def device_prefetch(blocks: Iterable[np.ndarray], device: torch.device,
 _END = object()
 
 
+class ReadBack:
+    """A dispatch's outputs on their way to the host, for the drain.
+
+    On a CUDA device ``start``, called right after the dispatch and before
+    the next, queues the outputs' copies into pinned host memory on the
+    current stream, behind that dispatch and ahead of the next, and records
+    an event after them; ``wait`` waits for that event, so for that
+    dispatch and its copies alone (counted in ``drain.waits_blocked`` when
+    it had not completed); ``fetch`` copies them out into host memory that
+    the caller then owns, as numpy arrays by field.  The staging buffers,
+    one flat pinned buffer a dispatch in flight, take turns: the driver
+    holds at most ``SLOTS`` read-backs (the one it drains and the one just
+    dispatched), and a buffer grows to the largest dispatch it has held, so
+    the pinned memory is bounded whatever the capture's length.  On the CPU
+    ``start`` hands the outputs on, ``wait`` does nothing and ``fetch``
+    reads them (``outputs_to_numpy``)."""
+
+    SLOTS = 2
+    #: a field's offset in a staging buffer, in bytes
+    ALIGN = 16
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.slots: list = [None] * self.SLOTS
+        self.turn = 0
+
+    def _staging(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def start(self, out, block: int):
+        """Queue the copies of ``out`` (a StepOutputs just dispatched);
+        returns what ``wait`` and ``fetch`` take."""
+        if not self.cuda:
+            return out
+        with span("drain.enqueue", block):
+            layout, total = [], 0
+            for f, v in zip(out._fields, out):
+                nbytes = v.numel() * v.element_size()
+                layout.append((f, total, nbytes, v.dtype, v.shape))
+                total += -(-nbytes // self.ALIGN) * self.ALIGN
+            slot = self.turn % self.SLOTS
+            self.turn += 1
+            buf = self.slots[slot]
+            if buf is None or buf.numel() < total:
+                buf = self.slots[slot] = self._staging(total)
+            for (_, at, nbytes, dtype, shape), v in zip(layout, out):
+                if nbytes:
+                    buf[at:at + nbytes].view(dtype).view(shape).copy_(
+                        v, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return buf, total, layout, done
+
+    def wait(self, pending) -> None:
+        if self.cuda:
+            done = pending[-1]
+            if not done.query():
+                count("drain.waits_blocked")
+                done.synchronize()
+
+    def fetch(self, pending) -> dict:
+        if not self.cuda:
+            return outputs_to_numpy(pending)
+        buf, total, layout, _ = pending
+        host = torch.from_numpy(buf[:total].numpy().copy())
+        return {f: host[at:at + nbytes].view(dtype).view(shape).numpy()
+                for f, at, nbytes, dtype, shape in layout}
+
+
 @dataclasses.dataclass
 class ScanResult:
     audio: np.ndarray            # concatenated active-channel audio @12.5 kHz
@@ -211,6 +287,7 @@ class ScannerDriver:
         self.device = self.chain.device
         self.on_subchunk = on_subchunk
         self.params = make_runtime_params(self.args, self.device)
+        self._read_back = ReadBack(self.device)
         self.state = self.chain.init_state()
         self.block_index = 0
         self.subchunk = 0
@@ -297,6 +374,7 @@ class ScannerDriver:
                     group = []
                 else:
                     out = self._step(wire)
+                out = self._read_back.start(out, self.block_index)
                 if pending is not None:
                     self._drain(pending, acc)
                 pending = out
@@ -307,7 +385,8 @@ class ScannerDriver:
             # tail blocks that do not fill a megastep run as single steps
             # (skipped on a stop request: they resume from the checkpoint)
             for wire in (() if self._stop_requested else group):
-                out = self._step(wire)
+                out = self._read_back.start(self._step(wire),
+                                            self.block_index)
                 if pending is not None:
                     self._drain(pending, acc)
                 pending = out
@@ -351,14 +430,16 @@ class ScannerDriver:
         return out
 
     def _drain(self, out, acc) -> None:
+        """Hand one dispatch's outputs (``out``, its ``ReadBack.start``) to
+        the per-sub-chunk loop."""
         block = self.subchunk // self.chain.block.subchunks_per_step
-        # the outputs' copies queue on the current stream behind every
-        # dispatch so far, so the host waits for all of them: timed apart
+        # the outputs' copies were queued right after their own dispatch,
+        # ahead of the one dispatched since: the host waits for those
+        # copies alone, while the card runs on
         with span("drain.wait", block):
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            self._read_back.wait(out)
         with span("drain.fetch", block):
-            o = outputs_to_numpy(out)
+            o = self._read_back.fetch(out)
         with span("drain.subchunks", block):
             self._subchunks(o, acc)
 

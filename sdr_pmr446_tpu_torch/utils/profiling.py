@@ -53,13 +53,15 @@ SPAN_CAP = 1 << 18
 #: ``prefetch.bytes`` (wire bytes staged), ``prefetch.slot_waits_blocked``
 #: (ring slots whose last copy had not finished), ``drain.subchunks`` /
 #: ``drain.audio_subchunks`` / ``drain.events`` (sub-chunks drained; of
-#: them with audio; log lines); runtime/fuse.py ``megastep.captures``
-#: (graphs captured); kernels/build.py ``kernels.library_loads``
+#: them with audio; log lines), ``drain.waits_blocked`` (drains whose
+#: dispatch's read-back had not finished); runtime/fuse.py
+#: ``megastep.captures`` (graphs captured); kernels/build.py
+#: ``kernels.library_loads``
 COUNTS: Dict[str, int] = dict.fromkeys((
     "driver.blocks", "driver.dispatches", "driver.eager_steps",
     "prefetch.bytes", "prefetch.slot_waits_blocked", "megastep.captures",
     "kernels.library_loads", "drain.subchunks", "drain.audio_subchunks",
-    "drain.events"), 0)
+    "drain.events", "drain.waits_blocked"), 0)
 
 #: the Chrome trace's thread id of the program's spans
 PROGRAM_TID = 1 << 30

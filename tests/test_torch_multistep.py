@@ -15,8 +15,9 @@ the active trace exact, RSSI within 5e-3 dB, audio within 1e-4 (the gate
 of tests/test_torch_chain.py:32-44).  Also: the launch counts under a
 capture and its replays (a recorder that emulates a graph), the loop only
 on the CPU, and the ``cuda`` tests (a megastep on the card equal to its
-steps bit for bit, the driver's S = 3 equal to S = 1), which skip without
-a card.  The JAX package is imported only inside the fixtures that run it,
+steps bit for bit, the driver's S = 3 equal to S = 1, its S = 2 read-back
+through reused pinned staging buffers equal to S = 1 with what
+``on_subchunk`` received left unchanged), which skip without a card.  The JAX package is imported only inside the fixtures that run it,
 so the ``cuda`` tests run on a card's host without JAX (``--noconftest``).
 """
 
@@ -574,3 +575,49 @@ def test_driver_steps_per_dispatch_on_card():
         for name in ("audio", "active_trace", "rssi_trace", "ct_max_idx"):
             np.testing.assert_array_equal(getattr(r, name),
                                           getattr(runs[0], name))
+
+
+@pytest.mark.cuda
+def test_driver_read_back_on_card_equals_one_step_a_dispatch():
+    """S = 2 over 5 megasteps and a tail block, each dispatch's outputs
+    read back behind its own event into reused pinned staging buffers:
+    the ScanResult equals the S = 1 driver's bit for bit, what on_subchunk
+    received in the first drain is unchanged at the end (no view aliases a
+    staging buffer), the pinned memory is two buffers, and no more drains
+    waited than ran."""
+    import copy
+
+    from sdr_pmr446_tpu_torch.utils import profiling
+    dev = card()
+    k, n_blocks = 8, 11
+    raw = decode.quantize_iq(scanner_iq(n_blocks, k, seed=6), "cu8")
+    first, copies = [], []
+
+    def keep_first_drain(sub, o):
+        if sub < 2 * k:
+            first.append(o)
+            copies.append(copy.deepcopy(o))
+
+    runs = []
+    for s, cb in ((1, None), (2, keep_first_drain)):
+        drv = ScannerDriver(subchunks_per_step=k, device=dev,
+                            steps_per_dispatch=s, on_subchunk=cb)
+        before = profiling.COUNTS["drain.waits_blocked"]
+        runs.append(drv.run(wire_blocks(raw, "cu8", drv.feed_len)))
+        blocked = profiling.COUNTS["drain.waits_blocked"] - before
+    want, got = runs
+    assert got.events == want.events and got.events
+    for name in ("audio", "audio_subchunks", "active_trace", "rssi_trace",
+                 "rel_rssi", "ct_detected", "ct_max_idx"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert got.waterfall is None and want.waterfall is None
+    assert len(first) == 2 * k
+    for o, c in zip(first, copies):
+        assert list(o) == list(c)
+        for f in c:
+            np.testing.assert_array_equal(o[f], c[f], err_msg=f)
+    staging = [b for b in drv._read_back.slots if b is not None]
+    assert len(staging) == 2 and all(b.is_pinned() for b in staging)
+    assert 0 <= blocked <= n_blocks // 2 + 1

@@ -10,7 +10,13 @@ CLI's --trace), on the CPU; one test on the card.
     the span's interval;
   - a ScannerDriver run with the recorder on: each span a block or a
     dispatch makes, its block, and counters equal to what the result
-    holds; outputs bit for bit those of a run with it off;
+    holds (``drain.waits_blocked`` 0 on the CPU); each drain's wait,
+    fetch and loop once, in order, after the next dispatch; outputs bit
+    for bit those of a run with it off;
+  - the driver's ``ReadBack`` with the card's streams, events and pinned
+    memory emulated: two staging buffers, fetched arrays equal to the
+    outputs and owned by the caller, a drain that found its event
+    pending counted;
   - a megastep's graph path (runtime/fuse.py ``_Captured``, its graph
     emulated on the CPU): warm-up and capture once, their stamps read by
     ``warmup_ms`` / ``capture_ms``, then stage / replay / collect a call;
@@ -279,6 +285,121 @@ def test_driver_outputs_equal_with_the_recorder_on_and_off(runs):
     assert on.events == off.events
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(on, name), getattr(off, name))
+
+
+def test_drain_waits_blocked_is_a_counter_and_reads_zero_on_the_cpu(runs):
+    _, snap, delta, _, _ = runs
+    assert "drain.waits_blocked" in snap.counters
+    assert delta["drain.waits_blocked"] == 0
+
+
+def test_each_drain_waits_fetches_and_loops_once_one_dispatch_behind(runs):
+    """A drain's three spans, once each and in order, for the block it
+    concerns, begun after the next dispatch (one behind); the card's
+    read-back enqueue is not on the CPU's path."""
+    _, snap, _, _, _ = runs
+    spans = by_name(snap)
+    assert "drain.enqueue" not in spans
+    dispatches = spans["driver.dispatch"] + spans["step.eager"]
+    for j, block in enumerate((0, 2, 4)):
+        wait, fetch, loop = (
+            [s for s in spans[name] if s.block == block]
+            for name in ("drain.wait", "drain.fetch", "drain.subchunks"))
+        assert len(wait) == len(fetch) == len(loop) == 1, block
+        wait, fetch, loop = wait[0], fetch[0], loop[0]
+        assert wait.end_ns <= fetch.start_ns <= fetch.end_ns \
+            <= loop.start_ns, block
+        if j + 1 < len(dispatches):
+            assert dispatches[j + 1].end_ns <= wait.start_ns, block
+
+
+class FakeEvent:
+    """torch.cuda.Event on the CPU: ``query`` reads False while ``busy``
+    is set, until a ``synchronize``."""
+    busy = False
+
+    def __init__(self):
+        self.pending, self.synced = FakeEvent.busy, False
+
+    def record(self, stream=None):
+        pass
+
+    def query(self):
+        return not self.pending
+
+    def synchronize(self):
+        self.pending, self.synced = False, True
+
+
+def fake_outputs(rng, k: int):
+    """A StepOutputs of random values at ``k`` sub-chunks, the waterfall
+    off ([k, 0])."""
+    from sdr_pmr446_tpu_torch.scanner.chain import StepOutputs
+    shapes = {"audio": (k, C.SUBCHUNK_AUDIO), "rssi_db": (k, C.NUM_CHANNELS),
+              "waterfall": (k, 0)}
+    fields = {}
+    for f in StepOutputs._fields:
+        shape = shapes.get(f, (k,))
+        if f.startswith("ev_") and not f.endswith("chan") \
+                or f in ("audio_valid", "ct_detected"):
+            fields[f] = torch.from_numpy(rng.random(shape) < 0.5)
+        elif f.endswith(("chan", "idx")):
+            fields[f] = torch.from_numpy(
+                rng.integers(-1, 16, shape).astype(np.int32))
+        else:
+            fields[f] = torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32))
+    return StepOutputs(**fields)
+
+
+def test_read_back_staging_is_bounded_and_fetched_arrays_are_owned(
+        monkeypatch):
+    """ReadBack's card path with its streams and pinned memory emulated on
+    the CPU, in the driver's order (start j + 1 before fetch j): each fetch
+    equals the outputs read directly, field for field; two staging buffers
+    serve megasteps and a smaller tail; what a fetch returned shares no
+    memory with them and is unchanged after the buffer is reused; a drain
+    whose event had not completed is counted and waits."""
+    from sdr_pmr446_tpu_torch.runtime.driver import ReadBack
+    from sdr_pmr446_tpu_torch.scanner.chain import outputs_to_numpy
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a, **k: None)
+    allocated = []
+
+    def staging(self, nbytes):
+        allocated.append(torch.empty(nbytes, dtype=torch.uint8))
+        return allocated[-1]
+
+    monkeypatch.setattr(ReadBack, "_staging", staging)
+    rng = np.random.default_rng(5)
+    outs = [fake_outputs(rng, k) for k in (2 * K, 2 * K, 2 * K, K)]
+    want = [outputs_to_numpy(o) for o in outs]
+    rb = ReadBack(torch.device("cuda"))
+    before = P.COUNTS["drain.waits_blocked"]
+    got, held, tickets = [], [], []
+    for j, out in enumerate(outs):
+        FakeEvent.busy = j == 2
+        tickets.append(rb.start(out, j))
+        if j:
+            rb.wait(tickets[j - 1])
+            got.append(rb.fetch(tickets[j - 1]))
+            held.append({f: a.copy() for f, a in got[-1].items()})
+    FakeEvent.busy = False
+    rb.wait(tickets[-1])
+    got.append(rb.fetch(tickets[-1]))
+    assert P.COUNTS["drain.waits_blocked"] == before + 1
+    assert [t[3].synced for t in tickets] == [False, False, True, False]
+    assert len(allocated) == ReadBack.SLOTS == 2
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert list(g) == list(w)
+        for f in w:
+            assert g[f].dtype == w[f].dtype and g[f].shape == w[f].shape
+            np.testing.assert_array_equal(g[f], w[f], err_msg=f"{j} {f}")
+            assert not any(np.shares_memory(g[f], b.numpy())
+                           for b in allocated), (j, f)
+    for g, h in zip(got, held):
+        for f in h:
+            np.testing.assert_array_equal(g[f], h[f])
 
 
 class EmulatedRecorder:
