@@ -1,7 +1,8 @@
 """Faults planted in the program's timed path, to show that the comparison
 catches them: ``broken_step`` wraps the block step of the program's
 scanner chain (the megastep, built from the step with the chain, runs the
-broken one).  Used by the tests and by ``calibrate.py --plant``."""
+broken one), and ``plant`` puts it in place in a process (each rank's, on
+several cards).  Used by the tests and by ``calibrate.py --plant``."""
 
 from __future__ import annotations
 
@@ -49,3 +50,15 @@ def broken_step(step, name: str):
         new_state, out = step(self, state, wire, params)
         return fault(self, state, new_state, out)
     return broken
+
+
+def plant(name: str):
+    """The program's scanner chain's step broken by the fault ``name`` in
+    this process; returns what puts the sound step back."""
+    from sdr_pmr446_tpu_torch.scanner.chain import ScannerChain
+    step = ScannerChain.step
+    ScannerChain.step = broken_step(step, name)
+
+    def undo():
+        ScannerChain.step = step
+    return undo

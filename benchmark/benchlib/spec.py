@@ -1,11 +1,23 @@
 """Cells, configurations, traffic mixes, entries and metric readers, found
 by the names in BENCHMARK.json.
 
-A cell names a configuration (its file is given in ``configs``) and a
-traffic mix (``traffic/<name>.json``); the configuration names its entry
-(``entries/<entry>.py``, which drives the program) and its reference
-(``references/<reference>.py``); a per-layer metric is
+A cell names a configuration (its file is given in ``configs``), a
+traffic mix (``traffic/<name>.json``) and its ``chips``; the configuration
+names its entry (``entries/<entry>.py``, which drives the program) and its
+reference (``references/<reference>.py``); a per-layer metric is
 ``metrics/<name>.py``.  Adding any of them is new files and new entries.
+
+An entry of a cell on one card has ``run(cfg, mix, seed, seconds, trace,
+device, t_start) -> window.Window``.  An entry of a cell on P > 1 cards
+has ``run_rank(rank, ranks, coordinator, cfg, mix, seed, seconds, trace,
+device, t_start, start) -> window.Window``, the part of rank ``rank`` on
+its own card, which it measures from the common instant that ``start()``
+returns after its warm-up; ``coordinator`` is a free ``127.0.0.1:<port>``
+for the program's own rendezvous (``benchlib/ranks.py`` launches the ranks
+and ``window.merge`` joins their parts).  The result's ``device.count`` is
+the number of distinct devices the ranks ran on.  The tests' hook
+(``run.main(..., device=...)``) runs every rank on that one device.
+
 Every function takes the benchmark's folder (``bench``, by default this
 one; the repository's root is its parent).
 """

@@ -5,7 +5,8 @@ warms it on the cell's traffic, runs the measured window, and returns a
 ``Window``: the host clock's stamps, the harness's spans, the trace of a
 sub-window when asked for, and the outputs of a sample of stream-blocks
 drawn from the seed, each with the bytes the reference needs to compute
-them again (``span``).
+them again (``span``).  Each rank of a cell on several cards returns its
+part of the window; ``merge`` joins the parts into one.
 """
 
 from __future__ import annotations
@@ -85,6 +86,78 @@ class Window:
     trace_window_s: float = 0.0
     trace_blocks: int = 0           # stream-blocks dispatched in it
     incomplete: int = 0             # stream-blocks with no outputs home
+    # a rank's part (``merge``): when its first block was taken and its
+    # last output came home (time.perf_counter), and the entry's own counts
+    # and seconds by name (a program's counters), for readers of its cell
+    first_take_at: float = 0.0
+    last_home_at: float = 0.0
+    counters: dict = dataclasses.field(default_factory=dict)
+
+
+def _summed(dicts: list) -> dict:
+    """Numbers summed key by key, nested dicts likewise."""
+    out: dict = {}
+    for d in dicts:
+        for key, value in d.items():
+            if isinstance(value, dict):
+                out[key] = _summed([out.get(key, {}), value])
+            else:
+                out[key] = out.get(key, 0) + value
+    return out
+
+
+def merge(parts: list, setup_s: float) -> Window:
+    """One window of a cell's ranks' parts, which every per-layer reader
+    reads as it reads one card's: per stream-block, over all cards.
+
+    Summed: samples, stream-blocks, incomplete ones, the step calls' host
+    time, the untraced part's wall time and blocks, the traced blocks and
+    ``counters``.  ``wall_s`` runs from the earliest take on any rank to the
+    latest output home on any rank; ``setup_s`` is given (the run's start
+    to the window's common start).  Latencies are pooled, every rank's
+    untraced part first, so the first ``span_blocks`` of them are the
+    untraced part's of all ranks.  The fullest card's memory peak.  The
+    checked stream-blocks of all ranks, each with its global capture index
+    (two ranks may not check one capture's step).  Each rank traced its own
+    card over the same stretch: the traces' numbers are summed (busy time,
+    device time by part, by kernel and by idle gap), and so are their
+    windows, the stretch times the cards, so that the idle share is the
+    cards' mean.
+    """
+    if not parts:
+        raise ValueError("no part to merge")
+    for r, p in enumerate(parts):
+        if not (p.first_take_at and p.last_home_at):
+            raise ValueError(f"rank {r} stamped no first take or last home")
+    traced = [p.trace is not None for p in parts]
+    if any(traced) and not all(traced):
+        raise ValueError(f"rank {traced.index(False)} recorded no trace, "
+                         "others did")
+    checked = sorted((c for p in parts for c in p.checked),
+                     key=lambda c: (c.capture, c.step))
+    keys = [(c.capture, c.step) for c in checked]
+    if len(set(keys)) != len(keys):
+        raise ValueError("two ranks checked the same capture's step")
+    first = min(p.first_take_at for p in parts)
+    last = max(p.last_home_at for p in parts)
+    return Window(
+        setup_s=setup_s, wall_s=last - first,
+        samples=sum(p.samples for p in parts),
+        stream_blocks=sum(p.stream_blocks for p in parts),
+        latencies_s=([x for p in parts for x in p.latencies_s[:p.span_blocks]]
+                     + [x for p in parts
+                        for x in p.latencies_s[p.span_blocks:]]),
+        step_s=sum(p.step_s for p in parts),
+        span_wall_s=sum(p.span_wall_s for p in parts),
+        span_blocks=sum(p.span_blocks for p in parts),
+        memory_peak_bytes=max(p.memory_peak_bytes for p in parts),
+        checked=checked,
+        trace=_summed([p.trace for p in parts]) if all(traced) else None,
+        trace_window_s=sum(p.trace_window_s for p in parts),
+        trace_blocks=sum(p.trace_blocks for p in parts),
+        incomplete=sum(p.incomplete for p in parts),
+        first_take_at=first, last_home_at=last,
+        counters=_summed([p.counters for p in parts]))
 
 
 class Reservoir:

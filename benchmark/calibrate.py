@@ -16,7 +16,10 @@ stream-block is compared with the reference two ways:
 
 Prints one JSON line a seed and a summary: each number's largest and
 smallest reading of each kind.  Runs on the card (or, for the tests,
-wherever ``main``'s ``device`` says).
+wherever ``main``'s ``device`` says).  A cell on several cards runs each
+seed's window as its ranks, one card each, as run.py does
+(``benchlib/ranks.py``, the fault planted in every rank), and compares the
+merged window's checked stream-blocks.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(1, os.path.dirname(HERE))
 
-from benchlib import faults, spec  # noqa: E402
+from benchlib import faults, ranks, spec  # noqa: E402
 
 
 def main(argv=None, device=None, overrides=None) -> int:
@@ -49,29 +52,27 @@ def main(argv=None, device=None, overrides=None) -> int:
     if overrides:
         cfg.update(overrides.get("config", {}))
         mix.update(overrides.get("traffic", {}))
-    import torch
-    if device is None:
-        if not torch.cuda.is_available():
-            print("no CUDA device", file=sys.stderr)
-            return 2
-        device = "cuda:0"
-    from sdr_pmr446_tpu_torch.scanner.chain import ScannerChain
-    step = ScannerChain.step
-    if ns.plant:
-        ScannerChain.step = faults.broken_step(step, ns.plant)
     try:
-        return _seeds(ns, cfg, mix, device)
+        devices = ranks.devices(cell["chips"], device)
+    except LookupError as e:
+        print(e, file=sys.stderr)
+        return 2
+    undo = faults.plant(ns.plant) if ns.plant else None
+    try:
+        return _seeds(ns, cfg, mix, devices)
     finally:
-        ScannerChain.step = step
+        if undo:
+            undo()
 
 
-def _seeds(ns, cfg: dict, mix: dict, device) -> int:
+def _seeds(ns, cfg: dict, mix: dict, devices: list) -> int:
     entry = spec.module("entries", cfg["entry"])
     ref_mod = spec.module("references", cfg["reference"])
+    device = devices[0]
     summary: dict = {}
     for seed in ns.seeds:
-        window = entry.run(cfg, mix, seed, ns.seconds, False, device,
-                           time.perf_counter())
+        window, _ = ranks.run(entry, cfg, mix, seed, ns.seconds, False,
+                              devices, time.perf_counter(), ns.plant)
         kinds: dict = {"program": [], "control": []}
         ref_s = 0.0
         for c in window.checked:
@@ -82,7 +83,7 @@ def _seeds(ns, cfg: dict, mix: dict, device) -> int:
             ctl = ref_mod.run(c.wire, c.compare_from, cfg, "tf32", device)
             kinds["control"].append(ref_mod.readings(ctl, ref))
         row = {"seed": seed, "blocks": len(window.checked),
-               "subchunks": [len(c.outputs["active_chan"])
+               "subchunks": [len(next(iter(c.outputs.values())))
                              for c in window.checked],
                "msps": window.samples / window.wall_s / 1e6,
                "reference_s": ref_s}

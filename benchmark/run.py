@@ -16,9 +16,21 @@ the per-layer ones, each read by metrics/<name>.py), ``device``, with
 ``--trace 1`` ``breakdown``, and last ``checked``: each number compared
 beside its limit, which also end its standard error.
 
+A cell on one card runs its entry's ``run(cfg, mix, seed, seconds, trace,
+device, t_start)`` in this process on ``cuda:0``.  A cell on P > 1 cards
+runs as P ranks, one card each (``benchlib/ranks.py``): rank 0 here on
+``cuda:0``, ranks 1 .. P-1 as child processes on ``cuda:1`` .. ``cuda:<P-1>``,
+each in its entry's ``run_rank(rank, ranks, coordinator, cfg, mix, seed,
+seconds, trace, device, t_start, start)``; their parts of the window are
+merged into one (``window.merge``), checked and reported here.
+``device.count`` is the number of distinct devices the ranks ran on and
+``memory_peak_bytes`` the fullest one's peak.
+
 It exits 2, printing no result, without a CUDA device or with fewer than
-the cell's chips, and 3 if JAX or the JAX package is loaded once the
-window has closed.
+the cell's chips, 1 if a rank fails or the ranks outrun ``seconds`` plus
+``ranks.SETUP_ALLOWANCE_S`` (every rank killed, the failing rank's last
+output on standard error), and 3 if JAX or the JAX package is loaded in
+any rank once the window has closed.
 """
 
 from __future__ import annotations
@@ -37,7 +49,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(1, os.path.dirname(HERE))
 
-from benchlib import isolation, spec  # noqa: E402
+from benchlib import isolation, ranks, spec  # noqa: E402
 
 
 def parse(argv):
@@ -84,8 +96,10 @@ def e2e_values(window) -> dict:
 
 def main(argv=None, device=None, overrides=None) -> int:
     """The run; returns its exit code.  ``device`` (tests only) skips the
-    look for a card and runs there; ``overrides`` (tests only) updates the
-    configuration and traffic mix: {"config": {...}, "traffic": {...}}."""
+    look for cards and runs every rank there: gloo ranks on the CPU, or a
+    rehearsal of a cell's ranks on one card; ``overrides`` (tests only)
+    updates the configuration and traffic mix: {"config": {...},
+    "traffic": {...}}."""
     ns = parse(argv)
     bench = spec.benchmark()
     cell = spec.cell(bench, ns.workload)
@@ -95,24 +109,25 @@ def main(argv=None, device=None, overrides=None) -> int:
         cfg.update(overrides.get("config", {}))
         mix.update(overrides.get("traffic", {}))
     import torch
-    if device is None:
-        if not torch.cuda.is_available():
-            print("no CUDA device: the benchmark runs on the card",
-                  file=sys.stderr)
-            return 2
-        if torch.cuda.device_count() < cell["chips"]:
-            print(f"{ns.workload} needs {cell['chips']} cards, "
-                  f"{torch.cuda.device_count()} here", file=sys.stderr)
-            return 2
-        device = "cuda:0"
+    try:
+        devices = ranks.devices(cell["chips"], device)
+    except LookupError as e:
+        print(f"{ns.workload}: {e}", file=sys.stderr)
+        return 2
     entry = spec.module("entries", cfg["entry"])
-    window = entry.run(cfg, mix, ns.seed, ns.seconds, bool(ns.trace), device,
-                       T_START)
+    try:
+        window, loaded = ranks.run(entry, cfg, mix, ns.seed, ns.seconds,
+                                   bool(ns.trace), devices, T_START)
+    except ranks.RankError as e:
+        print(e, file=sys.stderr)
+        return 1
+    device = devices[0]
     dev = torch.device(device)
     info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
             "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                      else "cpu"),
-            "count": 1, "memory_peak_bytes": int(window.memory_peak_bytes)}
+            "count": len({str(torch.device(d)) for d in devices}),
+            "memory_peak_bytes": int(window.memory_peak_bytes)}
     correct, checked, failed = check(cfg, window, device)
     metrics, breakdown = {}, None
     if ns.trace:
@@ -133,7 +148,7 @@ def main(argv=None, device=None, overrides=None) -> int:
         for m in spec.metrics_of(bench, ns.workload, "end_to_end"):
             metrics[m["name"]] = {"value": values[m["name"]],
                                   "unit": m["unit"]}
-    bad = isolation.found()
+    bad = isolation.found() + loaded
     if bad:
         print(f"loaded after the window: {', '.join(bad)}", file=sys.stderr)
         return 3

@@ -9,6 +9,7 @@ import shutil
 
 import pytest
 
+import _throwaway
 from benchlib import spec
 
 BENCH = spec.benchmark()
@@ -20,7 +21,8 @@ def test_cell_loads_by_name(cell):
     cfg = spec.config(BENCH, w["config"])
     mix = spec.traffic(w["traffic"])
     assert cfg["name"] == w["config"] and mix["name"] == w["traffic"]
-    assert hasattr(spec.module("entries", cfg["entry"]), "run")
+    assert hasattr(spec.module("entries", cfg["entry"]),
+                   "run" if w["chips"] == 1 else "run_rank")
     ref = spec.module("references", cfg["reference"])
     assert hasattr(ref, "run") and hasattr(ref, "readings")
     assert set(cfg["limits"]) == {"decisions", "rssi_gap_db", "audio_err"}
@@ -35,7 +37,8 @@ def test_cell_loads_by_name(cell):
 def test_every_config_file_names_its_entry_and_reference(path):
     cfg = spec.load_json(path)
     assert cfg["name"] == path.stem
-    assert hasattr(spec.module("entries", cfg["entry"]), "run")
+    entry = spec.module("entries", cfg["entry"])
+    assert hasattr(entry, "run") or hasattr(entry, "run_rank")
     assert hasattr(spec.module("references", cfg["reference"]), "readings")
 
 
@@ -59,7 +62,8 @@ def test_every_config_is_used_and_its_file_is_its_own():
 
 
 def test_a_new_cell_is_new_files_and_entries(tmp_path):
-    """A throwaway configuration, traffic mix, metric and cell, added to a
+    """A throwaway configuration, traffic mix, metric and cell, and a
+    throwaway cell on four cards with its entry and reference, added to a
     copy of the benchmark: they load by name, and no file that was there
     changed."""
     bench = tmp_path / "benchmark"
@@ -86,6 +90,7 @@ def test_a_new_cell_is_new_files_and_entries(tmp_path):
                              "better": "higher", "source": "program_span",
                              "layer": "x", "moves": "capture_msps",
                              "workloads": ["throwaway_cfg.throwaway_mix"]})
+    four = _throwaway.add_four_chip_cell(bench, new)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(new))
 
     loaded = spec.benchmark(bench)
@@ -100,6 +105,13 @@ def test_a_new_cell_is_new_files_and_entries(tmp_path):
     # the metric is only the new cell's
     assert "throwaway.metric" not in [m["name"] for m in spec.metrics_of(
         loaded, "pmr446_scan.archive_s8", "per_layer")]
+    w4 = spec.cell(loaded, four)
+    assert w4["chips"] == 4
+    cfg4 = spec.config(loaded, w4["config"], bench)
+    assert hasattr(spec.module("entries", cfg4["entry"], bench), "run_rank")
+    assert hasattr(spec.module("references", cfg4["reference"], bench),
+                   "readings")
+    assert spec.traffic(w4["traffic"], bench)["name"] == w4["traffic"]
     after = {p: p.read_bytes() for p in before}
     assert after == before
 
@@ -114,5 +126,8 @@ def test_names_and_units_use_the_allowed_characters():
             if "unit" in item:
                 assert unit.match(item["unit"]), item["unit"]
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
         assert name.match(w["traffic"]) and len(w["why"]) <= 200
+    # at most a quarter of the cells, rounded down, on four cards; one may
+    fours = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(fours) <= max(1, len(BENCH["workloads"]) // 4), fours
