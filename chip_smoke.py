@@ -3859,9 +3859,9 @@ def batch_reference(dev, paths, w: int, **switches) -> list:
     import os
     import torch
     from sdr_pmr446_tpu_torch import config as C
-    from sdr_pmr446_tpu_torch.apps import scan_batch
     from sdr_pmr446_tpu_torch.io import native
     from sdr_pmr446_tpu_torch.ops import decode
+    from sdr_pmr446_tpu_torch.runtime import batch as batch_loop
     from sdr_pmr446_tpu_torch.scanner.chain import (ScannerChain,
                                                     make_runtime_params,
                                                     outputs_to_numpy)
@@ -3880,7 +3880,7 @@ def batch_reference(dev, paths, w: int, **switches) -> list:
             h = outputs_to_numpy(o)
             one = {f: v[None] for f, v in h.items()}
             for i in range(len(h["active_chan"])):
-                events += scan_batch._event_lines(one, 0, i, sub + i)
+                events += batch_loop.event_lines(one, 0, i, sub + i)
             sub += len(h["active_chan"])
             audio.append(h["audio"][h["audio_valid"]].reshape(-1))
             rows.append(h["waterfall"])

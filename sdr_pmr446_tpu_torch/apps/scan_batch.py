@@ -44,12 +44,14 @@ and process 0 the metadata); under npz process 0 writes the file.  Process
 process loads the checkpoint and keeps its rows.  A stop (a signal on any
 process, or --stop-after) ends every process after the same group.
 
-Dispatch: --steps-per-dispatch blocks go through the chain's multi_step (a
-CUDA graph of that many steps on the card), uploaded through a pinned
-staging ring (runtime/driver.py::device_prefetch); group i is drained after
-group i + 1 is dispatched, its outputs read back on a copy stream that
-waits only for group i.  A short last group runs block by block, so it
-captures no graph of its own.
+Dispatch (runtime/batch.py's BatchScanner, which runs the loop; this module
+is its command line: the arguments, the readers and the files):
+--steps-per-dispatch blocks go through the chain's multi_step (a CUDA graph
+of that many steps on the card), uploaded through a pinned staging ring
+(runtime/driver.py::device_prefetch); group i is drained after group i + 1
+is dispatched, its outputs read back on a copy stream that waits only for
+group i.  A short last group runs block by block, so it captures no graph
+of its own.
 
 Checkpoints: --checkpoint PATH every --checkpoint-every dispatch groups,
 --resume, --stop-after N groups and SIGTERM / SIGINT (stop after the group
@@ -73,12 +75,10 @@ K_local), and --resume refuses a checkpoint of the other engine's layout.
 from __future__ import annotations
 
 import argparse
-import collections
 import logging
 import os
 import signal
 import sys
-import time
 import zipfile
 
 import numpy as np
@@ -90,8 +90,6 @@ log = logging.getLogger("scan_batch")
 
 FORMATS = ("cf32", "cs16", "cu8", "cs8")
 ALIASES = {"sc16": "cs16", "rtlsdr": "cu8", "fc32": "cf32"}
-#: pinned host buffers the uploads run ahead by (the driver's default)
-PREFETCH_DEPTH = 2
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -263,35 +261,6 @@ class RankReader:
         self.reader.close()
 
 
-class HostFetch:
-    """Reads tensors back once the work that made them is done: on a CUDA
-    device by a copy stream that waits for an event recorded after that
-    work, so a later dispatch keeps the device busy; on the CPU at once."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.stream = torch.cuda.Stream(device) if self.cuda else None
-
-    def mark(self):
-        """An event after the work queued so far (None on the CPU)."""
-        if not self.cuda:
-            return None
-        ev = torch.cuda.Event()
-        ev.record()
-        return ev
-
-    def __call__(self, tensors, event) -> list:
-        if not self.cuda:
-            return [t.numpy() for t in tensors]
-        with torch.cuda.stream(self.stream):
-            self.stream.wait_event(event)
-            host = [t.to("cpu", non_blocking=True) for t in tensors]
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        done.synchronize()
-        return [h.numpy() for h in host]
-
-
 def _formats(ns, paths):
     """(per-capture host formats, the one wire format of --device-decode
     or None); raises ValueError for an unusable choice."""
@@ -352,23 +321,6 @@ def capture_samples(paths, fmts) -> list:
             for p, f in zip(paths, fmts)]
 
 
-def _event_lines(host: dict, s: int, i: int, sub: int) -> list:
-    """JAX scan_batch's event lines of stream s, sub-chunk i."""
-    out = []
-    if host["ev_tuned"][s][i]:
-        out.append(f"subchunk {sub}: Tuned to channel "
-                   f"{host['active_chan'][s][i] + 1} "
-                   f"(RSSI: {host['rel_rssi'][s][i]:4.2f}dB)")
-    if host["ev_detuned"][s][i]:
-        out.append(f"subchunk {sub}: Detuned from channel "
-                   f"{host['ev_new_chan'][s][i] + 1}")
-    if host["ev_ct_acquired"][s][i]:
-        out.append(f"subchunk {sub}: Acquired CTCSS code: "
-                   f"{host['ct_max_idx'][s][i] + 1} (frequency: "
-                   f"{host['ct_freq'][s][i]:3.2f}Hz)")
-    return out
-
-
 def unique_stems(paths) -> list:
     """Output stems, made unique: same-named captures from different
     directories must not overwrite each other's outputs."""
@@ -417,9 +369,8 @@ def main(argv=None, stats: dict | None = None) -> int:
     from sdr_pmr446_tpu_torch.parallel.scanner_sharded import (
         ShardedScannerChain, make_mesh)
     from sdr_pmr446_tpu_torch.runtime import state as state_io
-    from sdr_pmr446_tpu_torch.runtime.driver import device_prefetch
+    from sdr_pmr446_tpu_torch.runtime.batch import BatchScanner
     from sdr_pmr446_tpu_torch.scanner.chain import make_runtime_params
-    from sdr_pmr446_tpu_torch.ui import waterfall as wf_ui
     joined = False
     try:
         s_axis, t_axis = _mesh_shape(ns, n_streams)
@@ -487,11 +438,6 @@ def main(argv=None, stats: dict | None = None) -> int:
                  block.stream0 + block.n_stream - 1, block.time0,
                  block.time0 + block.n_time - 1)
 
-    audio = [[] for _ in range(n_streams)]
-    events = [[] for _ in range(n_streams)]
-    wf_lines = [[] for _ in range(n_streams)] if ns.waterfall > 0 else None
-    acc = {"subchunk": 0, "total_got": 0}
-    n_fuse = max(1, ns.steps_per_dispatch)
     guard = {"subchunks_per_step": ns.subchunks_per_step,
              "n_streams": n_streams, "formats": ",".join(fmts),
              "device_decode": int(bool(ns.device_decode)),
@@ -499,13 +445,10 @@ def main(argv=None, stats: dict | None = None) -> int:
              "num_processes": ns.num_processes if multi else 1}
     text_keys = ("formats", "mesh")
 
-    saved_at = {"blocks": -1}
-
     def save_ckpt(blocks_done: int, host_state: list) -> None:
         # every stream's rows (a process holds its own), on every process
         rows = distributed.gather_state(mesh, type(state)(
             *(torch.from_numpy(v) for v in host_state)))
-        saved_at["blocks"] = blocks_done
         if ns.checkpoint_backend == "orbax":
             # a collective: every process saves the same rows (JAX's
             # orbax save, apps/scan_batch.py:307-315)
@@ -515,8 +458,8 @@ def main(argv=None, stats: dict | None = None) -> int:
         if not writer:
             distributed.sync("scan_batch_ckpt")
             return
-        arrs = {"subchunk": np.int64(acc["subchunk"]),
-                "total_got": np.int64(acc["total_got"])}
+        arrs = {"subchunk": np.int64(scanner.subchunk),
+                "total_got": np.int64(scanner.total_got)}
         arrs.update({k: np.array(v) for k, v in guard.items()})
         for s in range(n_streams):
             arrs[f"audio{s}"] = (np.stack(audio[s]) if audio[s]
@@ -528,7 +471,11 @@ def main(argv=None, stats: dict | None = None) -> int:
         log.info("checkpoint at block %d -> %s", blocks_done, ns.checkpoint)
         distributed.sync("scan_batch_ckpt")
 
-    blocks_done = 0           # blocks dispatched AND drained
+    scanner = BatchScanner(
+        chain, params, state, ns.steps_per_dispatch, writer,
+        ns.waterfall > 0, save_ckpt if ns.checkpoint else None,
+        ns.checkpoint_every, ns.stop_after)
+    audio, events, wf_lines = scanner.audio, scanner.events, scanner.wf_lines
     if ns.resume:
         try:
             _, load = state_io.BACKENDS[ns.checkpoint_backend]
@@ -555,27 +502,26 @@ def main(argv=None, stats: dict | None = None) -> int:
                           "formats, --device-decode, --mesh and process "
                           "count", saved, guard)
             return _leave(1)
-        state = loaded
-        acc["subchunk"] = int(ck["subchunk"])
-        acc["total_got"] = int(ck["total_got"])
+        scanner.state = loaded
+        scanner.blocks_done = blocks_done
+        scanner.subchunk = int(ck["subchunk"])
+        scanner.total_got = int(ck["total_got"])
         for s in range(n_streams if writer else 0):
             a = ck[f"audio{s}"]
-            audio[s] = list(a) if a.size else []
+            audio[s].extend(a if a.size else [])
             ev = str(ck[f"events{s}"])
-            events[s] = ev.split("\n") if ev else []
+            events[s].extend(ev.split("\n") if ev else [])
             if wf_lines is not None and f"wf{s}" in ck:
                 w = str(ck[f"wf{s}"])
-                wf_lines[s] = w.split("\n") if w else []
+                wf_lines[s].extend(w.split("\n") if w else [])
         reader.skip_blocks(blocks_done, block_len)
         log.info("resumed at block %d (%d sub-chunks done)", blocks_done,
-                 acc["subchunk"])
+                 scanner.subchunk)
 
     # SIGTERM / SIGINT: finish the group in flight, flush a final
     # checkpoint, write partial outputs (src/sdr_pmr446.c:933-940)
-    stop = {"flag": False}
-
     def _stop(signum, frame):
-        stop["flag"] = True
+        scanner.stop()
         log.info("signal %d: stopping after the current dispatch", signum)
 
     prev_handlers = []
@@ -585,121 +531,27 @@ def main(argv=None, stats: dict | None = None) -> int:
         except ValueError:        # not the main thread
             pass
 
-    fetch = HostFetch(dev)
-    gots: collections.deque = collections.deque()
+    def blocks():
+        while True:
+            yield reader.read_block(block_len)
 
-    def stopped() -> bool:
-        """The stop flag; over several processes the processes agree on it
-        (a stop on any of them), so that all stop after the same group."""
-        if multi:
-            stop["flag"] = distributed.agree(stop["flag"])
-        return stop["flag"]
-
-    def read_blocks():
-        """The reader's blocks until EOF or a stop (over several processes,
-        until EOF: a stop ends the loop below where they agree on it); each
-        block's real sample count goes to ``gots``."""
-        while multi or not stop["flag"]:
-            blk, got = reader.read_block(block_len)
-            if got == 0:
-                return
-            gots.append(got)
-            yield blk
-            if got < block_len:
-                return
-
-    def drain(pending) -> None:
-        out, nblk, ev, snap = pending
-        host = fetch(list(out), ev)
-        if multi:
-            # every process's sub-chunks of its streams, to every process
-            host = [t.numpy() for t in distributed.process_allgather(
-                [torch.from_numpy(v) for v in host], mesh, time_axis=1)]
-        host = dict(zip(out._fields, host))
-        k = host["active_chan"].shape[1]
-        for s in range(n_streams if writer else 0):
-            for i in range(k):
-                sub = acc["subchunk"] + i
-                if host["audio_valid"][s][i]:
-                    audio[s].append(host["audio"][s][i])
-                events[s].extend(_event_lines(host, s, i, sub))
-                if wf_lines is not None:
-                    wf_lines[s].append(wf_ui.render_waterfall_line(
-                        host["waterfall"][s][i],
-                        float(host["rel_rssi"][s][i])))
-        acc["subchunk"] += k
-        nonlocal blocks_done
-        blocks_done += nblk
-        if snap is not None:
-            save_ckpt(blocks_done, fetch(snap, ev))
-
-    def dispatch(wires: list, snapshot: bool):
-        nonlocal state, first_s
-        if len(wires) == 1:
-            state, out = chain.step(state, wires[0], params)
-        else:
-            state, out = chain.multi_step(state, torch.stack(wires), params)
-        # the checkpoint's state, read back with the outputs once this
-        # group is done: a returned state is never written again (step
-        # writes nothing in place, a replay returns fresh copies)
-        snap = list(state) if snapshot else None
-        if first_s is None:
-            first_s = time.perf_counter() - t0
-        return out, len(wires), fetch.mark(), snap
-
-    t0 = time.perf_counter()
-    first_s = None
-    pending = None
-    groups_done = 0
-    group, group_got = [], 0
-    wires = device_prefetch(read_blocks(), dev, PREFETCH_DEPTH)
-    for wire in wires:
-        got = gots.popleft()
-        acc["total_got"] += got
-        group_got += got
-        group.append(wire.reshape(chain.n_stream, -1))
-        if len(group) < n_fuse:
-            continue
-        groups_done += 1
-        if ns.stop_after and groups_done >= ns.stop_after:
-            stop["flag"] = True
-        every = ns.checkpoint_every
-        ck = bool(ns.checkpoint and every > 0 and groups_done % every == 0)
-        out = dispatch(group, ck)
-        group, group_got = [], 0
-        if pending is not None:
-            drain(pending)
-        pending = out
-        if stopped():
-            break
-    # a short last group runs block by block (no graph of its own)
-    for wire in (() if stopped() else group):
-        out = dispatch([wire], False)
-        if pending is not None:
-            drain(pending)
-        pending = out
-    halted = stopped()
-    if not halted:
-        group_got = 0
-    if pending is not None:
-        drain(pending)
-    wall = time.perf_counter() - t0
-    reader.close()
-    for sig, handler in prev_handlers:   # main() is re-entrant in tests
-        signal.signal(sig, handler)
+    try:
+        halted = scanner.run(blocks())
+    finally:
+        reader.close()
+        for sig, handler in prev_handlers:   # main() is re-entrant in tests
+            signal.signal(sig, handler)
+    blocks_done, wall = scanner.blocks_done, scanner.wall_s
     if halted:
-        acc["total_got"] -= group_got     # read, never dispatched
-        if ns.checkpoint and saved_at["blocks"] != blocks_done:
-            save_ckpt(blocks_done, [v.cpu().numpy() for v in state])
         log.info("stopped by signal at block %d; partial outputs follow",
                  blocks_done)
-    samples = n_streams * acc["total_got"]
+    samples = n_streams * scanner.total_got
     log.info("scanned %d blocks of %d captures in %.3f s: %.1f Msamples/s "
              "of capture", blocks_done, n_streams, wall,
              samples / max(wall, 1e-9) / 1e6)
     if stats is not None:
         stats.update(reader=reader_kind, engine=engine, blocks=blocks_done,
-                     samples=samples, wall_s=wall, first_s=first_s,
+                     samples=samples, wall_s=wall, first_s=scanner.first_s,
                      graphs=len(chain.megastep.graphs),
                      processes=ns.num_processes if multi else 1)
     _leave(0)
@@ -708,7 +560,7 @@ def main(argv=None, stats: dict | None = None) -> int:
                  ns.process_id)
         return 0
 
-    real_sub = -(-acc["total_got"] // C.SUBCHUNK_IN)
+    real_sub = -(-scanner.total_got // C.SUBCHUNK_IN)
     for s, stem in enumerate(unique_stems(paths)):
         out_wav = os.path.join(ns.out_dir, f"{stem}.wav")
         a = (np.concatenate(audio[s]) if audio[s]

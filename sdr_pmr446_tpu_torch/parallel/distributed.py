@@ -18,7 +18,9 @@ pass halos to each other).
     for tests;
   - ``global_mesh``: a ``GlobalMesh``, the rank's block of the global mesh
     (its ``n_stream`` x ``n_time`` shards, as a one-card ``Mesh`` has) with
-    its global offsets and its time group;
+    its global offsets and its time group; each rank runs no more
+    intra-op threads than its share of its host's CPUs (``cpu_share``),
+    which ``shutdown`` gives back;
   - ``make_global_array`` / ``globalize_pytree``: a rank's rows of a host
     [S, ...] array (its streams' rows of the state) or its [S_loc, D_loc *
     bytes a shard] block of the wire, on its device;
@@ -34,6 +36,11 @@ rank's device.  Gloo's CUDA-tensor support does not cover every collective,
 and on a machine with one card two ranks share it (NCCL refuses two ranks
 on one GPU).  So a distributed step reads the host; ``STATS`` keeps the
 calls, the bytes and the host seconds of the staging and of the collectives.
+The recorder of utils/profiling.py sees the same: spans ``gather.stage``
+(the copy to the host, with its wait for the device) and
+``gather.collective`` (gloo, and the copy back) around each collective that
+exchanges bytes, eager or between a megastep's segments; ``snapshot()``
+reads ``STATS``.
 
 Inside a megastep's CUDA-graph capture (runtime/fuse.py
 ``SegmentedGraphRecorder``) a collective stages through static pinned
@@ -47,6 +54,8 @@ from __future__ import annotations
 
 import datetime
 import logging
+import os
+import socket
 import time
 from typing import NamedTuple
 
@@ -55,6 +64,7 @@ import torch.distributed as dist
 
 from sdr_pmr446_tpu_torch import device as devices
 from sdr_pmr446_tpu_torch.runtime import fuse
+from sdr_pmr446_tpu_torch.utils.profiling import span
 
 log = logging.getLogger("distributed")
 
@@ -68,6 +78,9 @@ STATS = {"calls": 0, "bytes": 0, "stage_s": 0.0, "collective_s": 0.0}
 
 _initialized = False
 _groups: dict = {}
+#: torch's intra-op threads before ``cpu_share``, for ``shutdown`` to give
+#: back, or None
+_threads = None
 
 
 def reset_stats() -> None:
@@ -95,11 +108,14 @@ def initialize(coordinator_address: str, num_processes: int,
 
 def shutdown() -> None:
     """Leave the process group (tests run several in one process)."""
-    global _initialized
+    global _initialized, _threads
     if _initialized:
         dist.destroy_process_group()
     _initialized = False
     _groups.clear()
+    if _threads is not None:
+        torch.set_num_threads(_threads)
+        _threads = None
 
 
 def process_count() -> int:
@@ -159,6 +175,26 @@ def rank_device(device, process_id: int) -> torch.device:
     return torch.device("cuda", process_id % torch.cuda.device_count())
 
 
+def cpu_share() -> int:
+    """Run no more intra-op threads than this process's share of its host's
+    CPUs: the CPUs it may run on, split evenly among the ranks of its host
+    (the ranks tell each other their host), so that the ranks of a host,
+    one a card, do not crowd its cores, as a launcher of one process a card
+    shares them.  Every rank calls it (``global_mesh`` does); ``shutdown``
+    gives the threads back.  Returns the threads it runs."""
+    global _threads
+    procs, rank = process_count(), process_index()
+    if procs == 1:
+        return torch.get_num_threads()
+    hosts = [None] * procs
+    dist.all_gather_object(hosts, socket.gethostname())
+    share = max(1, len(os.sched_getaffinity(0)) // hosts.count(hosts[rank]))
+    if _threads is None:
+        _threads = torch.get_num_threads()
+        torch.set_num_threads(min(share, _threads))
+    return torch.get_num_threads()
+
+
 class GlobalMesh(NamedTuple):
     """A rank's block of a mesh over several processes.  ``n_stream``,
     ``n_time`` and ``device`` are the rank's, as on a one-card Mesh (the
@@ -192,6 +228,7 @@ def global_mesh(n_stream: int, n_time: int, device=devices.DEFAULT,
     dev = rank_device(device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    cpu_share()
     key = (n_stream, n_time, ss)
     if key not in _groups:
         groups = {}
@@ -281,11 +318,13 @@ class Exchange:
 
     def __call__(self) -> None:
         t0 = time.perf_counter()
-        if self.done is not None:
-            self.done.record(torch.cuda.current_stream(self.device))
-            self.done.synchronize()
+        with span("gather.stage"):
+            if self.done is not None:
+                self.done.record(torch.cuda.current_stream(self.device))
+                self.done.synchronize()
         t1 = time.perf_counter()
-        dist.all_gather(self.rows, self.send, group=self.group)
+        with span("gather.collective"):
+            dist.all_gather(self.rows, self.send, group=self.group)
         STATS["calls"] += 1
         STATS["bytes"] += self.recv.numel()
         STATS["stage_s"] += t1 - t0
@@ -326,12 +365,14 @@ def all_gather(tensors, group=None) -> list:
     if segments is not None and segments.capturing:
         return _captured_all_gather(tensors, group, segments)
     t0 = time.perf_counter()
-    buf = torch.cat([_to_bytes(t) for t in tensors]).cpu()
+    with span("gather.stage"):
+        buf = torch.cat([_to_bytes(t) for t in tensors]).cpu()
     t1 = time.perf_counter()
     n = dist.get_world_size(group)
-    out = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather(out, buf, group=group)
-    back = torch.stack(out).to(dev)
+    with span("gather.collective"):
+        out = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(out, buf, group=group)
+        back = torch.stack(out).to(dev)
     STATS["calls"] += 1
     STATS["bytes"] += buf.numel() * n
     STATS["stage_s"] += t1 - t0

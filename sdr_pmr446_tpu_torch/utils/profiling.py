@@ -4,7 +4,8 @@ profiler trace.
 Counterpart of sdr_pmr446_tpu/utils/profiling.py, rewritten on PyTorch:
 
   - the span recorder: ``span(name, block)`` around a piece of host work
-    at a layer boundary (runtime/driver.py, runtime/fuse.py), ``record``
+    at a layer boundary (runtime/driver.py, runtime/batch.py,
+    runtime/fuse.py, parallel/distributed.py), ``record``
     for a span stamped by its caller; off by default, switched by
     ``enable()`` / ``disable()`` (or ``recording()``), read by
     ``snapshot()``;
@@ -56,12 +57,14 @@ SPAN_CAP = 1 << 18
 #: them with audio; log lines), ``drain.waits_blocked`` (drains whose
 #: dispatch's read-back had not finished); runtime/fuse.py
 #: ``megastep.captures`` (graphs captured); kernels/build.py
-#: ``kernels.library_loads``
+#: ``kernels.library_loads``; runtime/batch.py ``batch.groups`` /
+#: ``batch.blocks`` (dispatches; blocks dispatched)
 COUNTS: Dict[str, int] = dict.fromkeys((
     "driver.blocks", "driver.dispatches", "driver.eager_steps",
     "prefetch.bytes", "prefetch.slot_waits_blocked", "megastep.captures",
     "kernels.library_loads", "drain.subchunks", "drain.audio_subchunks",
-    "drain.events", "drain.waits_blocked"), 0)
+    "drain.events", "drain.waits_blocked", "batch.groups", "batch.blocks"),
+    0)
 
 #: the Chrome trace's thread id of the program's spans
 PROGRAM_TID = 1 << 30
